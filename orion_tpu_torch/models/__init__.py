@@ -1,0 +1,6 @@
+"""Models of the port (dense decoder-only transformer)."""
+
+from orion_tpu_torch.models.convert import from_jax_params, init_params, to_device
+from orion_tpu_torch.models.transformer import forward
+
+__all__ = ["forward", "from_jax_params", "init_params", "to_device"]

@@ -1,0 +1,153 @@
+"""Parameters for the port: seeded random init, and weights carried across
+from the JAX package.
+
+``init_params`` draws the same shapes with the same standard deviations
+as ``orion_tpu/models/transformer.py::init_params`` (N(0, 0.02), residual
+output projections scaled by 1/sqrt(2L), norm scales at 1, or at 0 under
+``norm_scale_plus_one``), from an explicit ``torch.Generator``. The two
+frameworks draw different numbers from the same seed, so tests that
+compare the packages carry the JAX tree across with ``from_jax_params``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from orion_tpu_torch.config import ModelConfig
+from orion_tpu_torch.models.transformer import Params, torch_dtype
+
+
+def _normal(gen, shape, std, device, dtype) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    device=None,
+    dtype=None,
+) -> Params:
+    """Random parameters on ``device`` (default: the generator's device)
+    stored in ``dtype`` (default: ``cfg.param_dtype``)."""
+    if cfg.is_moe:
+        raise NotImplementedError("mixture-of-experts init is not ported yet")
+    device = generator.device if device is None else torch.device(device)
+    dt = torch_dtype(dtype if dtype is not None else cfg.param_dtype)
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    H = cfg.resolved_head_dim
+    N, K, F = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    std = 0.02
+    resid_std = std / (2 * L) ** 0.5
+
+    def normal(shape, s=std):
+        return _normal(generator, shape, s, device, dt)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=device, dtype=dt)
+
+    def norm_scale():
+        if cfg.norm_scale_plus_one:
+            return zeros((D,))
+        return torch.ones((D,), device=device, dtype=dt)
+
+    params: Params = {
+        "embed": {"tokens": normal((V, D))},
+        "final_norm": {"scale": norm_scale()},
+    }
+    if cfg.pos_embedding == "learned":
+        params["embed"]["positions"] = normal((cfg.max_seq_len, D))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, V))
+    if cfg.norm == "layernorm":
+        params["final_norm"]["bias"] = zeros((D,))
+
+    blocks = []
+    for _ in range(L):
+        block: Params = {
+            "attn_norm": {"scale": norm_scale()},
+            "mlp_norm": {"scale": norm_scale()},
+            "attn": {
+                "wq": normal((D, N * H)),
+                "wk": normal((D, K * H)),
+                "wv": normal((D, K * H)),
+                "wo": normal((N * H, D), resid_std),
+            },
+            "mlp": {
+                "w_in": normal((D, F)),
+                "w_out": normal((F, D), resid_std),
+            },
+        }
+        if cfg.norm == "layernorm":
+            block["attn_norm"]["bias"] = zeros((D,))
+            block["mlp_norm"]["bias"] = zeros((D,))
+        if cfg.post_norms:
+            block["post_attn_norm"] = {"scale": norm_scale()}
+            block["post_mlp_norm"] = {"scale": norm_scale()}
+        if cfg.attn_bias:
+            block["attn"]["bq"] = zeros((N * H,))
+            block["attn"]["bk"] = zeros((K * H,))
+            block["attn"]["bv"] = zeros((K * H,))
+        if cfg.resolved_attn_out_bias:
+            block["attn"]["bo"] = zeros((D,))
+        if cfg.is_gated_mlp:
+            block["mlp"]["w_gate"] = normal((D, F))
+        if cfg.mlp_bias:
+            block["mlp"]["b_in"] = zeros((F,))
+            block["mlp"]["b_out"] = zeros((D,))
+        blocks.append(block)
+    params["blocks"] = blocks
+    return params
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def to_device(params: Params, device, dtype=None) -> Params:
+    """The tree on ``device`` (optionally cast); leaves already there with
+    that dtype are returned as they are, without a copy."""
+    dt = torch_dtype(dtype) if dtype is not None else None
+    return tree_map(lambda t: t.to(device=device, dtype=dt), params)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes bfloat16 from a JAX array
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def from_jax_params(
+    tree: Params, cfg: ModelConfig, device: Optional[str] = None
+) -> Params:
+    """The JAX package's parameter tree (leaves as numpy arrays, or
+    anything ``np.asarray`` takes) as the port's parameters.
+
+    With ``scan_layers`` the JAX tree stacks every block leaf along a
+    leading layer dimension; the port keeps one dict per layer, so the
+    stack is split here. A per-layer list (``scan_layers=False``) is taken
+    as it is."""
+    if cfg.is_moe:
+        raise NotImplementedError("mixture-of-experts weights are not ported yet")
+    out = {k: tree_map(_to_tensor, v) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    if isinstance(blocks, dict):
+        stacked = tree_map(_to_tensor, blocks)
+        out["blocks"] = [
+            tree_map(lambda t: t[layer].clone(), stacked)
+            for layer in range(cfg.n_layers)
+        ]
+    else:
+        out["blocks"] = [tree_map(_to_tensor, b) for b in blocks]
+    if device is not None:
+        out = to_device(out, device)
+    return out

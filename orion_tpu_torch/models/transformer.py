@@ -1,0 +1,193 @@
+"""The decoder-only transformer, dense inference subset.
+
+Counterpart of ``orion_tpu/models/transformer.py``: the same parameter
+tree (a plain dict of tensors; ``blocks`` is a list with one dict per
+layer) and the same functions — ``embed``, ``_norm``, ``qkv_proj``,
+``out_proj``, ``_mlp_block``, ``unembed`` — shared by the cache-free
+``forward`` and the serving runner (``infer/runner.py``). Covers the
+Llama-3 (RoPE, RMSNorm, SwiGLU, GQA), GPT-2 (learned positions,
+LayerNorm, GELU) and Gemma-2 (post-norms, (1 + w) norms, GeGLU, embedding
+scale, query scale, local/global windows, logit softcaps) families.
+Mixture-of-experts layers are not ported yet and raise.
+
+Weights are cast to the activation dtype at use, as the JAX package does;
+when they are stored in that dtype already (the serving case) the cast is
+free.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from orion_tpu_torch import ops
+from orion_tpu_torch.config import ModelConfig
+
+Params = dict[str, Any]
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def torch_dtype(name) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
+
+
+def _gate_act(cfg: ModelConfig):
+    """SiLU (SwiGLU) or tanh-approximate GELU (GeGLU)."""
+    if cfg.activation == "swiglu":
+        return F.silu
+    return lambda h: F.gelu(h, approximate="tanh")
+
+
+def _norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    scale = p["scale"]
+    if cfg.norm_scale_plus_one:
+        # Gemma-family parameterization x_hat * (1 + w), outside the kernel.
+        scale = scale + 1.0
+    if cfg.norm == "rmsnorm":
+        return ops.rmsnorm(x, scale, eps=cfg.norm_eps)
+    return ops.layernorm(x, scale, p.get("bias"), eps=cfg.norm_eps)
+
+
+def embed(
+    params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+) -> torch.Tensor:
+    """Token (+ learned position) embedding."""
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"]["tokens"][tokens.long()].to(dtype)
+    if cfg.embed_scale:
+        # Gemma-family: scaled by sqrt(d_model), rounded in the activation dtype.
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    if cfg.pos_embedding == "learned":
+        x = x + params["embed"]["positions"][positions.long()].to(dtype)
+    return x
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm + LM head -> float32 logits."""
+    x = _norm(x, params["final_norm"], cfg)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["tokens"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    logits = logits.float()
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def qkv_proj(
+    x: torch.Tensor, p: Params, cfg: ModelConfig, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """QKV projection + RoPE. x [B, S, D] -> q [B,S,N,H], k/v [B,S,K,H]."""
+    B, S, _ = x.shape
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dtype = x.dtype
+    q = x @ p["wq"].to(dtype)
+    k = x @ p["wk"].to(dtype)
+    v = x @ p["wv"].to(dtype)
+    if cfg.attn_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    q = q.view(B, S, N, H)
+    k = k.view(B, S, K, H)
+    v = v.view(B, S, K, H)
+    if cfg.pos_embedding == "rope":
+        q = ops.apply_rope(q, positions, theta=cfg.rope_theta)
+        k = ops.apply_rope(k, positions, theta=cfg.rope_theta)
+    if cfg.query_scale is not None:
+        # Kernels divide by sqrt(head_dim); pre-multiply q by the ratio.
+        q = q * torch.tensor(cfg.query_scale * (H ** 0.5), dtype=q.dtype,
+                             device=q.device)
+    return q, k, v
+
+
+def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Attention output projection. out [B, S, N, H] -> [B, S, D]."""
+    B, S = out.shape[0], out.shape[1]
+    y = out.reshape(B, S, -1) @ p["wo"].to(out.dtype)
+    if cfg.resolved_attn_out_bias:
+        y = y + p["bo"].to(out.dtype)
+    return y
+
+
+def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    dtype = x.dtype
+    h_in = x @ p["w_in"].to(dtype)
+    if cfg.mlp_bias:
+        h_in = h_in + p["b_in"].to(dtype)
+    if cfg.is_gated_mlp:
+        h = _gate_act(cfg)(x @ p["w_gate"].to(dtype)) * h_in
+    else:
+        h = F.gelu(h_in, approximate="tanh")
+    y = h @ p["w_out"].to(dtype)
+    if cfg.mlp_bias:
+        y = y + p["b_out"].to(dtype)
+    return y
+
+
+def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The post-attention half of a block (dense MLP only in this port)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "mixture-of-experts layers are not ported to orion_tpu_torch yet"
+        )
+    return _mlp_block(h, bp["mlp"], cfg)
+
+
+def _block(
+    x: torch.Tensor,
+    bp: Params,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    segment_ids: Optional[torch.Tensor],
+    window: Optional[int],
+) -> torch.Tensor:
+    h = _norm(x, bp["attn_norm"], cfg)
+    q, k, v = qkv_proj(h, bp["attn"], cfg, positions)
+    out = ops.attention(
+        q, k, v, causal=True,
+        q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+        seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
+        window=window,
+    )
+    a = out_proj(out, bp["attn"], cfg)
+    if cfg.post_norms:
+        a = _norm(a, bp["post_attn_norm"], cfg)
+    x = x + a
+    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    if cfg.post_norms:
+        y = _norm(y, bp["post_mlp_norm"], cfg)
+    return x + y
+
+
+@torch.no_grad()
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Cache-free forward: tokens [B, S] -> logits [B, S, V] float32."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed(params, tokens, positions, cfg)
+    for layer, bp in enumerate(params["blocks"]):
+        x = _block(x, bp, cfg, positions, segment_ids, cfg.layer_window(layer))
+    return unembed(params, x, cfg)

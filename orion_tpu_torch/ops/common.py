@@ -1,0 +1,58 @@
+"""Shared helpers for the port's ops and kernels.
+
+Conventions every kernel wrapper in ``orion_tpu_torch.ops`` follows:
+
+- Math is float32 inside the kernel whatever the activation dtype; inputs
+  may be bfloat16 or float32 and outputs come back in the input's dtype.
+- Dispatch follows the tensor's device. A CPU tensor goes to the plain
+  PyTorch version that sits beside the kernel in the same module; a CUDA
+  tensor launches the kernel, or raises. Nothing falls back silently, and
+  ``ModelConfig.kernels`` is not read by the port.
+- Each kernel wrapper carries a launch counter (``wrapper.launches``, a
+  plain int) that it increments exactly where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # finite -inf stand-in: exp(NEG_INF - m) underflows to 0.
+
+
+def round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device, False when every one
+    lies on the CPU; raises on a mix or on any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(
+        f"tensors must all lie on the CPU (plain version) or all on a CUDA "
+        f"device (kernel); got devices {sorted(kinds)}"
+    )
+
+
+def check_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counter (``fn.launches = 0``)."""
+    fn.launches = 0
+    return fn
+
+
+def triton_libdevice():
+    """Triton's libdevice math module (its path moved between releases).
+    Imported only inside a launching function: the CPU has no Triton."""
+    try:
+        from triton.language.extra.cuda import libdevice
+    except ImportError:
+        from triton.language.extra import libdevice
+    return libdevice
