@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,serve --profile
+    python3 chip_smoke.py --phases device,build,train --profile
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -12,9 +13,13 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K4 against their plain PyTorch versions on the card, at the
-           serving path's shapes, in float32 and bfloat16 (tolerances below);
-           K4's written pool rows must be byte-identical (page 0 excluded)
+  kernels  K1-K8 against their plain PyTorch versions on the card (the
+           backward kernels against autograd of the plain forward), at the
+           serving path's and the training path's shapes, in float32 and
+           bfloat16 (tolerances in TOL); K4's written pool rows must be
+           byte-identical (page 0 excluded); off-path variants (segments
+           under seg_pad_zero, windows, softcaps, q_offset, rows that
+           attend nothing, head_dim 16-256)
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots:
            the greedy token lists must be equal
@@ -22,7 +27,18 @@ exits non-zero without printing a result:
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
            prefill logits are finite, and every kernel launched in the serve
-  timing   each kernel at the ``kernels`` shapes in bfloat16: median of 20
+  train_parity  tiny-llama float32, packed batches: the first step's loss
+           and every gradient, then 3 optimizer steps, on cuda (kernels)
+           and on cpu (plain versions) from the same seeded weights and
+           batches; within TRAIN_TOL
+  train    llama-1b-bench at full width and depth (16 layers, d_model 2048,
+           batch 8 x 2048, remat=full, bf16 compute, f32 master weights,
+           bf16 moments), seeded random weights on the card: one warm-up
+           step, then TRAIN_STEPS measured steps through Trainer.fit; the
+           loss must be finite and fall, and K1-K3 and K5-K8 must launch;
+           prints step time, tokens/s, MFU, peak memory, launches per step
+  timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4: the
+           serving path's; K5-K8: the training path's): median of 20
            CUDA-event timings after a warm-up, beside its plain version, one
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
@@ -46,7 +62,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "serve", "timing")
+PHASES = ("device", "build", "kernels", "parity", "serve", "train_parity", "train",
+          "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -61,6 +78,18 @@ TOL = {
     "rope_fwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
     "flash_fwd": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
     "paged_decode": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    # K3's lse: both sides take the same float32 logits of the (upcast)
+    # inputs and differ only in the order of the sum, in either dtype.
+    "flash_lse": {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-4)},
+    # K5, K6: as K1, K2 (a row reduction / a rotation, then one rounding).
+    "rmsnorm_bwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
+    "rope_bwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
+    # K7, K8 against autograd of the plain attention: f32 sums of up to
+    # 2048 terms per row in another order; bf16: the plain backward rounds
+    # dP = dO.v^T and the products to bf16 (cuBLAS bf16 outputs) where the
+    # kernels keep f32 until the one rounding of dq/dk/dv.
+    "flash_dq": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
+    "flash_dkv": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
 }
 
 KERNEL_META = {
@@ -72,6 +101,14 @@ KERNEL_META = {
                       replaces="orion_tpu/ops/pallas/flash_attention.py:353"),
     "paged_decode": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
                          replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
+    "rmsnorm_bwd": dict(route="triton", source="orion_tpu_torch/ops/norms.py",
+                        replaces="orion_tpu/ops/pallas/norms.py:51"),
+    "rope_bwd": dict(route="triton", source="orion_tpu_torch/ops/rope.py",
+                     replaces="orion_tpu/ops/pallas/rope.py:52"),
+    "flash_dq": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
+                     replaces="orion_tpu/ops/pallas/flash_attention.py:412"),
+    "flash_dkv": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
+                      replaces="orion_tpu/ops/pallas/flash_attention.py:447"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -79,6 +116,25 @@ K1_ROWS, D_MODEL = 4 * 2048, 4096
 B_PRE, S_PRE, N_HEADS, N_KV, HEAD = 4, 2048, 32, 8, 128
 PRE_LENS = (2048, 1500, 700, 1)
 B_DEC, PSZ, NUM_PAGES, N_LAYERS = 32, 64, 2048, 32
+# Shapes of the training path (llama-1b-bench: batch 8 x 2048 tokens,
+# d_model 2048, 16 heads, 8 kv heads, head_dim 128).
+T_B, T_S, T_D, T_N, T_K = 8, 2048, 2048, 16, 8
+TRAIN_STEPS = 6
+
+# train_parity: tiny-llama in float32 on cuda against cpu. The first
+# step's loss to 1e-5 and its gradients to 2e-6 absolute + 1e-4 relative
+# (float32 sums in another order, as the CPU tests against the JAX
+# package); the losses of later steps to 1e-4: AdamW's first updates are
+# about sign(g) * lr, so a gradient element near 0 whose sign differs
+# between the two devices moves its parameter by 2 lr.
+TRAIN_TOL = {"loss_step1": 1e-5, "grads_step1": (2e-6, 1e-4), "loss": 1e-4}
+TRAIN_PARITY_OVERRIDES = [
+    "train.num_steps=3", "train.log_interval=1000", "data.packed=true",
+    "optimizer.warmup_steps=1",
+]
+SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode")
+TRAIN_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "rmsnorm_bwd", "rope_bwd",
+                 "flash_dq", "flash_dkv")
 
 
 def emit(obj) -> None:
@@ -189,6 +245,135 @@ def k4_inputs(dtype, gen):
     return q, k_pool, v_pool, table, lp, kn, vn, (N_LAYERS - 1) * NUM_PAGES
 
 
+def t_norm_inputs(dtype, gen):
+    """K1/K5 at the training path's rows: x, scale and a cotangent."""
+    import torch
+
+    x, s = (t.to(dtype) for t in (
+        torch.randn(T_B * T_S, T_D, generator=gen, device="cuda"),
+        1.0 + 0.1 * torch.randn(T_D, generator=gen, device="cuda")))
+    g = torch.randn(T_B * T_S, T_D, generator=gen, device="cuda").to(dtype)
+    return x, s, g
+
+
+def t_attn_inputs(dtype, gen, B=T_B, S=T_S, N=T_N, K=T_K, H=HEAD, off=0):
+    """q [B, S, N, H], k/v [B, S+off, K, H] and a cotangent for the output."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return rnd(B, S, N, H), rnd(B, S + off, K, H), rnd(B, S + off, K, H), rnd(B, S, N, H)
+
+
+def plain_grads(fn, inputs, cotangent):
+    """Autograd of a plain version: d(fn(*inputs)) / d inputs for ``cotangent``."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, cotangent)
+
+
+def check_flash_train(dn, q, k, v, do, kw, q_rows=None, kv_rows=None):
+    """K3 (output and lse), K7 and K8 against the plain attention and its
+    autograd; ``q_rows`` / ``kv_rows`` select the compared rows where
+    padding rows hold garbage. Returns max errors by kernel."""
+    from orion_tpu_torch import ops
+
+    out, lse = ops.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    plain_kw = {key: val for key, val in kw.items() if key != "seg_pad_zero"}
+    lse_rows = None if q_rows is None else q_rows[:, None].expand(-1, q.shape[2], -1)
+    errs = {
+        "flash_fwd": require_close("flash_fwd", dn, out,
+                                   ops.attention_plain(q, k, v, **plain_kw), rows=q_rows),
+        "flash_lse": require_close("flash_lse", dn, lse,
+                                   ops.attention_lse_plain(q, k, **plain_kw), rows=lse_rows),
+    }
+    pq, pk, pv = plain_grads(lambda a, b, c: ops.attention_plain(a, b, c, **plain_kw),
+                             [q, k, v], do)
+    errs["flash_dq"] = require_close("flash_dq", dn, dq, pq, rows=q_rows)
+    errs["flash_dkv"] = max(require_close("flash_dkv", dn, dk, pk, rows=kv_rows),
+                            require_close("flash_dkv", dn, dv, pv, rows=kv_rows))
+    return errs
+
+
+def check_train_kernels(dtype, gen):
+    """K1/K5, K2/K6 and K3 (with lse)/K7/K8 at the training path's shapes
+    against their plain versions (the backward ones: autograd of the plain
+    forward). Returns max errors by kernel."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    dn = str(dtype).split(".")[-1]
+    x, s, g = t_norm_inputs(dtype, gen)
+    errs = {
+        "rmsnorm_fwd": require_close("rmsnorm_fwd", dn, ops.rmsnorm_triton(x, s, 1e-5),
+                                     ops.rmsnorm_plain(x, s, 1e-5)),
+        "rmsnorm_bwd": require_close(
+            "rmsnorm_bwd", dn, ops.rmsnorm_bwd_triton(x, s, g, 1e-5),
+            plain_grads(lambda t: ops.rmsnorm_plain(t, s, 1e-5), [x], g)[0]),
+    }
+    del x, g
+    q, k, _, gq = t_attn_inputs(dtype, gen)
+    pos = torch.arange(T_S, device="cuda", dtype=torch.int32).expand(T_B, T_S)
+    gk = torch.randn(k.shape, generator=gen, device="cuda").to(dtype)
+    errs["rope_fwd"] = max(
+        require_close("rope_fwd", dn, ops.rope_triton(t, pos, 500000.0),
+                      ops.rope_plain(t, pos, 500000.0)) for t in (q, k))
+    errs["rope_bwd"] = max(
+        require_close("rope_bwd", dn, ops.rope_bwd_triton(gt, pos, 500000.0),
+                      plain_grads(lambda a: ops.rope_plain(a, pos, 500000.0), [t], gt)[0])
+        for t, gt in ((q, gq), (k, gk)))
+    del q, k, gq, gk
+    torch.cuda.empty_cache()
+    errs.update(check_flash_train(dn, *t_attn_inputs(dtype, gen), dict(causal=True)))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def train_variants(gen):
+    """K3 lse / K7 / K8 off the training path's shapes: ragged segments
+    under seg_pad_zero, a window, softcaps, q_offset, rows that attend
+    nothing, no causal mask, head_dim 16-256; f32 and bf16."""
+    import torch
+
+    out = []
+    for H, N, K, S, causal, window, cap, off, segs in (
+        (64, 8, 2, 300, True, 64, 30.0, 0, "packed"),
+        (32, 4, 2, 77, True, None, 50.0, 0, "packed"),
+        (128, 4, 4, 200, True, None, None, 5, None),
+        (256, 2, 1, 129, True, 17, None, 0, None),
+        (128, 4, 2, 96, True, None, None, 0, "masked_rows"),
+        (16, 4, 1, 70, False, None, None, 0, None),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q, k, v, do = t_attn_inputs(dtype, gen, B=2, S=S, N=N, K=K, H=H, off=off)
+            kw = dict(causal=causal, logit_softcap=cap, window=window, q_offset=off)
+            q_rows = kv_rows = None
+            if segs == "packed":
+                # Two documents and a padding tail (segment 0) per row.
+                seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
+                seg[0, : S // 2], seg[0, S // 2: S - 40] = 1, 2
+                seg[1, : S - 7] = 1
+                kw.update(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
+                q_rows = kv_rows = seg > 0
+            elif segs == "masked_rows":
+                # The second half of the queries attends nothing (q segment
+                # 2 against kv segment 3): zeros out, no NaN in any grad.
+                qs = torch.ones(2, S, dtype=torch.int32, device="cuda")
+                ks = qs.clone()
+                qs[:, S // 2:], ks[:, S // 2:] = 2, 3
+                kw.update(q_segment_ids=qs, kv_segment_ids=ks)
+            errs = check_flash_train(dn, q, k, v, do, kw, q_rows=q_rows, kv_rows=kv_rows)
+            out.append({"H": H, "N": N, "K": K, "S": S, "causal": causal, "window": window,
+                        "softcap": cap, "q_offset": off, "segments": segs, "dtype": dn,
+                        **errs})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -279,10 +464,13 @@ def phase_kernels():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         errs[dn] = {"rmsnorm_fwd": e1, "rope_fwd": e2, "flash_fwd": e3, "paged_decode": e4}
+        for name, e in check_train_kernels(dtype, gen).items():
+            errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
               "tolerance": {k: TOL[k][dn] for k in TOL}})
     variants = kernel_variants(gen)
     emit({"phase": "kernels", "variants": variants})
+    emit({"phase": "kernels", "train_variants": train_variants(gen)})
     return errs
 
 
@@ -355,21 +543,18 @@ def phase_parity():
           "equal": True, "cuda_streams": gpu})
 
 
-def profile_serve(eng, prompts):
-    """Drive the same requests again under torch.profiler: device time by
-    kernel group and the device's idle share of the drive's wall time."""
+def profile_drive(name, drive, groups):
+    """Run ``drive()`` under torch.profiler: device time by kernel group
+    (substring of the kernel's name -> group) and the device's idle share
+    of the drive's wall time; the full table goes to
+    chiprun_out/<name>_profile.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    groups = {"rmsnorm_fwd": "_rmsnorm_fwd", "rope_fwd": "_rope_fwd",
-              "flash_fwd": "flash_fwd_kernel", "paged_decode": "paged_decode_kernel"}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for p in prompts:
-            eng.submit_request(p, 64)
-        while eng.has_work():
-            eng.step()
+        drive()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -384,18 +569,50 @@ def profile_serve(eng, prompts):
     busy = sum(r[1] for r in rows)
     by_group = {g: 0.0 for g in groups}
     for key, us, _ in rows:
-        for g, pat in groups.items():
-            if pat in key:
+        for g, pats in groups.items():
+            if any(pat in key for pat in pats):
                 by_group[g] += us
+                break
     by_group["other"] = busy - sum(by_group.values())
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "serve_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
         for key, us, n in rows:
             f.write(f"{us / 1e3:12.3f} ms  {n:7d}  {key}\n")
-    emit({"phase": "serve_profile", "wall_ms": wall_us / 1e3,
+    emit({"phase": f"{name}_profile", "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / wall_us,
           "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
           "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n} for k, us, n in rows[:12]]})
+
+
+def profile_serve(eng, prompts):
+    """Drive the same requests again under torch.profiler."""
+
+    def drive():
+        for p in prompts:
+            eng.submit_request(p, 64)
+        while eng.has_work():
+            eng.step()
+
+    profile_drive("serve", drive, {
+        "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+        "flash_fwd": ["flash_fwd_kernel"], "paged_decode": ["paged_decode_kernel"]})
+
+
+def profile_train(tr, state, steps=2):
+    """Run ``steps`` more training steps under torch.profiler."""
+
+    def drive():
+        for i in range(steps):
+            tr.train_step(state, tr.global_batch(i))
+
+    profile_drive("train", drive, {
+        "rmsnorm (K1 + K5)": ["_rmsnorm_fwd", "_rmsnorm_bwd"],
+        "rope (K2 + K6)": ["_rope_fwd"],
+        "flash_fwd (K3)": ["flash_fwd_kernel"],
+        "flash_dq (K7)": ["flash_dq_kernel"],
+        "flash_dkv (K8)": ["flash_dkv_kernel"],
+        "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"],
+    })
 
 
 def phase_serve(profile=False):
@@ -452,7 +669,7 @@ def phase_serve(profile=False):
             raise AssertionError(f"request {r.rid}: token outside the vocab")
     if not (finite and all(finite)):
         raise AssertionError("non-finite prefill logits")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the serve: {missing}")
     tm = eng.timing
@@ -478,6 +695,100 @@ def phase_serve(profile=False):
     return launches
 
 
+def phase_train_parity():
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.convert import tree_leaves_with_path, to_device
+    from orion_tpu_torch.train import Trainer, loss_and_grads
+
+    cfg = get_config("tiny-llama", TRAIN_PARITY_OVERRIDES)
+    params = init_params(cfg.model, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launches()
+        tr = Trainer(cfg, params=params, device=dev)
+        batch = tr.global_batch(0)
+        loss, _, grads = loss_and_grads(to_device(params, dev), batch, cfg.model)
+        runs[dev] = (float(loss), [g.cpu() for _, g in tree_leaves_with_path(grads)],
+                     [m.loss for m in tr.fit()], ops.launches())
+    (l1_g, g_g, losses_g, launches), (l1_c, g_c, losses_c, _) = runs["cuda"], runs["cpu"]
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train_parity: kernels never launched on cuda: {missing}")
+    if abs(l1_g - l1_c) > TRAIN_TOL["loss_step1"]:
+        raise AssertionError(f"train_parity: step-1 loss cuda {l1_g} cpu {l1_c}")
+    atol, rtol = TRAIN_TOL["grads_step1"]
+    grad_err = 0.0
+    for a, b in zip(g_g, g_c):
+        if not torch.allclose(a, b, atol=atol, rtol=rtol):
+            raise AssertionError(f"train_parity: step-1 grads differ by {max_err(a, b)}")
+        grad_err = max(grad_err, max_err(a, b))
+    loss_err = max(abs(a - b) for a, b in zip(losses_g, losses_c))
+    if not all(math.isfinite(x) for x in losses_g) or loss_err > TRAIN_TOL["loss"]:
+        raise AssertionError(f"train_parity: losses cuda {losses_g} cpu {losses_c}")
+    emit({"phase": "train_parity", "preset": "tiny-llama", "steps": len(losses_g),
+          "losses_cuda": losses_g, "losses_cpu": losses_c, "max_loss_err": loss_err,
+          "step1_grad_max_abs_err": grad_err, "tolerance": TRAIN_TOL})
+
+
+def phase_train(profile=False):
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    cfg = get_config("llama-1b-bench", [f"train.num_steps={TRAIN_STEPS}",
+                                        "train.log_interval=1"])
+    tr = Trainer(cfg, device="cuda")
+    # Warm-up step on a throwaway state (Triton JIT, cuBLAS heuristics).
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    tr.train_step(state, tr.global_batch(0))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    hist = tr.fit()
+    launches = ops.launches()
+    losses = [m.loss for m in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train: kernels never launched: {missing}")
+    step_s = statistics.median(m.step_time_s for m in hist)
+    tokens = tr.tokens_per_step
+    emit({
+        "phase": "train", "preset": "llama-1b-bench", "steps": len(hist),
+        "params": cfg.model.num_params(), "tokens_per_step": tokens,
+        "warmup_s": warmup_s, "losses": losses,
+        "grad_norms": [m.grad_norm for m in hist],
+        "step_times_s": [m.step_time_s for m in hist], "step_s_median": step_s,
+        "tokens_per_s": tokens / step_s,
+        "mfu": cfg.model.flops_per_token(cfg.data.seq_len) * tokens / step_s / BF16_FLOPS_S,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches,
+        "launches_per_step": {k: n / len(hist) for k, n in launches.items()},
+    })
+    if profile:
+        profile_train(tr, tr.state)
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_ms(fn, reps=20):
     import torch
 
@@ -494,6 +805,87 @@ def time_ms(fn, reps=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def backward_ms(out, inputs, cotangent):
+    """Time of one backward through a recorded graph (kept for reuse)."""
+    import torch
+
+    return time_ms(lambda: torch.autograd.grad(out, inputs, cotangent, retain_graph=True))
+
+
+def train_timing(gen):
+    """K5-K8, and K3 with its lse output, at the training path's shapes
+    in bfloat16. The plain and library times of K7 and K8 are one
+    backward computing dq, dk and dv together (autograd of the plain
+    attention; SDPA's backward with enable_gqa)."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    dt = torch.bfloat16
+    res = {}
+    x, s, g = t_norm_inputs(dt, gen)
+    xr = x.detach().requires_grad_()
+    nb = 3 * x.numel() * 2 + s.numel() * 2
+    res["rmsnorm_bwd"] = dict(
+        ms=time_ms(lambda: ops.rmsnorm_bwd_triton(x, s, g, 1e-5)),
+        plain_ms=backward_ms(ops.rmsnorm_plain(xr, s, 1e-5), [xr], g),
+        library_ms=backward_ms(F.rms_norm(xr, (T_D,), s, 1e-5), [xr], g),
+        bound=bound(nb, 8 * x.numel(), F32_FLOPS_S))
+    del x, xr, g
+    q, k, _, gq = t_attn_inputs(dt, gen)
+    gk = torch.randn(k.shape, generator=gen, device="cuda").to(dt)
+    pos = torch.arange(T_S, device="cuda", dtype=torch.int32).expand(T_B, T_S).contiguous()
+    qr, kr = q.detach().requires_grad_(), k.detach().requires_grad_()
+    outs = (ops.rope_plain(qr, pos, 500000.0), ops.rope_plain(kr, pos, 500000.0))
+    nb = 2 * 2 * (q.numel() + k.numel()) + pos.numel() * 4
+    res["rope_bwd"] = dict(
+        ms=time_ms(lambda: (ops.rope_bwd_triton(gq, pos, 500000.0),
+                            ops.rope_bwd_triton(gk, pos, 500000.0))),
+        plain_ms=backward_ms(outs, [qr, kr], (gq, gk)),
+        library_ms=None,
+        bound=bound(nb, 6 * (q.numel() + k.numel()), F32_FLOPS_S))
+    del q, k, gq, gk, qr, kr, outs
+    torch.cuda.empty_cache()
+
+    q, k, v, do = t_attn_inputs(dt, gen)
+    pairs = T_B * T_N * T_S * (T_S + 1) // 2
+    qkv_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, dO or out, k, v
+    row_bytes = 2 * (T_B * T_N * T_S) * 4                   # lse, delta
+    lib = [t.transpose(1, 2) for t in (q, k, v)]
+    # K3 as the training path runs it (with lse), beside the K7/K8 rows.
+    res["flash_fwd_train"] = dict(
+        ms=time_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True, return_lse=True)),
+        plain_ms=time_ms(lambda: ops.attention_plain(q, k, v, causal=True)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=True, enable_gqa=True)),
+        bound=bound(qkv_bytes + row_bytes // 2, 4 * HEAD * pairs, BF16_FLOPS_S))
+    out, lse = ops.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain = backward_ms(ops.attention_plain(*leaves, causal=True), leaves, do)
+    del leaves
+    torch.cuda.empty_cache()
+    lib = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    library = backward_ms(
+        F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True), lib,
+        do.transpose(1, 2))
+    del lib
+    torch.cuda.empty_cache()
+    res["flash_dq"] = dict(
+        ms=time_ms(lambda: ops.flash_dq_cuda(q, k, v, do, lse, delta, causal=True)),
+        plain_ms=plain, library_ms=library,
+        bound=bound(qkv_bytes + row_bytes + 2 * q.numel(), 6 * HEAD * pairs, BF16_FLOPS_S))
+    res["flash_dkv"] = dict(
+        ms=time_ms(lambda: ops.flash_dkv_cuda(q, k, v, do, lse, delta, causal=True)),
+        plain_ms=plain, library_ms=library,
+        bound=bound(qkv_bytes + row_bytes + 2 * (k.numel() + v.numel()), 8 * HEAD * pairs,
+                    BF16_FLOPS_S))
+    del q, k, v, do, out
+    torch.cuda.empty_cache()
+    return res
 
 
 def bound(nbytes, flops, rate):
@@ -570,6 +962,7 @@ def phase_timing():
         bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))
     del q, kp, vp, kc, vc
     torch.cuda.empty_cache()
+    res.update(train_timing(gen))
     for name, r in res.items():
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
@@ -583,8 +976,9 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)}")
     parser.add_argument("--profile", action="store_true",
-                        help="after the serve, drive the same requests again "
-                             "under torch.profiler (table in chiprun_out/)")
+                        help="after the serve, drive the same requests again, and "
+                             "after the train, run two more steps, under "
+                             "torch.profiler (tables in chiprun_out/)")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -603,7 +997,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     line = phase_device()
-    errs = launches = timing = None
+    errs = launches = train_launches = timing = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -612,11 +1006,19 @@ def main(argv=None) -> int:
         phase_parity()
     if "serve" in phases:
         launches = phase_serve(args.profile)
+    if "train_parity" in phases:
+        phase_train_parity()
+    if "train" in phases:
+        train_launches = phase_train(args.profile)
     if "timing" in phases:
         timing = phase_timing()
-    if errs and launches and timing:
+    if errs and launches and train_launches and timing:
+        # A kernel on both paths counts its launches in both drives.
+        by_path = {name: {"serve": launches[name], "train": train_launches[name]}
+                   for name in KERNEL_META}
         emit({"kernels": [
-            dict(name=name, **KERNEL_META[name], launches=launches[name],
+            dict(name=name, **KERNEL_META[name],
+                 launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                  max_abs_err=errs["bfloat16"][name], ms=timing[name]["ms"],
                  plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound"][0],
                  bound_by=timing[name]["bound"][1], library_ms=timing[name]["library_ms"])

@@ -360,7 +360,10 @@ class OptimizerConfig:
         import numpy as _np
 
         try:
-            _np.dtype(self.moment_dtype)
+            # numpy knows "bfloat16" only once ml_dtypes is imported (jax
+            # imports it); the port, which imports no jax, takes the name.
+            if self.moment_dtype != "bfloat16":
+                _np.dtype(self.moment_dtype)
         except TypeError as e:
             raise ValueError(
                 f"optimizer.moment_dtype={self.moment_dtype!r} is not a "

@@ -24,6 +24,11 @@
 //     so a ragged prefill burst pays each row's own length, not the bucket's.
 // A row with nothing attended returns 0 (l == 0 -> l_safe = 1), not NaN.
 // Padded query rows (segment 0) hold garbage that the caller discards.
+//
+// With a non-null `lse`, the kernel also writes each row's log-sum-exp of
+// its attended logits, m + log(l), as float32 [B, N, Sq] (NEG_INF where
+// the row attends nothing): the residual the backward kernels K7/K8
+// (flash_bwd.cu) recompute the probabilities from. Serving passes null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +54,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;       // [B, N, Sq] or null
   const int* qseg;  // [B, Sq] or null
   const int* kseg;  // [B, Skv] or null
   int Sq, Skv, N, K;
@@ -228,6 +234,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     T* orow = o + ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD;
 #pragma unroll
     for (int hc = 0; hc < HC; ++hc) orow[cg + 16 * hc] = from_f32<T>(acc[i][hc] / l_safe);
+    // m_i / l_i are equal across the 16 threads of a row group (shuffle-reduced).
+    if (a.lse != nullptr && cg == 0) {
+      a.lse[(static_cast<int64_t>(b) * a.N + n) * a.Sq + s] =
+          l_i[i] == 0.f ? NEG_INF : m_i[i] + logf(l_i[i]);
+    }
   }
 }
 
@@ -256,15 +267,15 @@ cudaError_t by_head_dim(const Args& a, int B, int H, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none;
+// lse may be null. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                          const int* qseg, const int* kseg, int B, int Sq, int Skv,
                          int N, int K, int H, int causal, int q_offset, int window,
                          int seg_pad_zero, float softcap, float scale, int dtype,
                          void* stream) {
-  Args a{q, k, v, o, qseg, kseg, Sq, Skv, N, K, causal, q_offset, window, seg_pad_zero,
-         softcap, scale};
+  Args a{q, k, v, o, lse, qseg, kseg, Sq, Skv, N, K, causal, q_offset, window,
+         seg_pad_zero, softcap, scale};
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1 ? by_head_dim<__nv_bfloat16>(a, B, H, s)

@@ -1,0 +1,156 @@
+"""Step metrics, throughput and MFU for the training loop.
+
+The parts of ``orion_tpu/metrics.py`` that the step loop uses:
+``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
+and ``Stopwatch``. MFU = model FLOPs per token (``ModelConfig
+.flops_per_token``: 6 N plus the attention term) x tokens / (step time x
+devices x the card's peak bf16 rate), the rate from
+``peak_flops_per_device``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import torch
+
+# Dense bf16 tensor-core peak per card (NVIDIA data sheets, SXM parts).
+PEAK_FLOPS_BF16: dict[str, float] = {
+    "H100": 989e12,
+    "H200": 989e12,
+}
+
+
+def peak_flops_per_device(device) -> Optional[float]:
+    """The card's peak bf16 FLOP/s, read from its name; None for the CPU
+    (a CPU run has no MFU). Raises for a card the table does not know."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for key, val in PEAK_FLOPS_BF16.items():
+        if key.lower() in name.lower():
+            return val
+    raise ValueError(
+        f"no peak bf16 rate known for {name!r} (known: {sorted(PEAK_FLOPS_BF16)}); "
+        f"set train.peak_flops_per_device"
+    )
+
+
+@dataclass
+class StepMetrics:
+    step: int
+    loss: float
+    grad_norm: float = 0.0
+    learning_rate: float = 0.0
+    step_time_s: float = 0.0
+    tokens: int = 0
+    tokens_per_sec: float = 0.0
+    tokens_per_sec_per_device: float = 0.0
+    model_flops: float = 0.0
+    mfu: float = 0.0
+    extras: dict[str, float] = field(default_factory=dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        d = {
+            "step": self.step,
+            "loss": self.loss,
+            "grad_norm": self.grad_norm,
+            "lr": self.learning_rate,
+            "step_time_s": self.step_time_s,
+            "tokens": self.tokens,
+            "tokens_per_sec": self.tokens_per_sec,
+            "tokens_per_sec_per_device": self.tokens_per_sec_per_device,
+            "mfu": self.mfu,
+        }
+        d.update(self.extras)
+        return d
+
+
+class MetricsLogger:
+    """Accumulates per-step metrics; writes console lines every
+    ``log_interval`` steps and, with ``jsonl_path``, one JSON row per step.
+    ``peak_flops`` None leaves MFU NaN (a CPU run)."""
+
+    def __init__(
+        self,
+        flops_per_token: float,
+        num_devices: int,
+        peak_flops: Optional[float],
+        jsonl_path: Optional[str] = None,
+        log_interval: int = 10,
+    ):
+        self.flops_per_token = flops_per_token
+        self.num_devices = max(num_devices, 1)
+        self.peak_flops = peak_flops
+        self.log_interval = max(log_interval, 1)
+        self.history: list[StepMetrics] = []
+        self._jsonl_file = open(jsonl_path, "a") if jsonl_path else None
+
+    def record(
+        self,
+        step: int,
+        loss: float,
+        tokens: int,
+        step_time_s: float,
+        grad_norm: float = 0.0,
+        learning_rate: float = 0.0,
+        **extras: float,
+    ) -> StepMetrics:
+        tps = tokens / step_time_s if step_time_s > 0 else 0.0
+        model_flops = self.flops_per_token * tokens
+        achieved = model_flops / step_time_s if step_time_s > 0 else 0.0
+        mfu = (achieved / (self.num_devices * self.peak_flops)
+               if self.peak_flops else math.nan)
+        m = StepMetrics(
+            step=step,
+            loss=float(loss),
+            grad_norm=float(grad_norm),
+            learning_rate=float(learning_rate),
+            step_time_s=step_time_s,
+            tokens=tokens,
+            tokens_per_sec=tps,
+            tokens_per_sec_per_device=tps / self.num_devices,
+            model_flops=model_flops,
+            mfu=mfu,
+            extras=dict(extras),
+        )
+        self.history.append(m)
+        if self._jsonl_file is not None:
+            self._jsonl_file.write(json.dumps(m.to_dict()) + "\n")
+            self._jsonl_file.flush()
+        if step % self.log_interval == 0:
+            print(
+                f"step {step:>6d}  loss {m.loss:8.4f}  "
+                f"gnorm {m.grad_norm:7.3f}  lr {m.learning_rate:.2e}  "
+                f"{m.step_time_s * 1e3:7.1f} ms/step  "
+                f"{m.tokens_per_sec_per_device:9.0f} tok/s/dev  "
+                f"MFU {m.mfu * 100:5.2f}%"
+            )
+        return m
+
+    def close(self) -> None:
+        if self._jsonl_file is not None:
+            self._jsonl_file.close()
+            self._jsonl_file = None
+
+
+class Stopwatch:
+    """Wall-clock timer for step timing; ``lap(sync_on=device)`` first
+    waits for the device's queued work, so a lap covers the step's device
+    time and not only its enqueue."""
+
+    def __init__(self):
+        self._t = time.perf_counter()
+
+    def lap(self, sync_on: Any = None) -> float:
+        if sync_on is not None and torch.device(sync_on).type == "cuda":
+            torch.cuda.synchronize(sync_on)
+        now = time.perf_counter()
+        dt = now - self._t
+        self._t = now
+        return dt

@@ -112,6 +112,28 @@ def tree_map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) pairs in ``tree_map``'s order; a path holds the dict
+    keys and list indices from the root to the leaf."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in tree_leaves_with_path(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in tree_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts and lists, in ``tree_map``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """A tree shaped like ``tree`` holding ``leaves`` (in ``tree_leaves``
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def to_device(params: Params, device, dtype=None) -> Params:
     """The tree on ``device`` (optionally cast); leaves already there with
     that dtype are returned as they are, without a copy."""

@@ -1,14 +1,15 @@
-"""The decoder-only transformer, dense inference subset.
+"""The decoder-only transformer: dense serving and training.
 
 Counterpart of ``orion_tpu/models/transformer.py``: the same parameter
 tree (a plain dict of tensors; ``blocks`` is a list with one dict per
 layer) and the same functions — ``embed``, ``_norm``, ``qkv_proj``,
 ``out_proj``, ``_mlp_block``, ``unembed`` — shared by the cache-free
-``forward`` and the serving runner (``infer/runner.py``). Covers the
-Llama-3 (RoPE, RMSNorm, SwiGLU, GQA), GPT-2 (learned positions,
-LayerNorm, GELU) and Gemma-2 (post-norms, (1 + w) norms, GeGLU, embedding
-scale, query scale, local/global windows, logit softcaps) families.
-Mixture-of-experts layers are not ported yet and raise.
+``forward``, the serving runner (``infer/runner.py``) and the training
+loss (``_hidden_states``, ``loss_fn``). Covers the Llama-3 (RoPE,
+RMSNorm, SwiGLU, GQA), GPT-2 (learned positions, LayerNorm, GELU) and
+Gemma-2 (post-norms, (1 + w) norms, GeGLU, embedding scale, query scale,
+local/global windows, logit softcaps) families. Mixture-of-experts layers
+are not ported yet and raise.
 
 Weights are cast to the activation dtype at use, as the JAX package does;
 when they are stored in that dtype already (the serving case) the cast is
@@ -21,6 +22,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from orion_tpu_torch import ops
 from orion_tpu_torch.config import ModelConfig
@@ -191,3 +193,96 @@ def forward(
     for layer, bp in enumerate(params["blocks"]):
         x = _block(x, bp, cfg, positions, segment_ids, cfg.layer_window(layer))
     return unembed(params, x, cfg)
+
+
+def _hidden_states(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block-stack output [B, S, D] before final norm / LM head, and
+    the MoE aux loss (zero: dense only). Differentiable; the training path.
+
+    ``remat="full"`` recomputes each block in the backward: every block
+    runs under ``torch.utils.checkpoint`` (non-reentrant), which saves only
+    the block's input and reruns its forward — kernels included — when the
+    backward reaches it, as ``jax.checkpoint`` around the JAX package's
+    per-layer scan body does. ``remat="none"`` saves everything."""
+    if cfg.remat not in ("none", "full") or cfg.remat_offload:
+        raise NotImplementedError(
+            f"model.remat={cfg.remat!r}"
+            + (" with remat_offload" if cfg.remat_offload else "")
+            + " is not ported to orion_tpu_torch yet (none|full are)"
+        )
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    x = embed(params, tokens, positions, cfg)
+    for layer, bp in enumerate(params["blocks"]):
+        window = cfg.layer_window(layer)
+        if cfg.remat == "full":
+            x = checkpoint(_block, x, bp, cfg, positions, segment_ids, window,
+                           use_reentrant=False)
+        else:
+            x = _block(x, bp, cfg, positions, segment_ids, window)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _gather_target(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token target logit [..., S] from logits [..., S, V]. The JAX
+    package gives its gather a one-hot custom VJP to avoid a scatter on the
+    TPU; ``torch.gather``'s own backward computes the same function."""
+    return torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+
+
+def loss_fn(
+    params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy + weighted MoE aux loss.
+
+    batch: inputs [B, S], targets [B, S], optional loss_mask [B, S]
+    (1 = count) and segment_ids / positions for packed sequences. Returns
+    (loss, {"ce_loss", "moe_aux", "tokens"}). With ``cfg.loss_chunk`` the
+    LM head and log-sum-exp run per sequence chunk under checkpointing, so
+    the backward recomputes one chunk's [B, chunk, V] logits at a time
+    instead of keeping the full [B, S, V] float32 logits alive.
+    """
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    chunk = cfg.loss_chunk
+    B, S = targets.shape
+    if chunk and S % chunk:
+        raise ValueError(f"model.loss_chunk={chunk} must divide seq_len={S}")
+    x, moe_aux = _hidden_states(
+        params, batch["inputs"], cfg, positions=batch.get("positions"),
+        segment_ids=batch.get("segment_ids"),
+    )
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    if not chunk or S == chunk:
+        logp = torch.log_softmax(unembed(params, x, cfg), dim=-1)
+        nll = -_gather_target(logp, targets)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
+    else:
+        def ce_chunk(xc, tc, mc):
+            logits = unembed(params, xc, cfg)              # [B, chunk, V] float32
+            logz = torch.logsumexp(logits, dim=-1)
+            tgt = _gather_target(logits, tc)
+            return ((logz - tgt) * mc).sum()
+
+        nll_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, S, chunk):
+            sl = slice(c, c + chunk)
+            nll_total = nll_total + checkpoint(
+                ce_chunk, x[:, sl], targets[:, sl], mask[:, sl], use_reentrant=False)
+            mask_total = mask_total + mask[:, sl].sum()
+        denom = torch.clamp(mask_total, min=1.0)
+        ce = nll_total / denom
+    loss = ce + cfg.router_aux_loss_weight * moe_aux
+    return loss, {"ce_loss": ce, "moe_aux": moe_aux, "tokens": denom}

@@ -2,17 +2,28 @@
 decode attention.
 
 Every op has a plain PyTorch version and, where the JAX package wrote a
-Pallas kernel on the serving path, a kernel written by hand for Hopper.
-Which one runs follows the tensors' device (see ``ops/common.py``).
+Pallas kernel on a ported path, a kernel written by hand for Hopper
+(forward and, for training, backward). Which one runs follows the
+tensors' device (see ``ops/common.py``).
 """
 
 from orion_tpu_torch.ops.attention import (
     attention,
+    attention_lse_plain,
     attention_mask,
     attention_plain,
+    flash_attention_bwd_cuda,
     flash_attention_cuda,
+    flash_dkv_cuda,
+    flash_dq_cuda,
 )
-from orion_tpu_torch.ops.norms import layernorm, rmsnorm, rmsnorm_plain, rmsnorm_triton
+from orion_tpu_torch.ops.norms import (
+    layernorm,
+    rmsnorm,
+    rmsnorm_bwd_triton,
+    rmsnorm_plain,
+    rmsnorm_triton,
+)
 from orion_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_cuda,
@@ -20,17 +31,22 @@ from orion_tpu_torch.ops.paged_attention import (
 )
 from orion_tpu_torch.ops.rope import (
     apply_rope,
+    rope_bwd_triton,
     rope_frequencies,
     rope_plain,
     rope_triton,
 )
 
-# The kernel wrappers of the serving path, each with its ``launches`` count.
+# The kernel wrappers of the ported paths, each with its ``launches`` count.
 KERNELS = {
     "rmsnorm_fwd": rmsnorm_triton,
     "rope_fwd": rope_triton,
     "flash_fwd": flash_attention_cuda,
     "paged_decode": paged_attention_cuda,
+    "rmsnorm_bwd": rmsnorm_bwd_triton,
+    "rope_bwd": rope_bwd_triton,
+    "flash_dq": flash_dq_cuda,
+    "flash_dkv": flash_dkv_cuda,
 }
 
 
@@ -47,9 +63,13 @@ __all__ = [
     "KERNELS",
     "apply_rope",
     "attention",
+    "attention_lse_plain",
     "attention_mask",
     "attention_plain",
+    "flash_attention_bwd_cuda",
     "flash_attention_cuda",
+    "flash_dkv_cuda",
+    "flash_dq_cuda",
     "launches",
     "layernorm",
     "paged_attention",
@@ -57,8 +77,10 @@ __all__ = [
     "paged_attention_plain",
     "reset_launches",
     "rmsnorm",
+    "rmsnorm_bwd_triton",
     "rmsnorm_plain",
     "rmsnorm_triton",
+    "rope_bwd_triton",
     "rope_frequencies",
     "rope_plain",
     "rope_triton",

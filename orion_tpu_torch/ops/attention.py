@@ -1,18 +1,24 @@
-"""Multi-head attention, with the prefill forward as a CUDA kernel (K3).
+"""Multi-head attention, with the flash forward (K3) and its backward (K7
+dq, K8 dk/dv) as CUDA kernels.
 
 ``attention_plain`` is the counterpart of ``attention_xla``: grouped-query
 attention with a float32 softmax, causal / segment / sliding-window masks
-(or an explicit boolean mask) and logit soft-capping. It runs for CPU
-tensors, and ``chip_smoke.py`` holds K3 against it on the card.
+(or an explicit boolean mask) and logit soft-capping. One difference, on
+purpose: a query row that attends nothing returns zeros, as every flash
+kernel does (the xla path would average v over the masked logits). It
+runs for CPU tensors, where autograd differentiates it, and
+``chip_smoke.py`` holds K3, K7 and K8 against it (and its autograd) on
+the card.
 
 K3 (``csrc/flash_fwd.cu``) replaces the TPU kernel
-``orion_tpu/ops/pallas/flash_attention.py::_fwd_kernel``; its source note
-says what bounds it and how the design answers. The wrapper keeps the JAX
-package's [B, S, N, H] layout: the kernel reads q/k/v and writes the
-output in that layout directly, so no transpose or padding copy is made.
-It covers causal + segment ids (+ seg_pad_zero block skip) + q_offset +
-window + softcap; explicit masks and explicit positions (the prefix-cache
-and sequence-parallel callers) are not on this slice's path and raise.
+``orion_tpu/ops/pallas/flash_attention.py::_fwd_kernel``; K7 and K8
+(``csrc/flash_bwd.cu``) replace ``_dq_kernel`` and ``_dkv_kernel``; their
+source notes say what bounds them and how the design answers. The
+wrappers keep the JAX package's [B, S, N, H] layout: the kernels read and
+write it directly, so no transpose or padding copy is made. They cover
+causal + segment ids (+ seg_pad_zero tile skip) + q_offset + window +
+softcap; explicit masks and explicit positions (the prefix-cache and
+sequence-parallel callers) are not on the ported paths and raise.
 """
 
 from __future__ import annotations
@@ -72,24 +78,14 @@ def attention_mask(
     return mask
 
 
-def attention_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    mask: Optional[torch.Tensor] = None,
-    q_segment_ids: Optional[torch.Tensor] = None,
-    kv_segment_ids: Optional[torch.Tensor] = None,
-    logit_softcap: Optional[float] = None,
-    q_offset: int = 0,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """q: [B, Sq, N, H]; k, v: [B, Skv, K, H] with N % K == 0 -> [B, Sq, N, H]."""
-    dtype = q.dtype
+def _masked_logits(
+    q, k, *, causal, mask, q_segment_ids, kv_segment_ids, logit_softcap,
+    q_offset, window,
+):
+    """float32 [B, N, Sq, Skv] logits (softcapped, NEG_INF where masked)
+    and the broadcast boolean mask (None when nothing is masked)."""
     n_heads, head_dim = q.shape[2], q.shape[3]
     k = _gqa_expand(k, n_heads)
-    v = _gqa_expand(v, n_heads)
     if mask is not None and window is not None:
         raise ValueError(
             "window cannot combine with an explicit mask; fold the window "
@@ -112,15 +108,39 @@ def attention_plain(
         elif mask.dim() == 3:
             mask = mask[:, None]
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+    return logits, mask
 
 
-@counted
-def flash_attention_cuda(
+def attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    *,
+    causal: bool = True,
+    mask: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_softcap: Optional[float] = None,
+    q_offset: int = 0,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """q: [B, Sq, N, H]; k, v: [B, Skv, K, H] with N % K == 0 -> [B, Sq, N, H]."""
+    logits, mask = _masked_logits(
+        q, k, causal=causal, mask=mask, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
+        q_offset=q_offset, window=window,
+    )
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        # A row that attends nothing returns 0, as the kernels do.
+        probs = probs * mask.any(dim=-1, keepdim=True)
+    v = _gqa_expand(v, q.shape[2])
+    return torch.einsum("bnqk,bknh->bqnh", probs.to(q.dtype), v)
+
+
+def attention_lse_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
     *,
     causal: bool = True,
     q_segment_ids: Optional[torch.Tensor] = None,
@@ -128,9 +148,25 @@ def flash_attention_cuda(
     logit_softcap: Optional[float] = None,
     q_offset: int = 0,
     window: Optional[int] = None,
-    seg_pad_zero: bool = False,
 ) -> torch.Tensor:
-    """Launch K3 on CUDA tensors; shapes and semantics as attention_plain."""
+    """The plain version of K3's lse output: float32 [B, N, Sq], each
+    row's log-sum-exp over its attended logits, NEG_INF where the row
+    attends nothing."""
+    logits, mask = _masked_logits(
+        q, k, causal=causal, mask=None, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
+        q_offset=q_offset, window=window,
+    )
+    lse = torch.logsumexp(logits, dim=-1)
+    if mask is not None:
+        lse = torch.where(mask.any(dim=-1), lse, torch.full_like(lse, NEG_INF))
+    return lse
+
+
+def _check_args(q, k, v, q_segment_ids, kv_segment_ids, causal, window):
+    """Validate a kernel call (K3, K7 or K8); returns the contiguous
+    operands, the int32 segment ids (or None) and the shape
+    (B, Sq, Skv, N, K, H)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_dtype(name, t)
         if t.dtype != q.dtype:
@@ -150,31 +186,164 @@ def flash_attention_cuda(
         raise ValueError(
             f"window={window} requires causal attention and window >= 1"
         )
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     qseg = kseg = None
     if q_segment_ids is not None:
         qseg = q_segment_ids.to(torch.int32).contiguous()
         kseg = kv_segment_ids.to(torch.int32).contiguous()
         if qseg.shape != (B, Sq) or kseg.shape != (B, Skv):
             raise ValueError("segment ids must be [B, Sq] and [B, Skv]")
+    return (q.contiguous(), k.contiguous(), v.contiguous(), qseg, kseg,
+            (B, Sq, Skv, N, K, H))
+
+
+def _c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap, dtype, device):
+    """The C arguments after the pointers, in every entry point's order."""
+    B, Sq, Skv, N, K, H = shape
+    return (B, Sq, Skv, N, K, H, int(causal), int(q_offset), int(window or 0),
+            int(bool(seg_pad_zero)), float(logit_softcap or 0.0), float(H ** -0.5),
+            1 if dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+_TAIL_TYPES = [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+@counted
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_softcap: Optional[float] = None,
+    q_offset: int = 0,
+    window: Optional[int] = None,
+    seg_pad_zero: bool = False,
+    return_lse: bool = False,
+):
+    """Launch K3 on CUDA tensors; shapes and semantics as attention_plain.
+    With ``return_lse`` also returns the float32 [B, N, Sq] log-sum-exp
+    residual that K7/K8 take (NEG_INF on rows that attend nothing)."""
+    q, k, v, qseg, kseg, shape = _check_args(
+        q, k, v, q_segment_ids, kv_segment_ids, causal, window)
+    B, Sq, _, N, _, _ = shape
     out = torch.empty_like(q)
-    rc = _build.entry(
-        "flash_fwd", "flash_fwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    )(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qseg.data_ptr() if qseg is not None else None,
-        kseg.data_ptr() if kseg is not None else None,
-        B, Sq, Skv, N, K, H, int(causal), int(q_offset),
-        int(window or 0), int(bool(seg_pad_zero)),
-        float(logit_softcap or 0.0), float(H ** -0.5),
-        1 if q.dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+    lse = (torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    rc = _build.entry("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 7 + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(qseg), _ptr(kseg),
+        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
+                 q.dtype, q.device),
     )
     _build.check(rc, "flash_fwd")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _bwd_operands(q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal,
+                  window):
+    q, k, v, qseg, kseg, shape = _check_args(
+        q, k, v, q_segment_ids, kv_segment_ids, causal, window)
+    B, Sq, _, N, _, _ = shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, N, Sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{B}, {N}, {Sq}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return (q, k, v, do.contiguous(), lse.contiguous(), delta.contiguous(), qseg,
+            kseg, shape)
+
+
+@counted
+def flash_dq_cuda(
+    q, k, v, do, lse, delta, *, causal=True, q_segment_ids=None,
+    kv_segment_ids=None, logit_softcap=None, q_offset=0, window=None,
+    seg_pad_zero=False,
+) -> torch.Tensor:
+    """Launch K7 on CUDA tensors: dq [B, Sq, N, H] from q, k, v, the
+    output cotangent dO, K3's lse and delta = rowsum(dO * O) (both float32
+    [B, N, Sq]). Mask arguments as flash_attention_cuda's."""
+    q, k, v, do, lse, delta, qseg, kseg, shape = _bwd_operands(
+        q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal, window)
+    dq = torch.empty_like(q)
+    rc = _build.entry("flash_bwd", "flash_dq", [ctypes.c_void_p] * 9 + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), _ptr(qseg), _ptr(kseg),
+        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
+                 q.dtype, q.device),
+    )
+    _build.check(rc, "flash_dq")
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+@counted
+def flash_dkv_cuda(
+    q, k, v, do, lse, delta, *, causal=True, q_segment_ids=None,
+    kv_segment_ids=None, logit_softcap=None, q_offset=0, window=None,
+    seg_pad_zero=False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K8 on CUDA tensors: (dk, dv) [B, Skv, K, H], each summed
+    over the N/K query heads of its group. Arguments as flash_dq_cuda's."""
+    q, k, v, do, lse, delta, qseg, kseg, shape = _bwd_operands(
+        q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal, window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _build.entry("flash_bwd", "flash_dkv", [ctypes.c_void_p] * 10 + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(qseg), _ptr(kseg),
+        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
+                 q.dtype, q.device),
+    )
+    _build.check(rc, "flash_dkv")
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, g_lse=None, **mask_kw):
+    """(dq, dk, dv) of K3 for the output cotangent ``do``: delta =
+    rowsum(dO * O) in float32 from O as the forward stored it (in its
+    dtype), as ``_bwd_call`` does outside its kernels; an lse cotangent
+    ``g_lse`` [B, N, Sq] folds into delta (d lse / d z = P, so it enters
+    dZ = P * (dP - delta) as -g_lse). Then K7 and K8."""
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)   # [B, N, Sq]
+    if g_lse is not None:
+        delta = delta - g_lse
+    delta = delta.contiguous()
+    dq = flash_dq_cuda(q, k, v, do, lse, delta, **mask_kw)
+    dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, **mask_kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 (with lse) forward, K7 + K8 backward. The forward saves q, k, v,
+    the segment ids, the output and lse, as ``_flash_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, mask_kw):
+        out, lse = flash_attention_cuda(
+            q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            return_lse=True, **mask_kw)
+        ctx.mask_kw = mask_kw
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, q_segment_ids=qseg, kv_segment_ids=kseg,
+            **ctx.mask_kw)
+        return dq, dk, dv, None, None, None
 
 
 def attention(
@@ -194,9 +363,10 @@ def attention(
     """Grouped-query scaled-dot-product attention. Shapes as attention_plain.
 
     CUDA tensors go to K3, which takes no explicit ``mask`` (express it
-    through causal / segment ids / window); CPU tensors to the plain
-    version. ``seg_pad_zero`` declares segment id 0 as padding so K3 may
-    skip all-padding tiles; the plain version has no tiles and ignores it.
+    through causal / segment ids / window), and through K7/K8 when a
+    gradient is needed; CPU tensors to the plain version. ``seg_pad_zero``
+    declares segment id 0 as padding so the kernels may skip all-padding
+    tiles; the plain version has no tiles and ignores it.
     """
     if on_cuda(q, k, v):
         if mask is not None:
@@ -204,11 +374,15 @@ def attention(
                 "explicit `mask` is only taken by the plain version; express "
                 "the mask through causal/segment ids/window for the kernel"
             )
+        mask_kw = dict(causal=causal, logit_softcap=logit_softcap,
+                       q_offset=q_offset, window=window, seg_pad_zero=seg_pad_zero)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
+                                         mask_kw)
         return flash_attention_cuda(
-            q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
-            q_offset=q_offset, window=window, seg_pad_zero=seg_pad_zero,
-        )
+            q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            **mask_kw)
     return attention_plain(
         q, k, v, causal=causal, mask=mask, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,

@@ -1,8 +1,13 @@
-"""Rotary position embeddings, with the rotation as a Triton kernel (K2).
+"""Rotary position embeddings, with the rotation (K2) and its VJP (K6) as
+one Triton kernel.
 
 K2 replaces the TPU kernel ``orion_tpu/ops/pallas/rope.py::_rope_kernel``
-(forward, ``flip=False``): the Llama rotate-half rotation of every head of
-x [B, S, N, H] by angles computed in-kernel from int32 positions.
+with ``flip=False``: the Llama rotate-half rotation of every head of
+x [B, S, N, H] by angles computed in-kernel from int32 positions. K6
+replaces the same kernel with ``flip=True``, its VJP: the rotation is
+orthogonal, so the cotangent is rotated back by the negated angles — the
+same kernel with the sign of ``sin`` flipped (a ``FLIP`` constexpr), and
+positions get no gradient. Each has its own wrapper and launch count.
 
 What bounds it on an H100: bytes. Each element is read once and written
 once with a handful of operations. The design gives one program a tile of
@@ -85,7 +90,7 @@ def _kernel():
     @triton.jit
     def _rope_fwd(
         x_ptr, pos_ptr, f_ptr, o_ptr, S, N,
-        HALF: tl.constexpr, BLOCK_S: tl.constexpr,
+        HALF: tl.constexpr, BLOCK_S: tl.constexpr, FLIP: tl.constexpr,
     ):
         b = tl.program_id(0).to(tl.int64)
         s0 = tl.program_id(1) * BLOCK_S
@@ -97,6 +102,8 @@ def _kernel():
         ang = pos[:, None] * freq[None, :]
         c = libdevice.cos(ang)
         s = libdevice.sin(ang)
+        if FLIP:
+            s = -s
         m = rm[:, None]
         base = (b * S + rows.to(tl.int64))[:, None] * (N * 2 * HALF)
         for n in range(N):
@@ -111,9 +118,8 @@ def _kernel():
     return _KERNEL
 
 
-@counted
-def rope_triton(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Launch K2 on CUDA tensors: x [B, S, N, H], positions [B, S]."""
+def _launch(x: torch.Tensor, positions: torch.Tensor, theta: float, flip: bool):
+    """Run the kernel over x [B, S, N, H]; returns (out, launched)."""
     check_dtype("x", x)
     B, S, N, H = x.shape
     half = H // 2
@@ -126,13 +132,49 @@ def rope_triton(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch
     out = torch.empty_like(xc)
     pos = positions.to(torch.int32).contiguous()
     freq = rope_inv_freq(H, theta, x.device)
-    if B and S:
-        block_s = 16
-        fn[(B, (S + block_s - 1) // block_s)](
-            xc, pos, freq, out, S, N, HALF=half, BLOCK_S=block_s, num_warps=4,
-        )
+    if not (B and S):
+        return out, False
+    block_s = 16
+    fn[(B, (S + block_s - 1) // block_s)](
+        xc, pos, freq, out, S, N, HALF=half, BLOCK_S=block_s, FLIP=flip,
+        num_warps=4,
+    )
+    return out, True
+
+
+@counted
+def rope_triton(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Launch K2 on CUDA tensors: x [B, S, N, H], positions [B, S]."""
+    out, launched = _launch(x, positions, theta, False)
+    if launched:
         rope_triton.launches += 1
     return out
+
+
+@counted
+def rope_bwd_triton(g: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Launch K6 on CUDA tensors: the cotangent g [B, S, N, H] of
+    ``rope_triton`` rotated back (the VJP with respect to x)."""
+    out, launched = _launch(g, positions, theta, True)
+    if launched:
+        rope_bwd_triton.launches += 1
+    return out
+
+
+class _Rope(torch.autograd.Function):
+    """K2 forward, K6 backward; only positions are saved, as ``_rope_fwd``
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, positions, theta):
+        ctx.theta = theta
+        ctx.save_for_backward(positions)
+        return rope_triton(x, positions, theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        (positions,) = ctx.saved_tensors
+        return rope_bwd_triton(g, positions, ctx.theta), None, None
 
 
 def apply_rope(
@@ -145,5 +187,7 @@ def apply_rope(
     if positions.dim() == 1:
         positions = positions[None, :].expand(x.shape[0], -1)
     if on_cuda(x, positions):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Rope.apply(x, positions, theta)
         return rope_triton(x, positions, theta)
     return rope_plain(x, positions, theta)

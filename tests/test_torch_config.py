@@ -43,8 +43,10 @@ def test_unknown_override_key_rejected():
 
 
 def test_port_imports_without_jax_or_orion_tpu():
-    """With jax made unimportable, every module of the port imports, and
-    no orion_tpu module gets loaded on the way."""
+    """With jax made unimportable, every module of the port imports (the
+    training modules and ``python -m orion_tpu_torch.train``'s among
+    them), every preset loads (numpy knows bfloat16 only through jax's
+    ml_dtypes), and no orion_tpu module gets loaded on the way."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -53,6 +55,13 @@ def test_port_imports_without_jax_or_orion_tpu():
         "    orion_tpu_torch.__path__, 'orion_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "from orion_tpu_torch.config import get_config, list_presets\n"
+        "for p in list_presets():\n"
+        "    get_config(p)\n"
+        "need = {'orion_tpu_torch.train', 'orion_tpu_torch.train.__main__',\n"
+        "        'orion_tpu_torch.train.trainer', 'orion_tpu_torch.train.optimizer',\n"
+        "        'orion_tpu_torch.data.loader', 'orion_tpu_torch.metrics'}\n"
+        "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "       m == 'orion_tpu' or m.startswith(('orion_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
