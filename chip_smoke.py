@@ -13,20 +13,33 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K8 against their plain PyTorch versions on the card (the
+  kernels  K1-K9 against their plain PyTorch versions on the card (the
            backward kernels against autograd of the plain forward), at the
            serving path's and the training path's shapes, in float32 and
-           bfloat16 (tolerances in TOL); K4's written pool rows must be
-           byte-identical (page 0 excluded); off-path variants (segments
+           bfloat16 (tolerances in TOL), K4 and K9 also over int8 pools;
+           what K4 and K9 write into the pools (int8 pages and float32
+           scales too) must be byte-identical to the plain versions' writes
+           (scratch page 0 excluded), and K9 must leave history pages and
+           scale lanes past the page untouched; off-path variants (segments
            under seg_pad_zero, windows, softcaps, q_offset, rows that
-           attend nothing, head_dim 16-256)
+           attend nothing, pad rows, page size 16, head_dim 16-256)
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
-           versions), same seeded weights, six prompts against four slots:
-           the greedy token lists must be equal
+           versions), same seeded weights, six prompts against four slots;
+           then twice with chunked prefill and the prefix cache (float32
+           pools, then int8 pools) over two waves that share a system
+           prompt (prefix hits and one copy-on-write admission): the greedy
+           token lists must be equal
   serve    llama3-8b-infer at full width and depth, seeded random bf16
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
            prefill logits are finite, and every kernel launched in the serve
+  serve_chunked  llama3-8b-infer at full width and depth with int8 KV, the
+           prefix cache and chunked prefill (the serve's weights): two
+           waves of 8 greedy requests sharing a 1024-token system prompt,
+           64 new tokens each; the second wave hits the cache, one of its
+           prompts whole (copy-on-write). Every request finishes, prefill
+           logits are finite, K1-K3, K4's and K9's int8 branches launch,
+           the page accounting holds and clearing the cache frees the pool
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -37,8 +50,9 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
-  timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4: the
-           serving path's; K5-K8: the training path's): median of 20
+  timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9:
+           the serving path's, K4 and K9 also over int8 pools; K5-K8: the
+           training path's): median of 20
            CUDA-event timings after a warm-up, beside its plain version, one
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
@@ -53,6 +67,7 @@ products on the tensor cores, 67 TFLOP/s for f32 elementwise work.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -62,8 +77,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "serve", "train_parity", "train",
-          "timing")
+PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
+          "train_parity", "train", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -90,6 +105,15 @@ TOL = {
     # kernels keep f32 until the one rounding of dq/dk/dv.
     "flash_dq": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
     "flash_dkv": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
+    # K9: as K3/K4 (f32 sums of up to 8448 terms in another order; bf16
+    # probabilities rounded before P@V by the plain version only).
+    "paged_prefill": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    # int8 branches (pools quantized from standard normal values): the
+    # plain versions dequantize the pages into q's dtype (a bf16 rounding
+    # of every K/V element) where the kernels scale the float32 logits and
+    # probabilities; otherwise as their pool branches.
+    "paged_decode_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    "paged_prefill_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
 }
 
 KERNEL_META = {
@@ -109,6 +133,12 @@ KERNEL_META = {
                      replaces="orion_tpu/ops/pallas/flash_attention.py:412"),
     "flash_dkv": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
                       replaces="orion_tpu/ops/pallas/flash_attention.py:447"),
+    "paged_decode_int8": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
+                              replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
+    "paged_prefill": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
+                          replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
+    "paged_prefill_int8": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
+                               replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -116,6 +146,10 @@ K1_ROWS, D_MODEL = 4 * 2048, 4096
 B_PRE, S_PRE, N_HEADS, N_KV, HEAD = 4, 2048, 32, 8, 128
 PRE_LENS = (2048, 1500, 700, 1)
 B_DEC, PSZ, NUM_PAGES, N_LAYERS = 32, 64, 2048, 32
+SCALE_LANES = 128
+# K9 at the chunked serve's shapes: 4 chunk rows of 256 (4 pages of 64)
+# resuming at these page-aligned starts (walk padded to 128 prefix pages).
+K9_S, K9_STARTS, K9_LENS = 256, (0, 1024, 4096, 7936), (256, 256, 100, 256)
 # Shapes of the training path (llama-1b-bench: batch 8 x 2048 tokens,
 # d_model 2048, 16 heads, 8 kv heads, head_dim 128).
 T_B, T_S, T_D, T_N, T_K = 8, 2048, 2048, 16, 8
@@ -133,6 +167,10 @@ TRAIN_PARITY_OVERRIDES = [
     "optimizer.warmup_steps=1",
 ]
 SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode")
+SERVE_CHUNKED_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode_int8",
+                         "paged_prefill_int8")
+SERVE_CHUNKED_OVERRIDES = ["inference.kv_quant=int8", "inference.prefix_cache=true",
+                           "inference.chunked_prefill=true"]
 TRAIN_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "rmsnorm_bwd", "rope_bwd",
                  "flash_dq", "flash_dkv")
 
@@ -157,7 +195,8 @@ def bits(t):
 def torch_int_of(t):
     import torch
 
-    return {torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype]
+    return {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int8: torch.int8}[t.dtype]
 
 
 def max_err(a, b, rows=None) -> float:
@@ -219,16 +258,40 @@ def k3_inputs(dtype, gen):
     return q, k, v, seg
 
 
-def k4_inputs(dtype, gen):
+def rand_pools(dtype, gen, rows, K, psz, H, quant):
+    """K/V pools [rows, K, psz, H] of standard normal values in ``dtype``,
+    or the int8 pools ``quantize_kv`` makes of such values, with float32
+    scale pools [rows, K, SCALE_LANES] as a dict ``scales`` (empty for a
+    pool of ``dtype``); scale lanes past the page hold random garbage."""
+    import torch
+
+    from orion_tpu_torch.ops import quantize_kv
+
+    if not quant:
+        return (*(torch.randn(rows, K, psz, H, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2)), {})
+    pools, scales = [], []
+    for _ in range(2):
+        pool = torch.empty(rows, K, psz, H, dtype=torch.int8, device="cuda")
+        scale = torch.rand(rows, K, SCALE_LANES, generator=gen, device="cuda")
+        for r0 in range(0, rows, 2048):
+            n = min(2048, rows - r0)
+            pool[r0:r0 + n], scale[r0:r0 + n, :, :psz] = quantize_kv(
+                torch.randn(n, K, psz, H, generator=gen, device="cuda"))
+        pools.append(pool)
+        scales.append(scale)
+    return (*pools, {"k_scale": scales[0], "v_scale": scales[1]})
+
+
+def k4_inputs(dtype, gen, quant=False):
     """32 slots over the full preset pool at layer 31: slots 0 and 1 idle
     (all-zero page table, scratch page 0), the rest with ragged contexts
-    up to 8191 on distinct pages."""
+    up to 8191 on distinct pages. Returns the pools' scales last."""
     import torch
 
     P = 8192 // PSZ
     rows = N_LAYERS * NUM_PAGES
-    k_pool = torch.randn(rows, N_KV, PSZ, HEAD, generator=gen, device="cuda").to(dtype)
-    v_pool = torch.randn(rows, N_KV, PSZ, HEAD, generator=gen, device="cuda").to(dtype)
+    k_pool, v_pool, scales = rand_pools(dtype, gen, rows, N_KV, PSZ, HEAD, quant)
     last_pos = [0, 0] + [int(8191 * ((b + 1) / B_DEC) ** 2) for b in range(2, B_DEC)]
     perm = torch.randperm(NUM_PAGES - 1, generator=gen, device="cuda") + 1
     table = torch.zeros(B_DEC, P, dtype=torch.int32, device="cuda")
@@ -242,7 +305,40 @@ def k4_inputs(dtype, gen):
     kn = torch.randn(B_DEC, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
     vn = torch.randn(B_DEC, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
     lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
-    return q, k_pool, v_pool, table, lp, kn, vn, (N_LAYERS - 1) * NUM_PAGES
+    return q, k_pool, v_pool, table, lp, kn, vn, (N_LAYERS - 1) * NUM_PAGES, scales
+
+
+def k9_inputs(dtype, gen, quant, *, B=4, N=N_HEADS, K=N_KV, H=HEAD, psz=PSZ, S=K9_S,
+              starts=K9_STARTS, lens=K9_LENS, NP=NUM_PAGES, L=N_LAYERS):
+    """Chunk rows over a pool of L layers x NP pages at the last layer: row
+    b resumes at ``starts[b]`` over history pages and writes its S // psz
+    chunk pages, all distinct; a row of length 1 with start 0 is a pad row
+    (all-zero walk, writes scratch page 0). The walk's prefix half is
+    padded to a power of two, as the engine pads it."""
+    import torch
+
+    NC = S // psz
+    n_pre = [st // psz for st in starts]
+    P_pre = 1 << (max(n_pre) - 1).bit_length() if max(n_pre) else 0
+    kp, vp, scales = rand_pools(dtype, gen, L * NP, K, psz, H, quant)
+    pad = [st == 0 and n == 1 for st, n in zip(starts, lens)]
+    need = sum(n + NC for n, p in zip(n_pre, pad) if not p)
+    assert need <= NP - 1, need
+    ids = (torch.randperm(NP - 1, generator=gen, device="cuda")[:need] + 1).tolist()
+    walk = torch.zeros(B, P_pre + NC, dtype=torch.int32)
+    for b in range(B):
+        if not pad[b]:
+            walk[b, :n_pre[b]] = torch.tensor(ids[:n_pre[b]], dtype=torch.int32)
+            walk[b, P_pre:] = torch.tensor(ids[n_pre[b]:n_pre[b] + NC], dtype=torch.int32)
+            ids = ids[n_pre[b] + NC:]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, kn, vn = rnd(B, S, N, H), rnd(B, S, K, H), rnd(B, S, K, H)
+    dev = dict(dtype=torch.int32, device="cuda")
+    return (q, kp, vp, walk.to("cuda"), torch.tensor(starts, **dev), torch.tensor(lens, **dev),
+            kn, vn, (L - 1) * NP, scales, P_pre)
 
 
 def t_norm_inputs(dtype, gen):
@@ -405,30 +501,92 @@ def phase_build():
     emit({"phase": "build", "seconds": secs, "sources": list(logs)})
 
 
-def check_k4(dtype, gen, plain, cuda):
-    """K4 kernel vs plain: outputs of the live slots, and the written pool
-    rows byte for byte (the two runs start from the same pool bytes)."""
+def run_both(cuda, plain, pools, wrows, args, kw):
+    """Run a kernel that writes rows ``wrows`` of ``pools`` in place, then
+    its plain version from the same pool bytes. Returns both outputs, the
+    written rows of each run, and the rows as they were before."""
     import torch
 
-    q, kp, vp, table, lp, kn, vn, base = k4_inputs(dtype, gen)
+    before = [t[wrows].clone() for t in pools]
+    out_k = cuda(*args, **kw)[0]
+    torch.cuda.synchronize()
+    rows_k = [t[wrows].clone() for t in pools]
+    for t, b in zip(pools, before):
+        t[wrows] = b
+    out_p = plain(*args, **kw)[0]
+    return out_k, out_p, rows_k, [t[wrows] for t in pools], before
+
+
+def require_bytes_equal(what, got, want):
+    import torch
+
+    for a, b in zip(got, want):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{what}: written pool rows differ from the plain version")
+
+
+def check_k4(dtype, gen, quant=False):
+    """K4 kernel vs plain: outputs of the live slots, and the written pool
+    rows (and scale rows, int8) byte for byte."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    name = "paged_decode_int8" if quant else "paged_decode"
+    cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+    q, kp, vp, table, lp, kn, vn, base, scales = k4_inputs(dtype, gen, quant)
     live = torch.arange(B_DEC, device="cuda") >= 2
     wrows = base + table[torch.arange(B_DEC, device="cuda"), lp // PSZ].long()
     wrows = wrows[live]
-    snap_k, snap_v = kp[wrows].clone(), vp[wrows].clone()
-    out_k, _, _ = cuda(q, kp, vp, table, lp, layer_base=base, k_new=kn, v_new=vn)
-    torch.cuda.synchronize()
-    rows_k = (kp[wrows].clone(), vp[wrows].clone())
-    kp[wrows], vp[wrows] = snap_k, snap_v
-    out_p, _, _ = plain(q, kp, vp, table, lp, layer_base=base, k_new=kn, v_new=vn)
-    rows_p = (kp[wrows], vp[wrows])
-    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(rows_k, rows_p)):
-        raise AssertionError("paged_decode: written pool rows differ from the plain version")
+    pools = [kp, vp, *scales.values()]
+    out_k, out_p, rows_k, rows_p, _ = run_both(
+        cuda, ops.paged_attention_plain, pools, wrows, (q, kp, vp, table, lp),
+        dict(layer_base=base, k_new=kn, v_new=vn, **scales))
+    require_bytes_equal(name, rows_k, rows_p)
     col = (lp % PSZ).long()[live]
+    want = ops.quantize_kv(kn[live])[0] if quant else kn[live]
     got = rows_k[0][torch.arange(len(col), device="cuda"), :, col]
-    if not torch.equal(got, kn[live]):
-        raise AssertionError("paged_decode: the new token's K is not in its pool slot")
-    err = require_close("paged_decode", str(dtype).split(".")[-1], out_k, out_p, rows=live)
-    del q, kp, vp
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: the new token's K is not in its pool slot")
+    err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=live)
+    del q, kp, vp, pools, scales
+    return err
+
+
+def check_k9(dtype, gen, quant, **shape):
+    """K9 kernel vs plain: outputs of the real queries; the chunk pages
+    (and their scale rows) byte for byte, scratch page 0 excluded; history
+    pages and scale lanes past the page untouched."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    name = "paged_prefill_int8" if quant else "paged_prefill"
+    cuda = ops.paged_flash_prefill_int8_cuda if quant else ops.paged_flash_prefill_cuda
+    kw = {key: shape.pop(key) for key in ("window", "logit_softcap") if key in shape}
+    q, kp, vp, walk, start, lens, kn, vn, base, scales, P_pre = k9_inputs(
+        dtype, gen, quant, **shape)
+    psz = kp.shape[2]
+    walk_l = walk.long()
+    wrows = base + walk_l[:, P_pre:].reshape(-1)
+    hist = walk_l[:, :P_pre]
+    hrows = base + hist[hist > 0]
+    pools = [kp, vp, *scales.values()]
+    hist_before = [t[hrows].clone() for t in pools]
+    out_k, out_p, rows_k, rows_p, before = run_both(
+        cuda, ops.paged_flash_prefill_plain, pools, wrows,
+        (q, kp, vp, walk, start, lens, kn, vn),
+        dict(n_prefix_pages=P_pre, layer_base=base, **scales, **kw))
+    real_w = wrows != base      # pad rows write scratch page 0, in no fixed order
+    require_bytes_equal(name, [r[real_w] for r in rows_k], [r[real_w] for r in rows_p])
+    if not all(torch.equal(bits(t[hrows]), bits(h)) for t, h in zip(pools, hist_before)):
+        raise AssertionError(f"{name}: history pages changed")
+    if quant and not all(torch.equal(r[real_w][..., psz:], b[real_w][..., psz:])
+                         for r, b in zip(rows_k[2:], before[2:])):
+        raise AssertionError(f"{name}: scale lanes past the page changed")
+    real = torch.arange(q.shape[1], device="cuda")[None] < lens[:, None]
+    err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=real)
+    del q, kp, vp, pools, scales, hist_before, before
     return err
 
 
@@ -460,16 +618,21 @@ def phase_kernels():
         )
         del q, k, v
         torch.cuda.empty_cache()
-        e4 = check_k4(dtype, gen, ops.paged_attention_plain, ops.paged_attention_cuda)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        errs[dn] = {"rmsnorm_fwd": e1, "rope_fwd": e2, "flash_fwd": e3, "paged_decode": e4}
+        errs[dn] = {"rmsnorm_fwd": e1, "rope_fwd": e2, "flash_fwd": e3}
+        for name, check, quant in (
+            ("paged_decode", check_k4, False), ("paged_decode_int8", check_k4, True),
+            ("paged_prefill", check_k9, False), ("paged_prefill_int8", check_k9, True),
+        ):
+            errs[dn][name] = check(dtype, gen, quant)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
               "tolerance": {k: TOL[k][dn] for k in TOL}})
     variants = kernel_variants(gen)
     emit({"phase": "kernels", "variants": variants})
+    emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
     return errs
 
@@ -509,10 +672,42 @@ def kernel_variants(gen):
             if not (torch.equal(kp, kp2) and torch.equal(vp, vp2)):
                 raise AssertionError(f"paged_decode variant H={H} {dn}: pools differ")
             e4 = require_close("paged_decode", dn, o_k, o_p)
+            # K4's int8 branch on the same table: pools and scales byte-equal.
+            kq, vq, sc = rand_pools(dtype, gen, 40, K, psz, H, True)
+            plain_pools = [t.clone() for t in (kq, vq, *sc.values())]
+            res_k = ops.paged_attention_int8_cuda(qd, kq, vq, table, lp, **sc, **kw4)
+            res_p = ops.paged_attention_plain(
+                qd, *plain_pools[:2], table, lp, k_scale=plain_pools[2],
+                v_scale=plain_pools[3], **kw4)
+            require_bytes_equal(f"paged_decode_int8 variant H={H} {dn}", res_k[1:], res_p[1:])
+            e4i = require_close("paged_decode_int8", dn, res_k[0], res_p[0])
             out.append({"H": H, "N": N, "K": K, "window": window, "softcap": cap,
-                        "q_offset": off, "dtype": dn, "flash_fwd": e3, "paged_decode": e4})
+                        "q_offset": off, "dtype": dn, "flash_fwd": e3, "paged_decode": e4,
+                        "paged_decode_int8": e4i})
     return out
 
+
+def k9_variants(gen):
+    """K9 (both branches) off the serve's shapes, on small pools: page
+    size 16, head_dim 64 and 256, windows, softcaps, f32 and bf16; every
+    case has a full row, a ragged row, a first chunk (start 0) and a pad
+    row."""
+    import torch
+
+    out = []
+    for H, N, K, psz, window, cap in (
+        (64, 8, 2, 16, None, None), (128, 4, 4, 16, 40, 30.0),
+        (256, 4, 2, 64, None, 50.0), (128, 8, 2, 64, 100, None),
+    ):
+        S = 2 * psz
+        shape = dict(N=N, K=K, H=H, psz=psz, S=S, starts=(4 * psz, psz, 0, 0),
+                     lens=(S, 7, S - 3, 1), NP=64, L=2, window=window, logit_softcap=cap)
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = {name: check_k9(dtype, gen, quant, **dict(shape))
+                    for name, quant in (("paged_prefill", False), ("paged_prefill_int8", True))}
+            out.append({"H": H, "N": N, "K": K, "page_size": psz, "window": window,
+                        "softcap": cap, "dtype": str(dtype).split(".")[-1], **errs})
+    return out
 
 
 INFER_OVERRIDES = [
@@ -541,6 +736,52 @@ def phase_parity():
         raise AssertionError(f"tiny-llama streams differ: cuda {gpu} cpu {cpu}")
     emit({"phase": "parity", "preset": "tiny-llama", "requests": len(prompts),
           "equal": True, "cuda_streams": gpu})
+    return {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
+
+
+def parity_chunked(params, pools):
+    """tiny-llama with chunked prefill and the prefix cache, on cuda and on
+    cpu: two waves sharing a two-page system prompt, the second repeating
+    a page-multiple prompt of the first (its whole context cached: the
+    copy-on-write admission). Returns the cuda run's launches."""
+    import numpy as np
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+
+    quant = ["inference.kv_quant=int8"] if pools == "int8" else []
+    cfg = get_config("tiny-llama", INFER_OVERRIDES + quant + [
+        "inference.chunked_prefill=true", "inference.prefix_cache=true",
+        "inference.prefill_chunk_tokens=32"])
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(1, 256, 32).tolist()
+    wave1 = [sys_prompt + rng.integers(1, 256, n).tolist() for n in (16, 5, 37)]
+    wave2 = [sys_prompt + rng.integers(1, 256, n).tolist() for n in (3, 20)] + [wave1[0]]
+    streams, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launches()
+        eng = InferenceEngine(cfg, params, device=dev)
+        streams[dev] = [eng.generate(wave1, 6), eng.generate(wave2, 6)]
+        eng.assert_page_accounting()
+        stats[dev] = eng.prefix_stats
+        if dev == "cuda":
+            launches = ops.launches()
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError(f"tiny-llama chunked+prefix streams ({pools} pools) differ: "
+                             f"cuda {streams['cuda']} cpu {streams['cpu']}")
+    st = stats["cuda"]
+    if st.hits < 3 or st.cow_pages < 1:
+        raise AssertionError(f"parity ({pools} pools): expected prefix hits and a COW page, {st}")
+    need = (("paged_prefill_int8", "paged_decode_int8") if pools == "int8"
+            else ("paged_prefill", "paged_decode"))
+    missing = [k for k in need + ("flash_fwd",) if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"parity ({pools} pools): kernels never launched: {missing}")
+    emit({"phase": "parity", "preset": "tiny-llama", "features": "chunked_prefill+prefix_cache",
+          "pools": pools, "equal": True, "prefix_hits": st.hits,
+          "cow_pages": st.cow_pages, "cuda_streams": streams["cuda"], "launches": launches})
+    return launches
 
 
 def profile_drive(name, drive, groups):
@@ -690,9 +931,150 @@ def phase_serve(profile=False):
     })
     if profile:
         profile_serve(eng, prompts)
-    del eng
+    return launches, eng.params   # serve_chunked reuses the weights
+
+
+def free_engine():
+    """Free a serve phase's engine and its KV pool: the phase's finiteness
+    wrapper of ``eng._sample`` closes a reference cycle through the
+    engine, which only the cycle collector breaks."""
+    import torch
+
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+
+
+def serve_wave(eng, prompts, n_new):
+    """Submit ``prompts`` together and drain the engine: the requests and
+    the wave's numbers (timing and prefix-cache deltas, TTFT, rates, peak
+    memory, launches). Prefill and decode rates divide by the time of the
+    dispatches that carry that work: under chunked prefill every prompt
+    token is computed in a mixed step, which carries decode rows too."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import ops
+
+    tm0, st0 = dict(eng.timing), dataclasses.asdict(eng.prefix_stats)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit_request(p, n_new) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tm = {k: eng.timing[k] - tm0[k] for k in tm0}
+    st = {k: v - st0[k] for k, v in dataclasses.asdict(eng.prefix_stats).items()}
+    V = eng.mcfg.vocab_size
+    for r in reqs:
+        if not (r.done and r.outcome == "completed" and len(r.generated) == n_new):
+            raise AssertionError(f"request {r.rid}: outcome {r.outcome!r}, "
+                                 f"{len(r.generated)} tokens")
+        if not all(0 <= t < V for t in r.generated):
+            raise AssertionError(f"request {r.rid}: token outside the vocab")
+    ttft = sorted(r.t_first - r.t_submit for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    busy_prefill = tm["prefill_s"] + tm["mixed_s"]
+    return reqs, {
+        "requests": len(reqs), "prompt_tokens": sum(map(len, prompts)),
+        "new_tokens_each": n_new, "wall_s": wall,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "prefill_tokens": tm["prefill_tokens"],
+        "prefill_tok_s": tm["prefill_tokens"] / busy_prefill if busy_prefill else None,
+        "decode_tokens": decode_tokens,
+        "decode_tok_s": decode_tokens / (tm["decode_s"] + tm["mixed_s"]),
+        "prefill_s": tm["prefill_s"], "mixed_s": tm["mixed_s"], "decode_s": tm["decode_s"],
+        **{k: tm[k] for k in ("mixed_steps", "prefill_chunks", "chunk_tokens",
+                              "chunk_pad_tokens", "steps")},
+        "prefix": {k: st[k] for k in ("hits", "misses", "cached_tokens", "cow_pages",
+                                      "inserted_pages", "evicted_pages")},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": ops.launches(),
+    }
+
+
+def phase_serve_chunked(profile=False, params=None):
+    """llama3-8b-infer with int8 KV, the prefix cache and chunked prefill:
+    two waves of 8 requests sharing a 1024-token system prompt; on the
+    serve phase's ``params`` when given, else on fresh seeded weights."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.metrics import PrefixCacheStats
+    from orion_tpu_torch.models import init_params
+
+    cfg = get_config("llama3-8b-infer", SERVE_CHUNKED_OVERRIDES)
+    V, psz = cfg.model.vocab_size, cfg.inference.page_size
+    t0 = time.perf_counter()
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    eng = InferenceEngine(cfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    finite = []
+    sample = eng._sample
+
+    def checked_sample(logits, reqs):
+        finite.append(bool(torch.isfinite(logits[: len(reqs)]).all()))
+        return sample(logits, reqs)
+
+    eng._sample = checked_sample
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, V, 1024).tolist()
+    tails = rng.integers(100, 1001, 15)
+    tails[0] = tails[0] // psz * psz      # a page-multiple prompt, repeated in wave 2
+    prompts = [sys_prompt + rng.integers(0, V, n).tolist() for n in tails]
+    waves = (prompts[:8], prompts[8:] + prompts[:1])
+    # Warm-up, as a server does at start: one 300-token request (a first
+    # chunk, then one resuming over its pages) compiles the Triton kernels
+    # and settles cuBLAS; its cached pages are dropped again.
+    eng.generate([rng.integers(0, V, 300).tolist()], 2)
+    eng.clear_prefix_cache()
+    eng.timing = {k: 0 for k in eng.timing}
+    eng.prefix_stats = PrefixCacheStats()
+    finite.clear()
+    totals = {}
+    for i, wave in enumerate(waves, 1):
+        _, res = serve_wave(eng, wave, 64)
+        for k, n in res["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        emit({"phase": "serve_chunked", "preset": "llama3-8b-infer",
+              "overrides": SERVE_CHUNKED_OVERRIDES, "wave": i, "setup_s": setup_s, **res})
+    st = eng.prefix_stats
+    if not (finite and all(finite)):
+        raise AssertionError("serve_chunked: non-finite prefill logits")
+    if st.hits < 8 or st.cached_tokens < 8 * 1024 or st.cow_pages < 1:
+        raise AssertionError(f"serve_chunked: too few prefix hits or no COW page: {st}")
+    missing = [k for k in SERVE_CHUNKED_KERNELS if totals[k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_chunked: kernels never launched: {missing}")
+    eng.assert_page_accounting()
+    if profile:
+        # A third wave like the second (the system prompt cached, new tails).
+        third = [sys_prompt + rng.integers(0, V, n).tolist()
+                 for n in rng.integers(100, 1001, 8)]
+        profile_drive("serve_chunked", lambda: serve_wave(eng, third, 64), {
+            "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+            "flash_fwd": ["flash_fwd_kernel"], "paged_decode_int8": ["paged_decode_kernel"],
+            "paged_prefill_int8": ["paged_prefill_kernel"],
+            "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
+    released = eng.clear_prefix_cache()
+    if eng.alloc.free_pages != cfg.inference.num_pages - 1:
+        raise AssertionError(f"serve_chunked: {eng.alloc.free_pages} free pages after "
+                             f"clear_prefix_cache(), want {cfg.inference.num_pages - 1}")
+    emit({"phase": "serve_chunked", "prefix_totals": {
+        "hits": st.hits, "misses": st.misses, "cached_tokens": st.cached_tokens,
+        "cow_pages": st.cow_pages}, "released_on_clear": released,
+        "free_pages": eng.alloc.free_pages, "launches": totals})
+    return totals
 
 
 def phase_train_parity():
@@ -888,6 +1270,94 @@ def train_timing(gen):
     return res
 
 
+def paged_int8_timing(gen):
+    """K4's int8 branch at the K4 shapes. Bytes: q and out, the new K/V
+    read and written as int8 with its scales, and every attended int8 K/V
+    element and its scale read once. The library yardstick is SDPA with
+    enable_gqa over the gathered, already dequantized context with a bool
+    mask; the gather and the dequantization are not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import dequantize_pages
+
+    dt = torch.bfloat16
+    q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant=True)
+    kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
+    ctx = int((lp.long() + 1).sum())
+    nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + 1) + 2 * B_DEC * N_KV * 4
+          + 2 * ctx * N_KV * (HEAD + 4) + table.numel() * 4 + lp.numel() * 4)
+    P = table.shape[1]
+    rows = base + table.long()
+    kc, vc = (dequantize_pages(pool[rows], s[rows], dt).permute(0, 2, 1, 3, 4)
+              .reshape(B_DEC, N_KV, P * PSZ, HEAD)
+              for pool, s in ((kp, sc["k_scale"]), (vp, sc["v_scale"])))
+    dmask = (torch.arange(P * PSZ, device="cuda")[None] <= lp[:, None].long())[:, None, None]
+    res = {"paged_decode_int8": dict(
+        ms=time_ms(lambda: ops.paged_attention_int8_cuda(q, kp, vp, table, lp, **kw)),
+        plain_ms=time_ms(lambda: ops.paged_attention_plain(q, kp, vp, table, lp, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=dmask, enable_gqa=True)),
+        bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))}
+    del q, kp, vp, kc, vc, sc
+    torch.cuda.empty_cache()
+    return res
+
+
+def paged_prefill_timing(gen):
+    """K9 in bfloat16 and over int8 pools at the chunked serve's shapes.
+    Bytes: q and out, the chunk's K/V read and written (as int8 with its
+    scales under int8), and the rows' real history pages read once;
+    operations: 4 N H per attended (query, key) pair of the real queries.
+    The library yardstick is SDPA with enable_gqa over the gathered
+    (dequantized) history and the chunk, with a bool mask; the gather and
+    the dequantization are not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import dequantize_pages
+
+    dt = torch.bfloat16
+    res = {}
+    for name, quant in (("paged_prefill", False), ("paged_prefill_int8", True)):
+        q, kp, vp, walk, start, lens, kn, vn, base, sc, P_pre = k9_inputs(dt, gen, quant)
+        kw = dict(n_prefix_pages=P_pre, layer_base=base, **sc)
+        args = (q, kp, vp, walk, start, lens, kn, vn)
+        cuda = ops.paged_flash_prefill_int8_cuda if quant else ops.paged_flash_prefill_cuda
+        B, S = q.shape[:2]
+        hist = sum(K9_STARTS)
+        pairs = sum(n * st + n * (n + 1) // 2 for st, n in zip(K9_STARTS, K9_LENS))
+        item = 1 if quant else 2
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + item)
+              + 2 * hist * N_KV * HEAD * item + walk.numel() * 4 + 2 * B * 4)
+        if quant:
+            nb += 2 * (kn.numel() // HEAD + hist * N_KV) * 4
+        rows = base + walk[:, :P_pre].long()
+        kpre, vpre = (pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt)
+                      for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
+        kc, vc = (torch.cat([pre.permute(0, 1, 3, 2, 4).reshape(B, P_pre * PSZ, N_KV, HEAD),
+                             new], dim=1).transpose(1, 2)
+                  for pre, new in ((kpre, kn), (vpre, vn)))
+        pos = start.long()[:, None] + torch.arange(S, device="cuda")
+        pre_idx = torch.arange(P_pre * PSZ, device="cuda")
+        kv_pos = torch.cat([pre_idx.expand(B, -1), pos], dim=1)
+        seg = torch.arange(S, device="cuda")[None] < lens.long()[:, None]
+        kv_seg = torch.cat([pre_idx[None] < start.long()[:, None], seg], dim=1)
+        mask = ((pos[:, :, None] >= kv_pos[:, None]) & (seg[:, :, None] == kv_seg[:, None]))
+        qt = q.transpose(1, 2)
+        res[name] = dict(
+            ms=time_ms(lambda: cuda(*args, **kw)),
+            plain_ms=time_ms(lambda: ops.paged_flash_prefill_plain(*args, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True)),
+            bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
+        del q, kp, vp, kn, vn, kc, vc, kpre, vpre, sc, mask, qt, args
+        torch.cuda.empty_cache()
+    return res
+
+
 def bound(nbytes, flops, rate):
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -943,7 +1413,7 @@ def phase_timing():
     del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
 
-    q, kp, vp, table, lp, kn, vn, base = k4_inputs(dt, gen)
+    q, kp, vp, table, lp, kn, vn, base, _ = k4_inputs(dt, gen)
     kw = dict(layer_base=base, k_new=kn, v_new=vn)
     ctx = int((lp.long() + 1).sum())
     nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * ctx * N_KV * HEAD * 2
@@ -962,6 +1432,8 @@ def phase_timing():
         bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))
     del q, kp, vp, kc, vc
     torch.cuda.empty_cache()
+    res.update(paged_int8_timing(gen))
+    res.update(paged_prefill_timing(gen))
     res.update(train_timing(gen))
     for name, r in res.items():
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
@@ -976,8 +1448,9 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)}")
     parser.add_argument("--profile", action="store_true",
-                        help="after the serve, drive the same requests again, and "
-                             "after the train, run two more steps, under "
+                        help="after the serve and the chunked serve, drive the same "
+                             "requests (the chunked serve: its second wave) again, "
+                             "and after the train, run two more steps, under "
                              "torch.profiler (tables in chiprun_out/)")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -997,24 +1470,36 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     line = phase_device()
-    errs = launches = train_launches = timing = None
+    errs = launches = chunked_launches = parity_launches = train_launches = timing = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         errs = phase_kernels()
     if "parity" in phases:
-        phase_parity()
+        parity_launches = phase_parity()
+    serve_params = None
     if "serve" in phases:
-        launches = phase_serve(args.profile)
+        launches, serve_params = phase_serve(args.profile)
+        free_engine()
+    if "serve_chunked" in phases:
+        chunked_launches = phase_serve_chunked(args.profile, serve_params)
+        free_engine()
+    del serve_params
+    torch.cuda.empty_cache()
     if "train_parity" in phases:
         phase_train_parity()
     if "train" in phases:
         train_launches = phase_train(args.profile)
     if "timing" in phases:
         timing = phase_timing()
-    if errs and launches and train_launches and timing:
-        # A kernel on both paths counts its launches in both drives.
-        by_path = {name: {"serve": launches[name], "train": train_launches[name]}
+    if errs and launches and chunked_launches and parity_launches and train_launches and timing:
+        # A kernel on several paths counts its launches in each drive. K9's
+        # bf16/f32 branch runs where chunked prefill or the prefix cache
+        # serves a bf16/f32 pool: the float32 chunked parity drive (the
+        # full-width chunked serve runs the int8 pool).
+        by_path = {name: {"serve": launches[name], "serve_chunked": chunked_launches[name],
+                          "train": train_launches[name],
+                          "parity_chunked_f32": parity_launches["float32"][name]}
                    for name in KERNEL_META}
         emit({"kernels": [
             dict(name=name, **KERNEL_META[name],

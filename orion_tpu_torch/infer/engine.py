@@ -1,19 +1,28 @@
-"""Continuous-batching inference engine over the paged KV pool (core).
+"""Continuous-batching inference engine over the paged KV pool.
 
-Counterpart of ``orion_tpu/infer/engine.py``'s core scheduler: requests
-queue in ``submit``; each ``step`` reaps finished slots, admits waiting
-requests into free slots while the page pool can hold them, prefills the
-admitted burst in one dispatch, and runs one fused decode window (W token
-steps, one host fetch of the [W, B] token block) over every live slot.
-Admission is in arrival order. Page pressure preempts the youngest
-request, which re-enters the queue head and recomputes its context on
-re-admission.
+Counterpart of ``orion_tpu/infer/engine.py``'s scheduler: requests queue
+in ``submit``; each ``step`` reaps finished slots, admits waiting requests
+into free slots while the page pool can hold them, and then either
+prefills the admitted burst in one dispatch and runs one fused decode
+window (W token steps, one host fetch of the [W, B] token block) over
+every live slot, or — with inference.chunked_prefill, while prompt chunks
+are pending — runs ONE mixed step: up to ``prefill_chunk_tokens`` of
+prompt chunks plus one decode token for every live slot. Admission is in
+arrival order. Page pressure preempts the youngest request, which
+re-enters the queue head and recomputes its context on re-admission.
 
-Not ported yet (each raises at construction when configured): prefix
-cache, chunked/mixed prefill, speculative decoding, constrained decoding,
-int8 KV and weights, the host tier and long-context paging, decode-window
-autotune, NaN guard, sliding-window page rolling (a window on every
-layer; interleaved local/global windows are served). Also absent:
+With inference.prefix_cache a radix tree (``infer/prefix_cache.py``)
+keeps the full pages of finished and preempted requests; an admission maps
+the longest cached prefix (shared, refcounted) and prefills only the
+tail, and a fully cached context copies its last page on write. Cached
+pages are reclaimable headroom, evicted LRU under pressure. With
+inference.kv_quant='int8' the pool is int8 with float32 scales.
+
+Not ported yet (each raises at construction when configured):
+speculative decoding, constrained decoding, int8 weights, MoE, the host
+tier and long-context paging, decode-window autotune, NaN guard,
+sliding-window page rolling (a window on every layer; interleaved
+local/global windows are served) and ``paged_prefill=false``. Also absent:
 request priorities, the deadline/shedding policy, fault injection,
 watchdog and tracer, and the XLA-fallback degradation ladder (a failing
 kernel raises).
@@ -35,11 +44,19 @@ import numpy as np
 import torch
 
 from orion_tpu_torch.config import Config
-from orion_tpu_torch.infer.kv_cache import PageAllocator, init_cache, pages_per_seq
-from orion_tpu_torch.infer.runner import decode_window, prefill_step
+from orion_tpu_torch.infer.kv_cache import (
+    PageAllocator,
+    copy_page,
+    init_cache,
+    pages_per_seq,
+)
+from orion_tpu_torch.infer.prefix_cache import PrefixCache
+from orion_tpu_torch.infer.runner import decode_window, mixed_step, prefill_step
 from orion_tpu_torch.infer.sampling import sample
 from orion_tpu_torch.infer.scheduler import Request
+from orion_tpu_torch.metrics import PrefixCacheStats
 from orion_tpu_torch.models.convert import to_device
+from orion_tpu_torch.ops import check_prefill_fit
 from orion_tpu_torch.ops.common import round_up
 
 
@@ -61,9 +78,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.weight_quant": m.weight_quant is not None,
         "model.n_experts > 0 (MoE)": m.is_moe,
-        "inference.kv_quant": i.kv_quant is not None,
-        "inference.prefix_cache": i.prefix_cache,
-        "inference.chunked_prefill": i.chunked_prefill,
         "inference.speculative": i.speculative,
         "inference.constrained": i.constrained,
         "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
@@ -73,12 +87,19 @@ def _check_supported(cfg: Config) -> None:
         "a sliding window on every layer (page rolling)": (
             m.sliding_window is not None and m.sliding_window_pattern is None
         ),
+        "inference.paged_prefill=false (the gather body needs explicit "
+        "positions in K3)": not i.paged_prefill,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
         )
+
+
+def _pow2(n: int) -> int:
+    """The next power of two >= n (n >= 1): padded batch and walk widths."""
+    return 1 << (n - 1).bit_length()
 
 
 class InferenceEngine:
@@ -98,7 +119,6 @@ class InferenceEngine:
         self.cfg = cfg
         self.mcfg = cfg.model
         self.icfg = cfg.inference
-        self.params = to_device(params, self.device)
         self.eos_id = eos_id
         self.psz = self.icfg.page_size
         self.pages_per_seq = pages_per_seq(self.icfg)
@@ -108,8 +128,30 @@ class InferenceEngine:
                 f"prefill_chunk={self.icfg.prefill_chunk} must be a "
                 f"multiple of page_size={self.psz}"
             )
+        self.chunked = self.icfg.chunked_prefill
+        if self.chunked and (
+            self.icfg.prefill_chunk_tokens < self.psz
+            or self.icfg.prefill_chunk_tokens % self.psz
+        ):
+            raise ValueError(
+                f"prefill_chunk_tokens={self.icfg.prefill_chunk_tokens} "
+                f"must be a positive multiple of page_size={self.psz} "
+                f"(chunks split at page granularity)"
+            )
+        if self.chunked or self.icfg.prefix_cache:
+            # Rows resuming over cached pages run K9: a page size its
+            # blocks cannot hold fails here, not mid-serve.
+            check_prefill_fit(
+                n_heads=self.mcfg.n_heads, n_kv_heads=self.mcfg.n_kv_heads,
+                head_dim=self.mcfg.resolved_head_dim, page_size=self.psz,
+            )
         self.cache = init_cache(self.mcfg, self.icfg, self.device)
+        self.params = to_device(params, self.device)
         self.alloc = PageAllocator(self.icfg.num_pages)
+        self._pcache = (
+            PrefixCache(self.psz, self.alloc) if self.icfg.prefix_cache else None
+        )
+        self.prefix_stats = PrefixCacheStats()
         self.page_table = np.zeros((self.max_batch, self.pages_per_seq), np.int32)
         self.seq_lens = np.zeros(self.max_batch, np.int32)
         self.last_token = np.zeros(self.max_batch, np.int32)
@@ -126,9 +168,14 @@ class InferenceEngine:
         self.slot_top_k = np.full(self.max_batch, self.icfg.top_k, np.int32)
         self.slot_top_p = np.full(self.max_batch, self.icfg.top_p, np.float32)
         # Host-clock spans (each ends in the dispatch's token fetch, which
-        # waits for the device): prefill and decode time, prefill tokens.
-        self.timing = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
-                       "decode_slot_steps": 0, "steps": 0, "windows": 0}
+        # waits for the device): prefill, decode-window and mixed-step
+        # time; prefill tokens computed (cached prefixes excluded); the
+        # chunked-prefill tally (mixed dispatches, chunk rows, real and
+        # padded-out chunk positions).
+        self.timing = {"prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
+                       "prefill_tokens": 0, "decode_slot_steps": 0, "steps": 0,
+                       "windows": 0, "mixed_steps": 0, "prefill_chunks": 0,
+                       "chunk_tokens": 0, "chunk_pad_tokens": 0}
 
     # -- public API --------------------------------------------------------
 
@@ -204,11 +251,15 @@ class InferenceEngine:
         return req
 
     def step(self) -> list[Request]:
-        """Admit + prefill new requests, then run one decode window over
-        every live slot; returns the requests that finished."""
+        """Admit new requests, then run one mixed step (while prompt chunks
+        are pending) or a prefill of the admitted burst and one decode
+        window over every live slot; returns the requests that finished."""
         self._reap()
         self._admit()
-        if self._decode_window_all():
+        mixed = self.chunked and any(
+            r is not None and r.prefill_pending and not r.done for r in self.slots
+        )
+        if self._mixed_decode() if mixed else self._decode_window_all():
             self.timing["windows"] += 1
         self.timing["steps"] += 1
         done, self._just_finished = self._just_finished, []
@@ -256,19 +307,86 @@ class InferenceEngine:
                         yield req.rid, []
                     pending.discard(i)
 
+    def clear_prefix_cache(self) -> int:
+        """Drop every cached prefix (idle cached pages return to the free
+        list); returns the pages released. Live requests keep their shared
+        pages through their own refs. 0 with the prefix cache off."""
+        if self._pcache is None:
+            return 0
+        return self._pcache.clear()
+
+    def prefix_match_tokens(self, context: Sequence[int]) -> int:
+        """Tokens of ``context`` the prefix cache could serve right now
+        (read only: no locks, no LRU stamps, no splits); 0 below
+        prefix_cache_min_pages or with the cache off."""
+        if self._pcache is None:
+            return 0
+        pages = self._pcache.peek(context, len(context) // self.psz)
+        if pages < max(self.icfg.prefix_cache_min_pages, 1):
+            return 0
+        return pages * self.psz
+
+    def assert_page_accounting(self) -> None:
+        """The pool invariant: every page's allocator refcount equals its
+        owners — one per page a request maps plus one per prefix-cache
+        node holding it — and the free list holds exactly the rest. A
+        double release or a leak in any teardown path trips it."""
+        n = self.icfg.num_pages
+        refs = [0] * n
+        owners = [r for r in self.slots if r is not None]
+        owners += list(self.waiting) + list(self._just_finished)
+        for req in owners:
+            for p in req.pages:
+                refs[p] += 1
+        if self._pcache is not None:
+            for p in self._pcache.held_pages():
+                refs[p] += 1
+        bad = [(p, refs[p], self.alloc.refcount(p))
+               for p in range(1, n) if refs[p] != self.alloc.refcount(p)]
+        assert not bad, f"page refcount mismatch (page, owners, refcount): {bad[:8]}"
+        live = sum(1 for p in range(1, n) if refs[p] > 0)
+        assert self.alloc.free_pages == n - 1 - live, (
+            f"free-list size {self.alloc.free_pages} != {n - 1 - live} "
+            f"(pool {n}, live {live})"
+        )
+
     # -- scheduler internals ----------------------------------------------
 
     def _bucket_len(self, n: int) -> int:
         return min(round_up(n, self.icfg.prefill_chunk), self.icfg.max_seq_len)
+
+    def _first_window(self, last_written: int) -> int:
+        """Pages a slot needs through the first decode window after its
+        context (``last_written`` = the last context position)."""
+        last = min(last_written + self.decode_window, self.icfg.max_seq_len - 1)
+        return min(last // self.psz + 1, self.pages_per_seq)
 
     def _admission_need(self, context_len: int) -> tuple[int, int]:
         """(n_pages, need): the prefill's pages and the pool demand of
         admitting a request whose context is ``context_len`` tokens — the
         prefill's pages or the first decode window's, plus one spare."""
         n_pages = self._bucket_len(context_len) // self.psz
-        last = min(context_len + self.decode_window - 1, self.icfg.max_seq_len - 1)
-        first_window = min(last // self.psz + 1, self.pages_per_seq)
+        first_window = self._first_window(context_len - 1)
         return n_pages, max(n_pages + 1, first_window + 1)
+
+    def _admission_need_warm(
+        self, context_len: int, n_match: int, full: bool
+    ) -> tuple[int, int, int]:
+        """(n_pages, n_alloc, need) of a prefix-matched admission:
+        ``n_alloc`` fresh pages (the uncached tail, no bucket padding, or
+        the one copy-on-write page of a full match) and ``need`` the same
+        prefill + first-window demand as a cold admission's. Never above
+        the cold need submit() checked."""
+        if full:
+            # Decode restarts at position len-1, rewriting the final
+            # token's KV slot in a private copy of the last matched page.
+            n_pages, n_alloc = n_match, 1
+            first_window = self._first_window(context_len - 2)
+        else:
+            n_pages = -(-context_len // self.psz)
+            n_alloc = n_pages - n_match
+            first_window = self._first_window(context_len - 1)
+        return n_pages, n_alloc, max(n_alloc + 1, n_alloc + first_window - n_pages + 1)
 
     def _worst_admission_need(self, min_ctx: int, max_ctx: int) -> int:
         """Max admission need over every context in [min_ctx, max_ctx]."""
@@ -279,11 +397,40 @@ class InferenceEngine:
         first_window = np.minimum(last // self.psz + 1, self.pages_per_seq)
         return int(np.maximum(bucket // self.psz + 1, first_window + 1).max())
 
+    def _available(self) -> int:
+        """Pool headroom: free pages plus every cached page no live request
+        has pinned (the cache is reclaimable headroom, not a tenant)."""
+        ev = self._pcache.evictable_pages() if self._pcache is not None else 0
+        return self.alloc.free_pages + ev
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Allocate n pages, evicting LRU prefix-cache pages as needed."""
+        short = n - self.alloc.free_pages
+        if short > 0 and self._pcache is not None:
+            self.prefix_stats.evicted_pages += self._pcache.evict(short)
+        return self.alloc.alloc(n)
+
+    def _match_prefix(self, context: list[int]):
+        """(n_match, pages, node): the longest usable cached prefix of
+        ``context``, page-granular, LOCKED against eviction (the caller
+        owns the unlock). A full match of a page-multiple context is
+        allowed: the copy-on-write admission recomputes its last token
+        through decode."""
+        if self._pcache is None:
+            return 0, [], None
+        pages, node = self._pcache.match(context, len(context) // self.psz)
+        if len(pages) < max(self.icfg.prefix_cache_min_pages, 1):
+            if node is not None:
+                self._pcache.unlock(node)
+            return 0, [], None
+        return len(pages), pages, node
+
     def _admit(self) -> None:
         # Pass 1 (host): claim slots + pages in arrival order, head-of-line
         # blocking on resources. ``reserved`` carries the headroom earlier
         # admissions of this burst claimed but have not allocated yet, so
         # the burst cannot over-commit the pool.
+        psz = self.psz
         admitted: list[tuple[Request, int]] = []
         reserved = 0
         while self.waiting:
@@ -292,14 +439,66 @@ class InferenceEngine:
             if slot is None:
                 break
             context = req.context
-            n_pages, need = self._admission_need(len(context))
-            if self.alloc.free_pages - reserved < need:
+            n_match, m_pages, m_node = self._match_prefix(context)
+            full = bool(n_match) and n_match * psz >= len(context)
+            if full and (self.icfg.temperature if req.temperature is None
+                         else req.temperature) != 0.0:
+                # A sampled request would draw its first token from the
+                # decode stream, not the prefill's: re-prefill one page
+                # of tail instead (greedy argmax needs no stream).
+                full = False
+                n_match = (len(context) - 1) // psz
+                if n_match < max(self.icfg.prefix_cache_min_pages, 1):
+                    self._pcache.unlock(m_node)
+                    n_match, m_pages, m_node = 0, [], None
+                else:
+                    m_pages = m_pages[:n_match]
+            if n_match:
+                n_pages, n_alloc, need = self._admission_need_warm(
+                    len(context), n_match, full)
+                s_pad = self._bucket_len(len(context) - n_match * psz)
+            else:
+                n_pages, need = self._admission_need(len(context))
+                n_alloc = n_pages
+                s_pad = self._bucket_len(len(context))
+            if self._available() - reserved < need:
+                if m_node is not None:
+                    self._pcache.unlock(m_node)
                 break
-            reserved += need - n_pages
+            reserved += need - n_alloc
             self.waiting.popleft()
             req.slot = slot
             req.admit_seq = next(self._admit_seq)
-            req.pages = self.alloc.alloc(n_pages)
+            req.prefix_node = m_node
+            req.freed_until = 0
+            stats = self.prefix_stats
+            if full:
+                # Whole context cached: no prefill. Copy the last matched
+                # page (the first decode step rewrites its final slot, and
+                # shared pages are immutable) and restart decode at len-1.
+                cow = self._alloc_pages(1)[0]
+                copy_page(self.cache, m_pages[-1], cow, n_layers=self.mcfg.n_layers,
+                          num_pages=self.icfg.num_pages)
+                for p in m_pages[:-1]:
+                    self.alloc.retain(p)
+                req.pages = list(m_pages[:-1]) + [cow]
+                req.n_prefix = n_match - 1
+                stats.hits += 1
+                stats.cached_tokens += len(context) - 1
+                stats.cow_pages += 1
+            elif n_match:
+                fresh = self._alloc_pages(n_alloc)
+                for p in m_pages:
+                    self.alloc.retain(p)
+                req.pages = list(m_pages) + fresh
+                req.n_prefix = n_match
+                stats.hits += 1
+                stats.cached_tokens += n_match * psz
+            else:
+                req.pages = self._alloc_pages(n_alloc)
+                req.n_prefix = 0
+                if self._pcache is not None:
+                    stats.misses += 1
             self.slots[slot] = req
             icfg = self.icfg
             self.slot_temp[slot] = (
@@ -308,8 +507,23 @@ class InferenceEngine:
             self.slot_top_k[slot] = icfg.top_k if req.top_k is None else req.top_k
             self.slot_top_p[slot] = icfg.top_p if req.top_p is None else req.top_p
             self.page_table[slot, :len(req.pages)] = req.pages
-            self.seq_lens[slot] = len(context)
-            admitted.append((req, self._bucket_len(len(context))))
+            if full:
+                self.seq_lens[slot] = len(context) - 1
+                self.last_token[slot] = context[-1]
+                if req.max_new_tokens <= 0:
+                    req.done = True   # scoring request, nothing to compute
+            else:
+                self.seq_lens[slot] = len(context)
+                admitted.append((req, s_pad))
+        if admitted and self.chunked:
+            # Chunked prefill: no prefill dispatch here; admitted prompts
+            # set their chunk cursor (past any cached prefix) and ride the
+            # next mixed steps.
+            for req, _ in admitted:
+                req.prefill_done = req.n_prefix * psz
+                req.prefill_pending = True
+                self.seq_lens[req.slot] = req.prefill_done
+            return
         # Pass 2 (device): ONE prefill dispatch for the whole burst, padded
         # to its largest bucket; K3 skips the all-padding tiles of shorter
         # rows, so each row's attention pays about its own length.
@@ -318,43 +532,63 @@ class InferenceEngine:
                 [r for r, _ in admitted], max(s for _, s in admitted)
             )
 
-    def _prefill_bucket(self, reqs: list[Request], s_pad: int) -> None:
-        """Prefill admitted requests in one dispatch. Rows pad to a power
-        of two; pad rows have length 1 and write scratch page 0, as do
-        positions past a row's own bucket."""
-        n_pages = s_pad // self.psz
-        nb = 1 << (len(reqs) - 1).bit_length()
+    def _chunk_arrays(self, rows: list[tuple[Request, int, int, list[int]]],
+                      s_pad: int):
+        """Host arrays of one prefill dispatch. Each row is (request, start,
+        n, pages): the request's context[start:start+n] resumes at the
+        page-aligned ``start`` over its first start/psz pages and writes
+        ``pages``. Rows pad to a power of two and the prefix walk to a
+        power-of-two width; pad rows have length 1 and write scratch page
+        0, as do positions past a row's own pages."""
+        psz = self.psz
+        nb = _pow2(max(len(rows), 1))
         tokens = np.zeros((nb, s_pad), np.int64)
         lengths = np.ones(nb, np.int32)
-        pages = np.zeros((nb, n_pages), np.int64)
-        for i, req in enumerate(reqs):
-            ctx = req.context
-            tokens[i, :len(ctx)] = ctx
-            lengths[i] = len(ctx)
-            pages[i, :len(req.pages)] = req.pages
+        pages = np.zeros((nb, s_pad // psz), np.int64)
+        max_pre = max((start // psz for _, start, _, _ in rows), default=0)
+        p_pre = _pow2(max_pre) if max_pre else 0
+        pre_lens = np.zeros(nb, np.int32)
+        pre_pages = np.zeros((nb, p_pre), np.int64)
+        for i, (req, start, n, pg) in enumerate(rows):
+            npre = start // psz
+            tokens[i, :n] = req.context[start:start + n]
+            lengths[i] = n
+            pre_lens[i] = start
+            pre_pages[i, :npre] = req.pages[:npre]
+            pages[i, :len(pg)] = pg
         dev = self.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (tokens, lengths, pages, pre_lens, pre_pages))
+
+    def _prefill_bucket(self, reqs: list[Request], s_pad: int) -> None:
+        """Prefill admitted requests in one dispatch; prefix-matched rows
+        carry only their uncached tail, resuming over their shared pages."""
+        psz = self.psz
+        rows = [(r, r.n_prefix * psz, len(r.context) - r.n_prefix * psz,
+                 r.pages[r.n_prefix:]) for r in reqs]
+        tokens, lengths, pages, pre_lens, pre_pages = self._chunk_arrays(rows, s_pad)
         t0 = time.perf_counter()
         logits, self.cache = prefill_step(
-            self.params, self.cache,
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(pages).to(dev),
-            cfg=self.mcfg,
+            self.params, self.cache, tokens, lengths, pages,
+            pre_lens, pre_pages if pre_pages.shape[1] else None, cfg=self.mcfg,
         )
         firsts = self._sample(logits, reqs)   # the one host fetch
         t1 = time.perf_counter()
         self.timing["prefill_s"] += t1 - t0
-        self.timing["prefill_tokens"] += int(sum(len(r.context) for r in reqs))
+        self.timing["prefill_tokens"] += sum(n for _, _, n, _ in rows)
         for i, req in enumerate(reqs):
-            if req.max_new_tokens <= 0:
-                req.done = True   # prefill-only (scoring) request
-                continue
-            first = int(firsts[i])
-            self.last_token[req.slot] = first
-            req.generated.append(first)
-            if req.t_first is None:
-                req.t_first = t1
-            self._maybe_finish(req, first)
+            self._first_token(req, int(firsts[i]), t1)
+
+    def _first_token(self, req: Request, first: int, t: float) -> None:
+        """Accept a prefill's sampled token (nothing for a scoring request)."""
+        if req.max_new_tokens <= 0:
+            req.done = True   # prefill-only (scoring) request
+            return
+        self.last_token[req.slot] = first
+        req.generated.append(first)
+        if req.t_first is None:
+            req.t_first = t
+        self._maybe_finish(req, first)
 
     def _sample(self, logits: torch.Tensor, reqs: list[Request]) -> np.ndarray:
         icfg = self.icfg
@@ -382,11 +616,41 @@ class InferenceEngine:
         )
         return toks.cpu().numpy()
 
-    def _teardown_slot(self, req: Request) -> None:
-        """The one slot-teardown path (reap and preemption)."""
-        slot = req.slot
+    def _sampling_kw(self, reqs: list[Request]) -> dict:
+        """Decode sampling parameters: python scalars when every request
+        takes the defaults (greedy stays a bare argmax), else per slot."""
+        if all(r.temperature is None and r.top_k is None and r.top_p is None
+               for r in reqs):
+            return dict(temperature=self.icfg.temperature, top_k=self.icfg.top_k,
+                        top_p=self.icfg.top_p)
+        dev = self.device
+        return dict(temperature=torch.from_numpy(self.slot_temp).to(dev),
+                    top_k=torch.from_numpy(self.slot_top_k).to(dev),
+                    top_p=torch.from_numpy(self.slot_top_p).to(dev))
+
+    def _release_request(self, req: Request, n_cached: int) -> None:
+        """Release a leaving request's pages. With the prefix cache, the
+        full pages of its first ``n_cached`` tokens (whose KV is in the
+        pool) are donated to the tree first — on reap AND preempt, so a
+        preempted request re-matches its own pages. insert() retains what
+        it keeps; the request then drops its own refs uniformly."""
+        if self._pcache is not None and req.pages:
+            k = min(n_cached // self.psz, len(req.pages))
+            if k:
+                self.prefix_stats.inserted_pages += self._pcache.insert(
+                    req.context[: k * self.psz], req.pages[:k]
+                )
+        if req.prefix_node is not None:
+            self._pcache.unlock(req.prefix_node)
+            req.prefix_node = None
         self.alloc.free(req.pages)
         req.pages = []
+        req.n_prefix = 0
+
+    def _teardown_slot(self, req: Request, n_cached: int) -> None:
+        """The one slot-teardown path (reap and preemption)."""
+        slot = req.slot
+        self._release_request(req, n_cached)
         req.slot = None
         self.slots[slot] = None
         self.page_table[slot] = 0
@@ -395,29 +659,47 @@ class InferenceEngine:
 
     def _preempt(self, req: Request) -> None:
         """Evict an active request, returning its pages; it re-enters at the
-        head of the queue and recomputes its whole context on re-admission."""
+        head of the queue and recomputes its context on re-admission (from
+        whatever the prefix cache kept: the completed chunks of a mid-
+        prefill request are donated, seq_lens being its chunk cursor)."""
         self.preemptions += 1
-        self._teardown_slot(req)
+        self._teardown_slot(req, int(self.seq_lens[req.slot]))
+        req.freed_until = 0
+        req.prefill_pending = False
+        req.prefill_done = 0
         self.waiting.appendleft(req)
 
     def _grow_pages(self) -> None:
         """Pre-provision every live slot with pages for the whole upcoming
         decode window (the device writes up to W positions ahead of the
-        host's view), oldest request first, preempting the youngest other
-        request under pool pressure."""
+        host's view), oldest request first: cached pages are reclaimed
+        first, then the youngest other request is preempted."""
         W = self.decode_window
         by_age = sorted(
             (r for r in self.slots if r is not None and not r.done),
             key=lambda r: r.admit_seq,
         )
+
+        def n_need(req):
+            last = min(int(self.seq_lens[req.slot]) + W - 1, self.icfg.max_seq_len - 1)
+            return min(last // self.psz + 1, self.pages_per_seq)
+
+        if self._pcache is not None:
+            # The pass's whole shortfall reclaimed in one eviction sweep.
+            short = sum(max(n_need(r) - len(r.pages), 0) for r in by_age)
+            short -= self.alloc.free_pages
+            if short > 0:
+                self.prefix_stats.evicted_pages += self._pcache.evict(short)
         for req in by_age:
             if req.slot is None:
                 continue  # preempted earlier in this pass
-            pos = int(self.seq_lens[req.slot])
-            last = min(pos + W - 1, self.icfg.max_seq_len - 1)
-            n_need = min(last // self.psz + 1, self.pages_per_seq)
-            while len(req.pages) < n_need:
+            while req.slot is not None and len(req.pages) < n_need(req):
                 if self.alloc.free_pages < 1:
+                    # Cached pages go before live requests (a preemption
+                    # may donate pages, reclaimed on the next turn).
+                    if self._pcache is not None and self._pcache.evict(1):
+                        self.prefix_stats.evicted_pages += 1
+                        continue
                     victim = next(
                         (r for r in reversed(by_age)
                          if r.slot is not None and r is not req), None,
@@ -429,7 +711,7 @@ class InferenceEngine:
                         )
                     self._preempt(victim)
                     continue
-                page = self.alloc.alloc(1)[0]
+                page = self._alloc_pages(1)[0]
                 self.page_table[req.slot, len(req.pages)] = page
                 req.pages.append(page)
 
@@ -443,29 +725,16 @@ class InferenceEngine:
         W = self.decode_window
         mask = np.array([r is not None and not r.done for r in self.slots], bool)
         dev = self.device
-        args = (
+        t0 = time.perf_counter()
+        toks, self.cache = decode_window(
             self.params, self.cache,
             torch.from_numpy(self.last_token).to(dev),
             torch.from_numpy(self.seq_lens).to(dev),
             torch.from_numpy(self.page_table).to(dev),
             torch.from_numpy(mask).to(dev),
-            self._gen,
+            self._gen, n_steps=W, cfg=self.mcfg,
+            max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active),
         )
-        kw = dict(n_steps=W, cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len)
-        if all(
-            r.temperature is None and r.top_k is None and r.top_p is None
-            for r in active
-        ):
-            kw.update(temperature=self.icfg.temperature, top_k=self.icfg.top_k,
-                      top_p=self.icfg.top_p)
-        else:
-            kw.update(
-                temperature=torch.from_numpy(self.slot_temp).to(dev),
-                top_k=torch.from_numpy(self.slot_top_k).to(dev),
-                top_p=torch.from_numpy(self.slot_top_p).to(dev),
-            )
-        t0 = time.perf_counter()
-        toks, self.cache = decode_window(*args, **kw)
         tokens = toks.cpu().numpy()   # [W, B]: the window's one host fetch
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_slot_steps"] += W * len(active)
@@ -473,13 +742,103 @@ class InferenceEngine:
             for req in active:
                 if req.done:
                     continue   # finished mid-window: the overshoot is discarded
-                tok = int(tokens[j, req.slot])
-                self.seq_lens[req.slot] += 1
-                self.last_token[req.slot] = tok
-                req.generated.append(tok)
-                self._maybe_finish(req, tok)
+                self._accept(req, int(tokens[j, req.slot]))
         self._reap()
         return True
+
+    def _mixed_decode(self) -> bool:
+        """One mixed step (inference.chunked_prefill, runner.mixed_step):
+        one decode token for every live slot plus up to
+        prefill_chunk_tokens of prompt chunks, in ONE dispatch — a decode
+        waits at most one chunk budget behind a prompt burst. Returns True
+        iff a decode slot advanced."""
+        self._grow_pages()
+        psz, S = self.psz, self.icfg.prefill_chunk_tokens
+        # Pending prompts in admission order, each contributing its next
+        # chunk until the budget is spent. Mid-prompt chunks end page-
+        # aligned so the next one resumes page-aligned; the final chunk of
+        # a prompt may end mid-page.
+        pending = sorted(
+            (r for r in self.slots if r is not None and not r.done and r.prefill_pending),
+            key=lambda r: r.admit_seq,
+        )
+        budget = S
+        chunks: list[tuple[Request, int]] = []
+        for r in pending:
+            if budget < 1:
+                break
+            rem = len(r.context) - r.prefill_done
+            k = min(rem, budget)
+            if k < rem:
+                k = k // psz * psz
+                if k == 0:
+                    break
+            budget -= k
+            chunks.append((r, k))
+        arrays = self._chunk_arrays(
+            [(r, r.prefill_done, k,
+              r.pages[r.prefill_done // psz:(r.prefill_done - (-k // psz * psz)) // psz])
+             for r, k in chunks], S)
+        # Mid-prefill slots' decode rows park on scratch page 0, so the
+        # decode write (which K4 makes for every slot) cannot clobber a
+        # page their chunks fill in this very step.
+        d_pt = self.page_table.copy()
+        for r in pending:
+            d_pt[r.slot] = 0
+        dec = [r for r in self.slots
+               if r is not None and not r.done and not r.prefill_pending]
+        dev = self.device
+        t0 = time.perf_counter()
+        toks, p_logits, self.cache = mixed_step(
+            self.params, self.cache,
+            torch.from_numpy(self.last_token).to(dev),
+            torch.from_numpy(self.seq_lens).to(dev),
+            torch.from_numpy(d_pt).to(dev), *arrays,
+            # No live decode row: draw nothing from the engine's stream, so
+            # a sampled lone request is the same chunked and unchunked.
+            self._gen if dec else None,
+            cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec),
+        )
+        d_out = toks.cpu().numpy() if toks is not None else None   # the one fetch
+        real = sum(k for _, k in chunks)
+        tm = self.timing
+        tm["mixed_steps"] += 1
+        tm["prefill_chunks"] += len(chunks)
+        tm["chunk_tokens"] += real
+        tm["chunk_pad_tokens"] += arrays[0].shape[0] * S - real
+        tm["prefill_tokens"] += real
+        tm["decode_slot_steps"] += len(dec)
+        # Advance the chunk cursors (seq_lens tracks them, so a preemption
+        # donates exactly the completed pages); prompts that just
+        # completed sample their first token — their logits are fetched
+        # only now, so other steps never pay that transfer.
+        finishing = []
+        for i, (r, k) in enumerate(chunks):
+            r.prefill_done += k
+            self.seq_lens[r.slot] = r.prefill_done
+            if r.prefill_done >= len(r.context):
+                finishing.append((i, r))
+        if finishing:
+            rows = torch.tensor([i for i, _ in finishing], device=dev)
+            firsts = self._sample(p_logits[rows], [r for _, r in finishing])
+            t1 = time.perf_counter()
+            for (_, r), first in zip(finishing, firsts):
+                r.prefill_pending = False
+                self._first_token(r, int(first), t1)
+        tm["mixed_s"] += time.perf_counter() - t0
+        for r in dec:
+            self._accept(r, int(d_out[r.slot]))
+        self._reap()
+        return bool(dec)
+
+    def _accept(self, req: Request, tok: int) -> None:
+        """A decoded token: its predecessor's KV is now in the pool."""
+        self.seq_lens[req.slot] += 1
+        self.last_token[req.slot] = tok
+        req.generated.append(tok)
+        if req.t_first is None:   # a whole-context cache hit decodes its first token
+            req.t_first = time.perf_counter()
+        self._maybe_finish(req, tok)
 
     def _maybe_finish(self, req: Request, tok: int) -> None:
         hit_eos = self.eos_id is not None and tok == self.eos_id
@@ -490,9 +849,12 @@ class InferenceEngine:
             req.done = True
 
     def _reap(self) -> None:
-        for req in self.slots:
+        for i, req in enumerate(self.slots):
             if req is not None and req.done:
                 if not req.outcome:
                     req.outcome = "completed"
-                self._teardown_slot(req)
+                # seq_lens counts tokens whose KV is in the pool (window
+                # overshoot lands beyond it): the full pages below it are
+                # what the prefix cache keeps.
+                self._teardown_slot(req, int(self.seq_lens[i]))
                 self._just_finished.append(req)

@@ -1,21 +1,31 @@
-"""Cache-aware forward passes: prefill and decode over the paged KV pool.
+"""Cache-aware forward passes: prefill, decode and the mixed chunked step
+over the paged KV pool.
 
-Counterpart of ``orion_tpu/infer/runner.py`` for whole-prompt prefill
-(no cached prefix, ``P_pre == 0``) and the fused decode window:
+Counterpart of ``orion_tpu/infer/runner.py``:
 
   - ``prefill_step`` runs a batch of same-bucket prompts padded to the
-    bucket length through causal attention with ragged segment ids (K3
-    on the card skips all-padding tiles) and scatters each layer's K/V
-    pages into the pool;
+    bucket length. Rows with no cached prefix (``P_pre == 0``) go through
+    causal attention with ragged segment ids (K3 on the card skips
+    all-padding tiles) and their K/V pages are scattered into the pool.
+    Rows that resume over cached pages (``prefix_pages`` with P_pre > 0:
+    a prefix-cache hit or a prefill chunk) start at their page-aligned
+    ``prefix_lens``: K9 (``ops.paged_flash_prefill``) attends the paged
+    history plus the chunk and writes the chunk's pages in the same call;
   - ``decode_window`` advances every batch slot ``n_steps`` tokens with
     sampling on the device, and returns the [W, B] token block for ONE
     host fetch by the engine — nothing inside the window reads a value
-    back to the host.
+    back to the host;
+  - ``mixed_step`` (inference.chunked_prefill) runs prompt-chunk rows and
+    one decode token per slot through one layer loop over one pool.
 
-The pool is one flat [L*num_pages, K, psz, H] tensor per K and V, updated
-in place: prefill by indexed assignment at rows ``l*num_pages + page``
-(the JAX package's scatter is outside any kernel too), decode inside K4.
-Inactive slots point at scratch page 0 and are masked by their lengths.
+The pool is one flat [L*num_pages, K, psz, H] tensor per K and V (int8,
+with float32 scale pools, under inference.kv_quant), updated in place:
+whole-prompt prefill by indexed assignment at rows ``l*num_pages + page``
+(the JAX package's scatter is outside any kernel too), chunk prefill
+inside K9, decode inside K4. Inactive slots point at scratch page 0 and
+are masked by their lengths. ``paged_prefill=false`` (the JAX package's
+gather body for P_pre > 0, which needs explicit positions in K3) is not
+ported.
 """
 
 from __future__ import annotations
@@ -34,25 +44,37 @@ from orion_tpu_torch.models.transformer import (
     qkv_proj,
     unembed,
 )
-from orion_tpu_torch.ops import attention, paged_attention
+from orion_tpu_torch.ops import attention, paged_attention, paged_flash_prefill, quantize_kv
 
 Cache = dict[str, torch.Tensor]
 
 
 def _prefill_ctx(
     cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor,
-    pages: torch.Tensor, cfg: ModelConfig,
+    pages: torch.Tensor, prefix_lens: Optional[torch.Tensor],
+    prefix_pages: Optional[torch.Tensor], cfg: ModelConfig,
 ) -> dict:
-    """Batch-level tensors the per-layer prefill body consumes."""
+    """Batch-level tensors the per-layer prefill body consumes. A prefill
+    chunk is a mid-sequence tail prefill: it resumes at a page-aligned
+    ``prefix_lens`` over pages already written, so its positions start
+    there and K9 walks ``prefix_pages`` ++ ``pages``."""
     Nb, S_pad = tokens.shape
     psz = cache["k"].shape[2]
-    positions = torch.arange(S_pad, dtype=torch.int32, device=tokens.device)
-    positions = positions.expand(Nb, S_pad)
+    P_pre = 0 if prefix_pages is None else prefix_pages.shape[1]
+    arange = torch.arange(S_pad, dtype=torch.int32, device=tokens.device)
+    walk = None
+    if P_pre:
+        positions = prefix_lens.to(torch.int32)[:, None] + arange
+        walk = torch.cat([prefix_pages, pages], dim=1)
+    else:
+        positions = arange.expand(Nb, S_pad)
     # Ragged burst: each row's padding tail is segment 0, which K3 skips.
-    seg = (positions < lengths[:, None]).to(torch.int32)
+    seg = (arange[None] < lengths[:, None]).to(torch.int32)
     return dict(
         Nb=Nb, S_pad=S_pad, psz=psz, NP=cache["k"].shape[0] // cfg.n_layers,
-        n_pages=S_pad // psz, positions=positions, seg=seg, pages=pages.long(),
+        n_pages=S_pad // psz, P_pre=P_pre, positions=positions, seg=seg,
+        pages=pages.long(), walk=walk, prefix_lens=prefix_lens, lengths=lengths,
+        quant="k_scale" in cache,
     )
 
 
@@ -60,17 +82,41 @@ def _prefill_layer(
     x: torch.Tensor, cache: Cache, bp: Params, layer: int, ctx: dict,
     cfg: ModelConfig,
 ) -> torch.Tensor:
-    """One layer of prefill: causal attention over the row's own K/V, then
-    the K/V pages written into the pool (in place)."""
+    """One layer of (possibly mid-sequence) prefill, the pool updated in
+    place: K9 over the paged history + the chunk when P_pre > 0, else
+    causal attention over the row's own K/V and a page scatter."""
     Nb, psz, n_pages = ctx["Nb"], ctx["psz"], ctx["n_pages"]
-    seg = ctx["seg"]
+    seg, quant = ctx["seg"], ctx["quant"]
+    window = cfg.layer_window(layer)
     h = _norm(x, bp["attn_norm"], cfg)
     q, k, v = qkv_proj(h, bp["attn"], cfg, ctx["positions"])
-    out = attention(
-        q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
-        seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
-        window=cfg.layer_window(layer),
-    )
+    if ctx["P_pre"]:
+        out = paged_flash_prefill(
+            q, cache["k"], cache["v"], ctx["walk"], ctx["prefix_lens"],
+            ctx["lengths"], k, v, n_prefix_pages=ctx["P_pre"],
+            layer_base=layer * ctx["NP"], logit_softcap=cfg.attn_logit_softcap,
+            window=window, k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"),
+        )[0]
+    else:
+        out = attention(
+            q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+            seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
+            window=window,
+        )
+        # Positions past a row's length hold padding garbage: decode masks
+        # them by length and the next real token overwrites its slot.
+        K, H = k.shape[2], k.shape[3]
+        rows = layer * ctx["NP"] + ctx["pages"]                 # [Nb, n_pages]
+        if quant:
+            # Per (token, kv head) int8 + f32 scale; the scales land in
+            # the first psz columns of the lane-padded scale rows.
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            cache["k_scale"][rows, :, :psz] = ks.reshape(Nb, n_pages, psz, K).transpose(2, 3)
+            cache["v_scale"][rows, :, :psz] = vs.reshape(Nb, n_pages, psz, K).transpose(2, 3)
+        cache["k"][rows] = k.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
+        cache["v"][rows] = v.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
     a = out_proj(out, bp["attn"], cfg)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
@@ -78,14 +124,7 @@ def _prefill_layer(
     y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
-    x = x + y
-    # Positions past a row's length hold padding garbage: decode masks them
-    # by length and the next real token overwrites its slot.
-    K, H = k.shape[2], k.shape[3]
-    rows = layer * ctx["NP"] + ctx["pages"]                 # [Nb, n_pages]
-    cache["k"][rows] = k.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
-    cache["v"][rows] = v.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
-    return x
+    return x + y
 
 
 def _prefill_logits(
@@ -101,16 +140,20 @@ def _prefill_logits(
 def prefill_step(
     params: Params,
     cache: Cache,
-    tokens: torch.Tensor,     # [Nb, S_pad] padded prompts, one bucket
-    lengths: torch.Tensor,    # [Nb] true prompt lengths
-    pages: torch.Tensor,      # [Nb, S_pad // page_size] page ids
+    tokens: torch.Tensor,     # [Nb, S_pad] padded prompts (tails), one bucket
+    lengths: torch.Tensor,    # [Nb] true prompt (tail) lengths
+    pages: torch.Tensor,      # [Nb, S_pad // page_size] page ids written
+    prefix_lens: Optional[torch.Tensor] = None,   # [Nb] cached tokens
+    prefix_pages: Optional[torch.Tensor] = None,  # [Nb, P_pre] their pages
     *,
     cfg: ModelConfig,
 ) -> tuple[torch.Tensor, Cache]:
     """Prefill a batch of same-bucket prompts; returns (next-token logits
-    [Nb, V], the cache updated in place). Padding rows carry all-zero page
-    lists: their K/V lands on scratch page 0 and is never read."""
-    ctx = _prefill_ctx(cache, tokens, lengths, pages, cfg)
+    [Nb, V], the cache updated in place). With ``prefix_pages`` (P_pre >
+    0) rows hold only the uncached tail, resuming at page-aligned
+    ``prefix_lens``. Padding rows carry all-zero page lists: their K/V
+    lands on scratch page 0 and is never read."""
+    ctx = _prefill_ctx(cache, tokens, lengths, pages, prefix_lens, prefix_pages, cfg)
     x = embed(params, tokens, ctx["positions"], cfg)
     for layer, bp in enumerate(params["blocks"]):
         x = _prefill_layer(x, cache, bp, layer, ctx, cfg)
@@ -134,14 +177,16 @@ def _decode_layer(
     cfg: ModelConfig,
 ) -> torch.Tensor:
     """One layer of single-token decode: paged attention with the new
-    token's K/V written into the pool in place."""
+    token's K/V (quantized, for int8 pools) written into the pool in
+    place."""
     h = _norm(x, bp["attn_norm"], cfg)
     q, k, v = qkv_proj(h, bp["attn"], cfg, ctx["positions"])
-    out, cache["k"], cache["v"] = paged_attention(
+    out = paged_attention(
         q[:, 0], cache["k"], cache["v"], ctx["page_table"], ctx["write_pos"],
         layer_base=layer * ctx["NP"], k_new=k[:, 0], v_new=v[:, 0],
         logit_softcap=cfg.attn_logit_softcap, window=cfg.layer_window(layer),
-    )
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+    )[0]
     a = out_proj(out[:, None], bp["attn"], cfg)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
@@ -207,3 +252,55 @@ def decode_window(
         sl = sl + act.to(sl.dtype)
         out.append(toks)
     return torch.stack(out), cache
+
+
+@torch.no_grad()
+def mixed_step(
+    params: Params,
+    cache: Cache,
+    tokens: torch.Tensor,       # [B] newest token per decode slot
+    seq_lens: torch.Tensor,     # [B] int32
+    page_table: torch.Tensor,   # [B, pages_per_seq]; mid-prefill slots carry
+    #                             all-zero rows (their write -> scratch)
+    p_tokens: torch.Tensor,     # [Nc, S_chunk] prompt-chunk tail tokens
+    p_lengths: torch.Tensor,    # [Nc] true chunk lengths
+    p_pages: torch.Tensor,      # [Nc, S_chunk // psz] pages the chunk writes
+    p_prefix_lens: torch.Tensor,  # [Nc] context tokens already in the pool
+    p_prefix_pages: torch.Tensor,  # [Nc, P_pre] pages holding that context
+    generator: Optional[torch.Generator],
+    *,
+    cfg: ModelConfig,
+    max_seq_len: int,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+) -> tuple[Optional[torch.Tensor], torch.Tensor, Cache]:
+    """One unified prefill-chunk + decode step (inference.chunked_prefill)
+    -> (decode tokens [B] or None, chunk logits [Nc, V], cache).
+
+    Each layer runs the prefill body for the chunk rows and the decode
+    body (one token for every slot, the math of ``decode_window`` with
+    W = 1) over the same pool; the two touch disjoint pages, as the engine
+    parks mid-prefill slots' decode rows on scratch page 0. Two unembeds,
+    not one over a concat, so the decode half stays op for op
+    ``decode_window``'s. The decode sample is drawn only when
+    ``generator`` is given (the engine passes None when no decode row is
+    live, so a step without one draws nothing from its stream).
+    """
+    from orion_tpu_torch.infer.sampling import sample
+
+    wp = torch.clamp(seq_lens.to(torch.int32), max=max_seq_len - 1)
+    pctx = _prefill_ctx(cache, p_tokens, p_lengths, p_pages, p_prefix_lens,
+                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg)
+    dctx = _decode_ctx(cache, wp, page_table, cfg)
+    xp = embed(params, p_tokens, pctx["positions"], cfg)
+    xd = embed(params, tokens.to(torch.int32)[:, None], dctx["positions"], cfg)
+    for layer, bp in enumerate(params["blocks"]):
+        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg)
+        xd = _decode_layer(xd, cache, bp, layer, dctx, cfg)
+    toks = None
+    if generator is not None:
+        d_logits = unembed(params, xd, cfg)[:, 0]
+        toks = sample(d_logits, generator, temperature=temperature, top_k=top_k,
+                      top_p=top_p)
+    return toks, _prefill_logits(params, xp, p_lengths, cfg), cache

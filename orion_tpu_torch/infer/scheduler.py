@@ -1,15 +1,16 @@
 """Scheduler face of the serving engine: the ``Request`` record.
 
-Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core:
-priorities, deadlines, overload shedding, prefix-cache, chunked-prefill
-and host-tier state are not ported yet (the engine admits in arrival
-order from a plain deque and preempts the youngest request).
+Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core with
+the prefix-cache and chunked-prefill state; priorities, deadlines,
+overload shedding and host-tier state are not ported yet (the engine
+admits in arrival order from a plain deque and preempts the youngest
+request).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclass
@@ -32,6 +33,18 @@ class Request:
     pages: list[int] = field(default_factory=list)
     done: bool = False
     admit_seq: int = -1   # admission order; preemption evicts the youngest
+    freed_until: int = 0  # logical pages below this are freed (SWA rolling)
+    # Prefix-cache state: the first n_prefix entries of ``pages`` are
+    # SHARED (refcounted, immutable) cache pages; prefix_node pins their
+    # radix-tree path against eviction until release.
+    n_prefix: int = 0
+    prefix_node: Optional[Any] = None
+    # Chunked-prefill cursor (inference.chunked_prefill): context tokens
+    # whose KV is already in the pool (cached prefix + completed chunks,
+    # page-aligned until the final chunk). While prefill_pending, the slot
+    # rides mixed steps as a prompt-chunk row, never a decode row.
+    prefill_done: int = 0
+    prefill_pending: bool = False
 
     @property
     def context(self) -> list[int]:

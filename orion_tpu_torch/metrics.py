@@ -1,8 +1,10 @@
-"""Step metrics, throughput and MFU for the training loop.
+"""Step metrics, throughput and MFU for the training loop; prefix-cache
+counters for serving.
 
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
-and ``Stopwatch``. MFU = model FLOPs per token (``ModelConfig
+and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``. MFU =
+model FLOPs per token (``ModelConfig
 .flops_per_token``: 6 N plus the attention term) x tokens / (step time x
 devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
@@ -137,6 +139,21 @@ class MetricsLogger:
         if self._jsonl_file is not None:
             self._jsonl_file.close()
             self._jsonl_file = None
+
+
+@dataclass
+class PrefixCacheStats:
+    """Serving-side prefix-cache counters (``orion_tpu/metrics.py``'s,
+    without the host-tier ones): hits/misses count admissions,
+    cached_tokens the prompt tokens served from shared pages instead of
+    prefill, inserted/evicted/cow pages the pool churn the cache causes."""
+
+    hits: int = 0
+    misses: int = 0
+    cached_tokens: int = 0
+    inserted_pages: int = 0
+    evicted_pages: int = 0
+    cow_pages: int = 0
 
 
 class Stopwatch:

@@ -1,5 +1,5 @@
 """Fused-op surface of the port: attention, RoPE, RMSNorm/LayerNorm, paged
-decode attention.
+decode attention, paged-flash prefill.
 
 Every op has a plain PyTorch version and, where the JAX package wrote a
 Pallas kernel on a ported path, a kernel written by hand for Hopper
@@ -24,10 +24,19 @@ from orion_tpu_torch.ops.norms import (
     rmsnorm_plain,
     rmsnorm_triton,
 )
+from orion_tpu_torch.ops.common import quantize_kv
 from orion_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_cuda,
+    paged_attention_int8_cuda,
     paged_attention_plain,
+)
+from orion_tpu_torch.ops.paged_flash_prefill import (
+    check_prefill_fit,
+    paged_flash_prefill,
+    paged_flash_prefill_cuda,
+    paged_flash_prefill_int8_cuda,
+    paged_flash_prefill_plain,
 )
 from orion_tpu_torch.ops.rope import (
     apply_rope,
@@ -47,6 +56,9 @@ KERNELS = {
     "rope_bwd": rope_bwd_triton,
     "flash_dq": flash_dq_cuda,
     "flash_dkv": flash_dkv_cuda,
+    "paged_decode_int8": paged_attention_int8_cuda,
+    "paged_prefill": paged_flash_prefill_cuda,
+    "paged_prefill_int8": paged_flash_prefill_int8_cuda,
 }
 
 
@@ -66,6 +78,7 @@ __all__ = [
     "attention_lse_plain",
     "attention_mask",
     "attention_plain",
+    "check_prefill_fit",
     "flash_attention_bwd_cuda",
     "flash_attention_cuda",
     "flash_dkv_cuda",
@@ -74,7 +87,13 @@ __all__ = [
     "layernorm",
     "paged_attention",
     "paged_attention_cuda",
+    "paged_attention_int8_cuda",
     "paged_attention_plain",
+    "paged_flash_prefill",
+    "paged_flash_prefill_cuda",
+    "paged_flash_prefill_int8_cuda",
+    "paged_flash_prefill_plain",
+    "quantize_kv",
     "reset_launches",
     "rmsnorm",
     "rmsnorm_bwd_triton",

@@ -17,10 +17,28 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30  # finite -inf stand-in: exp(NEG_INF - m) underflows to 0.
+# float32(1/127) as a Python float (exact): the int8 scale is a MULTIPLY by
+# this constant, never a divide by 127 (the two differ by an ulp on some
+# inputs, enough to flip a greedy argmax).
+INV127 = 0.007874015718698502
 
 
 def round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8: x [..., H] -> (q int8 [..., H], scale
+    [...] float32) with x ~ q * scale; one scale per (token, kv head).
+
+    Bit for bit the JAX package's ``quantize_kv``, and the arithmetic the
+    CUDA kernels' fused writes repeat: ``s = max|x| * f32(1/127)``
+    floored at 1e-8, ``q = round_half_even(x / s)`` with an IEEE divide.
+    """
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) * INV127, min=1e-8)
+    q = torch.round(xf / s[..., None])
+    return q.to(torch.int8), s
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

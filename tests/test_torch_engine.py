@@ -131,8 +131,8 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "inference.prefix_cache=true", "inference.chunked_prefill=true",
-    "inference.speculative=true", "inference.kv_quant=int8",
+    "inference.nan_guard=true", "inference.decode_window_autotune=true",
+    "inference.speculative=true", "inference.constrained=true",
     "model.weight_quant=int8",
 ])
 def test_unported_features_raise(override):
