@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,serve --profile
     python3 chip_smoke.py --phases device,build,train --profile
+    python3 chip_smoke.py --phases device,build,serve_spec --profile
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -13,22 +14,28 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K9 against their plain PyTorch versions on the card (the
+  kernels  K1-K10 against their plain PyTorch versions on the card (the
            backward kernels against autograd of the plain forward), at the
            serving path's and the training path's shapes, in float32 and
-           bfloat16 (tolerances in TOL), K4 and K9 also over int8 pools;
-           what K4 and K9 write into the pools (int8 pages and float32
-           scales too) must be byte-identical to the plain versions' writes
-           (scratch page 0 excluded), and K9 must leave history pages and
-           scale lanes past the page untouched; off-path variants (segments
-           under seg_pad_zero, windows, softcaps, q_offset, rows that
-           attend nothing, pad rows, page size 16, head_dim 16-256)
+           bfloat16 (tolerances in TOL), K4, K9 and K10 also over int8
+           pools; what K4, K9 and K10 write into the pools (int8 pages and
+           float32 scales too) must be byte-identical to the plain
+           versions' writes (scratch page 0 excluded), K9 must leave
+           history pages and scale lanes past the page untouched and K10
+           every row it does not own; off-path variants (segments under
+           seg_pad_zero, windows, softcaps, q_offset, rows that attend
+           nothing, pad rows, page size 16, head_dim 16-256; for K10 token
+           trees with and without a window, W 8 and 31, a chain-shaped tree
+           bitwise against the chain, W = 1 against K4)
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
            pools, then int8 pools) over two waves that share a system
            prompt (prefix hits and one copy-on-write admission): the greedy
-           token lists must be equal
+           token lists must be equal; then three speculative runs (chain,
+           tree width 2, tree width 2 with int8 pools, chunked prefill and
+           the prefix cache) over cyclic prompts whose streams must equal
+           the cpu run's and the cuda spec-off run's, with equal counters
   serve    llama3-8b-infer at full width and depth, seeded random bf16
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
@@ -40,6 +47,14 @@ exits non-zero without printing a result:
            prompts whole (copy-on-write). Every request finishes, prefill
            logits are finite, K1-K3, K4's and K9's int8 branches launch,
            the page accounting holds and clearing the cache frees the pool
+  serve_spec  llama3-8b-infer at full width and depth with speculative
+           decoding (the serve's weights): 8 greedy requests of 100-1000
+           random prompt tokens, then the same 8 again (the first wave's
+           pages in the prefix tree are the drafter's source), 64 new tokens
+           each, in drives A (chain, bf16 pools), A0 (A without speculation)
+           and B (tree width 2, int8 pools, chunked prefill); every request
+           finishes, wave 2 verifies (and accepts drafts in A), K10's
+           branches launch, the page accounting holds
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -50,8 +65,9 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
-  timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9:
-           the serving path's, K4 and K9 also over int8 pools; K5-K8: the
+  timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
+           K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
+           beside K4 at the same contexts; K5-K8: the
            training path's): median of 20
            CUDA-event timings after a warm-up, beside its plain version, one
            PyTorch library call computing the same function where there is
@@ -78,7 +94,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
-          "train_parity", "train", "timing")
+          "serve_spec", "train_parity", "train", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -114,6 +130,11 @@ TOL = {
     # probabilities; otherwise as their pool branches.
     "paged_decode_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
     "paged_prefill_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    # K10 (both branches): as K4 (f32 sums of up to 8192 terms in another
+    # order; bf16 probabilities rounded before P@V by the plain version
+    # only; under int8 the plain version's bf16 rounding of dequantized K/V).
+    "ragged_verify": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    "ragged_verify_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
 }
 
 KERNEL_META = {
@@ -139,6 +160,10 @@ KERNEL_META = {
                           replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
     "paged_prefill_int8": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
                                replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
+    "ragged_verify": dict(route="cuda", source="orion_tpu_torch/csrc/ragged_verify.cu",
+                          replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
+    "ragged_verify_int8": dict(route="cuda", source="orion_tpu_torch/csrc/ragged_verify.cu",
+                               replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -150,6 +175,11 @@ SCALE_LANES = 128
 # K9 at the chunked serve's shapes: 4 chunk rows of 256 (4 pages of 64)
 # resuming at these page-aligned starts (walk padded to 128 prefix pages).
 K9_S, K9_STARTS, K9_LENS = 256, (0, 1024, 4096, 7936), (256, 256, 100, 256)
+# K10 at K4's slots and contexts: W = speculate_tokens + 1 = 5 queries per
+# slot starting at K4's positions; real queries cycle 5, 3, 1; slots 0 and
+# 1 are pad rows (all-zero table, one query) and the last slot sits at the
+# context edge (start 8189: two of its five tokens fall past the table).
+K10_W = 5
 # Shapes of the training path (llama-1b-bench: batch 8 x 2048 tokens,
 # d_model 2048, 16 heads, 8 kv heads, head_dim 128).
 T_B, T_S, T_D, T_N, T_K = 8, 2048, 2048, 16, 8
@@ -176,7 +206,14 @@ TRAIN_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "rmsnorm_bwd", "rope_bw
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to chiprun_out/chip_smoke.jsonl
+    (the whole run's lines, where a caller keeps only the end of the
+    output)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def smi_line() -> str:
@@ -590,6 +627,204 @@ def check_k9(dtype, gen, quant, **shape):
     return err
 
 
+def k10_main_shape():
+    """K10 at the serve's width: 32 slots at K4's contexts (see K10_W)."""
+    starts = [0, 0] + [int(8191 * ((b + 1) / B_DEC) ** 2) for b in range(2, B_DEC)]
+    starts[-1] = 8189
+    lens = [1, 1] + [(5, 3, 1)[b % 3] for b in range(2, B_DEC)]
+    lens[-1] = K10_W
+    return dict(starts=starts, lens=lens, pad=[True, True] + [False] * (B_DEC - 2))
+
+
+def k10_small_shape(W, psz, P, **heads):
+    """Five rows on a two-layer pool of 64 pages: a pad row, a row
+    straddling a page boundary, a half-full row, a single query mid-table
+    and a row at the context edge (its last tokens fall past the table)."""
+    cap = P * psz
+    return dict(starts=[0, psz - 3, 2 * psz, cap // 2 + 1, cap - max(W - 2, 1)],
+                lens=[1, W, max(W // 2, 1), 1, W], pad=[True] + [False] * 4,
+                W=W, psz=psz, P=P, NP=64, L=2, **heads)
+
+
+def k10_inputs(dtype, gen, quant, *, starts, lens, pad, W=K10_W, N=N_HEADS, K=N_KV, H=HEAD,
+               psz=PSZ, P=8192 // PSZ, NP=NUM_PAGES, L=N_LAYERS, layer=None):
+    """Verify rows over a pool of L layers x NP pages at ``layer`` (the
+    last by default): row b's W queries start at ``starts[b]``, ``lens[b]``
+    of them real, on distinct pages through its last written position;
+    pad rows have an all-zero table (scratch page 0)."""
+    import torch
+
+    B = len(starts)
+    kp, vp, scales = rand_pools(dtype, gen, L * NP, K, psz, H, quant)
+    n_pages = [0 if pad[b] else min(starts[b] + lens[b] - 1, P * psz - 1) // psz + 1
+               for b in range(B)]
+    assert sum(n_pages) <= NP - 1, sum(n_pages)
+    ids = (torch.randperm(NP - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+    table = torch.zeros(B, P, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(n_pages):
+        table[b, :n] = ids[used:used + n]
+        used += n
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    dev = dict(dtype=torch.int32, device="cuda")
+    layer = L - 1 if layer is None else layer
+    return (rnd(B, W, N, H), kp, vp, table, torch.tensor(starts, **dev),
+            torch.tensor(lens, **dev), rnd(B, W, K, H), rnd(B, W, K, H), layer * NP, scales)
+
+
+def tree_arrays(B, W, parents):
+    """[B, W] depths and ancestor words of one tree for every row; columns
+    past the tree chain-shaped (the engine's padding)."""
+    import torch
+
+    from orion_tpu_torch.infer.spec_decode import DraftTree
+
+    t = DraftTree(tokens=[0] * len(parents), parents=list(parents))
+    n = len(parents) + 1
+    depths = list(t.depths()) + list(range(n, W))
+    words = list(t.mask_words()) + [(1 << (j + 1)) - 1 for j in range(n, W)]
+    dev = dict(dtype=torch.int32, device="cuda")
+    return torch.tensor([depths] * B, **dev), torch.tensor([words] * B, **dev)
+
+
+def check_k10(dtype, gen, quant, shape=None, *, tree=None, **kw):
+    """K10 kernel vs plain: outputs of the real queries; the written pages
+    and scale columns byte for byte (scratch page 0 excluded); every other
+    row of the layer untouched by both. ``tree`` is a parent list (a token
+    tree for every row); ``kw`` adds window / logit_softcap."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    name = "ragged_verify_int8" if quant else "ragged_verify"
+    cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+    shape = dict(shape or k10_main_shape())
+    q, kp, vp, table, start, lens, kn, vn, base, scales = k10_inputs(dtype, gen, quant, **shape)
+    B, W = q.shape[:2]
+    NP = shape.get("NP", NUM_PAGES)
+    if tree is not None:
+        kw["depths"], kw["tree_mask"] = tree_arrays(B, W, tree)
+    wrows = torch.unique(base + table[table > 0].long())
+    pools = [kp, vp, *scales.values()]
+    region = [t[base:base + NP].clone() for t in pools]
+    out_k, out_p, rows_k, rows_p, _ = run_both(
+        cuda, ops.ragged_paged_attention_plain, pools, wrows,
+        (q, kp, vp, table, start, lens), dict(layer_base=base, k_new=kn, v_new=vn,
+                                               **scales, **kw))
+    require_bytes_equal(name, rows_k, rows_p)
+    other = torch.ones(NP, dtype=torch.bool, device="cuda")
+    other[0] = False
+    other[wrows - base] = False
+    for t, r in zip(pools, region):
+        if not torch.equal(bits(t[base:base + NP][other]), bits(r[other])):
+            raise AssertionError(f"{name}: rows it does not own changed")
+    real = torch.arange(W, device="cuda")[None] < lens[:, None]
+    real[torch.tensor(shape["pad"], device="cuda")] = False
+    err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=real)
+    del q, kp, vp, pools, scales, region
+    return err
+
+
+def k10_twice(dtype, gen, quant, shape, first, second):
+    """Run ``first(args, kw)`` and ``second(args, kw)`` (kernel calls) on
+    copies of the same inputs; returns both outputs and both pool sets."""
+    q, kp, vp, table, start, lens, kn, vn, base, scales = k10_inputs(dtype, gen, quant, **shape)
+    pools_a = [kp, vp, *scales.values()]
+    pools_b = [t.clone() for t in pools_a]
+    outs = []
+    for fn, pools in ((first, pools_a), (second, pools_b)):
+        sc = dict(zip(scales, pools[2:]))
+        outs.append(fn((q, *pools[:2], table, start, lens),
+                       dict(layer_base=base, k_new=kn, v_new=vn, **sc)))
+    return outs, pools_a, pools_b, base
+
+
+def k10_chain_tree_bitwise(dtype, gen, quant, window):
+    """A chain-shaped tree gives bitwise the chain's outputs (real queries)
+    and writes (scratch page 0 excluded)."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+    shape = k10_small_shape(5, 16, 8, N=8, K=2, H=128)
+    depths, words = tree_arrays(5, 5, list(range(4)))
+    (a, b), pa, pb, base = k10_twice(
+        dtype, gen, quant, shape,
+        lambda args, kw: cuda(*args, window=window, **kw)[0],
+        lambda args, kw: cuda(*args, window=window, tree_mask=words, depths=depths, **kw)[0])
+    keep = torch.ones(pa[0].shape[0], dtype=torch.bool, device=a.device)
+    keep[base] = False   # scratch page 0
+    real = torch.tensor([[not p and w < n for w in range(5)]
+                         for p, n in zip(shape["pad"], shape["lens"])], device=a.device)
+    if not (torch.equal(bits(a[real]), bits(b[real]))
+            and all(torch.equal(bits(x[keep]), bits(y[keep])) for x, y in zip(pa, pb))):
+        raise AssertionError(f"ragged_verify chain-shaped tree (window {window}): not bitwise")
+
+
+def k10_w1_vs_k4(dtype, gen, quant):
+    """W = 1 against K4 on the same inputs: outputs within TOL, pool writes
+    byte-identical (scratch page 0 excluded)."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    k10 = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+    k4 = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+    shape = k10_small_shape(1, 16, 8, N=8, K=2, H=128)
+    (a, b), pa, pb, base = k10_twice(
+        dtype, gen, quant, shape,
+        lambda args, kw: k10(*args, **kw)[0][:, 0],
+        lambda args, kw: k4(args[0][:, 0], *args[1:4], args[4], **dict(
+            kw, k_new=kw["k_new"][:, 0], v_new=kw["v_new"][:, 0]))[0])
+    require_bytes_equal("ragged_verify W=1 vs paged_decode",
+                        [t[base + 1:base + 64] for t in pa], [t[base + 1:base + 64] for t in pb])
+    name = "paged_decode_int8" if quant else "paged_decode"
+    real = ~torch.tensor(shape["pad"], device="cuda")
+    return require_close(name, str(dtype).split(".")[-1], a, b, rows=real)
+
+
+K10_VARIANTS = (
+    # (label, W, psz, P, N, K, H, window, softcap, tree, layer)
+    ("page16", 5, 16, 8, 8, 2, 128, None, None, None, 1),
+    ("H64_W8_softcap", 8, 64, 4, 8, 2, 64, None, 30.0, None, 1),
+    ("H256_window_layer0", 5, 64, 4, 4, 2, 256, 40, None, None, 0),
+    ("W31", 31, 64, 4, 8, 2, 128, None, None, None, 1),
+    ("tree", 5, 16, 8, 8, 2, 128, None, None, (0, 1, 0, 3), 1),
+    ("tree_window", 5, 16, 8, 8, 2, 128, 3, None, (0, 1, 0, 3), 1),
+    ("tree_W8_window_softcap", 8, 16, 8, 4, 1, 64, 20, 50.0, (0, 1, 0, 3, 3, 5, 2), 1),
+)
+
+
+def k10_variants(gen):
+    """K10 off the serve's shapes (table K10_VARIANTS), in both pool
+    branches and both dtypes; a chain-shaped tree bitwise against the
+    chain; W = 1 against K4."""
+    import torch
+
+    out = []
+    for label, W, psz, P, N, K, H, window, cap, tree, layer in K10_VARIANTS:
+        shape = k10_small_shape(W, psz, P, N=N, K=K, H=H, layer=layer)
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = {name: check_k10(dtype, gen, quant, shape, tree=tree, window=window,
+                                    logit_softcap=cap)
+                    for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True))}
+            out.append({"variant": label, "W": W, "page_size": psz, "H": H, "N": N, "K": K,
+                        "window": window, "softcap": cap, "tree": tree, "layer": layer,
+                        "dtype": str(dtype).split(".")[-1], **errs})
+    for dtype in (torch.float32, torch.bfloat16):
+        for quant in (False, True):
+            for window in (None, 20):
+                k10_chain_tree_bitwise(dtype, gen, quant, window)
+            out.append({"variant": "W1_vs_paged_decode", "dtype": str(dtype).split(".")[-1],
+                        "int8": quant, "max_abs_err": k10_w1_vs_k4(dtype, gen, quant)})
+    out.append({"variant": "chain_shaped_tree", "bitwise": True})
+    return out
+
+
 def phase_kernels():
     import torch
 
@@ -622,6 +857,7 @@ def phase_kernels():
         for name, check, quant in (
             ("paged_decode", check_k4, False), ("paged_decode_int8", check_k4, True),
             ("paged_prefill", check_k9, False), ("paged_prefill_int8", check_k9, True),
+            ("ragged_verify", check_k10, False), ("ragged_verify_int8", check_k10, True),
         ):
             errs[dn][name] = check(dtype, gen, quant)
             torch.cuda.synchronize()
@@ -633,6 +869,7 @@ def phase_kernels():
     variants = kernel_variants(gen)
     emit({"phase": "kernels", "variants": variants})
     emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
+    emit({"phase": "kernels", "ragged_verify_variants": k10_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
     return errs
 
@@ -736,7 +973,9 @@ def phase_parity():
         raise AssertionError(f"tiny-llama streams differ: cuda {gpu} cpu {cpu}")
     emit({"phase": "parity", "preset": "tiny-llama", "requests": len(prompts),
           "equal": True, "cuda_streams": gpu})
-    return {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
+    out = {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
+    out.update({f"spec_{run}": parity_spec(params, run) for run in SPEC_PARITY})
+    return out
 
 
 def parity_chunked(params, pools):
@@ -781,6 +1020,59 @@ def parity_chunked(params, pools):
     emit({"phase": "parity", "preset": "tiny-llama", "features": "chunked_prefill+prefix_cache",
           "pools": pools, "equal": True, "prefix_hits": st.hits,
           "cow_pages": st.cow_pages, "cuda_streams": streams["cuda"], "launches": launches})
+    return launches
+
+
+SPEC_PARITY = {
+    "chain": [],
+    "tree": ["inference.spec_tree_width=2"],
+    "tree_int8_chunked_prefix": ["inference.spec_tree_width=2", "inference.kv_quant=int8",
+                                 "inference.chunked_prefill=true",
+                                 "inference.prefix_cache=true",
+                                 "inference.prefill_chunk_tokens=16"],
+}
+# The traffic of tests/test_spec_decode.py: cyclic prompts whose greedy
+# continuations loop, so the n-gram drafter drafts.
+SPEC_REP = [7, 8, 9, 7, 8, 9, 7, 8, 9, 7, 8]
+SPEC_MIX = [SPEC_REP, [5, 3, 9, 250, 17], list(range(2, 32))]
+
+
+def parity_spec(params, run):
+    """tiny-llama float32 with speculation (greedy, decode_window 1), two
+    waves of SPEC_MIX: the cuda streams must equal the cpu streams and the
+    cuda spec-off streams, and the cuda speculation counters the cpu ones.
+    Returns the speculating cuda run's launches."""
+    import dataclasses
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+
+    base = INFER_OVERRIDES + ["inference.decode_window=1"] + SPEC_PARITY[run]
+    spec = ["inference.speculative=true", "inference.speculate_tokens=4"]
+    streams, stats = {}, {}
+    for dev, on in (("cuda", True), ("cpu", True), ("cuda", False)):
+        ops.reset_launches()
+        eng = InferenceEngine(get_config("tiny-llama", base + (spec if on else [])), params,
+                              device=dev)
+        streams[dev, on] = [eng.generate(SPEC_MIX, 24), eng.generate(SPEC_MIX, 24)]
+        eng.assert_page_accounting()
+        stats[dev, on] = dataclasses.asdict(eng.spec_stats)
+        if (dev, on) == ("cuda", True):
+            launches = ops.launches()
+    got = streams["cuda", True]
+    if got != streams["cpu", True] or got != streams["cuda", False]:
+        raise AssertionError(f"parity spec {run}: streams differ: cuda {got}, cpu "
+                             f"{streams['cpu', True]}, cuda spec-off {streams['cuda', False]}")
+    if stats["cuda", True] != stats["cpu", True]:
+        raise AssertionError(f"parity spec {run}: counters differ: cuda {stats['cuda', True]} "
+                             f"cpu {stats['cpu', True]}")
+    st = stats["cuda", True]
+    kernel = "ragged_verify_int8" if "int8" in run else "ragged_verify"
+    if st["verify_steps"] < 1 or st["accepted"] < 1 or launches[kernel] < 1:
+        raise AssertionError(f"parity spec {run}: nothing verified on {kernel}: {st}")
+    emit({"phase": "parity", "preset": "tiny-llama", "features": f"speculative_{run}",
+          "equal": True, "spec_stats": st, "cuda_streams": got, "launches": launches})
     return launches
 
 
@@ -987,7 +1279,8 @@ def serve_wave(eng, prompts, n_new):
         "decode_tok_s": decode_tokens / (tm["decode_s"] + tm["mixed_s"]),
         "prefill_s": tm["prefill_s"], "mixed_s": tm["mixed_s"], "decode_s": tm["decode_s"],
         **{k: tm[k] for k in ("mixed_steps", "prefill_chunks", "chunk_tokens",
-                              "chunk_pad_tokens", "steps")},
+                              "chunk_pad_tokens", "steps", "verify_steps",
+                              "mixed_verify_steps", "verify_s")},
         "prefix": {k: st[k] for k in ("hits", "misses", "cached_tokens", "cow_pages",
                                       "inserted_pages", "evicted_pages")},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1075,6 +1368,135 @@ def phase_serve_chunked(profile=False, params=None):
         "cow_pages": st.cow_pages}, "released_on_clear": released,
         "free_pages": eng.alloc.free_pages, "launches": totals})
     return totals
+
+
+SERVE_SPEC_DRIVES = {
+    "A": ["inference.speculative=true", "inference.prefix_cache=true"],
+    "A0": ["inference.prefix_cache=true"],
+    "B": ["inference.speculative=true", "inference.spec_tree_width=2",
+          "inference.kv_quant=int8", "inference.prefix_cache=true",
+          "inference.chunked_prefill=true"],
+}
+SERVE_SPEC_KERNELS = {"A": ("ragged_verify",), "A0": (),
+                      "B": ("ragged_verify_int8", "paged_prefill_int8")}
+
+
+def serve_spec_drive(name, params, prompts, profile=False):
+    """One drive of serve_spec: an engine with SERVE_SPEC_DRIVES[name],
+    a warm-up, then the two waves (the same prompts twice); with
+    ``profile``, a third wave like the second under torch.profiler.
+    Returns the waves' requests and numbers and the totals of launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+
+    cfg = get_config("llama3-8b-infer", SERVE_SPEC_DRIVES[name])
+    V = cfg.model.vocab_size
+    eng = InferenceEngine(cfg, params, device="cuda")
+    finite = []
+    sample = eng._sample
+
+    def checked_sample(logits, reqs):
+        finite.append(bool(torch.isfinite(logits[: len(reqs)]).all()))
+        return sample(logits, reqs)
+
+    eng._sample = checked_sample
+    # Warm-up, as a server does at start: a 300-token request, then the
+    # same again (it drafts from the first one's cached path, so verify
+    # steps run) beside a 600-token one (its chunks ride mixed verify
+    # steps under chunked prefill); the cached pages are dropped again.
+    rng = np.random.default_rng(1)
+    warm = rng.integers(0, V, 300).tolist()
+    eng.generate([warm], 40)
+    eng.generate([warm, rng.integers(0, V, 600).tolist()], 40)
+    eng.clear_prefix_cache()
+    eng.reset_timing()
+    finite.clear()
+    waves, totals = [], {}
+    for i in (1, 2):
+        st0 = dataclasses.asdict(eng.spec_stats)
+        reqs, res = serve_wave(eng, prompts, 64)
+        st = {k: v - st0[k] for k, v in dataclasses.asdict(eng.spec_stats).items()
+              if isinstance(v, int)}
+        res.update(
+            spec={"drafted": st["drafted"], "accepted": st["accepted"],
+                  "rolled_back": st["rolled_back"], "gated_steps": st["gated_steps"],
+                  "acceptance_rate": st["accepted"] / st["drafted"] if st["drafted"] else 0.0,
+                  "emitted_per_verify_slot_step": (st["emitted"] / st["verify_slot_steps"]
+                                                   if st["verify_slot_steps"] else 0.0),
+                  "verify_slot_steps": st["verify_slot_steps"], "tree_nodes": st["tree_nodes"],
+                  "tree_branch_nodes": st["tree_branch_nodes"],
+                  "compactions": st["compactions"]})
+        eng.assert_page_accounting()
+        for k, n in res["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        waves.append((reqs, res))
+    if not (finite and all(finite)):
+        raise AssertionError(f"serve_spec {name}: non-finite prefill logits")
+    if profile:
+        profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
+            "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+            "flash_fwd": ["flash_fwd_kernel"], "paged_decode (K4)": ["paged_decode_kernel"],
+            "paged_prefill (K9)": ["paged_prefill_kernel"],
+            "ragged_verify (K10)": ["ragged_verify_kernel"],
+            "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
+    eng.clear_prefix_cache()
+    if eng.alloc.free_pages != cfg.inference.num_pages - 1:
+        raise AssertionError(f"serve_spec {name}: {eng.alloc.free_pages} free pages after "
+                             f"clear_prefix_cache(), want {cfg.inference.num_pages - 1}")
+    return waves, totals
+
+
+def phase_serve_spec(params=None, profile=False):
+    """llama3-8b-infer at full width and depth with speculative decoding:
+    two waves of 8 greedy requests of 100-1000 random prompt tokens (numpy
+    seed 0; one prompt a page multiple), the second wave the same prompts
+    again (a regenerated answer: the first wave's prompt + answer pages sit
+    in the prefix tree and are the drafter's source), 64 new tokens each.
+    Drives A (chain, bf16 pools, prefix cache), A0 (A without speculation)
+    and B (tree width 2, int8 pools, prefix cache, chunked prefill), on the
+    serve phase's ``params`` when given, else on fresh seeded weights."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+
+    cfg = get_config("llama3-8b-infer")
+    V, psz = cfg.model.vocab_size, cfg.inference.page_size
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 1001, 8)
+    lens[0] = lens[0] // psz * psz
+    prompts = [rng.integers(0, V, n).tolist() for n in lens]
+    streams, totals = {}, {}
+    for name in SERVE_SPEC_DRIVES:
+        waves, totals[name] = serve_spec_drive(name, params, prompts, profile)
+        streams[name] = [[r.generated for r in reqs] for reqs, _ in waves]
+        for i, (_, res) in enumerate(waves, 1):
+            emit({"phase": "serve_spec", "drive": name, "overrides": SERVE_SPEC_DRIVES[name],
+                  "wave": i, **res})
+        free_engine()
+        _, w2 = waves[1]
+        if name != "A0" and w2["verify_steps"] < 1:
+            raise AssertionError(f"serve_spec {name}: no verify step in wave 2")
+        if name == "A" and w2["spec"]["accepted"] < 1:
+            raise AssertionError("serve_spec A: no draft accepted in wave 2")
+        missing = [k for k in SERVE_SPEC_KERNELS[name] if totals[name][k] <= 0]
+        if missing:
+            raise AssertionError(f"serve_spec {name}: kernels never launched: {missing}")
+    # bf16 verify and decode run GEMMs of other shapes: reported, not gated.
+    same = [sum(a == b for a, b in zip(wa, wb)) for wa, wb in zip(streams["A"], streams["A0"])]
+    emit({"phase": "serve_spec", "streams_A_equal_A0_per_wave": same,
+          "requests_per_wave": len(prompts), "launches": totals})
+    return {k: sum(t[k] for t in totals.values()) for k in totals["A"]}
 
 
 def phase_train_parity():
@@ -1358,6 +1780,63 @@ def paged_prefill_timing(gen):
     return res
 
 
+def ragged_verify_timing(gen):
+    """K10 in bfloat16 and over int8 pools at the kernels phase's shapes,
+    beside K4 at the same contexts (one K10 launch replaces W K4 launches
+    of a verify-free decode). Bytes: q and out, the W tokens' K/V read and
+    their real positions written (int8 with scales under int8), and every
+    slot's committed context (positions below start) read once; operations:
+    4 N H per attended (real query, key) pair. The library yardstick is
+    SDPA with enable_gqa over the gathered (dequantized) context with a
+    bool mask [B, 1, W, ctx]; the gather is not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import dequantize_pages
+    from orion_tpu_torch.ops.ragged_paged_attention import verify_mask
+
+    dt = torch.bfloat16
+    res = {}
+    shape = k10_main_shape()
+    for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True)):
+        q, kp, vp, table, start, lens, kn, vn, base, sc = k10_inputs(dt, gen, quant, **shape)
+        kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
+        args = (q, kp, vp, table, start, lens)
+        cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+        k4 = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+        B, W = q.shape[:2]
+        P = table.shape[1]
+        cap = P * PSZ
+        live = [(s, n) for s, n, pad in zip(shape["starts"], shape["lens"], shape["pad"])
+                if not pad]
+        written = sum(min(s + n - 1, cap - 1) - s + 1 for s, n in live)
+        ctx = sum(s for s, _ in live)
+        pairs = sum(min(s + w, cap - 1) + 1 for s, n in live for w in range(n))
+        item = 1 if quant else 2
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * (written + ctx) * N_KV * HEAD * item
+              + table.numel() * 4 + 2 * B * 4)
+        if quant:
+            nb += 2 * (written + ctx) * N_KV * 4
+        rows = base + table.long()
+        kc, vc = ((pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt))
+                  .permute(0, 2, 1, 3, 4).reshape(B, N_KV, cap, HEAD)
+                  for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
+        mask = verify_mask(start, W, cap)[:, None]
+        qt = q.transpose(1, 2)
+        res[name] = dict(
+            ms=time_ms(lambda: cuda(*args, **kw)),
+            plain_ms=time_ms(lambda: ops.ragged_paged_attention_plain(*args, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask, enable_gqa=True)),
+            k4_ms_same_contexts=time_ms(lambda: k4(
+                q[:, 0], kp, vp, table, start, **dict(kw, k_new=kn[:, 0], v_new=vn[:, 0]))),
+            bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
+        del q, kp, vp, kn, vn, kc, vc, sc, mask, qt, args, kw
+        torch.cuda.empty_cache()
+    return res
+
+
 def bound(nbytes, flops, rate):
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -1434,11 +1913,13 @@ def phase_timing():
     torch.cuda.empty_cache()
     res.update(paged_int8_timing(gen))
     res.update(paged_prefill_timing(gen))
+    res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     for name, r in res.items():
+        extra = {k: v for k, v in r.items() if k == "k4_ms_same_contexts"}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-              "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})
     return res
 
 
@@ -1448,10 +1929,11 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)}")
     parser.add_argument("--profile", action="store_true",
-                        help="after the serve and the chunked serve, drive the same "
-                             "requests (the chunked serve: its second wave) again, "
-                             "and after the train, run two more steps, under "
-                             "torch.profiler (tables in chiprun_out/)")
+                        help="after the serve, the chunked serve and each drive of "
+                             "the speculative serve, drive the same requests (the "
+                             "later serves: their second wave) again, and after the "
+                             "train, run two more steps, under torch.profiler "
+                             "(tables in chiprun_out/)")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1469,8 +1951,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.jsonl")):
+        os.remove(os.path.join(OUT_DIR, "chip_smoke.jsonl"))
     line = phase_device()
-    errs = launches = chunked_launches = parity_launches = train_launches = timing = None
+    errs = launches = chunked_launches = spec_launches = parity_launches = None
+    train_launches = timing = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -1484,6 +1969,9 @@ def main(argv=None) -> int:
     if "serve_chunked" in phases:
         chunked_launches = phase_serve_chunked(args.profile, serve_params)
         free_engine()
+    if "serve_spec" in phases:
+        spec_launches = phase_serve_spec(serve_params, args.profile)
+        free_engine()
     del serve_params
     torch.cuda.empty_cache()
     if "train_parity" in phases:
@@ -1492,13 +1980,14 @@ def main(argv=None) -> int:
         train_launches = phase_train(args.profile)
     if "timing" in phases:
         timing = phase_timing()
-    if errs and launches and chunked_launches and parity_launches and train_launches and timing:
+    if (errs and launches and chunked_launches and spec_launches and parity_launches
+            and train_launches and timing):
         # A kernel on several paths counts its launches in each drive. K9's
         # bf16/f32 branch runs where chunked prefill or the prefix cache
         # serves a bf16/f32 pool: the float32 chunked parity drive (the
         # full-width chunked serve runs the int8 pool).
         by_path = {name: {"serve": launches[name], "serve_chunked": chunked_launches[name],
-                          "train": train_launches[name],
+                          "serve_spec": spec_launches[name], "train": train_launches[name],
                           "parity_chunked_f32": parity_launches["float32"][name]}
                    for name in KERNEL_META}
         emit({"kernels": [

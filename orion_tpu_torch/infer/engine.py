@@ -18,8 +18,21 @@ tail, and a fully cached context copies its last page on write. Cached
 pages are reclaimable headroom, evicted LRU under pressure. With
 inference.kv_quant='int8' the pool is int8 with float32 scales.
 
+With inference.speculative a host-side n-gram proposer
+(``infer/spec_decode.py``, drafting also from the prefix cache's token
+paths) drafts up to ``speculate_tokens`` tokens per live slot; one verify
+dispatch (``runner.verify_step``, or ``mixed_verify_step`` beside prompt
+chunks) scores every slot's pending token and drafts through K10, the host
+walks the verdicts, emits the accepted prefix plus one bonus/correction
+token, and releases the pages that held only rejected drafts. Token trees
+(``spec_tree_width`` > 1) verify several branches under an ancestor mask
+and compact an accepted off-primary path's KV. Greedy output is token for
+token that of the engine without speculation. Unlike the JAX engine, a
+failed verify or compaction raises: there is no auto-disable ladder
+(``spec_fault_limit`` is validated by the config and not acted on).
+
 Not ported yet (each raises at construction when configured):
-speculative decoding, constrained decoding, int8 weights, MoE, the host
+constrained decoding, int8 weights, MoE, the host
 tier and long-context paging, decode-window autotune, NaN guard,
 sliding-window page rolling (a window on every layer; interleaved
 local/global windows are served) and ``paged_prefill=false``. Also absent:
@@ -46,17 +59,26 @@ import torch
 from orion_tpu_torch.config import Config
 from orion_tpu_torch.infer.kv_cache import (
     PageAllocator,
+    compact_draft_kv,
     copy_page,
     init_cache,
     pages_per_seq,
+    rollback_pages,
 )
 from orion_tpu_torch.infer.prefix_cache import PrefixCache
-from orion_tpu_torch.infer.runner import decode_window, mixed_step, prefill_step
+from orion_tpu_torch.infer.runner import (
+    decode_window,
+    mixed_step,
+    mixed_verify_step,
+    prefill_step,
+    verify_step,
+)
 from orion_tpu_torch.infer.sampling import sample
 from orion_tpu_torch.infer.scheduler import Request
-from orion_tpu_torch.metrics import PrefixCacheStats
+from orion_tpu_torch.infer.spec_decode import NgramProposer
+from orion_tpu_torch.metrics import PrefixCacheStats, SpecDecodeStats
 from orion_tpu_torch.models.convert import to_device
-from orion_tpu_torch.ops import check_prefill_fit
+from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
 
 
@@ -78,7 +100,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.weight_quant": m.weight_quant is not None,
         "model.n_experts > 0 (MoE)": m.is_moe,
-        "inference.speculative": i.speculative,
         "inference.constrained": i.constrained,
         "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
         "inference.long_context": i.long_context,
@@ -145,6 +166,7 @@ class InferenceEngine:
                 n_heads=self.mcfg.n_heads, n_kv_heads=self.mcfg.n_kv_heads,
                 head_dim=self.mcfg.resolved_head_dim, page_size=self.psz,
             )
+        self._init_speculation()
         self.cache = init_cache(self.mcfg, self.icfg, self.device)
         self.params = to_device(params, self.device)
         self.alloc = PageAllocator(self.icfg.num_pages)
@@ -167,15 +189,60 @@ class InferenceEngine:
         self.slot_temp = np.full(self.max_batch, self.icfg.temperature, np.float32)
         self.slot_top_k = np.full(self.max_batch, self.icfg.top_k, np.int32)
         self.slot_top_p = np.full(self.max_batch, self.icfg.top_p, np.float32)
-        # Host-clock spans (each ends in the dispatch's token fetch, which
-        # waits for the device): prefill, decode-window and mixed-step
-        # time; prefill tokens computed (cached prefixes excluded); the
-        # chunked-prefill tally (mixed dispatches, chunk rows, real and
-        # padded-out chunk positions).
-        self.timing = {"prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
-                       "prefill_tokens": 0, "decode_slot_steps": 0, "steps": 0,
-                       "windows": 0, "mixed_steps": 0, "prefill_chunks": 0,
-                       "chunk_tokens": 0, "chunk_pad_tokens": 0}
+        self.timing = self._zero_timing()
+
+    @staticmethod
+    def _zero_timing() -> dict:
+        """Host-clock spans (each ends in the dispatch's host fetch, which
+        waits for the device): prefill, decode (decode windows and pure
+        verify dispatches) and mixed-step time, and verify_s, the verify
+        share of decode_s; prefill tokens computed (cached prefixes
+        excluded); the chunked-prefill tally (mixed dispatches, chunk rows,
+        real and padded-out chunk positions); verify dispatches, pure and
+        mixed together, and the mixed ones among them."""
+        return {"prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0, "verify_s": 0.0,
+                "prefill_tokens": 0, "decode_slot_steps": 0, "steps": 0,
+                "windows": 0, "mixed_steps": 0, "prefill_chunks": 0,
+                "chunk_tokens": 0, "chunk_pad_tokens": 0, "verify_steps": 0,
+                "mixed_verify_steps": 0}
+
+    def _init_speculation(self) -> None:
+        """inference.speculative: validate the knobs, check that K10's block
+        fits the verify width, and build the n-gram proposer."""
+        icfg, mcfg = self.icfg, self.mcfg
+        self.spec_stats = SpecDecodeStats()
+        self._spec: Optional[NgramProposer] = None
+        self._tree = False
+        if not icfg.speculative:
+            return
+        if icfg.spec_min_draft_slots < 1:
+            raise ValueError(
+                f"inference.spec_min_draft_slots={icfg.spec_min_draft_slots} must be >= 1"
+            )
+        if icfg.spec_tree_width > icfg.speculate_tokens:
+            raise ValueError(
+                f"inference.spec_tree_width={icfg.spec_tree_width} exceeds "
+                f"speculate_tokens={icfg.speculate_tokens}: a tree of w branches "
+                f"needs at least w nodes"
+            )
+        if icfg.spec_tree_width > 1 and icfg.speculate_tokens + 1 > 31:
+            raise ValueError(
+                f"tree speculation packs the per-column ancestor mask into int32 "
+                f"words: speculate_tokens={icfg.speculate_tokens} needs "
+                f"{icfg.speculate_tokens + 1} columns > the 31-bit budget; lower "
+                f"inference.speculate_tokens or set spec_tree_width=1"
+            )
+        self._spec = NgramProposer(
+            speculate_tokens=icfg.speculate_tokens, max_n=icfg.spec_ngram_max,
+            min_n=icfg.spec_ngram_min, tree_width=icfg.spec_tree_width,
+        )
+        # K10 holds every query row of a kv head in one block: a verify
+        # width it cannot hold fails here, naming the knob.
+        check_verify_fit(
+            icfg.speculate_tokens + 1, n_heads=mcfg.n_heads, n_kv_heads=mcfg.n_kv_heads,
+            head_dim=mcfg.resolved_head_dim, page_size=self.psz,
+        )
+        self._tree = icfg.spec_tree_width > 1
 
     # -- public API --------------------------------------------------------
 
@@ -259,7 +326,7 @@ class InferenceEngine:
         mixed = self.chunked and any(
             r is not None and r.prefill_pending and not r.done for r in self.slots
         )
-        if self._mixed_decode() if mixed else self._decode_window_all():
+        if self._mixed_decode() if mixed else self._decode_all():
             self.timing["windows"] += 1
         self.timing["steps"] += 1
         done, self._just_finished = self._just_finished, []
@@ -326,6 +393,20 @@ class InferenceEngine:
             return 0
         return pages * self.psz
 
+    def reset_timing(self) -> dict:
+        """Return and zero ``timing``, with the current decode_window and,
+        with inference.speculative, the speculation counters of
+        ``spec_stats`` (spec_drafted/accepted/rolled_back/emitted,
+        spec_acceptance_rate, verify_steps, verify_slot_steps,
+        spec_tokens_per_verify, spec_gated_steps and the tree counters),
+        which are zeroed too."""
+        out, self.timing = self.timing, self._zero_timing()
+        out["decode_window"] = self.decode_window
+        if self._spec is not None:
+            out.update(self.spec_stats.as_timing())
+            self.spec_stats = SpecDecodeStats()
+        return out
+
     def assert_page_accounting(self) -> None:
         """The pool invariant: every page's allocator refcount equals its
         owners — one per page a request maps plus one per prefix-cache
@@ -355,10 +436,19 @@ class InferenceEngine:
     def _bucket_len(self, n: int) -> int:
         return min(round_up(n, self.icfg.prefill_chunk), self.icfg.max_seq_len)
 
+    @property
+    def _provision_window(self) -> int:
+        """Positions a step may write past a slot's cursor, which admission
+        budgets for: the decode window, or with speculation at least
+        speculate_tokens + 1 (a verify step writes draft KV that far)."""
+        if self.icfg.speculative:
+            return max(self.decode_window, self.icfg.speculate_tokens + 1)
+        return self.decode_window
+
     def _first_window(self, last_written: int) -> int:
         """Pages a slot needs through the first decode window after its
         context (``last_written`` = the last context position)."""
-        last = min(last_written + self.decode_window, self.icfg.max_seq_len - 1)
+        last = min(last_written + self._provision_window, self.icfg.max_seq_len - 1)
         return min(last // self.psz + 1, self.pages_per_seq)
 
     def _admission_need(self, context_len: int) -> tuple[int, int]:
@@ -393,7 +483,7 @@ class InferenceEngine:
         ctxs = np.arange(min_ctx, max_ctx + 1, dtype=np.int64)
         msl = self.icfg.max_seq_len
         bucket = np.minimum(round_up(ctxs, self.icfg.prefill_chunk), msl)
-        last = np.minimum(ctxs + self.decode_window - 1, msl - 1)
+        last = np.minimum(ctxs + self._provision_window - 1, msl - 1)
         first_window = np.minimum(last // self.psz + 1, self.pages_per_seq)
         return int(np.maximum(bucket // self.psz + 1, first_window + 1).max())
 
@@ -648,9 +738,12 @@ class InferenceEngine:
         req.n_prefix = 0
 
     def _teardown_slot(self, req: Request, n_cached: int) -> None:
-        """The one slot-teardown path (reap and preemption)."""
+        """The one slot-teardown path (reap and preemption). A preempted
+        request restarts its draft-length adaptation cold."""
         slot = req.slot
         self._release_request(req, n_cached)
+        if self._spec is not None:
+            self._spec.drop(req.rid)
         req.slot = None
         self.slots[slot] = None
         self.page_table[slot] = 0
@@ -669,12 +762,13 @@ class InferenceEngine:
         req.prefill_done = 0
         self.waiting.appendleft(req)
 
-    def _grow_pages(self) -> None:
+    def _grow_pages(self, window: Optional[int] = None) -> None:
         """Pre-provision every live slot with pages for the whole upcoming
         decode window (the device writes up to W positions ahead of the
-        host's view), oldest request first: cached pages are reclaimed
-        first, then the youngest other request is preempted."""
-        W = self.decode_window
+        host's view; ``window`` is the verify width on a verify step),
+        oldest request first: cached pages are reclaimed first, then the
+        youngest other request is preempted."""
+        W = self.decode_window if window is None else window
         by_age = sorted(
             (r for r in self.slots if r is not None and not r.done),
             key=lambda r: r.admit_seq,
@@ -715,6 +809,269 @@ class InferenceEngine:
                 self.page_table[req.slot, len(req.pages)] = page
                 req.pages.append(page)
 
+    def _decode_all(self) -> bool:
+        """A verify step when some slot drafted (inference.speculative),
+        else the plain decode window."""
+        if self._spec is not None:
+            live = [r for r in self.slots if r is not None and not r.done]
+            drafts = self._propose_drafts(live)
+            if drafts is not None:
+                return self._verify_all(drafts)
+        return self._decode_window_all()
+
+    def _propose_drafts(self, cands: list[Request]) -> Optional[dict[int, Any]]:
+        """Drafts by slot for the candidates (a token list, or a DraftTree
+        under spec_tree_width > 1), or None when nothing was drafted — the
+        caller then runs the plain step. A draft is capped by the request's
+        adaptive length, the context window (write positions stay below
+        max_seq_len) and its remaining token budget. Draft-density gate:
+        when fewer than ``spec_min_draft_slots`` slots drafted (clamped to
+        the candidates, so a fully drafting batch always verifies), the
+        step goes to the plain path and counts as gated."""
+        if not cands:
+            return None
+        extra = self._pcache.token_paths() if self._pcache is not None else ()
+        drafts: dict[int, Any] = {}
+        n_drafted = 0
+        for r in cands:
+            pos = int(self.seq_lens[r.slot])
+            limit = min(self.icfg.max_seq_len - 1 - pos,
+                        r.max_new_tokens - len(r.generated) - 1)
+            if limit <= 0:
+                d = None if self._tree else []
+            elif self._tree:
+                d = self._spec.propose_tree(r.rid, r.context, limit, extra)
+            else:
+                d = self._spec.propose(r.rid, r.context, limit, extra)
+            drafts[r.slot] = d
+            n_drafted += bool(d)
+        if not n_drafted:
+            return None
+        if n_drafted < min(self.icfg.spec_min_draft_slots, len(cands)):
+            self.spec_stats.gated_steps += 1
+            return None
+        return drafts
+
+    def _build_verify_rows(self, reqs: list[Request], drafts: dict[int, Any]):
+        """The [B, speculate_tokens + 1] verify rows: column 0 the pending
+        last token, then the drafts; ``lens`` the real width (rows without
+        a request stay zeros of length 1, on scratch page 0)."""
+        W = self.icfg.speculate_tokens + 1
+        tokens = np.zeros((self.max_batch, W), np.int32)
+        lens = np.ones(self.max_batch, np.int32)
+        for r in reqs:
+            d = drafts.get(r.slot) or []
+            tokens[r.slot, 0] = self.last_token[r.slot]
+            tokens[r.slot, 1:1 + len(d)] = d
+            lens[r.slot] = 1 + len(d)
+        return tokens, lens
+
+    def _build_verify_tree_rows(self, reqs: list[Request], drafts: dict[int, Any]):
+        """Tree verify rows: the chain layout plus per-column depths, parent
+        columns and packed ancestor words of each row's DraftTree. Columns
+        without a node carry chain-shaped defaults (depth j, parent j - 1,
+        causal words), so a chain-shaped tree feeds K10 a chain's arrays."""
+        W = self.icfg.speculate_tokens + 1
+        B = self.max_batch
+        steps = np.arange(W, dtype=np.int64)
+        tokens = np.zeros((B, W), np.int32)
+        lens = np.ones(B, np.int32)
+        depths = np.tile(steps.astype(np.int32), (B, 1))
+        parents = np.tile(np.maximum(steps - 1, 0).astype(np.int32), (B, 1))
+        words = np.tile(((np.int64(1) << (steps + 1)) - 1).astype(np.int32), (B, 1))
+        for r in reqs:
+            s, t = r.slot, drafts.get(r.slot)
+            tokens[s, 0] = self.last_token[s]
+            if t:
+                n = len(t)
+                tokens[s, 1:1 + n] = t.tokens
+                lens[s] = 1 + n
+                depths[s, :1 + n] = t.depths()
+                parents[s, 1:1 + n] = t.parents
+                words[s, :1 + n] = np.asarray(t.mask_words(), np.int64).astype(np.int32)
+        return tokens, lens, depths, parents, words
+
+    def _verify_rows(self, reqs: list[Request], drafts: dict[int, Any]):
+        """(tokens, lens, tree tensors for the runner) of a verify dispatch."""
+        dev = self.device
+        if not self._tree:
+            tokens, lens = self._build_verify_rows(reqs, drafts)
+            return tokens, lens, {}
+        tokens, lens, depths, parents, words = self._build_verify_tree_rows(reqs, drafts)
+        tree_kw = dict(depths=torch.from_numpy(depths).to(dev),
+                       parents=torch.from_numpy(parents).to(dev),
+                       tree_mask=torch.from_numpy(words).to(dev))
+        return tokens, lens, tree_kw
+
+    @staticmethod
+    def _fetch_verdicts(acc: torch.Tensor, alt: torch.Tensor):
+        """The verify step's one host fetch: (accept bool [B, W], alt)."""
+        both = torch.stack([acc.to(torch.int32), alt.to(torch.int32)]).cpu().numpy()
+        return both[0].astype(bool), both[1]
+
+    def _verify_all(self, drafts: dict[int, Any]) -> bool:
+        """One verify dispatch for every live slot (runner.verify_step):
+        its pending token and drafts scored in one pass over the weights;
+        emit the accepted prefix and one bonus/correction token per slot,
+        then release the pages of the rejected tail."""
+        self._grow_pages(self.icfg.speculate_tokens + 1)
+        # After provisioning: pool pressure may have preempted a drafter.
+        active = [r for r in self.slots if r is not None and not r.done]
+        if not active:
+            self._reap()
+            return False
+        if not any(drafts.get(r.slot) for r in active):
+            return self._decode_window_all()
+        tokens, lens, tree_kw = self._verify_rows(active, drafts)
+        dev = self.device
+        t0 = time.perf_counter()
+        acc, alt, self.cache = verify_step(
+            self.params, self.cache, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(lens).to(dev),
+            torch.from_numpy(self.page_table).to(dev), self._gen, cfg=self.mcfg,
+            max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active), **tree_kw,
+        )
+        acc, alt = self._fetch_verdicts(acc, alt)
+        dt = time.perf_counter() - t0
+        tm = self.timing
+        tm["decode_s"] += dt
+        tm["verify_s"] += dt
+        tm["verify_steps"] += 1
+        tm["decode_slot_steps"] += len(active)
+        self._accept_verified(active, tokens, lens, drafts, acc, alt)
+        self._reap()
+        return True
+
+    def _accept_verified(self, active, tokens, lens, drafts, acc, alt) -> None:
+        if self._tree:
+            self._accept_and_rollback_tree(active, tokens, lens, drafts, acc, alt)
+        else:
+            self._accept_and_rollback(active, tokens, lens, acc, alt)
+
+    def _emit(self, req: Request, emit: list[int]) -> int:
+        """Accept ``emit``'s tokens in order until the request finishes;
+        returns how many were accepted."""
+        n = 0
+        for tok in emit:
+            if req.done:
+                break
+            self._accept(req, tok)
+            n += 1
+        return n
+
+    def _accept_and_rollback(self, active, tokens, lens, acc, alt) -> None:
+        """Walk each slot's verdicts: emit the accepted draft prefix and
+        ``alt`` at the first rejection (the correction) or at the row's end
+        (the bonus), then release the pages past the new cursor
+        (kv_cache.rollback_pages), leaving the footprint a window=1 step
+        would. Rejected KV past the cursor is dead, masked by seq_lens."""
+        st = self.spec_stats
+        st.verify_steps += 1
+        st.verify_slot_steps += len(active)
+        for r in active:
+            s = r.slot
+            k = int(lens[s]) - 1
+            a = 0
+            while a < k and acc[s, a]:
+                a += 1
+            n_emit = self._emit(r, [int(t) for t in tokens[s, 1:1 + a]] + [int(alt[s, a])])
+            kept = min(n_emit, a)       # draft tokens that reached the stream
+            st.drafted += k
+            st.accepted += kept
+            st.rolled_back += k - kept
+            st.emitted += n_emit
+            self._spec.state(r.rid).update(k, kept, self.icfg.speculate_tokens)
+            if not r.done:
+                # A finished slot is reaped whole, donating only the full
+                # pages below its (rewound) cursor.
+                self._rollback_slot(r)
+
+    def _rollback_slot(self, req: Request) -> None:
+        """Release the pages a verify step provisioned past the accepted
+        cursor."""
+        n_keep = (int(self.seq_lens[req.slot]) - 1) // self.psz + 1
+        if len(req.pages) > n_keep:
+            rollback_pages(self.alloc, req.pages, n_keep)
+            self.page_table[req.slot, n_keep:] = 0
+
+    def _plan_emission(self, req: Request, emit: list[int]) -> int:
+        """How many of ``emit``'s tokens the request will accept (the stop
+        conditions of ``_maybe_finish``, without side effects), so tree
+        acceptance can size the KV compaction before any state changes."""
+        n = 0
+        gen = len(req.generated)
+        pos = int(self.seq_lens[req.slot])
+        for tok in emit:
+            n += 1
+            gen += 1
+            pos += 1
+            if ((self.eos_id is not None and tok == self.eos_id)
+                    or pos >= self.icfg.max_seq_len or gen >= req.max_new_tokens):
+                break
+        return n
+
+    def _accept_and_rollback_tree(self, active, tokens, lens, drafts, acc, alt) -> None:
+        """Tree acceptance: walk each slot's DraftTree from the root into
+        the first accepted child in sibling order, and emit the verified
+        path plus the last node's ``alt``. A path off the primary chain
+        lies at non-contiguous verify columns: one compaction over all
+        slots (kv_cache.compact_draft_kv) moves its KV to cursor-contiguous
+        positions before anything is emitted; a failure raises. Then the
+        emission and rollback of the chain walk."""
+        st = self.spec_stats
+        st.verify_steps += 1
+        st.verify_slot_steps += len(active)
+        W = self.icfg.speculate_tokens + 1
+        src = np.tile(np.arange(W, dtype=np.int32), (self.max_batch, 1))
+        plans = []
+        moves = 0
+        for r in active:
+            s = r.slot
+            t = drafts.get(s) or None
+            path: list[int] = []
+            cur = 0
+            if t is not None:
+                children = t.children()
+                while True:
+                    nxt = next((c for c in children[cur] if acc[s, c]), None)
+                    if nxt is None:
+                        break
+                    path.append(nxt)
+                    cur = nxt
+            emit = [int(tokens[s, c]) for c in path] + [int(alt[s, cur])]
+            plans.append((r, t, path, emit))
+            kept = min(self._plan_emission(r, emit), len(path))
+            off = [i for i in range(kept) if path[i] != i + 1]
+            if off:
+                src[s, 1:1 + kept] = path[:kept]
+                moves += len(off)
+        if moves:
+            dev = self.device
+            compact_draft_kv(
+                self.cache, torch.from_numpy(self.page_table).to(dev),
+                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(src).to(dev),
+                n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages,
+            )
+            st.compactions += 1
+            st.compacted_tokens += moves
+        for r, t, path, emit in plans:
+            s = r.slot
+            n_emit = self._emit(r, emit)
+            kept = min(n_emit, len(path))
+            k = int(lens[s]) - 1
+            depth = t.max_depth if t is not None else 0
+            st.drafted += k
+            st.accepted += kept
+            st.rolled_back += k - kept
+            st.emitted += n_emit
+            st.tree_nodes += k
+            st.tree_branch_nodes += max(k - depth, 0)
+            # The adaptive controller steers the depth (the chain-equivalent
+            # draft length): drafted = the tree's depth, accepted = the path.
+            self._spec.state(r.rid).update(depth, kept, self.icfg.speculate_tokens)
+            if not r.done:
+                self._rollback_slot(r)
+
     def _decode_window_all(self) -> bool:
         """The fused decode window over all live slots."""
         self._grow_pages()
@@ -750,9 +1107,16 @@ class InferenceEngine:
         """One mixed step (inference.chunked_prefill, runner.mixed_step):
         one decode token for every live slot plus up to
         prefill_chunk_tokens of prompt chunks, in ONE dispatch — a decode
-        waits at most one chunk budget behind a prompt burst. Returns True
-        iff a decode slot advanced."""
-        self._grow_pages()
+        waits at most one chunk budget behind a prompt burst. With
+        speculation, decode-phase slots draft and the decode rows become
+        verify rows (runner.mixed_verify_step); prompt-phase slots never
+        draft. Returns True iff a decode slot advanced."""
+        drafts = None
+        if self._spec is not None:
+            drafts = self._propose_drafts(
+                [r for r in self.slots
+                 if r is not None and not r.done and not r.prefill_pending])
+        self._grow_pages(self.icfg.speculate_tokens + 1 if drafts is not None else None)
         psz, S = self.psz, self.icfg.prefill_chunk_tokens
         # Pending prompts in admission order, each contributing its next
         # chunk until the budget is spent. Mid-prompt chunks end page-
@@ -787,21 +1151,35 @@ class InferenceEngine:
             d_pt[r.slot] = 0
         dec = [r for r in self.slots
                if r is not None and not r.done and not r.prefill_pending]
+        if drafts is not None and not any(drafts.get(r.slot) for r in dec):
+            drafts = None   # provisioning preempted every drafter
         dev = self.device
-        t0 = time.perf_counter()
-        toks, p_logits, self.cache = mixed_step(
-            self.params, self.cache,
-            torch.from_numpy(self.last_token).to(dev),
-            torch.from_numpy(self.seq_lens).to(dev),
-            torch.from_numpy(d_pt).to(dev), *arrays,
-            # No live decode row: draw nothing from the engine's stream, so
-            # a sampled lone request is the same chunked and unchunked.
-            self._gen if dec else None,
-            cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec),
-        )
-        d_out = toks.cpu().numpy() if toks is not None else None   # the one fetch
-        real = sum(k for _, k in chunks)
         tm = self.timing
+        t0 = time.perf_counter()
+        if drafts is not None:
+            vtok, vlens, tree_kw = self._verify_rows(dec, drafts)
+            acc, alt, p_logits, self.cache = mixed_verify_step(
+                self.params, self.cache, torch.from_numpy(vtok).to(dev),
+                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(vlens).to(dev),
+                torch.from_numpy(d_pt).to(dev), *arrays, self._gen, cfg=self.mcfg,
+                max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec), **tree_kw,
+            )
+            acc, alt = self._fetch_verdicts(acc, alt)   # the one fetch
+            tm["verify_steps"] += 1
+            tm["mixed_verify_steps"] += 1
+        else:
+            toks, p_logits, self.cache = mixed_step(
+                self.params, self.cache,
+                torch.from_numpy(self.last_token).to(dev),
+                torch.from_numpy(self.seq_lens).to(dev),
+                torch.from_numpy(d_pt).to(dev), *arrays,
+                # No live decode row: draw nothing from the engine's stream,
+                # so a sampled lone request is the same chunked and unchunked.
+                self._gen if dec else None,
+                cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec),
+            )
+            d_out = toks.cpu().numpy() if toks is not None else None   # the one fetch
+        real = sum(k for _, k in chunks)
         tm["mixed_steps"] += 1
         tm["prefill_chunks"] += len(chunks)
         tm["chunk_tokens"] += real
@@ -826,8 +1204,11 @@ class InferenceEngine:
                 r.prefill_pending = False
                 self._first_token(r, int(first), t1)
         tm["mixed_s"] += time.perf_counter() - t0
-        for r in dec:
-            self._accept(r, int(d_out[r.slot]))
+        if drafts is not None:
+            self._accept_verified(dec, vtok, vlens, drafts, acc, alt)
+        else:
+            for r in dec:
+                self._accept(r, int(d_out[r.slot]))
         self._reap()
         return bool(dec)
 

@@ -17,6 +17,10 @@ per-layer-relative and device code adds ``l * num_pages``. Page 0 of each
 layer region is a scratch page: every inactive slot points at it. The
 cache is a plain dict of tensors, updated in place by the runner; the
 presence of ``k_scale`` is what marks an int8 pool.
+
+Speculative decoding adds ``rollback_pages`` (release the pages a verify
+step provisioned past the accepted cursor) and ``compact_draft_kv`` (move
+an accepted off-primary tree path's KV to cursor-contiguous positions).
 """
 
 from __future__ import annotations
@@ -142,3 +146,70 @@ class PageAllocator:
         """Bulk release for owners holding one ref per page."""
         for p in pages:
             self.release(p)
+
+
+def rollback_pages(alloc: PageAllocator, pages: list, n_keep: int) -> list[int]:
+    """Speculative-decode rollback: truncate a request's page list to its
+    first ``n_keep`` entries and release the tail to the pool.
+
+    A verify step provisions pages for its whole draft window (write
+    positions run up to speculate_tokens past the accepted cursor); after
+    acceptance, pages holding only rejected positions are dead. Releasing
+    them restores the footprint a non-speculative window=1 engine holds
+    after its step. The tail is always private (refcount 1): shared prefix
+    pages lie strictly below any live cursor, hence below ``n_keep``.
+    Returns the released pages (the caller zeroes their page-table
+    columns)."""
+    if n_keep < 0:
+        raise ValueError(f"n_keep={n_keep} must be >= 0")
+    dead = list(pages[n_keep:])
+    del pages[n_keep:]
+    alloc.free(dead)
+    return dead
+
+
+@torch.no_grad()
+def compact_draft_kv(
+    cache: Cache,
+    page_table: torch.Tensor,   # [B, P] per-layer-relative page ids
+    seq_lens: torch.Tensor,     # [B] the verify-time cursor (start)
+    src: torch.Tensor,          # [B, W] column whose KV moves to start + i
+    *,
+    n_layers: int,
+    num_pages: int,
+) -> None:
+    """Tree-speculation KV compaction, in place: position ``start + i``
+    receives the KV that the verify step wrote at ``start + src[b, i]``,
+    in every layer and every cache tensor (int8 pools move with their
+    scale columns).
+
+    An accepted root path that is not the tree's primary chain lies at
+    non-contiguous verify columns; this moves it to cursor-contiguous
+    positions before the next step reads them. Every source column is
+    gathered before any is scattered: destinations are never past their
+    sources (depth <= column), so overlapping moves read pre-move bytes.
+    Identity entries copy onto themselves. The bytes move verbatim, so the
+    pool is bitwise what a sequential decode of the accepted tokens would
+    have written. Plain advanced indexing, as the JAX package leaves this
+    to XLA outside any kernel."""
+    B, W = src.shape
+    psz = cache["k"].shape[2]
+    P = page_table.shape[1]
+    dev = cache["k"].device
+    pt = page_table.to(dev).long()
+    start = seq_lens.to(dev).long()[:, None]
+    max_pos = P * psz - 1
+    bidx = torch.arange(B, device=dev)[:, None]
+    steps = torch.arange(W, device=dev)[None, :]
+    src_pos = (start + src.to(dev).long()).clamp(max=max_pos)
+    dst_pos = (start + steps).clamp(max=max_pos)
+    layer = torch.arange(n_layers, device=dev)[:, None, None] * num_pages
+    rows_src = layer + pt[bidx, src_pos // psz][None]          # [L, B, W]
+    rows_dst = layer + pt[bidx, dst_pos // psz][None]
+    off_src = (src_pos % psz).expand(n_layers, B, W)
+    off_dst = (dst_pos % psz).expand(n_layers, B, W)
+    # Pools are [rows, K, psz, H] and scale pools [rows, K, SW]: either way
+    # the token column is axis 2 of a row.
+    vals = {name: arr[rows_src, :, off_src] for name, arr in cache.items()}
+    for name, arr in cache.items():
+        arr[rows_dst, :, off_dst] = vals[name]

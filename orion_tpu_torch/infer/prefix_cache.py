@@ -3,7 +3,7 @@ nodes own immutable, refcounted KV-cache pages.
 
 Counterpart of ``orion_tpu/infer/prefix_cache.py`` without the host tier
 (``HostPage``, ``peek_tiered``, ``demote``, ``evict_host``,
-``promote_path``) and without ``token_paths`` (speculative drafting).
+``promote_path``). ``token_paths`` feeds the speculative drafter.
 When a request finishes or is preempted, the FULL pages of its context are
 inserted into the tree keyed by token ids; a new request matches the
 longest cached prefix at page granularity, maps those pages into its page
@@ -63,6 +63,10 @@ class PrefixCache:
         # evict/clear (splits move pages between equal-lock nodes), so
         # evictable_pages() is O(1) on the scheduler's hot path.
         self.locked_pages = 0
+        # ``token_paths`` memo: rebuilt only after a structural change
+        # (insert of new pages, eviction, clear) bumps the version.
+        self._paths_version = 0
+        self._paths_cache: Optional[tuple[int, list]] = None
 
     # -- internals ---------------------------------------------------------
 
@@ -211,8 +215,34 @@ class PrefixCache:
             node.children[key[:psz]] = leaf
             node = leaf
             self.total_pages += added
+            self._paths_version += 1
         self._touch(node)
         return added
+
+    def token_paths(self, max_paths: int = 64):
+        """Root-to-leaf token sequences currently cached, most recently
+        used first (capped at ``max_paths``): the draft source of
+        speculative decoding across requests (``infer/spec_decode.py``).
+        Read only. Memoized between structural changes (insert, evict,
+        clear), so the order within the memo window is the order at the
+        last change, as in the JAX package."""
+        if self._paths_cache is not None and self._paths_cache[0] == self._paths_version:
+            return self._paths_cache[1]
+        paths: list[tuple[int, tuple]] = []
+
+        def walk(node: _Node, prefix: tuple) -> None:
+            run = prefix + node.key
+            if not node.children and run:
+                paths.append((node.stamp, run))
+                return
+            for child in node.children.values():
+                walk(child, run)
+
+        walk(self.root, ())
+        paths.sort(key=lambda sp: -sp[0])
+        out = [p for _, p in paths[:max_paths]]
+        self._paths_cache = (self._paths_version, out)
+        return out
 
     def evictable_pages(self) -> int:
         """Pages reclaimable right now: every page in a subtree no live
@@ -241,6 +271,8 @@ class PrefixCache:
                 freed += 1
             if not leaf.pages:
                 del leaf.parent.children[first]
+        if freed:
+            self._paths_version += 1
         return freed
 
     def clear(self) -> int:
@@ -260,4 +292,6 @@ class PrefixCache:
         self.root = _Node((), [], None)
         self.total_pages = 0
         self.locked_pages = 0
+        self._paths_version += 1
+        self._paths_cache = None
         return released

@@ -1,5 +1,5 @@
-"""Cache-aware forward passes: prefill, decode and the mixed chunked step
-over the paged KV pool.
+"""Cache-aware forward passes: prefill, decode, the mixed chunked step and
+speculative verification over the paged KV pool.
 
 Counterpart of ``orion_tpu/infer/runner.py``:
 
@@ -16,14 +16,19 @@ Counterpart of ``orion_tpu/infer/runner.py``:
     host fetch by the engine — nothing inside the window reads a value
     back to the host;
   - ``mixed_step`` (inference.chunked_prefill) runs prompt-chunk rows and
-    one decode token per slot through one layer loop over one pool.
+    one decode token per slot through one layer loop over one pool;
+  - ``verify_step`` (inference.speculative) scores each slot's pending
+    token and its drafts, W = speculate_tokens + 1 positions per slot, in
+    one forward pass and returns the acceptance verdicts; K10
+    (``ops.ragged_paged_attention``) writes the drafts' K/V in place.
+    ``mixed_verify_step`` is ``mixed_step`` with verify rows for decode rows.
 
 The pool is one flat [L*num_pages, K, psz, H] tensor per K and V (int8,
 with float32 scale pools, under inference.kv_quant), updated in place:
 whole-prompt prefill by indexed assignment at rows ``l*num_pages + page``
 (the JAX package's scatter is outside any kernel too), chunk prefill
-inside K9, decode inside K4. Inactive slots point at scratch page 0 and
-are masked by their lengths. ``paged_prefill=false`` (the JAX package's
+inside K9, decode inside K4, verify inside K10. Inactive slots point at
+scratch page 0 and are masked by their lengths. ``paged_prefill=false`` (the JAX package's
 gather body for P_pre > 0, which needs explicit positions in K3) is not
 ported.
 """
@@ -44,7 +49,13 @@ from orion_tpu_torch.models.transformer import (
     qkv_proj,
     unembed,
 )
-from orion_tpu_torch.ops import attention, paged_attention, paged_flash_prefill, quantize_kv
+from orion_tpu_torch.ops import (
+    attention,
+    paged_attention,
+    paged_flash_prefill,
+    quantize_kv,
+    ragged_paged_attention,
+)
 
 Cache = dict[str, torch.Tensor]
 
@@ -304,3 +315,171 @@ def mixed_step(
         toks = sample(d_logits, generator, temperature=temperature, top_k=top_k,
                       top_p=top_p)
     return toks, _prefill_logits(params, xp, p_lengths, cfg), cache
+
+
+def _verify_ctx(
+    cache: Cache, seq_lens: torch.Tensor, lens: torch.Tensor,
+    page_table: torch.Tensor, W: int, max_seq_len: int, cfg: ModelConfig,
+    depths: Optional[torch.Tensor] = None, tree_mask: Optional[torch.Tensor] = None,
+) -> dict:
+    """Batch-level tensors of the verify body (speculative decoding). Row b
+    holds ``lens[b]`` real tokens — the pending last token and its drafts —
+    written at positions ``seq_lens[b] + j`` (slot-sequential, tree or
+    chain). Their RoPE positions are the write positions on a chain and
+    ``seq_lens + depths`` on a token tree, clamped inside the context.
+    K10's view of the row: ``start = min(seq_lens, max_seq_len - 1)`` and
+    ``k_lens = clip(min(lens, max_seq_len - start), 1, W)``, an identity
+    for live rows (the engine caps drafts at max_seq_len - 1 - cursor).
+    Rows without a live decode request carry all-zero page-table rows, so
+    their writes land on scratch page 0."""
+    dev = seq_lens.device
+    sl = seq_lens.to(torch.int32)
+    steps = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    if tree_mask is None:
+        pos = sl[:, None] + steps
+    else:
+        pos = sl[:, None] + depths.to(torch.int32)
+    start = torch.clamp(sl, max=max_seq_len - 1)
+    k_lens = torch.clamp(torch.minimum(lens.to(torch.int32), max_seq_len - start), 1, W)
+    return dict(
+        NP=cache["k"].shape[0] // cfg.n_layers, page_table=page_table,
+        positions=torch.clamp(pos, max=max_seq_len - 1), start=start, k_lens=k_lens,
+        tree_mask=tree_mask, depths=depths,
+    )
+
+
+def _verify_layer(
+    x: torch.Tensor, cache: Cache, bp: Params, layer: int, ctx: dict,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """One layer of batched draft verification: the decode layer with W
+    queries per slot. K10 (``ops.ragged_paged_attention``; its plain
+    version on the CPU) writes every real draft's K/V into the pool in
+    place (quantized under int8, as a sequential decode would write it) and
+    attends each query to the context up to its own position, or its tree
+    path. One pass over this layer's weights serves all W positions."""
+    h = _norm(x, bp["attn_norm"], cfg)
+    q, k, v = qkv_proj(h, bp["attn"], cfg, ctx["positions"])
+    out = ragged_paged_attention(
+        q, cache["k"], cache["v"], ctx["page_table"], ctx["start"], ctx["k_lens"],
+        layer_base=layer * ctx["NP"], k_new=k, v_new=v,
+        logit_softcap=cfg.attn_logit_softcap, window=cfg.layer_window(layer),
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        tree_mask=ctx["tree_mask"], depths=ctx["depths"],
+    )[0]
+    a = out_proj(out, bp["attn"], cfg)
+    if cfg.post_norms:
+        a = _norm(a, bp["post_attn_norm"], cfg)
+    x = x + a
+    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    if cfg.post_norms:
+        y = _norm(y, bp["post_mlp_norm"], cfg)
+    return x + y
+
+
+def _draft_next(tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """[B, W] draft under check per logits position: position j's logits
+    predict the token at j+1, so they check ``tokens[:, j+1]``, or nothing
+    (-1: the row's bonus position and all padding)."""
+    B, W = tokens.shape
+    shifted = torch.cat(
+        [tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype, device=tokens.device)],
+        dim=1)
+    steps = torch.arange(W, device=tokens.device)[None, :]
+    return torch.where(steps + 1 < lens.to(tokens.device)[:, None], shifted,
+                       torch.full_like(shifted, -1))
+
+
+def _verify_sample(logits, tokens, lens, generator, parents, sampling):
+    from orion_tpu_torch.infer.sampling import spec_verify_sample, spec_verify_sample_tree
+
+    if parents is None:
+        return spec_verify_sample(logits, _draft_next(tokens, lens), generator, **sampling)
+    return spec_verify_sample_tree(logits, tokens, parents, lens, generator, **sampling)
+
+
+@torch.no_grad()
+def verify_step(
+    params: Params,
+    cache: Cache,
+    tokens: torch.Tensor,       # [B, W] pending last token + its drafts
+    seq_lens: torch.Tensor,     # [B] int32 accepted-token cursor
+    lens: torch.Tensor,         # [B] int32 real verify tokens (1..W)
+    page_table: torch.Tensor,   # [B, pages_per_seq]; rows without a live
+    #                             decode request all zero (scratch page 0)
+    generator: torch.Generator,
+    *,
+    cfg: ModelConfig,
+    max_seq_len: int,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+    depths: Optional[torch.Tensor] = None,     # [B, W] tree depth per column
+    parents: Optional[torch.Tensor] = None,    # [B, W] parent column per column
+    tree_mask: Optional[torch.Tensor] = None,  # [B, W] packed ancestor words
+) -> tuple[torch.Tensor, torch.Tensor, Cache]:
+    """Score every live slot's drafts in ONE forward pass (speculative
+    decoding's verify half) -> ``(accept [B, W] bool, alt [B, W] int32,
+    cache)``, the verdicts of ``sampling.spec_verify_sample`` (chain) or
+    ``spec_verify_sample_tree`` (token tree, ``depths``/``parents``/
+    ``tree_mask`` given). The drafts' K/V is written into the pool as the
+    layers go; the engine rewinds rejected positions afterwards. The
+    counterpart of the JAX runner's ``verify_step`` without the NaN guard
+    and constraint masks."""
+    W = tokens.shape[1]
+    ctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
+                      depths=depths, tree_mask=tree_mask)
+    x = embed(params, tokens, ctx["positions"], cfg)
+    for layer, bp in enumerate(params["blocks"]):
+        x = _verify_layer(x, cache, bp, layer, ctx, cfg)
+    logits = unembed(params, x, cfg)                                # [B, W, V]
+    accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
+                                 dict(temperature=temperature, top_k=top_k, top_p=top_p))
+    return accept, alt, cache
+
+
+@torch.no_grad()
+def mixed_verify_step(
+    params: Params,
+    cache: Cache,
+    tokens: torch.Tensor,       # [B, W] pending last token + drafts per slot
+    seq_lens: torch.Tensor,     # [B] int32 accepted-token cursor
+    lens: torch.Tensor,         # [B] int32 real verify tokens (1..W)
+    page_table: torch.Tensor,   # [B, pages_per_seq]; mid-prefill and idle
+    #                             slots carry all-zero rows
+    p_tokens: torch.Tensor,     # [Nc, S_chunk] prompt-chunk tail tokens
+    p_lengths: torch.Tensor,    # [Nc] true chunk lengths
+    p_pages: torch.Tensor,      # [Nc, S_chunk // psz] pages the chunk writes
+    p_prefix_lens: torch.Tensor,  # [Nc] context tokens already in the pool
+    p_prefix_pages: torch.Tensor,  # [Nc, P_pre] pages holding that context
+    generator: torch.Generator,
+    *,
+    cfg: ModelConfig,
+    max_seq_len: int,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+    depths: Optional[torch.Tensor] = None,
+    parents: Optional[torch.Tensor] = None,
+    tree_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, Cache]:
+    """``mixed_step`` with the decode half replaced by the verify body:
+    speculative decoding composed with chunked prefill -> ``(accept,
+    alt, chunk logits [Nc, V], cache)``. Each layer runs the chunk rows
+    through the prefill body (K9 or K3) and the verify rows through
+    ``_verify_layer`` (K10) over the same pool; they touch disjoint pages,
+    as mid-prefill slots' verify rows are parked on scratch page 0."""
+    W = tokens.shape[1]
+    pctx = _prefill_ctx(cache, p_tokens, p_lengths, p_pages, p_prefix_lens,
+                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg)
+    vctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
+                       depths=depths, tree_mask=tree_mask)
+    xp = embed(params, p_tokens, pctx["positions"], cfg)
+    xv = embed(params, tokens, vctx["positions"], cfg)
+    for layer, bp in enumerate(params["blocks"]):
+        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg)
+        xv = _verify_layer(xv, cache, bp, layer, vctx, cfg)
+    logits = unembed(params, xv, cfg)
+    accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
+                                 dict(temperature=temperature, top_k=top_k, top_p=top_p))
+    return accept, alt, _prefill_logits(params, xp, p_lengths, cfg), cache

@@ -1,7 +1,8 @@
 """Token sampling: greedy / temperature / top-k / nucleus (top-p).
 
-Counterpart of ``orion_tpu/infer/sampling.py`` ``sample`` and
-``filter_logits`` (constraint masks are not ported yet). Top-k and top-p
+Counterpart of ``orion_tpu/infer/sampling.py`` ``sample``,
+``filter_logits`` and the speculative verifiers ``spec_verify_sample``
+and ``spec_verify_sample_tree`` (constraint masks are not ported yet). Top-k and top-p
 are masks over the full vocab (sort + cumulative sum), so shapes stay
 static. Randomness comes from an explicit ``torch.Generator``; the JAX
 package draws from ``jax.random`` keys, so sampled streams differ between
@@ -90,3 +91,132 @@ def filter_logits(
         ).min(dim=-1, keepdim=True).values
         scaled = torch.where((top_p[:, None] < 1.0) & (scaled < thresh), neg, scaled)
     return scaled
+
+
+def _per_row(a, dtype, B: int, W: int, device) -> torch.Tensor:
+    """A python scalar or a [B] per-request tensor, repeated over each
+    row's W positions -> [B * W]."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    if t.dim():
+        t = t.reshape(B, 1)
+    return t.expand(B, W).reshape(B * W)
+
+
+def _filtered(logits: torch.Tensor, temperature, top_k, top_p) -> torch.Tensor:
+    """[B, W, V] logits -> the filtered target logits [B * W, V] float32 and
+    the per-position temperature [B * W]."""
+    B, W, V = logits.shape
+    dev = logits.device
+    temp = _per_row(temperature, torch.float32, B, W, dev)
+    no_topk = isinstance(top_k, int) and top_k == 0
+    no_topp = isinstance(top_p, (int, float)) and top_p >= 1.0
+    filtered = filter_logits(
+        logits.reshape(B * W, V).float(), temp,
+        _per_row(top_k, torch.int32, B, W, dev), _per_row(top_p, torch.float32, B, W, dev),
+        no_topk=no_topk, no_topp=no_topp,
+    )
+    return filtered, temp
+
+
+def spec_verify_sample(
+    logits: torch.Tensor,       # [B, W, V] verify logits
+    draft_next: torch.Tensor,   # [B, W] the draft each position checks; -1 none
+    generator: torch.Generator,
+    *,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position draft acceptance: ``(accept [B, W] bool, alt [B, W]
+    int32)``, the counterpart of ``orion_tpu/infer/sampling.py``'s
+    (without ``legal_mask``). The host walks a row left to right, emitting
+    draft j+1 while ``accept[j]`` holds and ``alt[j]`` at the first
+    rejection or at the row's bonus position.
+
+    Greedy rows (temperature <= 0): accept is an exact argmax match and
+    alt the argmax; the all-scalar greedy case draws nothing from
+    ``generator``. Sampled rows: rejection sampling against the filtered
+    target p (``filter_logits``): accept with probability p(draft) (one
+    u ~ U[0, 1) per position, drawn first), else alt from p with the draft
+    excluded (the residual; the bonus position excludes nothing). Every
+    emitted token's law is p. The draws come from ``generator``, not
+    ``jax.random``: streams differ from the JAX package's, laws do not."""
+    B, W, V = logits.shape
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    dn = draft_next.to(logits.device).to(torch.int32)
+    if isinstance(temperature, (int, float)) and temperature <= 0.0:
+        return greedy == dn, greedy
+    filtered, temp = _filtered(logits, temperature, top_k, top_p)
+    dn = dn.reshape(B * W)
+    probs = torch.softmax(filtered, dim=-1)
+    p_draft = torch.gather(probs, 1, dn.clamp(0, V - 1).long()[:, None])[:, 0]
+    u = torch.rand(B * W, generator=generator, device=logits.device)
+    vocab = torch.arange(V, device=logits.device)[None, :]
+    excl = (vocab == dn[:, None]) & (dn >= 0)[:, None]
+    alt_s = _categorical(filtered.masked_fill(excl, NEG_INF), generator)
+    g = greedy.reshape(B * W)
+    accept = torch.where(temp > 0, u < p_draft, g == dn) & (dn >= 0)
+    alt = torch.where(temp > 0, alt_s, g)
+    return accept.reshape(B, W), alt.reshape(B, W)
+
+
+def spec_verify_sample_tree(
+    logits: torch.Tensor,   # [B, W, V] verify logits, one row per column
+    tokens: torch.Tensor,   # [B, W] col 0 the pending token, then tree nodes
+    parents: torch.Tensor,  # [B, W] parent column per column (col 0 ignored)
+    lens: torch.Tensor,     # [B] real columns (1..W)
+    generator: torch.Generator,
+    *,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-tree acceptance, CHILD-indexed: ``accept[c]`` says whether
+    node column c is accepted by its parent's logits, ``alt[j]`` is column
+    j's fallback token. Counterpart of ``orion_tpu/infer/sampling.py``'s
+    (without ``legal_mask``).
+
+    Greedy: ``accept[c]`` is an exact argmax match against the parent
+    (siblings are distinct, so at most one matches) and nothing is drawn
+    in the all-scalar case. Sampled: sibling c is accepted with
+    probability ``p(x_c) / (1 - elder siblings' p)`` (sequential multi-
+    branch rejection against the shared filtered target, one u per
+    column drawn first), and ``alt[j]`` is drawn from j's target with
+    j's own children's tokens excluded. Every emitted token's law is p."""
+    B, W, V = logits.shape
+    dev = logits.device
+    steps = torch.arange(W, device=dev)[None, :]
+    lens = lens.to(dev)
+    tokens = tokens.to(dev).long()
+    valid = (steps >= 1) & (steps < lens[:, None])                  # [B, W]
+    par = parents.to(dev).long().clamp(0, W - 1)
+    greedy = logits.argmax(dim=-1).to(torch.int32)                  # [B, W]
+    g_accept = valid & (torch.gather(greedy, 1, par) == tokens)
+    if isinstance(temperature, (int, float)) and temperature <= 0.0:
+        return g_accept, greedy
+    filtered, temp = _filtered(logits, temperature, top_k, top_p)
+    filtered = filtered.reshape(B, W, V)
+    probs = torch.softmax(filtered, dim=-1)
+    bidx = torch.arange(B, device=dev)[:, None]
+    parent_probs = probs[bidx, par]                                 # [B, W, V]
+    p_vals = torch.gather(parent_probs, 2, tokens.clamp(0, V - 1)[:, :, None])[:, :, 0]
+    p_vals = torch.where(valid, p_vals, torch.zeros_like(p_vals))
+    # Elder-sibling mass: same parent, earlier column.
+    same_par = par[:, :, None] == par[:, None, :]
+    elder = (same_par & (steps[:, None, :] < steps[:, :, None])
+             & valid[:, :, None] & valid[:, None, :])
+    mass = torch.einsum("bcs,bs->bc", elder.float(), p_vals)
+    u = torch.rand(B, W, generator=generator, device=dev)
+    s_accept = valid & (u * torch.clamp(1.0 - mass, min=1e-9) < p_vals)
+    # Residual per node: its target with its children's tokens excluded
+    # (child tokens scattered onto their parents' rows; invalid columns
+    # land on a dropped extra row).
+    excl = torch.zeros(B, W + 1, V, dtype=torch.bool, device=dev)
+    excl[bidx.expand(B, W), torch.where(valid, par, W), tokens.clamp(0, V - 1)] = True
+    alt_s = _categorical(
+        filtered.masked_fill(excl[:, :W], NEG_INF).reshape(B * W, V), generator
+    ).reshape(B, W)
+    tmat = temp.reshape(B, W)
+    accept = torch.where(tmat > 0, s_accept, g_accept)
+    alt = torch.where(tmat > 0, alt_s, greedy)
+    return accept, alt

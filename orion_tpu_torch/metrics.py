@@ -1,10 +1,10 @@
 """Step metrics, throughput and MFU for the training loop; prefix-cache
-counters for serving.
+and speculative-decoding counters for serving.
 
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
-and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``. MFU =
-model FLOPs per token (``ModelConfig
+and ``Stopwatch``; and the serving engine's ``PrefixCacheStats`` and
+``SpecDecodeStats``. MFU = model FLOPs per token (``ModelConfig
 .flops_per_token``: 6 N plus the attention term) x tokens / (step time x
 devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
@@ -154,6 +154,73 @@ class PrefixCacheStats:
     inserted_pages: int = 0
     evicted_pages: int = 0
     cow_pages: int = 0
+
+
+@dataclass
+class SpecDecodeStats:
+    """Speculative-decoding counters (inference.speculative), owned by
+    InferenceEngine and drained through ``reset_timing``; a copy of
+    ``orion_tpu/metrics.py``'s.
+
+    ``drafted``/``accepted``/``rolled_back`` count DRAFT tokens (proposed /
+    matched-and-emitted / rejected-and-rewound; rolled_back == drafted -
+    accepted by construction). ``verify_steps`` counts verify dispatches,
+    ``verify_slot_steps`` (verify dispatches x live decode slots) the
+    per-slot dispatch opportunities, and ``emitted`` every token a verify
+    step emitted (accepted drafts + the per-slot bonus/correction token) —
+    so ``emitted / verify_slot_steps`` is the decode tokens-per-dispatch
+    the speculation bought (1.0 means it bought nothing). ``gated_steps``
+    counts steps where SOMETHING drafted but fewer slots than
+    ``inference.spec_min_draft_slots``, so the engine ran the plain
+    decode window instead of a whole-batch verify step (drafts discarded
+    there are not in ``drafted``). Token trees: ``tree_nodes`` drafted
+    tree nodes (a subset of ``drafted``), ``tree_branch_nodes`` those
+    outside the primary chain, ``compactions``/``compacted_tokens`` the
+    KV-compaction dispatches and moved tokens when an accepted path was not
+    the primary chain. ``disabled_reason`` is kept for the JAX package's
+    key set; the port has no auto-disable, so it stays None."""
+
+    drafted: int = 0
+    accepted: int = 0
+    rolled_back: int = 0
+    emitted: int = 0
+    verify_steps: int = 0
+    verify_slot_steps: int = 0
+    gated_steps: int = 0
+    tree_nodes: int = 0
+    tree_branch_nodes: int = 0
+    compactions: int = 0
+    compacted_tokens: int = 0
+    disabled_reason: Optional[str] = None
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / self.drafted if self.drafted else 0.0
+
+    @property
+    def tokens_per_verify(self) -> float:
+        if not self.verify_slot_steps:
+            return 0.0
+        return self.emitted / self.verify_slot_steps
+
+    def as_timing(self) -> dict[str, float]:
+        """Flatten into the engine's reset_timing dict."""
+        return {
+            "spec_drafted": self.drafted,
+            "spec_accepted": self.accepted,
+            "spec_rolled_back": self.rolled_back,
+            "spec_emitted": self.emitted,
+            "spec_acceptance_rate": self.acceptance_rate,
+            "verify_steps": self.verify_steps,
+            "verify_slot_steps": self.verify_slot_steps,
+            "spec_tokens_per_verify": self.tokens_per_verify,
+            "spec_gated_steps": self.gated_steps,
+            "spec_tree_nodes": self.tree_nodes,
+            "spec_tree_branch_nodes": self.tree_branch_nodes,
+            "spec_compactions": self.compactions,
+            "spec_compacted_tokens": self.compacted_tokens,
+            "spec_disabled_reason": self.disabled_reason or "",
+        }
 
 
 class Stopwatch:

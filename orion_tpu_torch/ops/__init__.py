@@ -1,5 +1,6 @@
 """Fused-op surface of the port: attention, RoPE, RMSNorm/LayerNorm, paged
-decode attention, paged-flash prefill.
+decode attention, paged-flash prefill, ragged paged attention (speculative
+verification).
 
 Every op has a plain PyTorch version and, where the JAX package wrote a
 Pallas kernel on a ported path, a kernel written by hand for Hopper
@@ -38,6 +39,13 @@ from orion_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill_int8_cuda,
     paged_flash_prefill_plain,
 )
+from orion_tpu_torch.ops.ragged_paged_attention import (
+    check_verify_fit,
+    ragged_paged_attention,
+    ragged_paged_attention_plain,
+    ragged_verify_cuda,
+    ragged_verify_int8_cuda,
+)
 from orion_tpu_torch.ops.rope import (
     apply_rope,
     rope_bwd_triton,
@@ -59,6 +67,8 @@ KERNELS = {
     "paged_decode_int8": paged_attention_int8_cuda,
     "paged_prefill": paged_flash_prefill_cuda,
     "paged_prefill_int8": paged_flash_prefill_int8_cuda,
+    "ragged_verify": ragged_verify_cuda,
+    "ragged_verify_int8": ragged_verify_int8_cuda,
 }
 
 
@@ -79,6 +89,7 @@ __all__ = [
     "attention_mask",
     "attention_plain",
     "check_prefill_fit",
+    "check_verify_fit",
     "flash_attention_bwd_cuda",
     "flash_attention_cuda",
     "flash_dkv_cuda",
@@ -94,6 +105,10 @@ __all__ = [
     "paged_flash_prefill_int8_cuda",
     "paged_flash_prefill_plain",
     "quantize_kv",
+    "ragged_paged_attention",
+    "ragged_paged_attention_plain",
+    "ragged_verify_cuda",
+    "ragged_verify_int8_cuda",
     "reset_launches",
     "rmsnorm",
     "rmsnorm_bwd_triton",

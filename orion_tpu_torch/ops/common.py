@@ -60,6 +60,29 @@ def check_dtype(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
 
 
+def check_pools(q, k_pool, v_pool, k_scale, v_scale) -> None:
+    """Validate the paged pools a kernel updates in place (K4, K9, K10):
+    [rows, K, psz, H] with q's head_dim, of q's dtype or int8 with float32
+    scale pools [rows, K, SW >= psz], all contiguous."""
+    rows, K, psz, H = k_pool.shape
+    quant = k_scale is not None
+    if H != q.shape[-1] or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    pool_dtype = torch.int8 if quant else q.dtype
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(f"pools must be {pool_dtype}, got {k_pool.dtype}")
+    tensors = [k_pool, v_pool]
+    if quant:
+        if (v_scale is None or k_scale.dtype != torch.float32
+                or v_scale.shape != k_scale.shape or k_scale.dim() != 3
+                or k_scale.shape[:2] != (rows, K) or k_scale.shape[2] < psz):
+            raise ValueError("k_scale/v_scale must be float32 [rows, K, SW >= psz]")
+        tensors += [k_scale, v_scale]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("pools must be contiguous (they are updated in place)")
+
+
 def counted(fn):
     """Give a kernel wrapper its launch counter (``fn.launches = 0``)."""
     fn.launches = 0

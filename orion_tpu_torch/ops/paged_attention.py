@@ -34,7 +34,13 @@ import torch
 
 from orion_tpu_torch.ops import _build
 from orion_tpu_torch.ops.attention import FLASH_HEAD_DIMS, attention_plain
-from orion_tpu_torch.ops.common import check_dtype, counted, on_cuda, quantize_kv
+from orion_tpu_torch.ops.common import (
+    check_dtype,
+    check_pools,
+    counted,
+    on_cuda,
+    quantize_kv,
+)
 
 
 def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor, dtype) -> torch.Tensor:
@@ -105,23 +111,9 @@ def _launch(q, k_pool, v_pool, page_table, last_pos, *, layer_base, k_new, v_new
     """Validate and launch K4 (either branch); returns the output."""
     check_dtype("q", q)
     B, N, H = q.shape
-    rows, K, psz, Hp = k_pool.shape
+    K, psz = k_pool.shape[1], k_pool.shape[2]
     quant = k_scale is not None
-    if Hp != H or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    pool_dtype = torch.int8 if quant else q.dtype
-    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
-        raise TypeError(f"pools must be {pool_dtype}, got {k_pool.dtype}")
-    tensors = [k_pool, v_pool]
-    if quant:
-        if (v_scale is None or k_scale.dtype != torch.float32
-                or v_scale.shape != k_scale.shape or k_scale.dim() != 3
-                or k_scale.shape[:2] != (rows, K) or k_scale.shape[2] < psz):
-            raise ValueError("k_scale/v_scale must be float32 [rows, K, SW >= psz]")
-        tensors += [k_scale, v_scale]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("pools must be contiguous (they are updated in place)")
+    check_pools(q, k_pool, v_pool, k_scale, v_scale)
     if N % K or H not in FLASH_HEAD_DIMS or (N // K) * H > 2048:
         raise ValueError(f"unsupported heads: N={N} K={K} H={H}")
     if page_table.dim() != 2 or page_table.shape[0] != B or last_pos.shape != (B,):

@@ -38,7 +38,13 @@ import torch
 
 from orion_tpu_torch.ops import _build
 from orion_tpu_torch.ops.attention import FLASH_HEAD_DIMS, attention_plain
-from orion_tpu_torch.ops.common import check_dtype, counted, on_cuda, quantize_kv
+from orion_tpu_torch.ops.common import (
+    check_dtype,
+    check_pools,
+    counted,
+    on_cuda,
+    quantize_kv,
+)
 from orion_tpu_torch.ops.paged_attention import dequantize_pages
 
 SMEM_BUDGET_BYTES = 232448   # dynamic shared memory a Hopper block may use
@@ -155,24 +161,10 @@ def _launch(q, k_pool, v_pool, walk, start, lens, k_new, v_new, *, n_prefix_page
     """Validate and launch K9 (either branch); returns the output."""
     check_dtype("q", q)
     B, S, N, H = q.shape
-    rows, K, psz, Hp = k_pool.shape
+    K, psz = k_pool.shape[1], k_pool.shape[2]
     quant = k_scale is not None
     P_pre = int(n_prefix_pages)
-    if Hp != H or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    pool_dtype = torch.int8 if quant else q.dtype
-    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
-        raise TypeError(f"pools must be {pool_dtype}, got {k_pool.dtype}")
-    tensors = [k_pool, v_pool]
-    if quant:
-        if (v_scale is None or k_scale.dtype != torch.float32
-                or v_scale.shape != k_scale.shape or k_scale.dim() != 3
-                or k_scale.shape[:2] != (rows, K) or k_scale.shape[2] < psz):
-            raise ValueError("k_scale/v_scale must be float32 [rows, K, SW >= psz]")
-        tensors += [k_scale, v_scale]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("pools must be contiguous (they are updated in place)")
+    check_pools(q, k_pool, v_pool, k_scale, v_scale)
     check_prefill_fit(n_heads=N, n_kv_heads=K, head_dim=H, page_size=psz)
     if S % psz:
         raise ValueError(f"chunk length {S} is not a multiple of page_size {psz}")

@@ -132,7 +132,7 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     "inference.nan_guard=true", "inference.decode_window_autotune=true",
-    "inference.speculative=true", "inference.constrained=true",
+    "inference.host_tier_bytes=1048576", "inference.constrained=true",
     "model.weight_quant=int8",
 ])
 def test_unported_features_raise(override):
