@@ -14,8 +14,9 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K10 against their plain PyTorch versions on the card (the
-           backward kernels against autograd of the plain forward), at the
+  kernels  K1-K10 and K9's split merge against their plain PyTorch versions
+           on the card (the backward kernels against autograd of the plain
+           forward), at the
            serving path's and the training path's shapes, in float32 and
            bfloat16 (tolerances in TOL), K4, K9 and K10 also over int8
            pools; what K4, K9 and K10 write into the pools (int8 pages and
@@ -26,7 +27,9 @@ exits non-zero without printing a result:
            seg_pad_zero, windows, softcaps, q_offset, rows that attend
            nothing, pad rows, page size 16, head_dim 16-256; for K10 token
            trees with and without a window, W 8 and 31, a chain-shaped tree
-           bitwise against the chain, W = 1 against K4)
+           bitwise against the chain, W = 1 against K4; for K9 histories over
+           three splits, a split boundary inside the window, G 1-8, page 128;
+           for K8 padding off its 64-key tiles and fewer keys than one tile)
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
@@ -45,7 +48,7 @@ exits non-zero without printing a result:
            waves of 8 greedy requests sharing a 1024-token system prompt,
            64 new tokens each; the second wave hits the cache, one of its
            prompts whole (copy-on-write). Every request finishes, prefill
-           logits are finite, K1-K3, K4's and K9's int8 branches launch,
+           logits are finite, K1-K3, K4's and K9's int8 branches and K9's merge launch,
            the page accounting holds and clearing the cache frees the pool
   serve_spec  llama3-8b-infer at full width and depth with speculative
            decoding (the serve's weights): 8 greedy requests of 100-1000
@@ -68,8 +71,8 @@ exits non-zero without printing a result:
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
            beside K4 at the same contexts; K5-K8: the
-           training path's): median of 20
-           CUDA-event timings after a warm-up, beside its plain version, one
+           training path's): CUDA events around 5 runs of 5 back-to-back
+           calls after a warm-up, the median per call, beside its plain version, one
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
 
@@ -135,6 +138,9 @@ TOL = {
     # only; under int8 the plain version's bf16 rounding of dequantized K/V).
     "ragged_verify": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
     "ragged_verify_int8": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    # K9's merge (bf16 only): float32 sums of up to 8 splits in another
+    # order, then one bf16 rounding on both sides.
+    "paged_prefill_merge": {"bfloat16": (1e-2, 1e-2)},
 }
 
 KERNEL_META = {
@@ -164,6 +170,11 @@ KERNEL_META = {
                           replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
     "ragged_verify_int8": dict(route="cuda", source="orion_tpu_torch/csrc/ragged_verify.cu",
                                replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
+    # The TPU kernel carries the softmax state across its sequential page
+    # axis; the tensor-core K9 splits a long history across blocks and
+    # merges the splits' states here.
+    "paged_prefill_merge": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
+                                replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -198,7 +209,7 @@ TRAIN_PARITY_OVERRIDES = [
 ]
 SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode")
 SERVE_CHUNKED_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode_int8",
-                         "paged_prefill_int8")
+                         "paged_prefill_int8", "paged_prefill_merge")
 SERVE_CHUNKED_OVERRIDES = ["inference.kv_quant=int8", "inference.prefix_cache=true",
                            "inference.chunked_prefill=true"]
 TRAIN_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "rmsnorm_bwd", "rope_bwd",
@@ -480,6 +491,17 @@ def train_variants(gen):
         (256, 2, 1, 129, True, 17, None, 0, None),
         (128, 4, 2, 96, True, None, None, 0, "masked_rows"),
         (16, 4, 1, 70, False, None, None, 0, None),
+        # K8's 64-key tiles against K3's 64x32 ones: padding from S - 40
+        # and S - 7 (S = 460, no multiple of 64), all-padding K3 tiles
+        # (row 0's q tile 448.. and key tile 448..479); padding from S - 60
+        # leaves the key tile 384..447 with one live and one all-padding
+        # 32-key half.
+        (128, 4, 2, 460, True, None, None, 0, "packed"),
+        (128, 4, 2, 460, True, None, 30.0, 0, "packed_half"),
+        # Fewer keys than one of K8's tiles.
+        (64, 4, 2, 40, True, None, None, 0, "packed"),
+        (128, 4, 4, 30, True, None, None, 5, None),
+        (32, 4, 2, 20, False, None, None, 0, None),
     ):
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
@@ -490,6 +512,12 @@ def train_variants(gen):
                 # Two documents and a padding tail (segment 0) per row.
                 seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
                 seg[0, : S // 2], seg[0, S // 2: S - 40] = 1, 2
+                seg[1, : S - 7] = 1
+                kw.update(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
+                q_rows = kv_rows = seg > 0
+            elif segs == "packed_half":
+                seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
+                seg[0, : S // 3], seg[0, S // 3: S - 60] = 1, 2
                 seg[1, : S - 7] = 1
                 kw.update(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
                 q_rows = kv_rows = seg > 0
@@ -625,6 +653,54 @@ def check_k9(dtype, gen, quant, **shape):
     err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=real)
     del q, kp, vp, pools, scales, hist_before, before
     return err
+
+
+def merge_inputs(gen, *, B=4, S=K9_S, N=N_HEADS, H=HEAD, psz=PSZ, starts=K9_STARTS):
+    """K9's split partials at the kernels phase's shapes (the walk padded
+    to 128 prefix pages: 8 splits; rows at starts 0/1024/4096/7936 merge
+    1/1/4/8 of them): O standard normal, m in (-4, 4), l in (0.5, 4.5),
+    and in every merged row one query per head whose first split attended
+    nothing (m NEG_INF, l 0, O 0)."""
+    import torch
+
+    from orion_tpu_torch.ops.paged_flash_prefill import n_splits
+
+    P_pre = 1 << (max(st // psz for st in starts) - 1).bit_length()
+    n_sp = n_splits(P_pre)
+    o = torch.randn(n_sp, B, S, N, H, generator=gen, device="cuda")
+    ml = torch.rand(n_sp, B, S, N, 2, generator=gen, device="cuda")
+    ml[..., 0] = 8 * ml[..., 0] - 4
+    ml[..., 1] = 4 * ml[..., 1] + 0.5
+    ml[0, :, 0, :, 0], ml[0, :, 0, :, 1], o[0, :, 0] = -1e30, 0.0, 0.0
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    out = torch.randn(B, S, N, H, generator=gen, device="cuda").to(torch.bfloat16)
+    return o, ml, start, out, dict(n_prefix_pages=P_pre, page_size=psz)
+
+
+def check_merge(gen):
+    """K9's merge kernel against its plain version: the merged rows, and
+    every other row of ``out`` untouched."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    o, ml, start, out, kw = merge_inputs(gen)
+    want = ops.paged_prefill_merge_plain(o, ml, start, out.clone(), **kw)
+    before = out.clone()
+    got = ops.paged_prefill_merge_cuda(o, ml, start, out, **kw)
+    torch.cuda.synchronize()
+    merged = torch.tensor([n > 1 for n in merged_rows(start, kw)], device="cuda")
+    if not torch.equal(bits(got[~merged]), bits(before[~merged])):
+        raise AssertionError("paged_prefill_merge: a row with one split changed")
+    return require_close("paged_prefill_merge", "bfloat16", got, want)
+
+
+def merged_rows(start, kw):
+    """Active splits of each row (more than one: the merge writes it)."""
+    from orion_tpu_torch.ops.paged_flash_prefill import active_splits
+
+    return [active_splits(int(s), page_size=kw["page_size"],
+                          n_prefix_pages=kw["n_prefix_pages"]) for s in start.tolist()]
 
 
 def k10_main_shape():
@@ -862,10 +938,12 @@ def phase_kernels():
             errs[dn][name] = check(dtype, gen, quant)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            errs[dn]["paged_prefill_merge"] = check_merge(gen)
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
-              "tolerance": {k: TOL[k][dn] for k in TOL}})
+              "tolerance": {k: TOL[k][dn] for k in TOL if dn in TOL[k]}})
     variants = kernel_variants(gen)
     emit({"phase": "kernels", "variants": variants})
     emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
@@ -926,24 +1004,34 @@ def kernel_variants(gen):
 
 def k9_variants(gen):
     """K9 (both branches) off the serve's shapes, on small pools: page
-    size 16, head_dim 64 and 256, windows, softcaps, f32 and bf16; every
-    case has a full row, a ragged row, a first chunk (start 0) and a pad
-    row."""
+    sizes 16-128, head_dim 16-256, G = N / K of 1, 2, 4 and 8, windows,
+    softcaps, f32 and bf16 (page 128 at head_dim 128: bf16 only, the f32
+    kernel refuses it); every case has a full row, a ragged row, a first
+    chunk (start 0) and a pad row. Rows resuming past 32 pages span three
+    history splits of the bf16 kernel (SPLIT_PAGES 16), one with a window
+    whose lower edge falls inside a split."""
     import torch
 
     out = []
-    for H, N, K, psz, window, cap in (
-        (64, 8, 2, 16, None, None), (128, 4, 4, 16, 40, 30.0),
-        (256, 4, 2, 64, None, 50.0), (128, 8, 2, 64, 100, None),
+    for H, N, K, psz, window, cap, n_pre in (
+        (64, 8, 2, 16, None, None, 4), (128, 4, 4, 16, 40, 30.0, 4),
+        (256, 4, 2, 64, None, 50.0, 4), (128, 8, 2, 64, 100, None, 4),
+        (128, 8, 2, 16, 300, None, 40), (64, 4, 4, 32, None, None, 36),
+        (128, 4, 2, 32, 500, 30.0, 36), (128, 16, 2, 64, None, None, 4),
+        (128, 8, 2, 128, 200, None, 4), (16, 4, 2, 16, None, None, 4),
+        (32, 8, 2, 32, 60, 30.0, 36),
     ):
         S = 2 * psz
-        shape = dict(N=N, K=K, H=H, psz=psz, S=S, starts=(4 * psz, psz, 0, 0),
+        shape = dict(N=N, K=K, H=H, psz=psz, S=S, starts=(n_pre * psz, psz, 0, 0),
                      lens=(S, 7, S - 3, 1), NP=64, L=2, window=window, logit_softcap=cap)
-        for dtype in (torch.float32, torch.bfloat16):
+        # check_prefill_fit refuses page 128 at head_dim 128 for float32.
+        dtypes = (torch.bfloat16,) if psz == 128 and H >= 128 else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
             errs = {name: check_k9(dtype, gen, quant, **dict(shape))
                     for name, quant in (("paged_prefill", False), ("paged_prefill_int8", True))}
             out.append({"H": H, "N": N, "K": K, "page_size": psz, "window": window,
-                        "softcap": cap, "dtype": str(dtype).split(".")[-1], **errs})
+                        "softcap": cap, "history_pages": n_pre,
+                        "dtype": str(dtype).split(".")[-1], **errs})
     return out
 
 
@@ -1143,7 +1231,7 @@ def profile_train(tr, state, steps=2):
         "rope (K2 + K6)": ["_rope_fwd"],
         "flash_fwd (K3)": ["flash_fwd_kernel"],
         "flash_dq (K7)": ["flash_dq_kernel"],
-        "flash_dkv (K8)": ["flash_dkv_kernel"],
+        "flash_dkv (K8)": ["flash_dkv_kernel", "flash_dkv_tc_kernel"],
         "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"],
     })
 
@@ -1357,7 +1445,8 @@ def phase_serve_chunked(profile=False, params=None):
         profile_drive("serve_chunked", lambda: serve_wave(eng, third, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel"], "paged_decode_int8": ["paged_decode_kernel"],
-            "paged_prefill_int8": ["paged_prefill_kernel"],
+            "paged_prefill_int8": ["paged_prefill_kernel", "paged_prefill_tc_kernel"],
+            "paged_prefill_merge": ["paged_prefill_merge_kernel"],
             "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
     released = eng.clear_prefix_cache()
     if eng.alloc.free_pages != cfg.inference.num_pages - 1:
@@ -1441,7 +1530,8 @@ def serve_spec_drive(name, params, prompts, profile=False):
         profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel"], "paged_decode (K4)": ["paged_decode_kernel"],
-            "paged_prefill (K9)": ["paged_prefill_kernel"],
+            "paged_prefill (K9)": ["paged_prefill_kernel", "paged_prefill_tc_kernel",
+                                   "paged_prefill_merge_kernel"],
             "ragged_verify (K10)": ["ragged_verify_kernel"],
             "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
     eng.clear_prefix_cache()
@@ -1593,21 +1683,27 @@ def phase_train(profile=False):
     return launches
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, runs=5, calls=5):
+    """Time of one call: CUDA events around ``runs`` runs of ``calls``
+    back-to-back calls after a warm-up, the median of the runs' per-call
+    times. Within a run the host's work for a call overlaps the device's
+    previous one, so a wrapper's host cost shows only where it exceeds
+    its kernel's."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -1780,6 +1876,27 @@ def paged_prefill_timing(gen):
     return res
 
 
+def merge_timing(gen):
+    """K9's merge at the kernels phase's shapes (rows merging 1/1/4/8
+    splits). Bytes: the merged rows' partials (O and m, l of each active
+    split) read once and their outputs written; no PyTorch call computes
+    the same function."""
+    from orion_tpu_torch import ops
+
+    o, ml, start, out, kw = merge_inputs(gen)
+    B, S, N, H = out.shape
+    n_read = sum(n for n in merged_rows(start, kw) if n > 1)
+    n_rows = sum(1 for n in merged_rows(start, kw) if n > 1)
+    nb = n_read * S * N * (H + 2) * 4 + n_rows * S * N * H * 2 + B * 4
+    res = {"paged_prefill_merge": dict(
+        ms=time_ms(lambda: ops.paged_prefill_merge_cuda(o, ml, start, out, **kw)),
+        plain_ms=time_ms(lambda: ops.paged_prefill_merge_plain(o, ml, start, out, **kw)),
+        library_ms=None,
+        bound=bound(nb, 6 * n_read * S * N * H, F32_FLOPS_S))}
+    del o, ml, out
+    return res
+
+
 def ragged_verify_timing(gen):
     """K10 in bfloat16 and over int8 pools at the kernels phase's shapes,
     beside K4 at the same contexts (one K10 launch replaces W K4 launches
@@ -1913,6 +2030,7 @@ def phase_timing():
     torch.cuda.empty_cache()
     res.update(paged_int8_timing(gen))
     res.update(paged_prefill_timing(gen))
+    res.update(merge_timing(gen))
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     for name, r in res.items():

@@ -20,15 +20,51 @@
 // (query, key) pair (q.k, dO.v, dS.k: 6*H flops), K8 four (q.k, dO.v,
 // P^T.dO, dS^T.q: 8*H flops), against ~H bytes per row read, far above the
 // ridge point; the tensor-core bound at 989 TFLOP/s bf16 is what they are
-// measured against. This first version computes the products as plain f32
-// FMAs on the CUDA cores, like K3 (no wgmma, no TMA), so it runs at the
-// 67 TFLOP/s f32 rate at best. What the design does about the bound and the
-// card:
+// measured against.
+//
+// K8 in bfloat16 (flash_dkv_tc_kernel) runs its four products on the
+// tensor cores, FA-2's dK/dV loop:
+//   - one block of 8 warps per (kv tile of 64 keys, kv head, batch); the
+//     loop over the G query heads of the group and the q tiles of 64 rows
+//     lives in the block, dk/dv in f32 registers (a warp owns 16 kv rows x
+//     H/2 columns of each), each element written once by one thread: no
+//     atomics, the result does not depend on scheduling;
+//   - K and V stay resident in shared memory as bf16; the q/dO tiles (with
+//     their lse, delta and segment ids) load with 16-byte cp.async. Up to
+//     H = 128 they have one buffer and the kernel is built for two blocks
+//     per SM (at most 128 registers a thread), so one block's products
+//     hide the other's loads: measured faster than two buffers and one
+//     block. At H = 256 (245 registers) they are double-buffered, the next
+//     step's load overlapping this step's products;
+//   - phase 1: S^T = K.Q^T and dP^T = V.dO^T with mma.sync.m16n8k16 (bf16
+//     in, f32 accumulate; ldmatrix fragments from rows skewed by 16 bytes),
+//     a warp per 16 kv rows x 32 queries; P and dS in f32 registers, then
+//     to shared memory as bf16; phase 2: dV += P^T.dO and dK += dS^T.Q, a
+//     warp per 16 kv rows x H/2 columns;
+//   - mma.sync and not wgmma: mma.sync's fragments need no shared-memory
+//     descriptors or swizzled layouts, so the kernel can be read against
+//     the formulas above; wgmma is the step after this one;
+//   - skips and masks match K3's exactly: a 64-key tile holds two of K3's
+//     64x32 tiles, the causal and window ranges of q tiles are K3's, and
+//     under seg_pad_zero a pair counts only where K3 ran its sub-tile
+//     (a live q tile and a live 32-key half), folded into the mask inside
+//     the exponential; q tiles whose rows are all padding are skipped. A
+//     step whose every pair is kept (no segments, in range, inside the
+//     diagonal and the window) skips the mask, and a thread keeps its
+//     columns' lse and delta in registers for the step.
+// Shared memory: (2*64 + 2*64*buffers) rows of H + 8 bf16 plus 2 x 64 x 72
+// bf16: 88,832 B at H = 128, 222,720 B at H = 256.
+//
+// K7 (both dtypes) and K8 in float32 (flash_dkv_kernel) keep the first
+// version's design: products as plain f32 FMAs on the CUDA cores, like K3
+// (no mma, no cp.async), at the 67 TFLOP/s f32 rate at best. float32 stays
+// there on purpose: the tensor cores would take it as TF32, and the f32
+// parity drives hold these kernels to 2e-6. What that design does:
 //   - K7: one block per (q tile of 64 rows, q head, batch); Pallas's
 //     sequential kv grid axis becomes a loop over kv tiles of 32 keys with
 //     dq carried in registers (4 rows x H/16 columns per thread) and
 //     written once.
-//   - K8: one block per (kv tile of 32 keys, kv head, batch). Pallas
+//   - K8 (f32): one block per (kv tile of 32 keys, kv head, batch). Pallas
 //     carries dk/dv in VMEM scratch across its sequential (group, q tile)
 //     grid axes; blocks on the card run in no order, so the loop over the
 //     G query heads of the group and over the q tiles lives inside the
@@ -40,14 +76,18 @@
 //     or all padding under seg_pad_zero) is skipped here too, and the
 //     recomputed logits are K3's bit for bit: exp(z - lse) never sees a
 //     logit that lse did not count.
-//   - The mask goes inside the exponential, exp(keep ? z - lse : NEG_INF),
-//     never exp(z - lse) * mask: a row that attends nothing carries
-//     lse = NEG_INF, and exp(z - NEG_INF) would be inf (inf * 0 = NaN).
-//     Query rows past Sq are masked the same way.
+// In every kernel the mask goes inside the exponential, exp(keep ? z - lse
+// : NEG_INF), never exp(z - lse) * mask: a row that attends nothing carries
+// lse = NEG_INF, and exp(z - NEG_INF) would be inf (inf * 0 = NaN). Query
+// rows past Sq are masked the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -301,8 +341,9 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
   }
 }
 
-// K8: one block per (kv tile, kv head, batch), looping over the group's
-// query heads and the q tiles.
+// K8, float32: one block per (kv tile, kv head, batch), looping over the
+// group's query heads and the q tiles, on the CUDA cores (see the note at
+// the top of the file).
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   constexpr int HC = HD / 16;  // dk/dv columns per thread
@@ -388,6 +429,338 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8, bfloat16: the same function on the tensor cores (see the note at the
+// top of the file). One block of 8 warps per (kv tile of TK = 64 keys, kv
+// head, batch); TQ = 64 query rows per step of the loop over (query head of
+// the group, q tile).
+namespace tcdkv {
+
+constexpr int TK = 64;
+constexpr int TQ = 64;
+constexpr int LDP = TQ + 8;  // row stride of the P^T / dS^T tiles (bf16)
+
+// Buffers of the q/dO tiles and blocks per SM: one buffer and two blocks
+// (at most 128 registers a thread) up to H = 128, where the other block
+// hides a block's loads; two buffers and one block at H = 256.
+template <int HD> __host__ __device__ constexpr int stages() { return HD <= 128 ? 1 : 2; }
+template <int HD> __host__ __device__ constexpr int min_blocks() { return HD <= 128 ? 2 : 1; }
+
+template <int HD>
+struct Smem {
+  static constexpr int LD = HD + 8;  // row stride of the K/V/Q/dO tiles (bf16)
+  // Buffer st of the q/dO tiles is base + st * its size: plain pointer
+  // arithmetic, so no array of pointers is indexed at run time.
+  __nv_bfloat16* k;       // [TK][LD]
+  __nv_bfloat16* v;       // [TK][LD]
+  __nv_bfloat16* q_;      // [ST][TQ][LD]
+  __nv_bfloat16* dout_;   // [ST][TQ][LD]
+  __nv_bfloat16* pt;      // [TK][LDP] P^T of the step
+  __nv_bfloat16* dst;     // [TK][LDP] dS^T of the step
+  float* lse_;            // [ST][TQ]
+  float* delta_;          // [ST][TQ]
+  int* qseg_;             // [ST][TQ]
+
+  static constexpr int ST = stages<HD>();
+  static constexpr size_t bytes() {
+    return sizeof(__nv_bfloat16) * (2 * TK * LD + 2 * ST * TQ * LD + 2 * TK * LDP) +
+           sizeof(float) * 2 * ST * TQ + sizeof(int) * ST * TQ;
+  }
+
+  __device__ explicit Smem(unsigned char* base) {
+    k = reinterpret_cast<__nv_bfloat16*>(base);
+    v = k + TK * LD;
+    q_ = v + TK * LD;
+    dout_ = q_ + ST * TQ * LD;
+    pt = dout_ + ST * TQ * LD;
+    dst = pt + TK * LDP;
+    lse_ = reinterpret_cast<float*>(dst + TK * LDP);
+    delta_ = lse_ + ST * TQ;
+    qseg_ = reinterpret_cast<int*>(delta_ + ST * TQ);
+  }
+  __device__ __nv_bfloat16* q(int st) const { return q_ + st * TQ * LD; }
+  __device__ __nv_bfloat16* dout(int st) const { return dout_ + st * TQ * LD; }
+  __device__ float* lse(int st) const { return lse_ + st * TQ; }
+  __device__ float* delta(int st) const { return delta_ + st * TQ; }
+  __device__ int* qseg(int st) const { return qseg_ + st * TQ; }
+};
+
+// Asynchronous copies of q tile q0 of head n (q, dO, lse, delta, segment
+// ids) into stage st; rows past Sq are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_q_async(const Args& a, Smem<HD>& sm, int st, int b, int n,
+                                             int q0, bool has_seg) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
+  for (int i = threadIdx.x; i < TQ * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
+    const bool in = s < a.Sq;
+    const int64_t g = in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + c : 0;
+    tc::cp16(sm.q(st) + r * Smem<HD>::LD + c, q + g, in);
+    tc::cp16(sm.dout(st) + r * Smem<HD>::LD + c, dout + g, in);
+  }
+  const int tid = threadIdx.x;
+  if (tid < 3 * TQ) {
+    const int r = tid % TQ, s = q0 + r, which = tid / TQ;
+    const bool in = s < a.Sq;
+    const int64_t row = in ? (static_cast<int64_t>(b) * a.N + n) * a.Sq + s : 0;
+    if (which == 0) tc::cp4(sm.lse(st) + r, a.lse + row, in);
+    if (which == 1) tc::cp4(sm.delta(st) + r, a.delta + row, in);
+    if (which == 2) {
+      const bool sin = in && has_seg;
+      const void* src = sin ? static_cast<const void*>(a.qseg + static_cast<int64_t>(b) * a.Sq + s)
+                            : static_cast<const void*>(a.lse);
+      tc::cp4(sm.qseg(st) + r, src, sin);
+    }
+  }
+}
+
+// Under seg_pad_zero K3 skips a q tile whose rows are all padding: so does
+// K8. Uniform over the block (a barrier).
+__device__ __forceinline__ bool q_live(const Args& a, int b, int qt, bool skip_pad) {
+  if (!skip_pad) return true;
+  const int tid = threadIdx.x, s = qt * TQ + tid;
+  const bool p = tid < TQ && s < a.Sq && a.qseg[static_cast<int64_t>(b) * a.Sq + s] > 0;
+  return __syncthreads_or(p);
+}
+
+// The next live step after (g, qt); g == G when none is left.
+__device__ __forceinline__ void advance(const Args& a, int b, int& g, int& qt, int qt_begin,
+                                        int qt_end, int G, bool skip_pad) {
+  do {
+    if (++qt >= qt_end) {
+      qt = qt_begin;
+      ++g;
+    }
+  } while (g < G && !q_live(a, b, qt, skip_pad));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args a) {
+  using S = Smem<HD>;
+  constexpr int LD = S::LD;
+  constexpr int NB = HD / 16;  // 8-column blocks of dk/dv per warp (half of H)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S sm(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int k0 = blockIdx.x * TK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = a.N / a.K;
+  const bool has_seg = a.qseg != nullptr;
+  const bool skip_pad = has_seg && a.seg_pad_zero;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v);
+
+  // The block's K and V rows stay resident for the whole loop.
+  for (int i = tid; i < TK * (HD / 8); i += NT) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8, s = k0 + r;
+    const bool in = s < a.Skv;
+    const int64_t g = in ? ((static_cast<int64_t>(b) * a.Skv + s) * a.K + kvh) * HD + c : 0;
+    tc::cp16(sm.k + r * LD + c, kg + g, in);
+    tc::cp16(sm.v + r * LD + c, vg + g, in);
+  }
+
+  // Segment ids of this thread's two kv rows in phase 1, and which of K3's
+  // 32-key sub-tiles hold a live (non-padding) key.
+  const int wr = warp & 3;  // kv rows wr*16 .. wr*16+15 in both phases
+  int kseg_r[2] = {0, 0};
+  if (has_seg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + wr * 16 + grp + 8 * h;
+      kseg_r[h] = c < a.Skv ? a.kseg[static_cast<int64_t>(b) * a.Skv + c] : 0;
+    }
+  }
+  int ks_own = 0;
+  if (has_seg && tid < TK && k0 + tid < a.Skv)
+    ks_own = a.kseg[static_cast<int64_t>(b) * a.Skv + k0 + tid];
+  const bool live0 = __syncthreads_or(tid < TK / 2 && ks_own > 0);
+  const bool live1 = __syncthreads_or(tid >= TK / 2 && tid < TK && ks_own > 0);
+
+  // q tile range, as K3 visits it: causal tiles wholly before the kv tile
+  // and window tiles wholly past its reach are skipped (see flash_dkv_kernel).
+  const int n_qt = (a.Sq + TQ - 1) / TQ;
+  int qt_begin = 0, qt_end = n_qt;
+  if (a.causal) {
+    const int lo = k0 - a.q_offset - TQ + 1;
+    qt_begin = lo > 0 ? min(n_qt, (lo + TQ - 1) / TQ) : 0;
+    if (a.window > 0) {
+      const int hi = k0 + TK - 1 - a.q_offset + a.window;  // q0 < hi
+      qt_end = hi <= 0 ? 0 : min(n_qt, (hi + TQ - 1) / TQ);
+    }
+  }
+  if (skip_pad && !(live0 || live1)) qt_end = qt_begin;  // an all-padding kv tile
+
+  // Steps run over (g, qt), qt fastest, skipping what K3 skipped.
+  int g = 0, qt = qt_begin;
+  if (qt_begin >= qt_end) g = G;
+  else if (!q_live(a, b, qt, skip_pad)) advance(a, b, g, qt, qt_begin, qt_end, G, skip_pad);
+  if (g < G) load_q_async<HD>(a, sm, 0, b, kvh * G + g, qt * TQ, has_seg);
+  tc::cp_commit();
+
+  float dk[NB][4], dv[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  int st = 0;
+  while (g < G) {
+    int ng = g, nqt = qt;
+    advance(a, b, ng, nqt, qt_begin, qt_end, G, skip_pad);
+    tc::cp_wait_all();
+    __syncthreads();  // stage st landed; the previous step's reads are done
+    if (S::ST == 2 && ng < G) load_q_async<HD>(a, sm, st ^ 1, b, kvh * G + ng, nqt * TQ, has_seg);
+    tc::cp_commit();
+    const int q0 = qt * TQ;
+
+    // Phase 1: S^T = K . Q^T and dP^T = V . dO^T for kv rows wr*16.. and
+    // queries wc*32.., then P^T and dS^T (f32) into shared memory as bf16.
+    {
+      const int wc = warp >> 2;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 16) {
+        uint32_t ka[4], va[4];
+        tc::load_a(ka, sm.k, LD, wr * 16, kk, lane);
+        tc::load_a(va, sm.v, LD, wr * 16, kk, lane);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t qb[4], ob[4];
+          tc::load_b_nk(qb, sm.q(st), LD, wc * 32 + jp * 16, kk, lane);
+          tc::load_b_nk(ob, sm.dout(st), LD, wc * 32 + jp * 16, kk, lane);
+          tc::mma(s[2 * jp], ka, qb[0], qb[1]);
+          tc::mma(s[2 * jp + 1], ka, qb[2], qb[3]);
+          tc::mma(dp[2 * jp], va, ob[0], ob[1]);
+          tc::mma(dp[2 * jp + 1], va, ob[2], ob[3]);
+        }
+      }
+      // The step's lse and delta of this thread's 8 query columns.
+      float lse_c[4][2], delta_c[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          lse_c[j][e] = sm.lse(st)[wc * 32 + j * 8 + 2 * tig + e];
+          delta_c[j][e] = sm.delta(st)[wc * 32 + j * 8 + 2 * tig + e];
+        }
+      // Whether every pair of the tile is kept (no mask to apply): no
+      // segments, in range, and (causal) wholly inside the diagonal and the
+      // window.
+      const bool full = !has_seg && k0 + TK <= a.Skv && q0 + TQ <= a.Sq &&
+                        (!a.causal || (q0 + a.q_offset >= k0 + TK - 1 &&
+                                       (a.window <= 0 || q0 + TQ - 1 + a.q_offset - k0 < a.window)));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // kv row grp (h = 0) or grp + 8
+          const int lr = wr * 16 + grp + 8 * h;
+          const int c = k0 + lr;
+          // A pair is counted only where K3 ran its 64x32 tile.
+          const bool sub_live = !skip_pad || (lr < TK / 2 ? live0 : live1);
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int lc = wc * 32 + j * 8 + 2 * tig + e;
+            const int qi = q0 + lc;
+            const float sv = s[j][2 * h + e] * a.scale;
+            float z = sv, th = 0.f;
+            if (a.softcap > 0.f) {
+              th = tanhf(sv / a.softcap);
+              z = a.softcap * th;
+            }
+            bool keep = full;
+            if (!full) {
+              keep = sub_live && c < a.Skv && qi < a.Sq;
+              if (a.causal) {
+                const int d = qi + a.q_offset - c;
+                keep = keep && d >= 0;
+                if (a.window > 0) keep = keep && d < a.window;
+              }
+              if (has_seg) keep = keep && sm.qseg(st)[lc] == kseg_r[h];
+            }
+            // The mask inside the exponential: lse may be NEG_INF.
+            const float p = tc::exp_(keep ? z - lse_c[j][e] : NEG_INF);
+            const float dz = p * (dp[j][2 * h + e] - delta_c[j][e]);
+            pv[e] = p;
+            dsv[e] = a.softcap > 0.f ? dz * (1.f - th * th) : dz;
+          }
+          const int lc0 = wc * 32 + j * 8 + 2 * tig;
+          *reinterpret_cast<uint32_t*>(sm.pt + lr * LDP + lc0) = tc::pack_bf16(pv[0], pv[1]);
+          *reinterpret_cast<uint32_t*>(sm.dst + lr * LDP + lc0) = tc::pack_bf16(dsv[0], dsv[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Phase 2: dV += P^T . dO and dK += dS^T . Q for kv rows wr*16.. and
+    // head columns wh*H/2 ..
+    {
+      const int h0 = (warp >> 2) * (HD / 2);
+#pragma unroll
+      for (int kk = 0; kk < TQ; kk += 16) {
+        uint32_t pa[4], sa[4];
+        tc::load_a(pa, sm.pt, LDP, wr * 16, kk, lane);
+        tc::load_a(sa, sm.dst, LDP, wr * 16, kk, lane);
+        if constexpr (NB == 1) {
+          uint32_t ob[2], qb[2];
+          tc::load_b_kn8(ob, sm.dout(st), LD, kk, h0, lane);
+          tc::load_b_kn8(qb, sm.q(st), LD, kk, h0, lane);
+          tc::mma(dv[0], pa, ob[0], ob[1]);
+          tc::mma(dk[0], sa, qb[0], qb[1]);
+        } else {
+#pragma unroll
+          for (int jp = 0; jp < NB / 2; ++jp) {
+            uint32_t ob[4], qb[4];
+            tc::load_b_kn(ob, sm.dout(st), LD, kk, h0 + jp * 16, lane);
+            tc::load_b_kn(qb, sm.q(st), LD, kk, h0 + jp * 16, lane);
+            tc::mma(dv[2 * jp], pa, ob[0], ob[1]);
+            tc::mma(dv[2 * jp + 1], pa, ob[2], ob[3]);
+            tc::mma(dk[2 * jp], sa, qb[0], qb[1]);
+            tc::mma(dk[2 * jp + 1], sa, qb[2], qb[3]);
+          }
+        }
+      }
+    }
+    if (S::ST == 1) {  // one buffer: the next tile loads once this one is read
+      __syncthreads();
+      if (ng < G) load_q_async<HD>(a, sm, 0, b, kvh * G + ng, nqt * TQ, has_seg);
+      tc::cp_commit();
+    }
+    g = ng;
+    qt = nqt;
+    st = (st + 1) % S::ST;
+  }
+  tc::cp_wait_all();
+
+  // dk = scale * sum dS^T . q (q was not pre-scaled); one thread per element.
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv);
+  const int h0 = (warp >> 2) * (HD / 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = k0 + wr * 16 + grp + 8 * h;
+    if (c >= a.Skv) continue;
+    const int64_t base = ((static_cast<int64_t>(b) * a.Skv + c) * a.K + kvh) * HD;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int col = h0 + j * 8 + 2 * tig;
+      *reinterpret_cast<uint32_t*>(dkp + base + col) =
+          tc::pack_bf16(dk[j][2 * h] * a.scale, dk[j][2 * h + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + base + col) = tc::pack_bf16(dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  }
+}
+
+}  // namespace tcdkv
+
 template <typename T, int HD>
 cudaError_t launch(const Args& a, int B, bool dq, cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::bytes();
@@ -398,6 +771,15 @@ cudaError_t launch(const Args& a, int B, bool dq, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
     flash_dq_kernel<T, HD><<<grid, NT, smem, stream>>>(a);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 K8: the tensor-core kernel. float32 keeps flash_dkv_kernel.
+    constexpr size_t tsm = tcdkv::Smem<HD>::bytes();
+    cudaError_t err = cudaFuncSetAttribute(tcdkv::flash_dkv_tc_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(tsm));
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Skv + tcdkv::TK - 1) / tcdkv::TK, a.K, B);
+    tcdkv::flash_dkv_tc_kernel<HD><<<grid, NT, tsm, stream>>>(a);
   } else {
     cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T, HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,

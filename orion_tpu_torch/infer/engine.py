@@ -78,6 +78,7 @@ from orion_tpu_torch.infer.scheduler import Request
 from orion_tpu_torch.infer.spec_decode import NgramProposer
 from orion_tpu_torch.metrics import PrefixCacheStats, SpecDecodeStats
 from orion_tpu_torch.models.convert import to_device
+from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
 
@@ -165,6 +166,7 @@ class InferenceEngine:
             check_prefill_fit(
                 n_heads=self.mcfg.n_heads, n_kv_heads=self.mcfg.n_kv_heads,
                 head_dim=self.mcfg.resolved_head_dim, page_size=self.psz,
+                dtype=torch_dtype(self.mcfg.dtype),
             )
         self._init_speculation()
         self.cache = init_cache(self.mcfg, self.icfg, self.device)

@@ -38,6 +38,9 @@ from orion_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill_cuda,
     paged_flash_prefill_int8_cuda,
     paged_flash_prefill_plain,
+    paged_prefill_merge,
+    paged_prefill_merge_cuda,
+    paged_prefill_merge_plain,
 )
 from orion_tpu_torch.ops.ragged_paged_attention import (
     check_verify_fit,
@@ -67,6 +70,7 @@ KERNELS = {
     "paged_decode_int8": paged_attention_int8_cuda,
     "paged_prefill": paged_flash_prefill_cuda,
     "paged_prefill_int8": paged_flash_prefill_int8_cuda,
+    "paged_prefill_merge": paged_prefill_merge_cuda,
     "ragged_verify": ragged_verify_cuda,
     "ragged_verify_int8": ragged_verify_int8_cuda,
 }
@@ -104,6 +108,9 @@ __all__ = [
     "paged_flash_prefill_cuda",
     "paged_flash_prefill_int8_cuda",
     "paged_flash_prefill_plain",
+    "paged_prefill_merge",
+    "paged_prefill_merge_cuda",
+    "paged_prefill_merge_plain",
     "quantize_kv",
     "ragged_paged_attention",
     "ragged_paged_attention_plain",

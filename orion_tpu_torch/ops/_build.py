@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``; no PyTorch
-header is included, so a build takes seconds. Libraries are cached under
-``orion_tpu_torch/_build/`` (listed in ``.gitignore``) by the SHA-256 of
-their source, so an edited source rebuilds and an unchanged one loads.
+header is included, so a build takes seconds. The shared headers
+``csrc/*.cuh`` (``tc.cuh``: the tensor-core building blocks) are included
+by the sources. Libraries are cached under ``orion_tpu_torch/_build/``
+(listed in ``.gitignore``) by the SHA-256 of their source and the headers,
+so an edited source or header rebuilds and an unchanged one loads.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``library(name)`` builds one on first use, and ``entry`` binds a
@@ -51,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
