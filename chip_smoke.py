@@ -70,11 +70,12 @@ exits non-zero without printing a result:
            prints step time, tokens/s, MFU, peak memory, launches per step
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
-           beside K4 at the same contexts; K5-K8: the
-           training path's): CUDA events around 5 runs of 5 back-to-back
-           calls after a warm-up, the median per call, beside its plain version, one
-           PyTorch library call computing the same function where there is
-           one, and the card's bound for the work
+           beside K4 at the same contexts; K5-K8, and K3 again with its lse
+           as ``flash_fwd_train``: the training path's): CUDA events around
+           5 runs of 5 back-to-back calls after a warm-up, the median per
+           call, beside its plain version, one PyTorch library call
+           computing the same function where there is one, and the card's
+           bound for the work
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.
@@ -422,10 +423,18 @@ def check_flash_train(dn, q, k, v, do, kw, q_rows=None, kv_rows=None):
     """K3 (output and lse), K7 and K8 against the plain attention and its
     autograd; ``q_rows`` / ``kv_rows`` select the compared rows where
     padding rows hold garbage. Returns max errors by kernel."""
+    import torch
+
     from orion_tpu_torch import ops
 
     out, lse = ops.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     dq, dk, dv = ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    # Every row, padding included: a padding row's gradients feed the
+    # weight gradients, so K3, K7 and K8 must count the same pairs (an lse
+    # that missed a pair K7/K8 count makes exp(z - lse) overflow).
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"flash backward {dn}: non-finite {name} (all rows)")
     plain_kw = {key: val for key, val in kw.items() if key != "seg_pad_zero"}
     lse_rows = None if q_rows is None else q_rows[:, None].expand(-1, q.shape[2], -1)
     errs = {
@@ -477,10 +486,40 @@ def check_train_kernels(dtype, gen):
     return errs
 
 
+def packed_segments(S, kind):
+    """[2, S] int32 segment ids of packed rows, segment 0 = padding:
+    ``packed`` two documents and a padding tail from S - 40 (row 1: one
+    document, padding from S - 7); ``packed_half`` the same with the
+    second document ending at S - 60; ``half_step`` one document ending at
+    150 (S > 192), so the 32-key step 128.. holds real and padding keys,
+    the step 160.. only padding, and the 128-row q tile 128.. one live and
+    one all-padding 64-row tile; ``boundaries`` three documents ending at
+    S/5, 2S/3 and S - 20 (row 1: two, at 64 and S - 7), boundaries inside
+    32-key steps between long runs of one segment."""
+    import torch
+
+    seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
+    ends = {"packed": ([S // 2, S - 40], [S - 7]),
+            "packed_half": ([S // 3, S - 60], [S - 7]),
+            "half_step": ([150], [S - 7]),
+            "boundaries": ([S // 5, 2 * S // 3, S - 20], [64, S - 7])}[kind]
+    for row, cuts in enumerate(ends):
+        lo = 0
+        for i, hi in enumerate(cuts):
+            seg[row, lo:hi] = i + 1
+            lo = hi
+    return seg
+
+
 def train_variants(gen):
     """K3 lse / K7 / K8 off the training path's shapes: ragged segments
     under seg_pad_zero, a window, softcaps, q_offset, rows that attend
-    nothing, no causal mask, head_dim 16-256; f32 and bf16."""
+    nothing, no causal mask, head_dim 16-256; f32 and bf16. The rows after
+    the first eleven stress the 128-row, 32-key steps of the bf16 K3/K7:
+    a step with real and padding keys before an all-padding one under a
+    live q tile, the window's edge and the diagonal inside one step, and
+    segment boundaries inside steps (the segment-uniform fast path taken
+    and refused), at head_dim 16, 128 and 256."""
     import torch
 
     out = []
@@ -502,23 +541,21 @@ def train_variants(gen):
         (64, 4, 2, 40, True, None, None, 0, "packed"),
         (128, 4, 4, 30, True, None, None, 5, None),
         (32, 4, 2, 20, False, None, None, 0, None),
+        (128, 4, 2, 230, True, None, None, 0, "half_step"),
+        (16, 4, 2, 230, True, None, None, 0, "half_step"),
+        (128, 8, 2, 512, True, None, None, 0, "boundaries"),
+        (256, 2, 1, 300, True, None, 30.0, 0, "boundaries"),
+        (16, 4, 2, 200, True, 40, None, 0, "boundaries"),
+        (128, 4, 2, 300, True, 20, None, 0, None),
+        (64, 4, 2, 260, True, 40, 30.0, 3, None),
     ):
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
             q, k, v, do = t_attn_inputs(dtype, gen, B=2, S=S, N=N, K=K, H=H, off=off)
             kw = dict(causal=causal, logit_softcap=cap, window=window, q_offset=off)
             q_rows = kv_rows = None
-            if segs == "packed":
-                # Two documents and a padding tail (segment 0) per row.
-                seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
-                seg[0, : S // 2], seg[0, S // 2: S - 40] = 1, 2
-                seg[1, : S - 7] = 1
-                kw.update(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
-                q_rows = kv_rows = seg > 0
-            elif segs == "packed_half":
-                seg = torch.zeros(2, S, dtype=torch.int32, device="cuda")
-                seg[0, : S // 3], seg[0, S // 3: S - 60] = 1, 2
-                seg[1, : S - 7] = 1
+            if segs in ("packed", "packed_half", "half_step", "boundaries"):
+                seg = packed_segments(S, segs)
                 kw.update(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
                 q_rows = kv_rows = seg > 0
             elif segs == "masked_rows":
@@ -1216,7 +1253,9 @@ def profile_serve(eng, prompts):
 
     profile_drive("serve", drive, {
         "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
-        "flash_fwd": ["flash_fwd_kernel"], "paged_decode": ["paged_decode_kernel"]})
+        "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
+        "paged_decode": ["paged_decode_kernel"],
+        "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
 
 
 def profile_train(tr, state, steps=2):
@@ -1229,8 +1268,8 @@ def profile_train(tr, state, steps=2):
     profile_drive("train", drive, {
         "rmsnorm (K1 + K5)": ["_rmsnorm_fwd", "_rmsnorm_bwd"],
         "rope (K2 + K6)": ["_rope_fwd"],
-        "flash_fwd (K3)": ["flash_fwd_kernel"],
-        "flash_dq (K7)": ["flash_dq_kernel"],
+        "flash_fwd (K3)": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
+        "flash_dq (K7)": ["flash_dq_kernel", "flash_dq_tc_kernel"],
         "flash_dkv (K8)": ["flash_dkv_kernel", "flash_dkv_tc_kernel"],
         "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"],
     })
@@ -1444,7 +1483,8 @@ def phase_serve_chunked(profile=False, params=None):
                  for n in rng.integers(100, 1001, 8)]
         profile_drive("serve_chunked", lambda: serve_wave(eng, third, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
-            "flash_fwd": ["flash_fwd_kernel"], "paged_decode_int8": ["paged_decode_kernel"],
+            "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
+            "paged_decode_int8": ["paged_decode_kernel"],
             "paged_prefill_int8": ["paged_prefill_kernel", "paged_prefill_tc_kernel"],
             "paged_prefill_merge": ["paged_prefill_merge_kernel"],
             "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
@@ -1529,7 +1569,8 @@ def serve_spec_drive(name, params, prompts, profile=False):
     if profile:
         profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
-            "flash_fwd": ["flash_fwd_kernel"], "paged_decode (K4)": ["paged_decode_kernel"],
+            "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
+            "paged_decode (K4)": ["paged_decode_kernel"],
             "paged_prefill (K9)": ["paged_prefill_kernel", "paged_prefill_tc_kernel",
                                    "paged_prefill_merge_kernel"],
             "ragged_verify (K10)": ["ragged_verify_kernel"],
@@ -2041,6 +2082,16 @@ def phase_timing():
     return res
 
 
+def extra_timing(name, timing):
+    """K3 at the training path's shapes (with lse), beside its serve-shape
+    numbers in the kernels line."""
+    if name != "flash_fwd":
+        return {}
+    r = timing["flash_fwd_train"]
+    return {"train_shapes": dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                                 bound_by=r["bound"][1], library_ms=r["library_ms"])}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2113,7 +2164,8 @@ def main(argv=None) -> int:
                  launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                  max_abs_err=errs["bfloat16"][name], ms=timing[name]["ms"],
                  plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound"][0],
-                 bound_by=timing[name]["bound"][1], library_ms=timing[name]["library_ms"])
+                 bound_by=timing[name]["bound"][1], library_ms=timing[name]["library_ms"],
+                 **extra_timing(name, timing))
             for name in KERNEL_META
         ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phases": phases})

@@ -41,9 +41,9 @@
 //     a warp per 16 kv rows x 32 queries; P and dS in f32 registers, then
 //     to shared memory as bf16; phase 2: dV += P^T.dO and dK += dS^T.Q, a
 //     warp per 16 kv rows x H/2 columns;
-//   - mma.sync and not wgmma: mma.sync's fragments need no shared-memory
-//     descriptors or swizzled layouts, so the kernel can be read against
-//     the formulas above; wgmma is the step after this one;
+//   - mma.sync and not wgmma (in K7 too): mma.sync's fragments need no
+//     shared-memory descriptors or swizzled layouts, so the kernels can be
+//     read against the formulas above; wgmma is the step after this one;
 //   - skips and masks match K3's exactly: a 64-key tile holds two of K3's
 //     64x32 tiles, the causal and window ranges of q tiles are K3's, and
 //     under seg_pad_zero a pair counts only where K3 ran its sub-tile
@@ -55,11 +55,41 @@
 // Shared memory: (2*64 + 2*64*buffers) rows of H + 8 bf16 plus 2 x 64 x 72
 // bf16: 88,832 B at H = 128, 222,720 B at H = 256.
 //
-// K7 (both dtypes) and K8 in float32 (flash_dkv_kernel) keep the first
-// version's design: products as plain f32 FMAs on the CUDA cores, like K3
-// (no mma, no cp.async), at the 67 TFLOP/s f32 rate at best. float32 stays
-// there on purpose: the tensor cores would take it as TF32, and the f32
-// parity drives hold these kernels to 2e-6. What that design does:
+// K7 in bfloat16 (flash_dq_tc_kernel) runs its three products on the
+// tensor cores, FA-2's dQ loop with K3's block plan (flash_tc.cuh):
+//   - one block of 8 warps per (q tile of 128 rows, q head, batch), a warp
+//     per 16 query rows; Q and dO stay resident in shared memory as bf16
+//     (rows of H + 8), the rows' lse and delta in registers for the
+//     block's life;
+//   - a loop over key steps of 32 keys (the float32 K3's kv tile), K, V
+//     and the keys' segment ids streamed through a two-stage cp.async
+//     ring: the next step's load overlaps this step's products. 32 keys (not 64) keep S
+//     and dP in 32 registers beside dq's H/2, so a thread fits 128
+//     registers up to H = 128, and Q, dO and the ring fit 104,704 B, so
+//     two blocks share an SM (one at H = 256, 203,008 B);
+//   - S = Q.K^T and dP = dO.V^T on mma.sync.m16n8k16, the scale applied
+//     to the f32 logits; P and dS in f32 registers, the mask inside the
+//     exponential; dS becomes bf16 A fragments straight from the
+//     accumulators' registers (the C layout of two adjacent 8-key blocks
+//     is the A layout of one 16-key block), then dQ += dS.K with K read
+//     as a [keys][H] B operand by ldmatrix.trans;
+//   - dq in f32 registers, scaled once at the end and written by one
+//     thread per element: no atomics, the result does not depend on
+//     scheduling;
+//   - the pairs that count are K3's and K8's by the shared skip contract:
+//     a warp skips a step that none of its pairs attend (liveness under
+//     seg_pad_zero per 64-row q tile and 32-key step, the diagonal, the
+//     window), and a step whose every pair counts skips the mask;
+//   - causal q tiles run in index order: longest first, which K3 gains
+//     from, measured 5-10 % slower here over three timed runs of both
+//     orders (flash_tc.cuh, q_tile).
+//
+// K7 and K8 in float32 (flash_dq_kernel, flash_dkv_kernel) keep a design
+// of their own: products as plain f32 FMAs on the CUDA cores, like
+// K3's float32 kernel (no mma, no cp.async), at the 67 TFLOP/s f32 rate at
+// best. float32 stays there on purpose: the tensor cores would take it as
+// TF32, and the f32 parity drives hold these kernels to 2e-6. What that
+// design does:
 //   - K7: one block per (q tile of 64 rows, q head, batch); Pallas's
 //     sequential kv grid axis becomes a loop over kv tiles of 32 keys with
 //     dq carried in registers (4 rows x H/16 columns per thread) and
@@ -71,11 +101,11 @@
 //     block, with dk/dv in registers (2 rows x H/16 columns each per
 //     thread). No atomics: each dk/dv row is written by exactly one thread
 //     once, so the result does not depend on scheduling.
-//   - Both use K3's tiles (64 queries x 32 keys) and K3's score loop, so a
-//     tile that K3 skipped (past the causal diagonal, behind the window,
-//     or all padding under seg_pad_zero) is skipped here too, and the
-//     recomputed logits are K3's bit for bit: exp(z - lse) never sees a
-//     logit that lse did not count.
+//   - Both use K3's float32 tiles (64 queries x 32 keys) and its score
+//     loop, so a tile that K3 skipped (past the causal diagonal, behind
+//     the window, or all padding under seg_pad_zero) is skipped here too,
+//     and the recomputed logits are K3's bit for bit: exp(z - lse) never
+//     sees a logit that lse did not count.
 // In every kernel the mask goes inside the exponential, exp(keep ? z - lse
 // : NEG_INF), never exp(z - lse) * mask: a row that attends nothing carries
 // lse = NEG_INF, and exp(z - NEG_INF) would be inf (inf * 0 = NaN). Query
@@ -85,8 +115,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "flash_tc.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -95,14 +124,6 @@ constexpr int BQ = 64;   // query rows per tile (K3's)
 constexpr int BK = 32;   // keys per tile (K3's)
 constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Args {
   const void* q;
@@ -171,17 +192,17 @@ __device__ __forceinline__ void load_rows(const Args& a, Tile<HD>& t, int b, int
 }
 
 // q (pre-scaled, as K3 does) and dO rows of q tile q0, head n.
-template <typename T, int HD>
+template <int HD>
 __device__ __forceinline__ void load_q(const Args& a, Tile<HD>& t, int b, int n, int q0) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
   for (int i = threadIdx.x; i < BQ * HD; i += NT) {
     const int r = i / HD, h = i % HD, s = q0 + r;
     float x = 0.f, d = 0.f;
     if (s < a.Sq) {
       const int64_t g = ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + h;
-      x = to_f32(q[g]);
-      d = to_f32(dout[g]);
+      x = q[g];
+      d = dout[g];
     }
     t.Qs[r * (HD + 1) + h] = x * a.scale;
     t.dOs[r * (HD + 1) + h] = d;
@@ -189,11 +210,11 @@ __device__ __forceinline__ void load_q(const Args& a, Tile<HD>& t, int b, int n,
 }
 
 // k and v rows of kv tile k0, kv head kvh, and their segment ids.
-template <typename T, int HD>
+template <int HD>
 __device__ __forceinline__ void load_kv(const Args& a, Tile<HD>& t, int b, int kvh, int k0,
                                         bool has_seg) {
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   if (threadIdx.x < BK) {
     const int c = k0 + threadIdx.x;
     t.kseg_s[threadIdx.x] =
@@ -204,8 +225,8 @@ __device__ __forceinline__ void load_kv(const Args& a, Tile<HD>& t, int b, int k
     float kx = 0.f, vx = 0.f;
     if (s < a.Skv) {
       const int64_t g = ((static_cast<int64_t>(b) * a.Skv + s) * a.K + kvh) * HD + h;
-      kx = to_f32(k[g]);
-      vx = to_f32(v[g]);
+      kx = k[g];
+      vx = v[g];
     }
     t.Ks[c * (HD + 1) + h] = kx;
     t.Vs[c * (HD + 1) + h] = vx;
@@ -271,7 +292,7 @@ __device__ __forceinline__ void tile_ds(const Args& a, Tile<HD>& t, int q0, int 
 }
 
 // K7: one block per (q tile, q head, batch), looping over kv tiles.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
   constexpr int HC = HD / 16;  // dq columns per thread
   extern __shared__ float smem[];
@@ -285,7 +306,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
   const bool has_seg = a.qseg != nullptr;
   const bool skip_pad = has_seg && a.seg_pad_zero;
 
-  load_q<T, HD>(a, t, b, n, q0);
+  load_q<HD>(a, t, b, n, q0);
   load_rows<HD>(a, t, b, n, q0, has_seg);
   const int q_live = __syncthreads_or(tid < BQ && t.qseg_s[tid] > 0);
 
@@ -311,7 +332,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's reads of Ks/Vs/Ss/kseg_s are done
-    load_kv<T, HD>(a, t, b, kvh, k0, has_seg);
+    load_kv<HD>(a, t, b, kvh, k0, has_seg);
     const int kv_live = __syncthreads_or(tid < BK && t.kseg_s[tid] > 0);
     if (skip_pad && !(kv_live && q_live)) continue;  // uniform over the block
     tile_ds<HD>(a, t, q0, k0, has_seg, false);
@@ -330,21 +351,21 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + r0 + i;
     if (s >= a.Sq) continue;
-    T* row = dq + ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD;
+    float* row = dq + ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD;
 #pragma unroll
-    for (int hc = 0; hc < HC; ++hc) row[cg + 16 * hc] = from_f32<T>(acc[i][hc] * a.scale);
+    for (int hc = 0; hc < HC; ++hc) row[cg + 16 * hc] = acc[i][hc] * a.scale;
   }
 }
 
 // K8, float32: one block per (kv tile, kv head, batch), looping over the
 // group's query heads and the q tiles, on the CUDA cores (see the note at
 // the top of the file).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   constexpr int HC = HD / 16;  // dk/dv columns per thread
   extern __shared__ float smem[];
@@ -358,7 +379,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   const bool has_seg = a.qseg != nullptr;
   const bool skip_pad = has_seg && a.seg_pad_zero;
 
-  load_kv<T, HD>(a, t, b, kvh, k0, has_seg);
+  load_kv<HD>(a, t, b, kvh, k0, has_seg);
   const int kv_live = __syncthreads_or(tid < BK && t.kseg_s[tid] > 0);
 
   // q tile range. Causal: K3 runs tile (q0, k0) iff k0 <= q0 + BQ - 1 +
@@ -391,7 +412,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
       load_rows<HD>(a, t, b, n, q0, has_seg);
       const int q_live = __syncthreads_or(tid < BQ && t.qseg_s[tid] > 0);
       if (skip_pad && !q_live) continue;  // uniform over the block
-      load_q<T, HD>(a, t, b, n, q0);
+      load_q<HD>(a, t, b, n, q0);
       __syncthreads();
       tile_ds<HD>(a, t, q0, k0, has_seg, true);
       __syncthreads();
@@ -414,8 +435,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
     }
   }
 
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
+  float* dkp = static_cast<float*>(a.dk);
+  float* dvp = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int c = k0 + kr0 + i;
@@ -423,8 +444,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
     const int64_t base = ((static_cast<int64_t>(b) * a.Skv + c) * a.K + kvh) * HD;
 #pragma unroll
     for (int hc = 0; hc < HC; ++hc) {
-      dkp[base + cg + 16 * hc] = from_f32<T>(dk[i][hc]);
-      dvp[base + cg + 16 * hc] = from_f32<T>(dv[i][hc]);
+      dkp[base + cg + 16 * hc] = dk[i][hc];
+      dvp[base + cg + 16 * hc] = dv[i][hc];
     }
   }
 }
@@ -761,44 +782,219 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
 
 }  // namespace tcdkv
 
-template <typename T, int HD>
-cudaError_t launch(const Args& a, int B, bool dq, cudaStream_t stream) {
+
+// ---------------------------------------------------------------------------
+// K7, bfloat16: dq on the tensor cores (see the note at the top of the file
+// and flash_tc.cuh). One block of 8 warps per (q tile of 128 rows, q head,
+// batch), a warp per 16 rows, key steps of 32 keys.
+namespace tcdq {
+
+using ftc::KB;
+using ftc::ROWS;
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * ROWS + 2 * 2 * KB) * (HD + 8) + sizeof(int) * 2 * KB;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_kernel(Args a) {
+  constexpr int LD = HD + 8;
+  constexpr int NH = HD / 8;  // 8-column blocks of dq per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
+  __nv_bfloat16* dos = qs + ROWS * LD;                              // [ROWS][LD]
+  __nv_bfloat16* ring = dos + ROWS * LD;             // [2][K [KB][LD], V [KB][LD]]
+  int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
+                    a.qseg != nullptr && a.seg_pad_zero != 0};
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int q0 = ftc::q_tile<false>(m) * ROWS;
+  const int kvh = n / (a.N / a.K);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  ftc::Rows rows;
+  const bool any_live = ftc::load_rows(m, a.qseg, b, q0, rows);
+  int kt_begin, kt_end;
+  ftc::step_range(m, q0, kt_begin, kt_end);
+  if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
+  const int n_steps = kt_end - kt_begin;
+
+  // The rows' lse and delta stay in registers; rows past Sq get lse =
+  // NEG_INF and are masked.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = rows.r0 + grp + 8 * h;
+    const int64_t row = (static_cast<int64_t>(b) * a.N + n) * a.Sq + qi;
+    lse_r[h] = qi < a.Sq ? a.lse[row] : NEG_INF;
+    delta_r[h] = qi < a.Sq ? a.delta[row] : 0.f;
+  }
+
+  if (n_steps > 0) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+    const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
+    for (int idx = tid; idx < ROWS * (HD / 8); idx += ftc::NT) {
+      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8, s = q0 + r;
+      const bool in = s < a.Sq;
+      const int64_t off = in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + c : 0;
+      tc::cp16(qs + r * LD + c, q + off, in);
+      tc::cp16(dos + r * LD + c, dout + off, in);
+    }
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, kt_begin * KB, ring, kseg_ring);
+    tc::cp_commit();
+  }
+
+  float dq[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    tc::cp_wait_all();
+    __syncthreads();  // step i staged; every read of the previous step done
+    if (i + 1 < n_steps)
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (kt_begin + i + 1) * KB,
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB);
+    tc::cp_commit();
+    const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
+    const __nv_bfloat16* vt = kt + KB * LD;
+    const int* ks = kseg_ring + st * KB;
+    const int k0 = (kt_begin + i) * KB;
+    const ftc::Step step = ftc::classify(m, rows, k0, ks);
+    if (step.dead) continue;  // uniform over the warp
+
+    // S = Q . K^T and dP = dO . V^T for the warp's 16 rows x 32 keys.
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t qa[4], oa[4];
+      tc::load_a(qa, qs, LD, warp * 16, kk, lane);
+      tc::load_a(oa, dos, LD, warp * 16, kk, lane);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t kb4[4], vb4[4];
+        tc::load_b_nk(kb4, kt, LD, jp * 16, kk, lane);
+        tc::load_b_nk(vb4, vt, LD, jp * 16, kk, lane);
+        tc::mma(s[2 * jp], qa, kb4[0], kb4[1]);
+        tc::mma(s[2 * jp + 1], qa, kb4[2], kb4[3]);
+        tc::mma(dp[2 * jp], oa, vb4[0], vb4[1]);
+        tc::mma(dp[2 * jp + 1], oa, vb4[2], vb4[3]);
+      }
+    }
+
+    // dS = P * (dP - delta) (times 1 - t^2 under softcap) in f32, into s;
+    // the mask inside the exponential (lse may be NEG_INF).
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int h = e4 >> 1;
+        const float sv = s[j][e4] * a.scale;
+        float z = sv, th = 0.f;
+        if (a.softcap > 0.f) {
+          th = tanhf(sv / a.softcap);
+          z = a.softcap * th;
+        }
+        bool kept = true;
+        if (!step.full) {
+          const int cl = j * 8 + 2 * tig + (e4 & 1);
+          kept = ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl]);
+        }
+        const float p = tc::exp_(kept ? z - lse_r[h] : NEG_INF);
+        const float dz = p * (dp[j][e4] - delta_r[h]);
+        s[j][e4] = a.softcap > 0.f ? dz * (1.f - th * th) : dz;
+      }
+    }
+
+    // dQ += dS . K, dS from the registers as bf16 A fragments, K read as a
+    // [keys][H] B operand (ldmatrix.trans).
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t da[4];
+      da[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      da[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      da[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      da[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int jp = 0; jp < NH / 2; ++jp) {
+        uint32_t kb4[4];
+        tc::load_b_kn(kb4, kt, LD, kk * 16, jp * 16, lane);
+        tc::mma(dq[2 * jp], da, kb4[0], kb4[1]);
+        tc::mma(dq[2 * jp + 1], da, kb4[2], kb4[3]);
+      }
+    }
+  }
+  tc::cp_wait_all();
+
+  // dq = scale * sum dS . k (q was not pre-scaled); one thread per element.
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(a.dq);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = rows.r0 + grp + 8 * h;
+    if (qi >= a.Sq) continue;
+    const int64_t row = (static_cast<int64_t>(b) * a.Sq + qi) * a.N + n;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      *reinterpret_cast<uint32_t*>(dqp + row * HD + j * 8 + 2 * tig) =
+          tc::pack_bf16(dq[j][2 * h] * a.scale, dq[j][2 * h + 1] * a.scale);
+    }
+  }
+}
+
+}  // namespace tcdq
+
+// bf16: the tensor-core kernels; float32 keeps the CUDA-core ones.
+template <int HD>
+cudaError_t launch(const Args& a, int B, bool bf16, bool dq, cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::bytes();
-  if (dq) {
-    cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<T, HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+  cudaError_t err;
+  if (dq && bf16) {
+    constexpr size_t tsm = tcdq::smem_bytes<HD>();
+    err = cudaFuncSetAttribute(tcdq::flash_dq_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tsm));
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
+    tcdq::flash_dq_tc_kernel<HD><<<grid, ftc::NT, tsm, stream>>>(a);
+  } else if (dq) {
+    err = cudaFuncSetAttribute(flash_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
-    flash_dq_kernel<T, HD><<<grid, NT, smem, stream>>>(a);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // bf16 K8: the tensor-core kernel. float32 keeps flash_dkv_kernel.
+    flash_dq_kernel<HD><<<grid, NT, smem, stream>>>(a);
+  } else if (bf16) {
     constexpr size_t tsm = tcdkv::Smem<HD>::bytes();
-    cudaError_t err = cudaFuncSetAttribute(tcdkv::flash_dkv_tc_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(tsm));
+    err = cudaFuncSetAttribute(tcdkv::flash_dkv_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tsm));
     if (err != cudaSuccess) return err;
     dim3 grid((a.Skv + tcdkv::TK - 1) / tcdkv::TK, a.K, B);
     tcdkv::flash_dkv_tc_kernel<HD><<<grid, NT, tsm, stream>>>(a);
   } else {
-    cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T, HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    err = cudaFuncSetAttribute(flash_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     dim3 grid((a.Skv + BK - 1) / BK, a.K, B);
-    flash_dkv_kernel<T, HD><<<grid, NT, smem, stream>>>(a);
+    flash_dkv_kernel<HD><<<grid, NT, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_head_dim(const Args& a, int B, int H, bool dq, cudaStream_t stream) {
+cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, bool dq, cudaStream_t stream) {
   switch (H) {
-    case 16: return launch<T, 16>(a, B, dq, stream);
-    case 32: return launch<T, 32>(a, B, dq, stream);
-    case 64: return launch<T, 64>(a, B, dq, stream);
-    case 128: return launch<T, 128>(a, B, dq, stream);
-    case 256: return launch<T, 256>(a, B, dq, stream);
+    case 16: return launch<16>(a, B, bf16, dq, stream);
+    case 32: return launch<32>(a, B, bf16, dq, stream);
+    case 64: return launch<64>(a, B, bf16, dq, stream);
+    case 128: return launch<128>(a, B, bf16, dq, stream);
+    case 256: return launch<256>(a, B, bf16, dq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -806,10 +1002,7 @@ cudaError_t by_head_dim(const Args& a, int B, int H, bool dq, cudaStream_t strea
 // An empty kv (K7) or q (K8) range still launches and writes zeros.
 int run(const Args& a, int B, int H, int dtype, bool dq, void* stream) {
   if (B == 0 || (dq ? a.Sq : a.Skv) == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? by_head_dim<__nv_bfloat16>(a, B, H, dq, s)
-                               : by_head_dim<float>(a, B, H, dq, s);
-  return static_cast<int>(err);
+  return static_cast<int>(by_head_dim(a, B, H, dtype == 1, dq, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -1,17 +1,61 @@
-// K3: flash-attention forward for prefill, hand-written for Hopper (sm_90a).
+// K3: flash-attention forward for prefill and training, hand-written for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel orion_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (the pl.pallas_call in _fwd_call): grouped-query attention with an online
 // softmax, causal mask with q_offset, segment ids (with the seg_pad_zero
-// block skip), sliding window and logit softcap. Layout at the interface is
+// tile skip), sliding window and logit softcap. Layout at the interface is
 // the JAX package's: q/o [B, Sq, N, H], k/v [B, Skv, K, H], contiguous.
+// With a non-null `lse`, the kernel also writes each row's log-sum-exp of
+// its attended logits, m + log(l), as float32 [B, N, Sq] (NEG_INF where
+// the row attends nothing): the residual the backward kernels K7/K8
+// (flash_bwd.cu) recompute the probabilities from. Serving passes null.
+// A row with nothing attended returns 0 (l == 0 -> l_safe = 1), not NaN.
+// Padded query rows (segment 0) hold values that the caller discards.
 //
-// What bounds it on an H100: operations. Prefill attention does ~2*H
-// multiply-adds per (query, key) pair against ~4*H bytes per query row, far
-// above the card's ridge point. This first version computes the products as
-// plain f32 FMAs on the CUDA cores (no wgmma, no TMA), so it is bounded by
-// the 67 TFLOP/s f32 rate, not the tensor cores; making it tensor-core bound
-// is later work. What the design does about the bound it has:
+// What bounds it on an H100: operations. Attention does two products of
+// 2*H flops per (query, key) pair (q.k and p.v: about 4*H flops) against
+// ~4*H bytes per query row, far above the card's ridge point, so the
+// tensor-core rate (989 TFLOP/s bf16) is the bound it is measured against.
+//
+// bfloat16 (flash_fwd_tc_kernel) runs both products on the tensor cores,
+// K9's forward loop without the pages (the block plan is flash_tc.cuh's,
+// shared with K7):
+//   - one block of 8 warps per (q tile of 128 rows, q head, batch); a warp
+//     owns 16 query rows with their f32 online softmax (m, l) and output
+//     accumulator in registers; Q stays in shared memory (rows of H + 8
+//     bf16, the 16-byte skew of tc.cuh) for the block's life;
+//   - a loop over key steps of 32 keys (the float32 kernel's kv tile), K,
+//     V and the keys' segment ids streamed through a two-stage cp.async
+//     ring, so the next step's load overlaps this step's products. 32 keys keep the
+//     logits in 16 registers, so a thread fits 128 registers up to H = 128
+//     and two blocks share an SM (one at H = 256);
+//   - S = Q.K^T and O += P.V with mma.sync.m16n8k16 (bf16 in, f32
+//     accumulate; ldmatrix fragments); the scale is applied to the f32
+//     logits after the product (H^-0.5 is no power of two: q * scale
+//     rounded to bf16 would move the lse), then the softcap and the mask
+//     in f32, the online softmax per row, and P to bf16 A fragments
+//     straight from the logits' registers (the C layout of two adjacent
+//     8-key blocks is the A layout of one 16-key block);
+//   - a step needs no mask when it is wholly inside the diagonal and the
+//     window, its rows and keys in range, and every row and key carries
+//     one segment id; a warp skips a step none of its pairs attend (past
+//     the diagonal, behind the window, or padding under seg_pad_zero: the
+//     skip contract of flash_tc.cuh, which K7 and K8 share), and a block
+//     whose rows are all padding writes zeros without loading anything;
+//   - causal q tiles start longest first (reverse order on the grid's
+//     slowest axis), so short tiles fill the last wave: measured 2.7 %
+//     faster at the training shapes and 15 % at the ragged serve's than
+//     index order (flash_tc.cuh, q_tile);
+//   - mma.sync and not wgmma: mma.sync's fragments need no shared-memory
+//     descriptors or swizzled layouts, so the kernel can be read against
+//     the formulas; wgmma (and TMA) is the step after this one.
+// Shared memory: 128 query rows plus two stages of 32 K and V rows, rows
+// of H + 8 bf16: 69,888 B at H = 128, 135,424 B at H = 256.
+//
+// float32 (flash_fwd_kernel) keeps a design of its own on the CUDA
+// cores on purpose: the tensor cores would take f32 as TF32, and the f32
+// parity drives hold K3 to 1e-4. What that design does:
 //   - one block per (q tile of BQ=64 rows, q head, batch); a loop over kv
 //     tiles of BK=32 keys replaces Pallas's sequential kv grid axis, with the
 //     softmax state (m, l, acc) in registers across the loop;
@@ -22,17 +66,12 @@
 //     causal diagonal or wholly behind the window, and, under seg_pad_zero,
 //     tiles whose query rows or key columns are all padding (segment id 0),
 //     so a ragged prefill burst pays each row's own length, not the bucket's.
-// A row with nothing attended returns 0 (l == 0 -> l_safe = 1), not NaN.
-// Padded query rows (segment 0) hold garbage that the caller discards.
-//
-// With a non-null `lse`, the kernel also writes each row's log-sum-exp of
-// its attended logits, m + log(l), as float32 [B, N, Sq] (NEG_INF where
-// the row attends nothing): the residual the backward kernels K7/K8
-// (flash_bwd.cu) recompute the probabilities from. Serving passes null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -40,14 +79,6 @@ constexpr int BQ = 64;
 constexpr int BK = 32;
 constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Args {
   const void* q;
@@ -68,7 +99,7 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (BQ + BK);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   constexpr int HC = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -79,10 +110,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   int* qseg_s = reinterpret_cast<int*>(Ps + BQ * (BK + 1));  // [BQ]
   int* kseg_s = qseg_s + BQ;                                 // [BK]
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -96,7 +127,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, h = i % HD, s = q0 + r;
     float x = 0.f;
-    if (s < a.Sq) x = to_f32(q[((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + h]);
+    if (s < a.Sq) x = q[((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + h];
     Qs[r * (HD + 1) + h] = x * a.scale;
   }
   if (tid < BQ) {
@@ -145,8 +176,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       float kx = 0.f, vx = 0.f;
       if (s < a.Skv) {
         const int64_t g = ((static_cast<int64_t>(b) * a.Skv + s) * a.K + kvh) * HD + h;
-        kx = to_f32(k[g]);
-        vx = to_f32(v[g]);
+        kx = k[g];
+        vx = v[g];
       }
       Ks[c * (HD + 1) + h] = kx;
       Vs[c * HD + h] = vx;
@@ -231,9 +262,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     const int s = q0 + r0 + i;
     if (s >= a.Sq) continue;
     const float l_safe = l_i[i] == 0.f ? 1.f : l_i[i];
-    T* orow = o + ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD;
+    float* orow = o + ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD;
 #pragma unroll
-    for (int hc = 0; hc < HC; ++hc) orow[cg + 16 * hc] = from_f32<T>(acc[i][hc] / l_safe);
+    for (int hc = 0; hc < HC; ++hc) orow[cg + 16 * hc] = acc[i][hc] / l_safe;
     // m_i / l_i are equal across the 16 threads of a row group (shuffle-reduced).
     if (a.lse != nullptr && cg == 0) {
       a.lse[(static_cast<int64_t>(b) * a.N + n) * a.Sq + s] =
@@ -242,25 +273,212 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
-  flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(a);
+// ---------------------------------------------------------------------------
+// bfloat16: the same function on the tensor cores (see the note at the top
+// of the file and flash_tc.cuh).
+template <int HD>
+__global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_kernel(Args a) {
+  using ftc::KB;
+  using ftc::ROWS;
+  constexpr int LD = HD + 8;
+  constexpr int NH = HD / 8;  // 8-column blocks of the output per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
+  __nv_bfloat16* ring = qs + ROWS * LD;                // [2][K [KB][LD], V [KB][LD]]
+  int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
+                    a.qseg != nullptr && a.seg_pad_zero != 0};
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int q0 = ftc::q_tile<true>(m) * ROWS;
+  const int kvh = n / (a.N / a.K);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  ftc::Rows rows;
+  const bool any_live = ftc::load_rows(m, a.qseg, b, q0, rows);
+  int kt_begin, kt_end;
+  ftc::step_range(m, q0, kt_begin, kt_end);
+  if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
+  const int n_steps = kt_end - kt_begin;
+
+  if (n_steps > 0) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+    for (int idx = tid; idx < ROWS * (HD / 8); idx += ftc::NT) {
+      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8, s = q0 + r;
+      const bool in = s < a.Sq;
+      const int64_t off = in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + c : 0;
+      tc::cp16(qs + r * LD + c, q + off, in);
+    }
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, kt_begin * KB, ring, kseg_ring);
+    tc::cp_commit();
+  }
+
+  float o[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {ftc::NEG_INF, ftc::NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    tc::cp_wait_all();
+    __syncthreads();  // step i staged; every read of the previous step done
+    if (i + 1 < n_steps)
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (kt_begin + i + 1) * KB,
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB);
+    tc::cp_commit();
+    const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
+    const __nv_bfloat16* vt = kt + KB * LD;
+    const int* ks = kseg_ring + st * KB;
+    const int k0 = (kt_begin + i) * KB;
+    const ftc::Step step = ftc::classify(m, rows, k0, ks);
+    if (step.dead) continue;  // uniform over the warp
+
+    // S = Q . K^T for the warp's 16 rows x 32 keys.
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t qa[4];
+      tc::load_a(qa, qs, LD, warp * 16, kk, lane);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t kb4[4];
+        tc::load_b_nk(kb4, kt, LD, jp * 16, kk, lane);
+        tc::mma(s[2 * jp], qa, kb4[0], kb4[1]);
+        tc::mma(s[2 * jp + 1], qa, kb4[2], kb4[3]);
+      }
+    }
+
+    // Scale and softcap in f32, the mask as -inf where needed, then the
+    // online softmax per row (a row's four lanes reduce by shuffles).
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        float z = s[j][e4] * a.scale;
+        if (a.softcap > 0.f) z = a.softcap * tanhf(z / a.softcap);
+        if (!step.full) {
+          const int h = e4 >> 1, cl = j * 8 + 2 * tig + (e4 & 1);
+          if (!ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl])) z = -INFINITY;
+        }
+        s[j][e4] = z;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(ftc::FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(ftc::FULL, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);  // finite: m_run starts at NEG_INF
+      alpha[h] = tc::exp_(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const float p = tc::exp_(s[j][e4] - m_run[e4 >> 1]);  // 0 for a masked key
+        sum[e4 >> 1] += p;
+        s[j][e4] = p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(ftc::FULL, sum[h], 1);
+      sum[h] += __shfl_xor_sync(ftc::FULL, sum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P . V, P from the logits' registers as bf16 A fragments.
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int jp = 0; jp < NH / 2; ++jp) {
+        uint32_t vb[4];
+        tc::load_b_kn(vb, vt, LD, kk * 16, jp * 16, lane);
+        tc::mma(o[2 * jp], pa, vb[0], vb[1]);
+        tc::mma(o[2 * jp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  tc::cp_wait_all();
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = rows.r0 + grp + 8 * h;
+    if (qi >= a.Sq) continue;
+    const float inv = 1.f / (l_run[h] == 0.f ? 1.f : l_run[h]);
+    const int64_t row = (static_cast<int64_t>(b) * a.Sq + qi) * a.N + n;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      *reinterpret_cast<uint32_t*>(out + row * HD + j * 8 + 2 * tig) =
+          tc::pack_bf16(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+    }
+    // m_run / l_run are equal across the four lanes of a row.
+    if (a.lse != nullptr && tig == 0) {
+      a.lse[(static_cast<int64_t>(b) * a.N + n) * a.Sq + qi] =
+          l_run[h] == 0.f ? NEG_INF : m_run[h] + logf(l_run[h]);
+    }
+  }
+}
+
+// bf16: the tensor-core kernel; float32 keeps flash_fwd_kernel (CUDA cores).
+template <int HD>
+cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
+  if (bf16) {
+    constexpr size_t smem = sizeof(__nv_bfloat16) * (ftc::ROWS + 2 * 2 * ftc::KB) * (HD + 8) +
+                            sizeof(int) * 2 * ftc::KB;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
+    flash_fwd_tc_kernel<HD><<<grid, ftc::NT, smem, stream>>>(a);
+  } else {
+    constexpr size_t smem = smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
+    flash_fwd_kernel<HD><<<grid, NT, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_head_dim(const Args& a, int B, int H, cudaStream_t stream) {
+cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, cudaStream_t stream) {
   switch (H) {
-    case 16: return launch<T, 16>(a, B, stream);
-    case 32: return launch<T, 32>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
-    case 256: return launch<T, 256>(a, B, stream);
+    case 16: return launch<16>(a, B, bf16, stream);
+    case 32: return launch<32>(a, B, bf16, stream);
+    case 64: return launch<64>(a, B, bf16, stream);
+    case 128: return launch<128>(a, B, bf16, stream);
+    case 256: return launch<256>(a, B, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -278,7 +496,5 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
          seg_pad_zero, softcap, scale};
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? by_head_dim<__nv_bfloat16>(a, B, H, s)
-                               : by_head_dim<float>(a, B, H, s);
-  return static_cast<int>(err);
+  return static_cast<int>(by_head_dim(a, B, H, dtype == 1, s));
 }

@@ -1,0 +1,179 @@
+// The block plan shared by the bf16 tensor-core kernels of K3
+// (flash_fwd.cu, flash_fwd_tc_kernel) and K7 (flash_bwd.cu,
+// flash_dq_tc_kernel): one block of 8 warps per (q tile of 128 rows, q
+// head, batch), a warp per 16 query rows, and a loop over key steps of 32
+// keys streamed through a two-stage cp.async ring (K, V and the keys'
+// segment ids).
+//
+// Which (query, key) pairs count is one contract for K3, K7 and K8: the
+// causal diagonal with q_offset, the sliding window, kv range, segment
+// ids, and under seg_pad_zero the tile skip of K3's float32 kernel, which
+// runs tiles of 64 rows x 32 keys and skips a tile whose rows or keys are
+// all padding (segment 0). So a padding pair (segment 0 against segment
+// 0) counts only where a live 64-row q tile meets a live 32-key tile. A
+// warp's 16 rows lie in one 64-row tile and a step is one 32-key tile, so
+// that liveness is uniform over a warp's step: a dead step is skipped by
+// the warp (no products), and no per-pair test is needed for it.
+//
+// Per warp and step, Step says whether the step is dead (nothing to
+// attend: liveness, the diagonal, the window, rows past Sq) or full
+// (every pair kept, so no mask is applied): rows and keys in range,
+// wholly inside the diagonal and the window, and, with segments, every
+// row and key of the step carrying the same segment id (compared as the
+// warp's min/max row id against the step's min/max key id). The serve
+// always passes segment ids, so without that last test the fast path
+// would never fire there.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "tc.cuh"
+
+namespace ftc {
+
+constexpr int ROWS = 128;  // query rows of a block (8 warps x 16)
+constexpr int KB = 32;     // keys per step: the float32 K3's kv tile
+constexpr int SUB = 64;    // the float32 K3's q tile: the unit of q liveness
+constexpr int NT = 256;
+constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Blocks per SM the kernels are compiled for: two (at most 128 registers
+// a thread) up to H = 128, one at H = 256.
+template <int HD> __host__ __device__ constexpr int min_blocks() { return HD <= 128 ? 2 : 1; }
+
+// The mask arguments both kernels' Args carry.
+struct Mask {
+  int Sq, Skv;
+  int causal, q_offset, window;
+  bool has_seg, skip_pad;
+};
+
+// Key steps [begin, end) of the block at q0: steps wholly past the
+// diagonal of its last real row or wholly behind the window of its first
+// row attend nothing.
+__device__ __forceinline__ void step_range(const Mask& m, int q0, int& begin, int& end) {
+  const int n_kt = (m.Skv + KB - 1) / KB;
+  end = n_kt;
+  begin = 0;
+  if (m.causal) {
+    const int qlast = min(q0 + ROWS, m.Sq) - 1 + m.q_offset;
+    end = qlast < 0 ? 0 : min(n_kt, qlast / KB + 1);
+    if (m.window > 0) {
+      const int cmin = q0 + m.q_offset - m.window + 1;
+      begin = cmin > 0 ? cmin / KB : 0;
+    }
+  }
+  if (end < begin) end = begin;
+}
+
+// This thread's two rows (grp and grp + 8 of the warp's 16) and the
+// warp's row facts.
+struct Rows {
+  int r0;         // the warp's first query row
+  int qseg[2];    // segment ids of the thread's rows (0 past Sq or without segments)
+  int smin, smax; // the warp's least and greatest row segment id
+  bool live;      // seg_pad_zero: the warp's 64-row q tile holds a real row
+};
+
+// Reads the rows' segment ids; liveness of both 64-row tiles of the block
+// by two barriers (every thread must call it). Returns whether any row of
+// the block is live (always true without seg_pad_zero).
+__device__ __forceinline__ bool load_rows(const Mask& m, const int* qseg, int b, int q0, Rows& r) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, grp = lane >> 2;
+  r.r0 = q0 + warp * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = r.r0 + grp + 8 * h;
+    r.qseg[h] = (m.has_seg && qi < m.Sq) ? qseg[static_cast<int64_t>(b) * m.Sq + qi] : 0;
+  }
+  r.smin = r.smax = 0;
+  if (m.has_seg) {
+    r.smin = __reduce_min_sync(FULL, min(r.qseg[0], r.qseg[1]));
+    r.smax = __reduce_max_sync(FULL, max(r.qseg[0], r.qseg[1]));
+  }
+  r.live = true;
+  if (!m.skip_pad) return true;
+  int own = 0;
+  if (tid < ROWS && q0 + tid < m.Sq) own = qseg[static_cast<int64_t>(b) * m.Sq + q0 + tid];
+  const bool lo = __syncthreads_or(tid < SUB && own > 0);
+  const bool hi = __syncthreads_or(tid >= SUB && tid < ROWS && own > 0);
+  r.live = warp < SUB / 16 ? lo : hi;
+  return lo || hi;
+}
+
+// Asynchronous load of key step k0 (K and V rows of kv head kvh, and the
+// keys' segment ids) into ring stage `kv` ([K [KB][LD], V [KB][LD]]) and
+// `ks` ([KB]); keys past Skv are zero-filled (segment 0).
+template <int HD>
+__device__ __forceinline__ void load_step(const Mask& m, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, const int* kseg, int b,
+                                          int kvh, int K, int k0, __nv_bfloat16* kv, int* ks) {
+  constexpr int LD = HD + 8, CH = HD / 8;
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < 2 * KB * CH; idx += NT) {
+    const int which = idx / (KB * CH), r = (idx / CH) % KB, c = (idx % CH) * 8;
+    const int j = k0 + r;
+    const bool in = j < m.Skv;
+    const int64_t off = in ? ((static_cast<int64_t>(b) * m.Skv + j) * K + kvh) * HD + c : 0;
+    tc::cp16(kv + which * KB * LD + r * LD + c, (which ? v : k) + off, in);
+  }
+  if (tid < KB) {
+    const int j = k0 + tid;
+    const bool in = m.has_seg && j < m.Skv;
+    const void* src = in ? static_cast<const void*>(kseg + static_cast<int64_t>(b) * m.Skv + j)
+                         : static_cast<const void*>(k);
+    tc::cp4(ks + tid, src, in);
+  }
+}
+
+// What a warp does with the step at k0 whose key segment ids are ks.
+struct Step {
+  bool dead;  // no pair of the warp's rows counts: skip the products
+  bool full;  // every pair counts: no mask
+};
+
+__device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, const int* ks) {
+  const int lane = threadIdx.x % 32;
+  const int kown = ks[lane];
+  bool kv_live = true, same = true;
+  if (m.has_seg) {
+    kv_live = __any_sync(FULL, kown > 0);
+    const int kmin = __reduce_min_sync(FULL, kown), kmax = __reduce_max_sync(FULL, kown);
+    same = r.smin == r.smax && kmin == kmax && kmin == r.smin;
+  }
+  const int qfirst = r.r0 + m.q_offset, qlast = r.r0 + 15 + m.q_offset;
+  Step s;
+  s.dead = r.r0 >= m.Sq || (m.skip_pad && !(r.live && kv_live)) ||
+           (m.causal && (k0 > qlast || (m.window > 0 && k0 + KB - 1 <= qfirst - m.window)));
+  s.full = !s.dead && r.r0 + 16 <= m.Sq && k0 + KB <= m.Skv && same &&
+           (!m.causal || (k0 + KB - 1 <= qfirst && (m.window <= 0 || qlast - k0 < m.window)));
+  return s;
+}
+
+// Whether the pair (row qi with segment id qs, key c with segment id cs)
+// counts on a step that is neither dead nor full (liveness is the warp's).
+__device__ __forceinline__ bool keep(const Mask& m, int qi, int qs, int c, int cs) {
+  bool k = qi < m.Sq && c < m.Skv;
+  if (m.causal) {
+    const int d = qi + m.q_offset - c;
+    k = k && d >= 0;
+    if (m.window > 0) k = k && d < m.window;
+  }
+  if (m.has_seg) k = k && qs == cs;
+  return k;
+}
+
+// The q tile of this block. LONGEST_FIRST runs causal tiles in reverse
+// along the grid's slowest axis, so the tiles with the most keys start
+// first and short ones fill the tail of the last wave. K3 measured faster
+// so (2-3 % at the training shapes, 15-17 % at the ragged serve's), K7
+// slower (5-10 %), so K7 keeps index order.
+template <bool LONGEST_FIRST>
+__device__ __forceinline__ int q_tile(const Mask& m) {
+  return LONGEST_FIRST && m.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+}
+
+}  // namespace ftc

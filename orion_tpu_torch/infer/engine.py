@@ -29,16 +29,21 @@ token, and releases the pages that held only rejected drafts. Token trees
 and compact an accepted off-primary path's KV. Greedy output is token for
 token that of the engine without speculation. Unlike the JAX engine, a
 failed verify or compaction raises: there is no auto-disable ladder
-(``spec_fault_limit`` is validated by the config and not acted on).
+(``spec_fault_limit`` other than its default raises at construction).
 
 Not ported yet (each raises at construction when configured):
 constrained decoding, int8 weights, MoE, the host
 tier and long-context paging, decode-window autotune, NaN guard,
 sliding-window page rolling (a window on every layer; interleaved
-local/global windows are served) and ``paged_prefill=false``. Also absent:
-request priorities, the deadline/shedding policy, fault injection,
-watchdog and tracer, and the XLA-fallback degradation ladder (a failing
-kernel raises).
+local/global windows are served), ``paged_prefill=false``, the
+shedding and deadline policy (``queue_limit``, ``default_deadline_s``),
+the watchdog (``watchdog_timeout_s``), the tracer and flight recorder
+(``trace``, ``trace_path``, ``flight_dir``) and the metrics sinks
+(``metrics_jsonl``, ``metrics_prom``). The fault ladder's knobs
+(``dispatch_retries``, ``spec_fault_limit``, ``max_step_faults``) have
+defaults that are not None: those defaults are accepted, any other value
+raises. Also absent: request priorities, fault injection and the
+XLA-fallback degradation ladder (a failing kernel raises).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises. ``model.kernels`` is
@@ -111,7 +116,22 @@ def _check_supported(cfg: Config) -> None:
         ),
         "inference.paged_prefill=false (the gather body needs explicit "
         "positions in K3)": not i.paged_prefill,
+        "inference.queue_limit (shedding)": i.queue_limit is not None,
+        "inference.default_deadline_s": i.default_deadline_s is not None,
+        "inference.watchdog_timeout_s": i.watchdog_timeout_s is not None,
+        "inference.trace / trace_path / flight_dir": (
+            i.trace or i.trace_path is not None or i.flight_dir is not None
+        ),
+        "inference.metrics_jsonl / metrics_prom": (
+            i.metrics_jsonl is not None or i.metrics_prom is not None
+        ),
     }
+    # The fault ladder's knobs: only their defaults, which the engine's
+    # plain raise-on-failure behaviour stands for.
+    ladder = type(i)()
+    for knob in ("dispatch_retries", "spec_fault_limit", "max_step_faults"):
+        default = getattr(ladder, knob)
+        unsupported[f"inference.{knob} != {default}"] = getattr(i, knob) != default
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(

@@ -14,8 +14,10 @@ Not ported yet, and rejected at construction (``_check_supported``):
 checkpointing, the anomaly guard and rollback, ZeRO-1 and quantized
 gradient collectives, evaluation, profiling windows, tracing/flight
 recorder/Prometheus export, fault injection and supervisor restarts,
-every parallel axis > 1, MoE, weight quantization, checkify and debug
-asserts, and remat policies other than none/full.
+every parallel axis > 1 and more than one process
+(``runtime.num_processes``), MoE, weight quantization, checkify, debug
+asserts, ``runtime.debug_nans`` and ``runtime.deterministic``, and remat
+policies other than none/full.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -71,6 +73,9 @@ def _check_supported(cfg: Config) -> None:
         "model.n_experts > 0 (MoE)": m.is_moe,
         "model.weight_quant": m.weight_quant is not None,
         "runtime.checkify": r.checkify,
+        "runtime.debug_nans": r.debug_nans,
+        "runtime.deterministic": r.deterministic,
+        "runtime.num_processes > 1 (multi-process training)": r.num_processes > 1,
         "model.debug_asserts": m.debug_asserts,
     }
     bad = [name for name, on in unsupported.items() if on]

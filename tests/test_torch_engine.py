@@ -133,12 +133,27 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 @pytest.mark.parametrize("override", [
     "inference.nan_guard=true", "inference.decode_window_autotune=true",
     "inference.host_tier_bytes=1048576", "inference.constrained=true",
-    "model.weight_quant=int8",
+    "model.weight_quant=int8", "inference.queue_limit=4",
+    "inference.default_deadline_s=5.0", "inference.watchdog_timeout_s=30.0",
+    "inference.trace=true", "inference.trace_path=/nonexistent/trace.json",
+    "inference.flight_dir=/nonexistent/flight",
+    "inference.metrics_jsonl=/nonexistent/m.jsonl",
+    "inference.metrics_prom=/nonexistent/m.prom", "inference.dispatch_retries=2",
+    "inference.spec_fault_limit=5", "inference.max_step_faults=8",
 ])
 def test_unported_features_raise(override):
     _, _, cfg, tp = _pair(overrides=[override])
     with pytest.raises(NotImplementedError, match="not ported"):
         InferenceEngine(cfg, tp, device="cpu")
+
+
+def test_fault_ladder_defaults_construct():
+    # The fault ladder's knobs have non-None defaults; set explicitly to
+    # them, they are accepted (any other value raises, above).
+    _, _, cfg, tp = _pair(overrides=["inference.dispatch_retries=1",
+                                     "inference.spec_fault_limit=3",
+                                     "inference.max_step_faults=4"])
+    assert InferenceEngine(cfg, tp, device="cpu").generate([[5, 3, 9]], 2)
 
 
 def test_generate_cli_runs_on_cpu(capsys):

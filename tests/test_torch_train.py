@@ -282,10 +282,12 @@ def test_train_without_gpu_raises_unless_cpu_requested(monkeypatch):
     "train.max_restarts=1", "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
     "model.remat=names", "train.remat=names", "model.n_experts=4",
     "model.weight_quant=int8", "runtime.checkify=true", "train.trace=true",
+    "runtime.debug_nans=true", "runtime.deterministic=true",
+    "runtime.num_processes=2;runtime.coordinator_address=localhost:1234",
 ])
 def test_unported_trainer_knobs_raise(override):
     with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(get_config("tiny-llama", [override]), device="cpu")
+        Trainer(get_config("tiny-llama", override.split(";")), device="cpu")
 
 
 def test_loss_fn_rejects_unported_remat():
