@@ -14,9 +14,9 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K10 and K9's split merge against their plain PyTorch versions
-           on the card (the backward kernels against autograd of the plain
-           forward), at the
+  kernels  K1-K10 and K4's and K9's split merges against their plain
+           PyTorch versions on the card (the backward kernels against
+           autograd of the plain forward), at the
            serving path's and the training path's shapes, in float32 and
            bfloat16 (tolerances in TOL), K4, K9 and K10 also over int8
            pools; what K4, K9 and K10 write into the pools (int8 pages and
@@ -29,7 +29,13 @@ exits non-zero without printing a result:
            trees with and without a window, W 8 and 31, a chain-shaped tree
            bitwise against the chain, W = 1 against K4; for K9 histories over
            three splits, a split boundary inside the window, G 1-8, page 128;
-           for K8 padding off its 64-key tiles and fewer keys than one tile)
+           for K8 padding off its 64-key tiles and fewer keys than one tile;
+           for K4's split walk, in both pools and dtypes, contexts of one
+           split exactly, a key past it and the whole table, windows whose
+           edge falls inside a split, G 1-128, pages 16-128, H 16-256, up
+           to 16 splits); every live K4 slot also within K4_SLOT_REL of
+           its output RMS; two bf16 K4 launches on the same inputs give
+           the same bits
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
@@ -48,8 +54,9 @@ exits non-zero without printing a result:
            waves of 8 greedy requests sharing a 1024-token system prompt,
            64 new tokens each; the second wave hits the cache, one of its
            prompts whole (copy-on-write). Every request finishes, prefill
-           logits are finite, K1-K3, K4's and K9's int8 branches and K9's merge launch,
-           the page accounting holds and clearing the cache frees the pool
+           logits are finite, K1-K3, K4's and K9's int8 branches and both
+           merges launch, the page accounting holds and clearing the cache
+           frees the pool
   serve_spec  llama3-8b-infer at full width and depth with speculative
            decoding (the serve's weights): 8 greedy requests of 100-1000
            random prompt tokens, then the same 8 again (the first wave's
@@ -57,7 +64,8 @@ exits non-zero without printing a result:
            each, in drives A (chain, bf16 pools), A0 (A without speculation)
            and B (tree width 2, int8 pools, chunked prefill); every request
            finishes, wave 2 verifies (and accepts drafts in A), K10's
-           branches launch, the page accounting holds
+           branches launch (K4 and its merge in A0 and B), the page
+           accounting holds
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -70,12 +78,13 @@ exits non-zero without printing a result:
            prints step time, tokens/s, MFU, peak memory, launches per step
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
-           beside K4 at the same contexts; K5-K8, and K3 again with its lse
-           as ``flash_fwd_train``: the training path's): CUDA events around
-           5 runs of 5 back-to-back calls after a warm-up, the median per
-           call, beside its plain version, one PyTorch library call
-           computing the same function where there is one, and the card's
-           bound for the work
+           beside K4 at the same contexts, K4 again at the plain serve's
+           decode batch; K5-K8, and K3
+           again with its lse as ``flash_fwd_train``: the training path's):
+           CUDA events around 5 runs of 5 back-to-back calls after a
+           warm-up, the median per call, beside its plain version, one
+           PyTorch library call computing the same function where there is
+           one, and the card's bound for the work
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.
@@ -142,7 +151,21 @@ TOL = {
     # K9's merge (bf16 only): float32 sums of up to 8 splits in another
     # order, then one bf16 rounding on both sides.
     "paged_prefill_merge": {"bfloat16": (1e-2, 1e-2)},
+    # K4's merge (bf16 only): as K9's (float32 sums over a slot's splits in
+    # another order, then one bf16 rounding on both sides).
+    "paged_decode_merge": {"bfloat16": (1e-2, 1e-2)},
 }
+
+# K4, per live slot: max |kernel - plain| over the slot's N*H outputs,
+# divided by the RMS of the plain version's outputs of that slot. A slot
+# over n keys of random K/V has outputs of about n^-1/2, so at long
+# contexts TOL's atol alone would pass a garbled split. The largest of a
+# slot's outputs lies near 4 RMS, where the two sides' bf16 roundings may
+# differ by one ulp, 2^-7 * 4 RMS = 2^-5 RMS; the bf16 rounding of the
+# probabilities before P.V (the plain version against the row's max, the
+# kernel against each warp's running one) adds about 2^-9 RMS. float32
+# sits far inside the same bound.
+K4_SLOT_REL = 2.0 ** -4
 
 KERNEL_META = {
     "rmsnorm_fwd": dict(route="triton", source="orion_tpu_torch/ops/norms.py",
@@ -176,6 +199,10 @@ KERNEL_META = {
     # merges the splits' states here.
     "paged_prefill_merge": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
                                 replaces="orion_tpu/ops/pallas/paged_flash_prefill.py:396"),
+    # The same for K4: the tensor-core K4 splits a slot's page walk across
+    # blocks and merges the splits' states here.
+    "paged_decode_merge": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
+                               replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -208,9 +235,9 @@ TRAIN_PARITY_OVERRIDES = [
     "train.num_steps=3", "train.log_interval=1000", "data.packed=true",
     "optimizer.warmup_steps=1",
 ]
-SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode")
+SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode", "paged_decode_merge")
 SERVE_CHUNKED_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode_int8",
-                         "paged_prefill_int8", "paged_prefill_merge")
+                         "paged_decode_merge", "paged_prefill_int8", "paged_prefill_merge")
 SERVE_CHUNKED_OVERRIDES = ["inference.kv_quant=int8", "inference.prefix_cache=true",
                            "inference.chunked_prefill=true"]
 TRAIN_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "rmsnorm_bwd", "rope_bwd",
@@ -270,6 +297,17 @@ def require_close(name, dtype_name, a, b, rows=None) -> float:
             f"exceeds atol={atol} rtol={rtol}"
         )
     return max_err(a, b, rows)
+
+
+def require_slots_close(name, dtype_name, a, b, rows) -> float:
+    """K4's per-slot check (K4_SLOT_REL) over the slots ``rows``: returns
+    the largest slot's max |a - b| / RMS(b)."""
+    x, y = a.float()[rows], b.float()[rows]
+    rel = float(((x - y).abs().amax(dim=(1, 2)) / y.pow(2).mean(dim=(1, 2)).sqrt()).max())
+    if not rel <= K4_SLOT_REL:
+        raise AssertionError(f"{name} {dtype_name}: a slot's max |kernel - plain| is {rel:.4g} "
+                             f"of its RMS, over {K4_SLOT_REL}")
+    return rel
 
 
 # ---------------------------------------------------------------------------
@@ -332,20 +370,28 @@ def rand_pools(dtype, gen, rows, K, psz, H, quant):
     return (*pools, {"k_scale": scales[0], "v_scale": scales[1]})
 
 
-def k4_inputs(dtype, gen, quant=False):
-    """32 slots over the full preset pool at layer 31: slots 0 and 1 idle
-    (all-zero page table, scratch page 0), the rest with ragged contexts
-    up to 8191 on distinct pages. Returns the pools' scales last."""
+K4_LAST_POS = [0, 0] + [int(8191 * ((b + 1) / B_DEC) ** 2) for b in range(2, B_DEC)]
+# The plain serve's decode batch: 16 live slots at contexts 100-2064 (its
+# prompts of 100-2000 tokens plus 64 new ones), 16 idle.
+K4_SERVE_LAST_POS = [int(99 + 1964 * i / 15) for i in range(16)] + [0] * 16
+
+
+def k4_inputs(dtype, gen, quant=False, last_pos=K4_LAST_POS):
+    """32 slots over the full preset pool at layer 31: slots with last_pos
+    0 idle (all-zero page table, scratch page 0; slots 0 and 1 by
+    default), the rest with ragged contexts (up to 8191 by default) on
+    distinct pages. Returns the pools' scales last."""
     import torch
 
     P = 8192 // PSZ
     rows = N_LAYERS * NUM_PAGES
     k_pool, v_pool, scales = rand_pools(dtype, gen, rows, N_KV, PSZ, HEAD, quant)
-    last_pos = [0, 0] + [int(8191 * ((b + 1) / B_DEC) ** 2) for b in range(2, B_DEC)]
     perm = torch.randperm(NUM_PAGES - 1, generator=gen, device="cuda") + 1
     table = torch.zeros(B_DEC, P, dtype=torch.int32, device="cuda")
     used = 0
-    for b in range(2, B_DEC):
+    for b in range(B_DEC):
+        if last_pos[b] == 0:
+            continue
         n = last_pos[b] // PSZ + 1
         table[b, :n] = perm[used:used + n].to(torch.int32)
         used += n
@@ -628,8 +674,9 @@ def require_bytes_equal(what, got, want):
 
 
 def check_k4(dtype, gen, quant=False):
-    """K4 kernel vs plain: outputs of the live slots, and the written pool
-    rows (and scale rows, int8) byte for byte."""
+    """K4 kernel vs plain: outputs of the live slots (within TOL, and each
+    slot within K4_SLOT_REL of its RMS), and the written pool rows (and
+    scale rows, int8) byte for byte."""
     import torch
 
     from orion_tpu_torch import ops
@@ -650,9 +697,78 @@ def check_k4(dtype, gen, quant=False):
     got = rows_k[0][torch.arange(len(col), device="cuda"), :, col]
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: the new token's K is not in its pool slot")
-    err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=live)
+    dn = str(dtype).split(".")[-1]
+    err = require_close(name, dn, out_k, out_p, rows=live)
+    emit({"phase": "kernels", "kernel": name, "dtype": dn,
+          "slot_rel_err": require_slots_close(name, dn, out_k, out_p, live),
+          "slot_rel_bound": K4_SLOT_REL})
     del q, kp, vp, pools, scales
     return err
+
+
+def check_k4_deterministic(gen, quant):
+    """Two launches of the bf16 K4 on the same inputs: bitwise-equal outputs
+    (live slots) and pools. The second launch writes the same token bits
+    over the first's, so its inputs are the first's."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+    q, kp, vp, table, lp, kn, vn, base, scales = k4_inputs(torch.bfloat16, gen, quant)
+    kw = dict(layer_base=base, k_new=kn, v_new=vn, **scales)
+    first = cuda(q, kp, vp, table, lp, **kw)[0]
+    pools = [t.clone() for t in (kp, vp, *scales.values())]
+    second = cuda(q, kp, vp, table, lp, **kw)[0]
+    torch.cuda.synchronize()
+    live = torch.arange(B_DEC, device="cuda") >= 2
+    keep = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+    keep[base] = False   # scratch page 0: the idle slots' writes, in no order
+    if not (torch.equal(bits(first[live]), bits(second[live]))
+            and all(torch.equal(bits(a[keep]), bits(b[keep]))
+                    for a, b in zip(pools, (kp, vp, *scales.values())))):
+        raise AssertionError(f"paged_decode{'_int8' if quant else ''}: two launches differ")
+    del q, kp, vp, pools, scales
+
+
+def decode_merge_inputs(gen):
+    """K4's split partials at the kernels phase's K4 shapes (32 slots, the
+    table's 128 pages in splits of DECODE_SPLIT_PAGES): O standard normal,
+    m in (-4, 4), l in (0.5, 4.5), and in every slot one head whose first
+    active split attended nothing (m NEG_INF, l 0, O 0)."""
+    import torch
+
+    from orion_tpu_torch.ops.paged_attention import decode_n_splits
+
+    n_sp = decode_n_splits(8192 // PSZ)
+    o = torch.randn(n_sp, B_DEC, N_HEADS, HEAD, generator=gen, device="cuda")
+    ml = torch.rand(n_sp, B_DEC, N_HEADS, 2, generator=gen, device="cuda")
+    ml[..., 0] = 8 * ml[..., 0] - 4
+    ml[..., 1] = 4 * ml[..., 1] + 0.5
+    ml[0, :, 0, 0], ml[0, :, 0, 1], o[0, :, 0] = -1e30, 0.0, 0.0
+    lp = torch.tensor(K4_LAST_POS, dtype=torch.int32, device="cuda")
+    out = torch.randn(B_DEC, N_HEADS, HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    return o, ml, lp, out, dict(page_size=PSZ)
+
+
+def check_decode_merge(gen):
+    """K4's merge kernel against its plain version: the merged slots, and
+    every other slot of ``out`` untouched."""
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import decode_active_splits
+
+    o, ml, lp, out, kw = decode_merge_inputs(gen)
+    want = ops.paged_decode_merge_plain(o, ml, lp, out.clone(), **kw)
+    before = out.clone()
+    got = ops.paged_decode_merge_cuda(o, ml, lp, out, **kw)
+    torch.cuda.synchronize()
+    merged = torch.tensor([len(decode_active_splits(x, **kw)) > 1 for x in lp.tolist()],
+                          device="cuda")
+    if not torch.equal(bits(got[~merged]), bits(before[~merged])):
+        raise AssertionError("paged_decode_merge: a slot with one split changed")
+    return require_close("paged_decode_merge", "bfloat16", got, want)
 
 
 def check_k9(dtype, gen, quant, **shape):
@@ -977,12 +1093,17 @@ def phase_kernels():
             torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
             errs[dn]["paged_prefill_merge"] = check_merge(gen)
+            errs[dn]["paged_decode_merge"] = check_decode_merge(gen)
+            for quant in (False, True):
+                check_k4_deterministic(gen, quant)
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
               "tolerance": {k: TOL[k][dn] for k in TOL if dn in TOL[k]}})
     variants = kernel_variants(gen)
     emit({"phase": "kernels", "variants": variants})
+    emit({"phase": "kernels", "paged_decode_variants": k4_variants(gen),
+          "deterministic": True})
     emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
     emit({"phase": "kernels", "ragged_verify_variants": k10_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
@@ -1036,6 +1157,78 @@ def kernel_variants(gen):
             out.append({"H": H, "N": N, "K": K, "window": window, "softcap": cap,
                         "q_offset": off, "dtype": dn, "flash_fwd": e3, "paged_decode": e4,
                         "paged_decode_int8": e4i})
+    return out
+
+
+# K4's split walk off the serve's shapes: (label, H, N, K, page size,
+# window, softcap, splits in the table); every case has an idle slot, a
+# slot whose context is exactly one split, one a key past it, one in the
+# middle of a page of the third split and the longest context of the
+# table (all 16 splits of a 128-page table in the last row). Windows put
+# the lower edge inside a split and leave the longest slot's leading
+# splits empty.
+K4_VARIANTS = (
+    ("G1_page16_window", 128, 8, 8, 16, "split+37", None, 4),
+    ("G2_page128_softcap", 128, 4, 2, 128, None, 30.0, 4),
+    ("G4_H16", 16, 8, 2, 16, None, None, 4),
+    ("G8_H256_window", 256, 8, 1, 64, 100, None, 4),
+    ("G4_serve_heads_window_softcap", 128, 32, 8, 64, 1000, 50.0, 4),
+    ("G32_H64_two_row_tiles", 64, 64, 2, 16, None, None, 4),
+    ("G128_H16_eight_row_tiles", 16, 128, 1, 32, 70, None, 4),
+    ("G4_serve_heads_sixteen_splits", 128, 32, 8, 16, None, None, 16),
+)
+
+
+def k4_variants(gen):
+    """K4 (both pool branches, both dtypes) off the serve's shapes (table
+    K4_VARIANTS) on a two-layer pool, layer 1, of at least 96 pages: pools
+    (and scale pools) byte-equal to the plain version's, outputs of the
+    live slots within TOL and each slot within K4_SLOT_REL of its RMS."""
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import DECODE_SPLIT_PAGES
+
+    out = []
+    for label, H, N, K, psz, window, cap, n_sp in K4_VARIANTS:
+        P, sk = n_sp * DECODE_SPLIT_PAGES, DECODE_SPLIT_PAGES * psz
+        if window == "split+37":
+            window = sk + 37
+        last_pos = [0, sk - 1, sk, 2 * sk + psz // 2 + 3, P * psz - 1]
+        B = len(last_pos)
+        NP = max(96, sum(lp // psz + 1 for lp in last_pos if lp) + 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            errs, rel = {}, {}
+            for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
+                kp, vp, sc = rand_pools(dtype, gen, 2 * NP, K, psz, H, quant)
+                ids = (torch.randperm(NP - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+                table = torch.zeros(B, P, dtype=torch.int32, device="cuda")
+                used = 0
+                for b, lp in enumerate(last_pos):
+                    n = lp // psz + 1 if lp else 0
+                    table[b, :n] = ids[used:used + n]
+                    used += n
+                lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
+                qd = torch.randn(B, N, H, generator=gen, device="cuda").to(dtype)
+                kn = torch.randn(B, K, H, generator=gen, device="cuda").to(dtype)
+                vn = torch.randn(B, K, H, generator=gen, device="cuda").to(dtype)
+                kw = dict(layer_base=NP, k_new=kn, v_new=vn, logit_softcap=cap, window=window)
+                pools = [kp, vp, *sc.values()]
+                plain_pools = [t.clone() for t in pools]
+                cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+                res_k = cuda(qd, kp, vp, table, lp, **sc, **kw)
+                res_p = ops.paged_attention_plain(
+                    qd, *plain_pools[:2], table, lp,
+                    **dict(zip(sc, plain_pools[2:])), **kw)
+                require_bytes_equal(f"{name} variant {label} {dn}", res_k[1:], res_p[1:])
+                errs[name] = require_close(name, dn, res_k[0], res_p[0], rows=lp > 0)
+                rel[name] = require_slots_close(name, dn, res_k[0], res_p[0], lp > 0)
+                del kp, vp, sc, pools, plain_pools
+            out.append({"variant": label, "H": H, "N": N, "K": K, "page_size": psz,
+                        "pages": P, "split_pages": DECODE_SPLIT_PAGES, "last_pos": last_pos,
+                        "window": window, "softcap": cap, "dtype": dn, **errs,
+                        "slot_rel_err": rel})
     return out
 
 
@@ -1254,7 +1447,8 @@ def profile_serve(eng, prompts):
     profile_drive("serve", drive, {
         "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
         "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
-        "paged_decode": ["paged_decode_kernel"],
+        "paged_decode": ["paged_decode_kernel", "paged_decode_tc_kernel"],
+        "paged_decode_merge": ["paged_decode_merge_kernel"],
         "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
 
 
@@ -1484,7 +1678,8 @@ def phase_serve_chunked(profile=False, params=None):
         profile_drive("serve_chunked", lambda: serve_wave(eng, third, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
-            "paged_decode_int8": ["paged_decode_kernel"],
+            "paged_decode_int8": ["paged_decode_kernel", "paged_decode_tc_kernel"],
+            "paged_decode_merge": ["paged_decode_merge_kernel"],
             "paged_prefill_int8": ["paged_prefill_kernel", "paged_prefill_tc_kernel"],
             "paged_prefill_merge": ["paged_prefill_merge_kernel"],
             "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
@@ -1506,8 +1701,9 @@ SERVE_SPEC_DRIVES = {
           "inference.kv_quant=int8", "inference.prefix_cache=true",
           "inference.chunked_prefill=true"],
 }
-SERVE_SPEC_KERNELS = {"A": ("ragged_verify",), "A0": (),
-                      "B": ("ragged_verify_int8", "paged_prefill_int8")}
+SERVE_SPEC_KERNELS = {"A": ("ragged_verify",), "A0": ("paged_decode", "paged_decode_merge"),
+                      "B": ("ragged_verify_int8", "paged_prefill_int8", "paged_decode_int8",
+                            "paged_decode_merge")}
 
 
 def serve_spec_drive(name, params, prompts, profile=False):
@@ -1570,7 +1766,8 @@ def serve_spec_drive(name, params, prompts, profile=False):
         profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
             "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
-            "paged_decode (K4)": ["paged_decode_kernel"],
+            "paged_decode (K4)": ["paged_decode_kernel", "paged_decode_tc_kernel",
+                                  "paged_decode_merge_kernel"],
             "paged_prefill (K9)": ["paged_prefill_kernel", "paged_prefill_tc_kernel",
                                    "paged_prefill_merge_kernel"],
             "ragged_verify (K10)": ["ragged_verify_kernel"],
@@ -1748,6 +1945,38 @@ def time_ms(fn, runs=5, calls=5):
     return statistics.median(times)
 
 
+def graph_ms(fn, calls=20, runs=5):
+    """Device time of one call alone: ``calls`` calls captured in a CUDA
+    graph after a warm-up, the graph replayed ``runs`` times between CUDA
+    events, the median per call. No host work runs between the kernels,
+    so a wrapper's host cost never shows."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def backward_ms(out, inputs, cotangent):
     """Time of one backward through a recorded graph (kept for reuse)."""
     import torch
@@ -1829,12 +2058,15 @@ def train_timing(gen):
     return res
 
 
-def paged_int8_timing(gen):
-    """K4's int8 branch at the K4 shapes. Bytes: q and out, the new K/V
-    read and written as int8 with its scales, and every attended int8 K/V
-    element and its scale read once. The library yardstick is SDPA with
-    enable_gqa over the gathered, already dequantized context with a bool
-    mask; the gather and the dequantization are not timed."""
+def k4_timing(gen, quant, last_pos):
+    """K4 in bfloat16 (int8 pools under ``quant``) at 32 slots of
+    ``last_pos``: time_ms and its device time alone (``device_ms``,
+    graph_ms). Bytes: q and out, the new K/V read (and under int8
+    written as int8 with its scales), every attended K/V element (and
+    int8 scale) read once, the table and last_pos. The library yardstick
+    is SDPA over the gathered context with a bool mask (bf16: K/V repeated
+    over the G heads; int8: enable_gqa over the dequantized context); the
+    gather and the dequantization are not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -1842,25 +2074,58 @@ def paged_int8_timing(gen):
     from orion_tpu_torch.ops.paged_attention import dequantize_pages
 
     dt = torch.bfloat16
-    q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant=True)
+    q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant, last_pos)
     kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
+    cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
     ctx = int((lp.long() + 1).sum())
-    nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + 1) + 2 * B_DEC * N_KV * 4
-          + 2 * ctx * N_KV * (HEAD + 4) + table.numel() * 4 + lp.numel() * 4)
+    if quant:
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + 1) + 2 * B_DEC * N_KV * 4
+              + 2 * ctx * N_KV * (HEAD + 4) + table.numel() * 4 + lp.numel() * 4)
+    else:
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * ctx * N_KV * HEAD * 2
+              + table.numel() * 4 + lp.numel() * 4)
     P = table.shape[1]
     rows = base + table.long()
-    kc, vc = (dequantize_pages(pool[rows], s[rows], dt).permute(0, 2, 1, 3, 4)
-              .reshape(B_DEC, N_KV, P * PSZ, HEAD)
-              for pool, s in ((kp, sc["k_scale"]), (vp, sc["v_scale"])))
+    kc, vc = ((dequantize_pages(pool[rows], s[rows], dt) if quant else pool[rows])
+              .permute(0, 2, 1, 3, 4).reshape(B_DEC, N_KV, P * PSZ, HEAD)
+              for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
+    if not quant:
+        kc = kc.repeat_interleave(N_HEADS // N_KV, dim=1)
+        vc = vc.repeat_interleave(N_HEADS // N_KV, dim=1)
     dmask = (torch.arange(P * PSZ, device="cuda")[None] <= lp[:, None].long())[:, None, None]
-    res = {"paged_decode_int8": dict(
-        ms=time_ms(lambda: ops.paged_attention_int8_cuda(q, kp, vp, table, lp, **kw)),
+    res = dict(
+        ms=time_ms(lambda: cuda(q, kp, vp, table, lp, **kw)),
+        device_ms=graph_ms(lambda: cuda(q, kp, vp, table, lp, **kw)),
         plain_ms=time_ms(lambda: ops.paged_attention_plain(q, kp, vp, table, lp, **kw)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=dmask, enable_gqa=True)),
-        bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))}
-    del q, kp, vp, kc, vc, sc
+            q[:, :, None], kc, vc, attn_mask=dmask, enable_gqa=quant)),
+        bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))
+    del kc, vc, q, kp, vp, sc
     torch.cuda.empty_cache()
+    return res
+
+
+def decode_merge_timing(gen):
+    """K4's merge at the kernels phase's K4 shapes (the slots' walks over
+    splits of DECODE_SPLIT_PAGES pages), time_ms and device time alone
+    (graph_ms). Bytes: the merged slots' partials
+    (O and m, l of each active split) read once, their outputs written,
+    last_pos read; no PyTorch call computes the same function."""
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.paged_attention import decode_active_splits
+
+    o, ml, lp, out, kw = decode_merge_inputs(gen)
+    act = [len(decode_active_splits(x, **kw)) for x in lp.tolist()]
+    n_read = sum(n for n in act if n > 1)
+    n_slots = sum(1 for n in act if n > 1)
+    nb = n_read * N_HEADS * (HEAD + 2) * 4 + n_slots * N_HEADS * HEAD * 2 + B_DEC * 4
+    res = {"paged_decode_merge": dict(
+        ms=time_ms(lambda: ops.paged_decode_merge_cuda(o, ml, lp, out, **kw)),
+        device_ms=graph_ms(lambda: ops.paged_decode_merge_cuda(o, ml, lp, out, **kw)),
+        plain_ms=time_ms(lambda: ops.paged_decode_merge_plain(o, ml, lp, out, **kw)),
+        library_ms=None,
+        bound=bound(nb, 6 * n_read * N_HEADS * HEAD, F32_FLOPS_S))}
+    del o, ml, out
     return res
 
 
@@ -2050,32 +2315,16 @@ def phase_timing():
     del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
 
-    q, kp, vp, table, lp, kn, vn, base, _ = k4_inputs(dt, gen)
-    kw = dict(layer_base=base, k_new=kn, v_new=vn)
-    ctx = int((lp.long() + 1).sum())
-    nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * ctx * N_KV * HEAD * 2
-          + table.numel() * 4 + lp.numel() * 4)
-    P = table.shape[1]
-    kc = kp[base + table.long()].permute(0, 2, 1, 3, 4).reshape(B_DEC, N_KV, P * PSZ, HEAD)
-    vc = vp[base + table.long()].permute(0, 2, 1, 3, 4).reshape(B_DEC, N_KV, P * PSZ, HEAD)
-    kc = kc.repeat_interleave(N_HEADS // N_KV, dim=1)
-    vc = vc.repeat_interleave(N_HEADS // N_KV, dim=1)
-    dmask = (torch.arange(P * PSZ, device="cuda")[None] <= lp[:, None].long())[:, None, None]
-    res["paged_decode"] = dict(
-        ms=time_ms(lambda: ops.paged_attention_cuda(q, kp, vp, table, lp, **kw)),
-        plain_ms=time_ms(lambda: ops.paged_attention_plain(q, kp, vp, table, lp, **kw)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=dmask)),
-        bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))
-    del q, kp, vp, kc, vc
-    torch.cuda.empty_cache()
-    res.update(paged_int8_timing(gen))
+    for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
+        res[name] = k4_timing(gen, quant, K4_LAST_POS)
+        res[f"{name}_serve"] = k4_timing(gen, quant, K4_SERVE_LAST_POS)
+    res.update(decode_merge_timing(gen))
     res.update(paged_prefill_timing(gen))
     res.update(merge_timing(gen))
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     for name, r in res.items():
-        extra = {k: v for k, v in r.items() if k == "k4_ms_same_contexts"}
+        extra = {k: v for k, v in r.items() if k in ("k4_ms_same_contexts", "device_ms")}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})
@@ -2083,13 +2332,23 @@ def phase_timing():
 
 
 def extra_timing(name, timing):
-    """K3 at the training path's shapes (with lse), beside its serve-shape
-    numbers in the kernels line."""
-    if name != "flash_fwd":
-        return {}
-    r = timing["flash_fwd_train"]
-    return {"train_shapes": dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                                 bound_by=r["bound"][1], library_ms=r["library_ms"])}
+    """K3 at the training path's shapes (with lse) and K4 at the plain
+    serve's decode batch, beside their main numbers in the kernels line,
+    and the device time alone where the timing phase took it (K4 and its
+    merge)."""
+    def device(r):
+        return {"device_ms": r["device_ms"]} if "device_ms" in r else {}
+
+    out = device(timing[name])
+    extra = {"flash_fwd": ("train_shapes", "flash_fwd_train"),
+             "paged_decode": ("serve_shapes", "paged_decode_serve"),
+             "paged_decode_int8": ("serve_shapes", "paged_decode_int8_serve")}
+    if name in extra:
+        key, row = extra[name]
+        r = timing[row]
+        out[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                        bound_by=r["bound"][1], library_ms=r["library_ms"], **device(r))
+    return out
 
 
 def main(argv=None) -> int:

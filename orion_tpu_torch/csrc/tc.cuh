@@ -1,7 +1,7 @@
-// Tensor-core building blocks shared by the bf16 kernels of K8 (flash_bwd.cu)
-// and K9 (paged_prefill.cu): 16-byte cp.async copies into shared memory,
-// ldmatrix fragment loads and the warp-level mma.sync.m16n8k16 product (bf16
-// in, f32 accumulate), for sm_90a.
+// Tensor-core building blocks shared by the bf16 kernels of K3 (flash_fwd.cu),
+// K4 (paged_decode.cu), K7 and K8 (flash_bwd.cu) and K9 (paged_prefill.cu):
+// 16-byte cp.async copies into shared memory, ldmatrix fragment loads and the
+// warp-level mma.sync.m16n8k16 product (bf16 in, f32 accumulate), for sm_90a.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * grp + tig):
 //   A (16 x 16, rows x depth): a0 = (grp, 2tig..+1), a1 = (grp+8, 2tig..+1),
@@ -10,10 +10,11 @@
 //   C (16 x 8 f32):            c0, c1 = (grp, 2tig..+1), c2, c3 = (grp+8, 2tig..+1)
 // Tiles in shared memory keep rows of H + 8 bf16 (a 16-byte skew per row), so
 // the eight row addresses of one ldmatrix phase fall in distinct banks.
-// Only cp_wait_all clobbers "memory": the copies, fragment loads and products
-// are ordered against plain shared-memory stores by __syncthreads(), and a
-// clobber on every ldmatrix would make the compiler reload every value it
-// keeps in memory after each one.
+// Only the cp.async waits clobber "memory": the copies, fragment loads and
+// products are ordered against plain shared-memory stores by __syncthreads()
+// (or __syncwarp() where a warp owns the tile), and a clobber on every
+// ldmatrix would make the compiler reload every value it keeps in memory
+// after each one.
 
 #pragma once
 
@@ -41,6 +42,9 @@ __device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed groups are still pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -31,6 +31,8 @@ from orion_tpu_torch.ops.paged_attention import (
     paged_attention_cuda,
     paged_attention_int8_cuda,
     paged_attention_plain,
+    paged_decode_merge_cuda,
+    paged_decode_merge_plain,
 )
 from orion_tpu_torch.ops.paged_flash_prefill import (
     check_prefill_fit,
@@ -73,6 +75,7 @@ KERNELS = {
     "paged_prefill_merge": paged_prefill_merge_cuda,
     "ragged_verify": ragged_verify_cuda,
     "ragged_verify_int8": ragged_verify_int8_cuda,
+    "paged_decode_merge": paged_decode_merge_cuda,
 }
 
 
@@ -104,6 +107,8 @@ __all__ = [
     "paged_attention_cuda",
     "paged_attention_int8_cuda",
     "paged_attention_plain",
+    "paged_decode_merge_cuda",
+    "paged_decode_merge_plain",
     "paged_flash_prefill",
     "paged_flash_prefill_cuda",
     "paged_flash_prefill_int8_cuda",
