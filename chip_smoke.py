@@ -14,7 +14,7 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K10 and K4's and K9's split merges against their plain
+  kernels  K1-K10 and K4's, K9's and K10's split merges against their plain
            PyTorch versions on the card (the backward kernels against
            autograd of the plain forward), at the
            serving path's and the training path's shapes, in float32 and
@@ -26,16 +26,21 @@ exits non-zero without printing a result:
            every row it does not own; off-path variants (segments under
            seg_pad_zero, windows, softcaps, q_offset, rows that attend
            nothing, pad rows, page size 16, head_dim 16-256; for K10 token
-           trees with and without a window, W 8 and 31, a chain-shaped tree
-           bitwise against the chain, W = 1 against K4; for K9 histories over
+           trees with and without a window, W 8, 31 and 64 (bf16 only: the
+           float32 fit check refuses it), G 8 at head_dim 16, a slot over all
+           16 splits of a 128-page table, drafts straddling a split boundary
+           (chain, tree, tree under a window whose context opens a split
+           before the chain's), a chain-shaped tree bitwise against the
+           chain, W = 1 against K4; for K9 histories over
            three splits, a split boundary inside the window, G 1-8, page 128;
            for K8 padding off its 64-key tiles and fewer keys than one tile;
            for K4's split walk, in both pools and dtypes, contexts of one
            split exactly, a key past it and the whole table, windows whose
            edge falls inside a split, G 1-128, pages 16-128, H 16-256, up
-           to 16 splits); every live K4 slot also within K4_SLOT_REL of
-           its output RMS; two bf16 K4 launches on the same inputs give
-           the same bits
+           to 16 splits); every live K4 slot and every real K10 query row
+           also within K4_SLOT_REL of its output RMS; two bf16 K4 launches,
+           and two bf16 K10 launches in each pool branch, on the same inputs
+           give the same bits
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
@@ -64,8 +69,8 @@ exits non-zero without printing a result:
            each, in drives A (chain, bf16 pools), A0 (A without speculation)
            and B (tree width 2, int8 pools, chunked prefill); every request
            finishes, wave 2 verifies (and accepts drafts in A), K10's
-           branches launch (K4 and its merge in A0 and B), the page
-           accounting holds
+           branches and its merge launch (K4 and its merge in A0 and B),
+           the page accounting holds
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -79,7 +84,8 @@ exits non-zero without printing a result:
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
            beside K4 at the same contexts, K4 again at the plain serve's
-           decode batch; K5-K8, and K3
+           decode batch and K10 at the speculative serve's verify batch, K4,
+           K10 and their merges also by CUDA-graph replay; K5-K8, and K3
            again with its lse as ``flash_fwd_train``: the training path's):
            CUDA events around 5 runs of 5 back-to-back calls after a
            warm-up, the median per call, beside its plain version, one
@@ -154,6 +160,8 @@ TOL = {
     # K4's merge (bf16 only): as K9's (float32 sums over a slot's splits in
     # another order, then one bf16 rounding on both sides).
     "paged_decode_merge": {"bfloat16": (1e-2, 1e-2)},
+    # K10's merge (bf16 only): as K4's, per query row.
+    "ragged_verify_merge": {"bfloat16": (1e-2, 1e-2)},
 }
 
 # K4, per live slot: max |kernel - plain| over the slot's N*H outputs,
@@ -203,6 +211,10 @@ KERNEL_META = {
     # blocks and merges the splits' states here.
     "paged_decode_merge": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
                                replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
+    # The same for K10: the tensor-core K10 splits a slot's page walk
+    # across blocks and merges the splits' states, per query row, here.
+    "ragged_verify_merge": dict(route="cuda", source="orion_tpu_torch/csrc/ragged_verify.cu",
+                                replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -219,6 +231,9 @@ K9_S, K9_STARTS, K9_LENS = 256, (0, 1024, 4096, 7936), (256, 256, 100, 256)
 # 1 are pad rows (all-zero table, one query) and the last slot sits at the
 # context edge (start 8189: two of its five tokens fall past the table).
 K10_W = 5
+# K10 at the speculative serve's verify batch: 8 slots at contexts 100-1064
+# (its prompts of 100-1000 tokens plus 64 new ones), W = 5, every draft real.
+K10_SERVE_STARTS = [int(100 + 964 * i / 7) for i in range(8)]
 # Shapes of the training path (llama-1b-bench: batch 8 x 2048 tokens,
 # d_model 2048, 16 heads, 8 kv heads, head_dim 128).
 T_B, T_S, T_D, T_N, T_K = 8, 2048, 2048, 16, 8
@@ -300,12 +315,13 @@ def require_close(name, dtype_name, a, b, rows=None) -> float:
 
 
 def require_slots_close(name, dtype_name, a, b, rows) -> float:
-    """K4's per-slot check (K4_SLOT_REL) over the slots ``rows``: returns
-    the largest slot's max |a - b| / RMS(b)."""
+    """The per-row check (K4_SLOT_REL) over ``rows`` of a and b: K4's live
+    slots ([B] mask of [B, N, H]) or K10's real query rows ([B, W] mask
+    of [B, W, N, H]). Returns the largest row's max |a - b| / RMS(b)."""
     x, y = a.float()[rows], b.float()[rows]
     rel = float(((x - y).abs().amax(dim=(1, 2)) / y.pow(2).mean(dim=(1, 2)).sqrt()).max())
     if not rel <= K4_SLOT_REL:
-        raise AssertionError(f"{name} {dtype_name}: a slot's max |kernel - plain| is {rel:.4g} "
+        raise AssertionError(f"{name} {dtype_name}: a row's max |kernel - plain| is {rel:.4g} "
                              f"of its RMS, over {K4_SLOT_REL}")
     return rel
 
@@ -865,6 +881,12 @@ def k10_main_shape():
     return dict(starts=starts, lens=lens, pad=[True, True] + [False] * (B_DEC - 2))
 
 
+def k10_serve_shape():
+    """K10 at the speculative serve's verify batch (K10_SERVE_STARTS)."""
+    n = len(K10_SERVE_STARTS)
+    return dict(starts=list(K10_SERVE_STARTS), lens=[K10_W] * n, pad=[False] * n)
+
+
 def k10_small_shape(W, psz, P, **heads):
     """Five rows on a two-layer pool of 64 pages: a pad row, a row
     straddling a page boundary, a half-full row, a single query mid-table
@@ -952,9 +974,100 @@ def check_k10(dtype, gen, quant, shape=None, *, tree=None, **kw):
             raise AssertionError(f"{name}: rows it does not own changed")
     real = torch.arange(W, device="cuda")[None] < lens[:, None]
     real[torch.tensor(shape["pad"], device="cuda")] = False
-    err = require_close(name, str(dtype).split(".")[-1], out_k, out_p, rows=real)
+    dn = str(dtype).split(".")[-1]
+    err = require_close(name, dn, out_k, out_p, rows=real)
+    rel = require_slots_close(name, dn, out_k, out_p, real)
     del q, kp, vp, pools, scales, region
+    return err, rel
+
+
+def check_k10_main(dtype, gen, quant):
+    """check_k10 at the serve's width; the per-row check's reading goes
+    on its own line."""
+    err, rel = check_k10(dtype, gen, quant)
+    emit({"phase": "kernels", "kernel": "ragged_verify_int8" if quant else "ragged_verify",
+          "dtype": str(dtype).split(".")[-1], "row_rel_err": rel,
+          "row_rel_bound": K4_SLOT_REL})
     return err
+
+
+def check_k10_deterministic(gen, quant):
+    """Two launches of the bf16 K10 on the same inputs (the serve's width):
+    bitwise-equal outputs (real queries) and pools (scratch page 0
+    excluded). The second launch writes the same draft bits over the
+    first's, so its inputs are the first's."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+    shape = k10_main_shape()
+    q, kp, vp, table, start, lens, kn, vn, base, scales = k10_inputs(
+        torch.bfloat16, gen, quant, **shape)
+    kw = dict(layer_base=base, k_new=kn, v_new=vn, **scales)
+    first = cuda(q, kp, vp, table, start, lens, **kw)[0]
+    pools = [t.clone() for t in (kp, vp, *scales.values())]
+    second = cuda(q, kp, vp, table, start, lens, **kw)[0]
+    torch.cuda.synchronize()
+    real = torch.arange(q.shape[1], device="cuda")[None] < lens[:, None]
+    real[torch.tensor(shape["pad"], device="cuda")] = False
+    keep = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+    keep[base] = False   # scratch page 0: the pad rows' writes, in no order
+    if not (torch.equal(bits(first[real]), bits(second[real]))
+            and all(torch.equal(bits(a[keep]), bits(b[keep]))
+                    for a, b in zip(pools, (kp, vp, *scales.values())))):
+        raise AssertionError(f"ragged_verify{'_int8' if quant else ''}: two launches differ")
+    del q, kp, vp, pools, scales
+
+
+def verify_merge_inputs(gen):
+    """K10's split partials at the kernels phase's K10 shapes (32 slots,
+    W = 5, the table's 128 pages in splits of VERIFY_SPLIT_PAGES): O
+    standard normal, m in (-4, 4), l in (0.5, 4.5), and in every slot one
+    (query, head) whose first active split attended nothing (m NEG_INF, l
+    0, O 0)."""
+    import torch
+
+    from orion_tpu_torch.ops.ragged_paged_attention import verify_n_splits
+
+    P = 8192 // PSZ
+    n_sp = verify_n_splits(P)
+    shape = k10_main_shape()
+    o = torch.randn(n_sp, B_DEC, K10_W, N_HEADS, HEAD, generator=gen, device="cuda")
+    ml = torch.rand(n_sp, B_DEC, K10_W, N_HEADS, 2, generator=gen, device="cuda")
+    ml[..., 0] = 8 * ml[..., 0] - 4
+    ml[..., 1] = 4 * ml[..., 1] + 0.5
+    ml[0, :, 1, 0, 0], ml[0, :, 1, 0, 1], o[0, :, 1, 0] = -1e30, 0.0, 0.0
+    dev = dict(dtype=torch.int32, device="cuda")
+    start, lens = torch.tensor(shape["starts"], **dev), torch.tensor(shape["lens"], **dev)
+    out = torch.randn(B_DEC, K10_W, N_HEADS, HEAD, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    return o, ml, start, lens, out, dict(page_size=PSZ, n_pages=P)
+
+
+def verify_merged(start, lens, kw):
+    """Active splits of each K10 slot (more than one: the merge writes it)."""
+    from orion_tpu_torch.ops.ragged_paged_attention import verify_active_splits
+
+    return [len(verify_active_splits(s, n, **kw)) for s, n in zip(start.tolist(), lens.tolist())]
+
+
+def check_verify_merge(gen):
+    """K10's merge kernel against its plain version: the merged slots, and
+    every other slot of ``out`` untouched."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    o, ml, start, lens, out, kw = verify_merge_inputs(gen)
+    want = ops.ragged_verify_merge_plain(o, ml, start, lens, out.clone(), **kw)
+    before = out.clone()
+    got = ops.ragged_verify_merge_cuda(o, ml, start, lens, out, **kw)
+    torch.cuda.synchronize()
+    merged = torch.tensor([n > 1 for n in verify_merged(start, lens, kw)], device="cuda")
+    if not torch.equal(bits(got[~merged]), bits(before[~merged])):
+        raise AssertionError("ragged_verify_merge: a slot with one split changed")
+    return require_close("ragged_verify_merge", "bfloat16", got, want)
 
 
 def k10_twice(dtype, gen, quant, shape, first, second):
@@ -1017,33 +1130,84 @@ def k10_w1_vs_k4(dtype, gen, quant):
 
 
 K10_VARIANTS = (
-    # (label, W, psz, P, N, K, H, window, softcap, tree, layer)
-    ("page16", 5, 16, 8, 8, 2, 128, None, None, None, 1),
-    ("H64_W8_softcap", 8, 64, 4, 8, 2, 64, None, 30.0, None, 1),
-    ("H256_window_layer0", 5, 64, 4, 4, 2, 256, 40, None, None, 0),
-    ("W31", 31, 64, 4, 8, 2, 128, None, None, None, 1),
-    ("tree", 5, 16, 8, 8, 2, 128, None, None, (0, 1, 0, 3), 1),
-    ("tree_window", 5, 16, 8, 8, 2, 128, 3, None, (0, 1, 0, 3), 1),
-    ("tree_W8_window_softcap", 8, 16, 8, 4, 1, 64, 20, 50.0, (0, 1, 0, 3, 3, 5, 2), 1),
+    # (label, W, psz, P, N, K, H, window, softcap, tree, layer, rows)
+    ("page16", 5, 16, 8, 8, 2, 128, None, None, None, 1, None),
+    ("H64_W8_softcap", 8, 64, 4, 8, 2, 64, None, 30.0, None, 1, None),
+    ("H256_window_layer0", 5, 64, 4, 4, 2, 256, 40, None, None, 0, None),
+    ("W31", 31, 64, 4, 8, 2, 128, None, None, None, 1, None),
+    ("tree", 5, 16, 8, 8, 2, 128, None, None, (0, 1, 0, 3), 1, None),
+    ("tree_window", 5, 16, 8, 8, 2, 128, 3, None, (0, 1, 0, 3), 1, None),
+    ("tree_W8_window_softcap", 8, 16, 8, 4, 1, 64, 20, 50.0, (0, 1, 0, 3, 3, 5, 2), 1, None),
+    # The split walk (8 pages a split: 128 keys at page 16), rows of
+    # K10_SPLIT_ROWS.
+    ("splits16", 5, 16, 128, 8, 2, 128, None, None, None, 1, "splits16"),
+    ("straddle_chain", 5, 16, 32, 8, 2, 128, None, None, None, 1, "straddle"),
+    ("straddle_chain_window_softcap", 5, 16, 32, 8, 2, 128, 20, 30.0, None, 1, "straddle"),
+    ("straddle_tree", 5, 16, 32, 8, 2, 128, None, None, (0, 1, 0, 3), 1, "straddle"),
+    ("straddle_tree_window", 5, 16, 32, 8, 2, 128, 20, None, (0, 1, 0, 3), 1, "straddle"),
+    # Row tiles of the bf16 kernel's passes (8 tiles at H 16, 4 at H 32):
+    # G 8 over 3 tiles; a tree over 4; W = 64 (16 tiles, four passes of 4
+    # at H 128), which only the bf16 fit check admits.
+    ("H16_G8_window", 5, 16, 8, 16, 2, 16, 9, None, None, 1, None),
+    ("H32_tree_W8_softcap", 8, 32, 8, 8, 1, 32, None, 20.0, (0, 1, 0, 3, 3, 5, 2), 1, None),
+    ("W64_bf16_only", 64, 64, 4, 8, 2, 128, None, None, None, 1, None),
 )
+
+# Row layouts (starts, lens, pad, pool pages per layer) of the split
+# variants, at page 16 (a split is 128 keys). "splits16": one row over all
+# 16 splits of a 128-page table (its drafts at the table's end), one whose
+# drafts straddle the first split boundary (start 126: two tokens in split
+# 0, three in split 1), a short row mid-split and a single query. "straddle":
+# drafts straddling the boundaries at 128 (start 126), 256 (start 255: one
+# token before it) and 384 (start 381); the row at 272, under the tree
+# (0, 1, 0, 3) and a window of 20, has query 4 at depth 2 whose context
+# window opens at 272 + 2 - 19 = 255, in split 1, where a chain query 4's
+# would open at 257, in split 2.
+K10_SPLIT_ROWS = {
+    "splits16": ([0, 2043, 126, 391, 100], [1, 5, 5, 3, 1], 192),
+    "straddle": ([0, 126, 255, 272, 381], [1, 5, 5, 5, 5], 96),
+}
+
+
+def k10_split_shape(rows, W, psz, P, **heads):
+    """A K10_SPLIT_ROWS layout on a two-layer pool (row 0 a pad row)."""
+    starts, lens, NP = K10_SPLIT_ROWS[rows]
+    return dict(starts=list(starts), lens=list(lens), pad=[True] + [False] * (len(starts) - 1),
+                W=W, psz=psz, P=P, NP=NP, L=2, **heads)
 
 
 def k10_variants(gen):
     """K10 off the serve's shapes (table K10_VARIANTS), in both pool
-    branches and both dtypes; a chain-shaped tree bitwise against the
-    chain; W = 1 against K4."""
+    branches and both dtypes (a dtype whose fit check refuses the width
+    is recorded as refused), each real query row also within K4_SLOT_REL
+    of its output RMS; a chain-shaped tree bitwise against the chain; W = 1
+    against K4."""
     import torch
 
+    from orion_tpu_torch import ops
+
     out = []
-    for label, W, psz, P, N, K, H, window, cap, tree, layer in K10_VARIANTS:
-        shape = k10_small_shape(W, psz, P, N=N, K=K, H=H, layer=layer)
+    for label, W, psz, P, N, K, H, window, cap, tree, layer, rows in K10_VARIANTS:
+        if rows is None:
+            shape = k10_small_shape(W, psz, P, N=N, K=K, H=H, layer=layer)
+        else:
+            shape = k10_split_shape(rows, W, psz, P, N=N, K=K, H=H, layer=layer)
         for dtype in (torch.float32, torch.bfloat16):
-            errs = {name: check_k10(dtype, gen, quant, shape, tree=tree, window=window,
-                                    logit_softcap=cap)
-                    for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True))}
-            out.append({"variant": label, "W": W, "page_size": psz, "H": H, "N": N, "K": K,
-                        "window": window, "softcap": cap, "tree": tree, "layer": layer,
-                        "dtype": str(dtype).split(".")[-1], **errs})
+            try:
+                ops.check_verify_fit(W, n_heads=N, n_kv_heads=K, head_dim=H, page_size=psz,
+                                     dtype=dtype)
+            except ValueError:
+                out.append({"variant": label, "W": W, "dtype": str(dtype).split(".")[-1],
+                            "refused_by_fit_check": True})
+                continue
+            errs, rel = {}, {}
+            for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True)):
+                errs[name], rel[name] = check_k10(dtype, gen, quant, shape, tree=tree,
+                                                  window=window, logit_softcap=cap)
+            out.append({"variant": label, "W": W, "page_size": psz, "pages": P, "H": H,
+                        "N": N, "K": K, "window": window, "softcap": cap, "tree": tree,
+                        "layer": layer, "starts": shape["starts"],
+                        "dtype": str(dtype).split(".")[-1], **errs, "row_rel_err": rel})
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
             for window in (None, 20):
@@ -1086,7 +1250,8 @@ def phase_kernels():
         for name, check, quant in (
             ("paged_decode", check_k4, False), ("paged_decode_int8", check_k4, True),
             ("paged_prefill", check_k9, False), ("paged_prefill_int8", check_k9, True),
-            ("ragged_verify", check_k10, False), ("ragged_verify_int8", check_k10, True),
+            ("ragged_verify", check_k10_main, False),
+            ("ragged_verify_int8", check_k10_main, True),
         ):
             errs[dn][name] = check(dtype, gen, quant)
             torch.cuda.synchronize()
@@ -1094,8 +1259,10 @@ def phase_kernels():
         if dtype == torch.bfloat16:
             errs[dn]["paged_prefill_merge"] = check_merge(gen)
             errs[dn]["paged_decode_merge"] = check_decode_merge(gen)
+            errs[dn]["ragged_verify_merge"] = check_verify_merge(gen)
             for quant in (False, True):
                 check_k4_deterministic(gen, quant)
+                check_k10_deterministic(gen, quant)
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
@@ -1701,9 +1868,10 @@ SERVE_SPEC_DRIVES = {
           "inference.kv_quant=int8", "inference.prefix_cache=true",
           "inference.chunked_prefill=true"],
 }
-SERVE_SPEC_KERNELS = {"A": ("ragged_verify",), "A0": ("paged_decode", "paged_decode_merge"),
-                      "B": ("ragged_verify_int8", "paged_prefill_int8", "paged_decode_int8",
-                            "paged_decode_merge")}
+SERVE_SPEC_KERNELS = {"A": ("ragged_verify", "ragged_verify_merge"),
+                      "A0": ("paged_decode", "paged_decode_merge"),
+                      "B": ("ragged_verify_int8", "ragged_verify_merge", "paged_prefill_int8",
+                            "paged_decode_int8", "paged_decode_merge")}
 
 
 def serve_spec_drive(name, params, prompts, profile=False):
@@ -1770,7 +1938,8 @@ def serve_spec_drive(name, params, prompts, profile=False):
                                   "paged_decode_merge_kernel"],
             "paged_prefill (K9)": ["paged_prefill_kernel", "paged_prefill_tc_kernel",
                                    "paged_prefill_merge_kernel"],
-            "ragged_verify (K10)": ["ragged_verify_kernel"],
+            "ragged_verify (K10)": ["ragged_verify_kernel", "ragged_verify_tc_kernel",
+                                    "ragged_verify_merge_kernel"],
             "GEMMs (cuBLAS)": ["gemm", "nvjet", "xmma", "cutlass", "splitKreduce"]})
     eng.clear_prefix_cache()
     if eng.alloc.free_pages != cfg.inference.num_pages - 1:
@@ -2203,15 +2372,17 @@ def merge_timing(gen):
     return res
 
 
-def ragged_verify_timing(gen):
-    """K10 in bfloat16 and over int8 pools at the kernels phase's shapes,
+def k10_timing(gen, quant, shape):
+    """K10 in bfloat16 (int8 pools under ``quant``) at ``shape``: time_ms
+    and its device time alone (``device_ms``, graph_ms, kernel and merge),
     beside K4 at the same contexts (one K10 launch replaces W K4 launches
-    of a verify-free decode). Bytes: q and out, the W tokens' K/V read and
-    their real positions written (int8 with scales under int8), and every
-    slot's committed context (positions below start) read once; operations:
-    4 N H per attended (real query, key) pair. The library yardstick is
-    SDPA with enable_gqa over the gathered (dequantized) context with a
-    bool mask [B, 1, W, ctx]; the gather is not timed."""
+    of a verify-free decode; its first query's context, both timings).
+    Bytes: q and out, the W tokens' K/V read and their real positions
+    written (int8 with scales under int8), and every slot's committed
+    context (positions below start) read once; operations: 4 N H per
+    attended (real query, key) pair. The library yardstick is SDPA with
+    enable_gqa over the gathered (dequantized) context with a bool mask
+    [B, 1, W, ctx]; the gather is not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -2220,43 +2391,71 @@ def ragged_verify_timing(gen):
     from orion_tpu_torch.ops.ragged_paged_attention import verify_mask
 
     dt = torch.bfloat16
+    q, kp, vp, table, start, lens, kn, vn, base, sc = k10_inputs(dt, gen, quant, **shape)
+    kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
+    args = (q, kp, vp, table, start, lens)
+    cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+    k4 = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+    k4_kw = dict(kw, k_new=kn[:, 0], v_new=vn[:, 0])
+    B, W = q.shape[:2]
+    P = table.shape[1]
+    cap = P * PSZ
+    live = [(s, n) for s, n, pad in zip(shape["starts"], shape["lens"], shape["pad"]) if not pad]
+    written = sum(min(s + n - 1, cap - 1) - s + 1 for s, n in live)
+    ctx = sum(s for s, _ in live)
+    pairs = sum(min(s + w, cap - 1) + 1 for s, n in live for w in range(n))
+    item = 1 if quant else 2
+    nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * (written + ctx) * N_KV * HEAD * item
+          + table.numel() * 4 + 2 * B * 4)
+    if quant:
+        nb += 2 * (written + ctx) * N_KV * 4
+    rows = base + table.long()
+    kc, vc = ((pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt))
+              .permute(0, 2, 1, 3, 4).reshape(B, N_KV, cap, HEAD)
+              for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
+    mask = verify_mask(start, W, cap)[:, None]
+    qt = q.transpose(1, 2)
+    res = dict(
+        ms=time_ms(lambda: cuda(*args, **kw)),
+        device_ms=graph_ms(lambda: cuda(*args, **kw)),
+        plain_ms=time_ms(lambda: ops.ragged_paged_attention_plain(*args, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask, enable_gqa=True)),
+        k4_ms_same_contexts=time_ms(lambda: k4(q[:, 0], kp, vp, table, start, **k4_kw)),
+        k4_device_ms_same_contexts=graph_ms(lambda: k4(q[:, 0], kp, vp, table, start,
+                                                       **k4_kw)),
+        bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
+    del q, kp, vp, kn, vn, kc, vc, sc, mask, qt, args, kw, k4_kw
+    torch.cuda.empty_cache()
+    return res
+
+
+def ragged_verify_timing(gen):
+    """K10 in bfloat16 and over int8 pools at the kernels phase's shapes
+    and at the speculative serve's verify batch (``*_serve``), and its
+    merge at the kernels phase's shapes (time_ms and device time alone;
+    bytes: the merged slots' partials of each active split read once,
+    their outputs written, start and lens read; no PyTorch call computes
+    the same function)."""
+    from orion_tpu_torch import ops
+
     res = {}
-    shape = k10_main_shape()
     for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True)):
-        q, kp, vp, table, start, lens, kn, vn, base, sc = k10_inputs(dt, gen, quant, **shape)
-        kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
-        args = (q, kp, vp, table, start, lens)
-        cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
-        k4 = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
-        B, W = q.shape[:2]
-        P = table.shape[1]
-        cap = P * PSZ
-        live = [(s, n) for s, n, pad in zip(shape["starts"], shape["lens"], shape["pad"])
-                if not pad]
-        written = sum(min(s + n - 1, cap - 1) - s + 1 for s, n in live)
-        ctx = sum(s for s, _ in live)
-        pairs = sum(min(s + w, cap - 1) + 1 for s, n in live for w in range(n))
-        item = 1 if quant else 2
-        nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * (written + ctx) * N_KV * HEAD * item
-              + table.numel() * 4 + 2 * B * 4)
-        if quant:
-            nb += 2 * (written + ctx) * N_KV * 4
-        rows = base + table.long()
-        kc, vc = ((pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt))
-                  .permute(0, 2, 1, 3, 4).reshape(B, N_KV, cap, HEAD)
-                  for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
-        mask = verify_mask(start, W, cap)[:, None]
-        qt = q.transpose(1, 2)
-        res[name] = dict(
-            ms=time_ms(lambda: cuda(*args, **kw)),
-            plain_ms=time_ms(lambda: ops.ragged_paged_attention_plain(*args, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kc, vc, attn_mask=mask, enable_gqa=True)),
-            k4_ms_same_contexts=time_ms(lambda: k4(
-                q[:, 0], kp, vp, table, start, **dict(kw, k_new=kn[:, 0], v_new=vn[:, 0]))),
-            bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
-        del q, kp, vp, kn, vn, kc, vc, sc, mask, qt, args, kw
-        torch.cuda.empty_cache()
+        res[name] = k10_timing(gen, quant, k10_main_shape())
+        res[f"{name}_serve"] = k10_timing(gen, quant, k10_serve_shape())
+    o, ml, start, lens, out, kw = verify_merge_inputs(gen)
+    act = verify_merged(start, lens, kw)
+    n_read = sum(n for n in act if n > 1)
+    n_slots = sum(1 for n in act if n > 1)
+    rows = K10_W * N_HEADS
+    nb = n_read * rows * (HEAD + 2) * 4 + n_slots * rows * HEAD * 2 + 2 * B_DEC * 4
+    res["ragged_verify_merge"] = dict(
+        ms=time_ms(lambda: ops.ragged_verify_merge_cuda(o, ml, start, lens, out, **kw)),
+        device_ms=graph_ms(lambda: ops.ragged_verify_merge_cuda(o, ml, start, lens, out, **kw)),
+        plain_ms=time_ms(lambda: ops.ragged_verify_merge_plain(o, ml, start, lens, out, **kw)),
+        library_ms=None,
+        bound=bound(nb, 6 * n_read * rows * HEAD, F32_FLOPS_S))
+    del o, ml, out
     return res
 
 
@@ -2324,7 +2523,8 @@ def phase_timing():
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     for name, r in res.items():
-        extra = {k: v for k, v in r.items() if k in ("k4_ms_same_contexts", "device_ms")}
+        extra = {k: v for k, v in r.items()
+                 if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms")}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})
@@ -2332,22 +2532,30 @@ def phase_timing():
 
 
 def extra_timing(name, timing):
-    """K3 at the training path's shapes (with lse) and K4 at the plain
-    serve's decode batch, beside their main numbers in the kernels line,
-    and the device time alone where the timing phase took it (K4 and its
-    merge)."""
+    """K3 at the training path's shapes (with lse), K4 at the plain
+    serve's decode batch and K10 at the speculative serve's verify batch,
+    beside their main numbers in the kernels line, and the device time
+    alone where the timing phase took it (K4, K10 and their merges; K10
+    also beside K4 at the same contexts)."""
     def device(r):
         return {"device_ms": r["device_ms"]} if "device_ms" in r else {}
 
     out = device(timing[name])
+    for key in ("k4_ms_same_contexts", "k4_device_ms_same_contexts"):
+        if key in timing[name]:
+            out[key] = timing[name][key]
     extra = {"flash_fwd": ("train_shapes", "flash_fwd_train"),
              "paged_decode": ("serve_shapes", "paged_decode_serve"),
-             "paged_decode_int8": ("serve_shapes", "paged_decode_int8_serve")}
+             "paged_decode_int8": ("serve_shapes", "paged_decode_int8_serve"),
+             "ragged_verify": ("serve_shapes", "ragged_verify_serve"),
+             "ragged_verify_int8": ("serve_shapes", "ragged_verify_int8_serve")}
     if name in extra:
         key, row = extra[name]
         r = timing[row]
         out[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                        bound_by=r["bound"][1], library_ms=r["library_ms"], **device(r))
+                        bound_by=r["bound"][1], library_ms=r["library_ms"], **device(r),
+                        **{k: r[k] for k in ("k4_ms_same_contexts",
+                                             "k4_device_ms_same_contexts") if k in r})
     return out
 
 

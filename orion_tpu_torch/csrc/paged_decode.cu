@@ -82,6 +82,7 @@
 
 #include <type_traits>
 
+#include "paged_tc.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -337,7 +338,7 @@ namespace tcpd {
 
 constexpr int WARPS = 2;            // warps of a block, each with its own keys
 constexpr int NTT = 32 * WARPS;
-constexpr int KEY_BLOCK = 32;       // keys per step of a warp
+constexpr int KEY_BLOCK = ptc::KEY_BLOCK;  // keys per step of a warp
 // A split holds whole key steps at every page size (multiples of 16), so
 // its inner steps take the unmasked path.
 static_assert(SPLIT_PAGES * 16 % KEY_BLOCK == 0, "a split must hold whole key steps");
@@ -346,162 +347,21 @@ static_assert(SPLIT_PAGES * 16 % KEY_BLOCK == 0, "a split must hold whole key st
 // H = 128 and at most 128 / H tiles below it.
 template <int HD> __host__ __device__ constexpr int max_mt() { return HD >= 128 ? 1 : 128 / HD; }
 
+// The block's shared memory: the G query heads (zero-padded to the row
+// tiles) and each warp's ring (csrc/paged_tc.cuh).
 template <int HD, bool QUANT>
-struct Smem {
-  static constexpr int LD = HD + 8;    // bf16 row stride
-  static constexpr int LD8 = HD + 16;  // int8 row stride (bytes)
-  static constexpr int KB = KEY_BLOCK;
-  static constexpr int ROWS = 16 * max_mt<HD>();
-  // int8 pools: bf16 tiles a warp converts a step into. With one row tile
-  // (H >= 128) K's tile is dead once S is computed and V's conversion
-  // reuses it (three blocks an SM at H = 128, not two); with several row
-  // tiles each tile's S and P.V interleave, so K and V get a tile each.
-  static constexpr int TILES = max_mt<HD>() == 1 ? 1 : 2;
-  static constexpr size_t Q_BYTES = sizeof(__nv_bfloat16) * ROWS * LD;
-  // A warp's ring: bf16 pools [2 stages][K [KB][LD], V [KB][LD]]; int8 pools
-  // [2][K, V [KB][LD8]] raw, [2][K, V scales [KB]], and the bf16 tiles.
-  static constexpr size_t RAW_BYTES = 2 * 2 * KB * LD8;
-  static constexpr size_t SC_BYTES = sizeof(float) * 2 * 2 * KB;
-  static constexpr size_t WARP_BYTES =
-      QUANT ? RAW_BYTES + SC_BYTES + sizeof(__nv_bfloat16) * TILES * KB * LD
-            : sizeof(__nv_bfloat16) * 2 * 2 * KB * LD;
-  // After the walk the rings hold the warps' states: O [WARPS][ROWS][HD] and
-  // (m, l) [WARPS][ROWS][2], float32.
-  static constexpr size_t MERGE_BYTES = sizeof(float) * WARPS * ROWS * (HD + 2);
-  static constexpr size_t bytes() {
-    return Q_BYTES + (WARPS * WARP_BYTES > MERGE_BYTES ? WARPS * WARP_BYTES : MERGE_BYTES);
-  }
-
-  __nv_bfloat16* q;   // [ROWS][LD] the block's G query heads, zero-padded
-  unsigned char* w;   // this warp's ring
-  float* o;           // the merge: [WARPS][ROWS][HD]
-  float* ml;          // [WARPS][ROWS][2]
-
-  __device__ Smem(unsigned char* base, int warp) {
-    q = reinterpret_cast<__nv_bfloat16*>(base);
-    w = base + Q_BYTES + warp * WARP_BYTES;
-    o = reinterpret_cast<float*>(base + Q_BYTES);
-    ml = o + WARPS * ROWS * HD;
-  }
-  __device__ __nv_bfloat16* kv(int st) const {
-    return reinterpret_cast<__nv_bfloat16*>(w) + st * 2 * KB * LD;
-  }
-  __device__ int8_t* raw(int st) const { return reinterpret_cast<int8_t*>(w) + st * 2 * KB * LD8; }
-  __device__ float* sc(int st) const { return reinterpret_cast<float*>(w + RAW_BYTES) + st * 2 * KB; }
-  __device__ __nv_bfloat16* tile() const {
-    return reinterpret_cast<__nv_bfloat16*>(w + RAW_BYTES + SC_BYTES);
-  }
-};
+using Smem = ptc::Ring<HD, QUANT, max_mt<HD>(), WARPS>;
 
 // The new token's K (pass 0) and V (pass 1) of kv head kvh into column
-// lp % psz of its page, one warp per pass: raw, or under int8 quantize_kv's
-// bits and the scale.
+// lp % psz of its page, one warp per pass (ptc::write_row).
 template <int HD, bool QUANT>
 __device__ __forceinline__ void write_token(const Args& a, int b, int kvh, int lp, const int* pt) {
-  using TP = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp = threadIdx.x / 32;
   const int64_t prow = (a.layer_base + pt[lp / a.psz]) * a.K + kvh;
-  const int64_t dst = (prow * a.psz + lp % a.psz) * HD;
   const int64_t src = (static_cast<int64_t>(b) * a.K + kvh) * HD;
   for (int pass = warp; pass < 2; pass += WARPS) {
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(pass == 0 ? a.k_new : a.v_new) + src;
-    TP* pool = static_cast<TP*>(pass == 0 ? a.k_pool : a.v_pool) + dst;
-    if constexpr (QUANT) {
-      float amax = 0.f;
-      for (int h = lane; h < HD; h += 32) amax = fmaxf(amax, fabsf(__bfloat162float(x[h])));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float s = fmaxf(amax * INV127, 1e-8f);
-      for (int h = lane; h < HD; h += 32)
-        pool[h] = static_cast<int8_t>(static_cast<int>(rintf(__bfloat162float(x[h]) / s)));
-      if (lane == 0) (pass == 0 ? a.k_scale : a.v_scale)[prow * a.SW + lp % a.psz] = s;
-    } else {
-      if (lane < HD / 8)
-        reinterpret_cast<uint4*>(pool)[lane] = reinterpret_cast<const uint4*>(x)[lane];
-    }
-  }
-}
-
-// Where key k0 + lane of a step lives, for the lane that resolves it: its
-// page id as the table holds it (-1 for a key outside [klo, khi), never
-// read) and its column in the page. One page-table load per lane and step,
-// issued a step ahead; the arithmetic on the loaded id waits for load_step,
-// so the load's latency is not on the step's path.
-struct KeyRow {
-  int page, col;
-};
-__device__ __forceinline__ KeyRow key_row(const Args& a, const int* pt, int k0, int klo, int khi) {
-  const int j = k0 + static_cast<int>(threadIdx.x % 32), pg = j / a.psz;
-  if (j < klo || j >= khi) return {-1, 0};
-  return {pt[pg], j - pg * a.psz};
-}
-
-// Asynchronous load, by one warp, of the 32 keys of a step into ring stage
-// st: K/V rows (and, int8, their scales) where kr (lane r's KeyRow for key
-// r) names one, zeros for the others. A row's 16-byte chunks go to
-// neighbouring lanes (coalesced), so each lane takes its row's element
-// offset from the lane that resolved the key.
-template <int HD, bool QUANT>
-__device__ __forceinline__ void load_step(const Args& a, const Smem<HD, QUANT>& sm, KeyRow kr,
-                                          int kvh, int st) {
-  using Sm = Smem<HD, QUANT>;
-  constexpr int LD = Sm::LD, LD8 = Sm::LD8, KB = Sm::KB;
-  constexpr int EL = QUANT ? 16 : 8;  // elements per 16-byte chunk
-  constexpr int CH = HD / EL;         // chunks per row
-  const int lane = threadIdx.x % 32;
-  const int64_t prow = (a.layer_base + kr.page) * a.K + kvh;
-  const int64_t eoff = kr.page >= 0 ? (prow * a.psz + kr.col) * HD : -1;
-#pragma unroll 4
-  for (int idx = lane; idx < 2 * KB * CH; idx += 32) {
-    const int which = idx / (KB * CH), r = (idx / CH) % KB, c = (idx % CH) * EL;
-    const int64_t e = __shfl_sync(0xffffffffu, eoff, r);
-    if constexpr (QUANT) {
-      const int8_t* pool = static_cast<const int8_t*>(which ? a.v_pool : a.k_pool);
-      tc::cp16(sm.raw(st) + which * KB * LD8 + r * LD8 + c, pool + (e >= 0 ? e + c : 0), e >= 0);
-    } else {
-      const __nv_bfloat16* pool = static_cast<const __nv_bfloat16*>(which ? a.v_pool : a.k_pool);
-      tc::cp16(sm.kv(st) + which * KB * LD + r * LD + c, pool + (e >= 0 ? e + c : 0), e >= 0);
-    }
-  }
-  if constexpr (QUANT) {
-    const int64_t soff = kr.page >= 0 ? prow * a.SW + kr.col : 0;
-    tc::cp4(sm.sc(st) + lane, a.k_scale + soff, kr.page >= 0);
-    tc::cp4(sm.sc(st) + KB + lane, a.v_scale + soff, kr.page >= 0);
-  }
-}
-
-// Four int8 (one 32-bit word) as two bf16 pairs, exact, on the integer and
-// f32 pipes (not the quarter-rate conversion unit): 0x4B000000 | (x + 128)
-// is the float 2^23 + x + 128, less 2^23 + 128 it is x exactly, and the
-// upper half of an f32 that holds an integer |x| <= 128 is bf16(x) exactly.
-__device__ __forceinline__ uint2 i8x4_to_bf16(uint32_t w) {
-  const uint32_t u = w ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    f[t] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + t)) - 8388736.f;
-  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
-                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
-}
-
-// int8 -> bf16 of one warp's K (which 0) or V (1) rows of ring stage st
-// into dst [KB][LD], exact (|x| <= 127); the scales stay in sc(st).
-template <int HD>
-__device__ __forceinline__ void convert_rows(const Smem<HD, true>& sm, int st, int which,
-                                             __nv_bfloat16* dst) {
-  constexpr int LD = Smem<HD, true>::LD, LD8 = Smem<HD, true>::LD8, KB = KEY_BLOCK;
-  constexpr int CH = HD / 16;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < KB * CH / 32; ++i) {
-    const int idx = lane + 32 * i, r = idx / CH, c = (idx % CH) * 16;
-    const uint4 w = *reinterpret_cast<const uint4*>(sm.raw(st) + which * KB * LD8 + r * LD8 + c);
-    const uint2 y0 = i8x4_to_bf16(w.x), y1 = i8x4_to_bf16(w.y);
-    const uint2 y2 = i8x4_to_bf16(w.z), y3 = i8x4_to_bf16(w.w);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * LD + c);
-    d[0] = make_uint4(y0.x, y0.y, y1.x, y1.y);
-    d[1] = make_uint4(y2.x, y2.y, y3.x, y3.y);
+    ptc::write_row<HD, QUANT>(a, x, pass, prow, lp % a.psz);
   }
 }
 
@@ -532,8 +392,8 @@ __global__ void __launch_bounds__(NTT) paged_decode_tc_kernel(Args a) {
   const int kb0 = klo / KB, nkb = (khi + KB - 1) / KB - kb0;
   const int n_w = nkb > warp ? (nkb - warp + WARPS - 1) / WARPS : 0;
   auto k_at = [&](int i) { return (kb0 + warp + i * WARPS) * KB; };
-  const KeyRow kr0 = n_w > 0 ? key_row(a, pt, k_at(0), klo, khi) : KeyRow{-1, 0};
-  KeyRow kr = n_w > 1 ? key_row(a, pt, k_at(1), klo, khi) : KeyRow{-1, 0};
+  const ptc::KeyRow kr0 = n_w > 0 ? ptc::key_row(a, pt, k_at(0), klo, khi) : ptc::KeyRow{-1, 0};
+  ptc::KeyRow kr = n_w > 1 ? ptc::key_row(a, pt, k_at(1), klo, khi) : ptc::KeyRow{-1, 0};
 
   // The G query heads of kv head kvh (rows past G zero): one cp.async group.
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
@@ -547,7 +407,7 @@ __global__ void __launch_bounds__(NTT) paged_decode_tc_kernel(Args a) {
   if (a.k_new != nullptr && split == pl.s1) write_token<HD, QUANT>(a, b, kvh, lp, pt);
   __syncthreads();  // the token's st.global before every cp.async of its page
 
-  if (n_w > 0) load_step<HD, QUANT>(a, sm, kr0, kvh, 0);
+  if (n_w > 0) ptc::load_step(a, sm, kr0, kvh, 0);
   tc::cp_commit();
   tc::cp_wait<1>();  // this thread's share of Q has landed
   __syncthreads();   // every thread's share has
@@ -569,13 +429,13 @@ __global__ void __launch_bounds__(NTT) paged_decode_tc_kernel(Args a) {
     const int k0 = k_at(i);
     tc::cp_wait_all();
     __syncwarp();  // step i staged; every lane's reads of step i - 1 done
-    if (i + 1 < n_w) load_step<HD, QUANT>(a, sm, kr, kvh, st ^ 1);
+    if (i + 1 < n_w) ptc::load_step(a, sm, kr, kvh, st ^ 1);
     tc::cp_commit();
     // The step after next's page ids: kr is read at the next step's load.
-    if (i + 2 < n_w) kr = key_row(a, pt, k_at(i + 2), klo, khi);
+    if (i + 2 < n_w) kr = ptc::key_row(a, pt, k_at(i + 2), klo, khi);
     if constexpr (QUANT) {
-      convert_rows<HD>(sm, st, 0, sm.tile());
-      if constexpr (Sm::TILES == 2) convert_rows<HD>(sm, st, 1, sm.tile() + KB * LD);
+      ptc::convert_rows(sm, st, 0, sm.tile());
+      if constexpr (Sm::TILES == 2) ptc::convert_rows(sm, st, 1, sm.tile() + KB * LD);
       __syncwarp();  // the tiles are written
     }
     const __nv_bfloat16* kt = QUANT ? sm.tile() : sm.kv(st);
@@ -662,7 +522,7 @@ __global__ void __launch_bounds__(NTT) paged_decode_tc_kernel(Args a) {
       }
       if constexpr (QUANT && Sm::TILES == 1) {
         __syncwarp();  // every lane's reads of K's tile done
-        convert_rows<HD>(sm, st, 1, sm.tile());
+        ptc::convert_rows(sm, st, 1, sm.tile());
         __syncwarp();  // V's tile is written
       }
       // O += P . V, P from the logits' registers as bf16 A fragments.

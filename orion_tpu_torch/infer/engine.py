@@ -258,11 +258,13 @@ class InferenceEngine:
             speculate_tokens=icfg.speculate_tokens, max_n=icfg.spec_ngram_max,
             min_n=icfg.spec_ngram_min, tree_width=icfg.spec_tree_width,
         )
-        # K10 holds every query row of a kv head in one block: a verify
-        # width it cannot hold fails here, naming the knob.
+        # K10's float32 kernel holds every query row of a kv head in one
+        # block: a verify width it cannot hold fails here, naming the knob
+        # (the bf16 kernel takes any width).
         check_verify_fit(
             icfg.speculate_tokens + 1, n_heads=mcfg.n_heads, n_kv_heads=mcfg.n_kv_heads,
             head_dim=mcfg.resolved_head_dim, page_size=self.psz,
+            dtype=torch_dtype(mcfg.dtype),
         )
         self._tree = icfg.spec_tree_width > 1
 

@@ -50,6 +50,8 @@ from orion_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_plain,
     ragged_verify_cuda,
     ragged_verify_int8_cuda,
+    ragged_verify_merge_cuda,
+    ragged_verify_merge_plain,
 )
 from orion_tpu_torch.ops.rope import (
     apply_rope,
@@ -76,6 +78,7 @@ KERNELS = {
     "ragged_verify": ragged_verify_cuda,
     "ragged_verify_int8": ragged_verify_int8_cuda,
     "paged_decode_merge": paged_decode_merge_cuda,
+    "ragged_verify_merge": ragged_verify_merge_cuda,
 }
 
 
@@ -121,6 +124,8 @@ __all__ = [
     "ragged_paged_attention_plain",
     "ragged_verify_cuda",
     "ragged_verify_int8_cuda",
+    "ragged_verify_merge_cuda",
+    "ragged_verify_merge_plain",
     "reset_launches",
     "rmsnorm",
     "rmsnorm_bwd_triton",
