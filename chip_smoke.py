@@ -16,7 +16,8 @@ exits non-zero without printing a result:
            goes to chiprun_out/chip_smoke_build.log
   kernels  K1-K10 and K4's, K9's and K10's split merges against their plain
            PyTorch versions on the card (the backward kernels against
-           autograd of the plain forward), at the
+           autograd of the plain forward; K5's scale gradient too, within
+           TOL["rmsnorm_dscale"], also beside a float32 scale), at the
            serving path's and the training path's shapes, in float32 and
            bfloat16 (tolerances in TOL), K4, K9 and K10 also over int8
            pools; what K4, K9 and K10 write into the pools (int8 pages and
@@ -40,7 +41,11 @@ exits non-zero without printing a result:
            to 16 splits); every live K4 slot and every real K10 query row
            also within K4_SLOT_REL of its output RMS; two bf16 K4 launches,
            and two bf16 K10 launches in each pool branch, on the same inputs
-           give the same bits
+           give the same bits; K1 and K5 (dx and the scale gradient) against
+           rmsnorm_plain / rmsnorm_bwd_plain over NORM_D x NORM_R in float32,
+           bfloat16 and bfloat16 rows beside a float32 scale, and on rows
+           that are not 16-byte aligned; two K5 launches give the same bits,
+           dx and the scale gradient's partial rows
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
@@ -82,6 +87,9 @@ exits non-zero without printing a result:
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
+           K1 also at the training rows and the serve's decode batch, with
+           its device time alone and the host's microseconds per call; K5
+           with the scale gradient at the training rows, the same;
            K10: the serving path's, K4, K9 and K10 also over int8 pools, K10
            beside K4 at the same contexts, K4 again at the plain serve's
            decode batch and K10 at the speculative serve's verify batch, K4,
@@ -133,6 +141,15 @@ TOL = {
     "flash_lse": {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-4)},
     # K5, K6: as K1, K2 (a row reduction / a rotation, then one rounding).
     "rmsnorm_bwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
+    # K5's scale gradient, by the dtype compared: (a, n) = within a times
+    # the RMS of the plain values plus n bf16 ulps of each value (require_
+    # dscale_close). float32: the sum of the partial rows, before any cast,
+    # against the plain float32 sum (check_dscale), whatever the scale's
+    # dtype; both sum up to 16384 float32 products per column in another
+    # order, about 1e-5 of the RMS apart. bfloat16: the cast result beside
+    # a bf16 scale; both sides round once, and two sums on either side of a
+    # rounding boundary land one ulp (2^-8 to 2^-7 of the value) apart.
+    "rmsnorm_dscale": {"float32": (1e-4, 0), "bfloat16": (1e-3, 1)},
     "rope_bwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
     # K7, K8 against autograd of the plain attention: f32 sums of up to
     # 2048 terms per row in another order; bf16: the plain backward rounds
@@ -176,7 +193,7 @@ TOL = {
 K4_SLOT_REL = 2.0 ** -4
 
 KERNEL_META = {
-    "rmsnorm_fwd": dict(route="triton", source="orion_tpu_torch/ops/norms.py",
+    "rmsnorm_fwd": dict(route="cuda", source="orion_tpu_torch/csrc/rmsnorm.cu",
                         replaces="orion_tpu/ops/pallas/norms.py:51"),
     "rope_fwd": dict(route="triton", source="orion_tpu_torch/ops/rope.py",
                      replaces="orion_tpu/ops/pallas/rope.py:52"),
@@ -184,7 +201,7 @@ KERNEL_META = {
                       replaces="orion_tpu/ops/pallas/flash_attention.py:353"),
     "paged_decode": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
                          replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
-    "rmsnorm_bwd": dict(route="triton", source="orion_tpu_torch/ops/norms.py",
+    "rmsnorm_bwd": dict(route="cuda", source="orion_tpu_torch/csrc/rmsnorm.cu",
                         replaces="orion_tpu/ops/pallas/norms.py:51"),
     "rope_bwd": dict(route="triton", source="orion_tpu_torch/ops/rope.py",
                      replaces="orion_tpu/ops/pallas/rope.py:52"),
@@ -312,6 +329,46 @@ def require_close(name, dtype_name, a, b, rows=None) -> float:
             f"exceeds atol={atol} rtol={rtol}"
         )
     return max_err(a, b, rows)
+
+
+def require_dscale_close(dtype_name, a, b) -> float:
+    """K5's scale gradient a against the plain b (TOL["rmsnorm_dscale"] by
+    the scale's dtype): |a - b| within a share of b's RMS plus n bf16 ulps
+    of each b (one bf16 ulp of b = m 2^e, m in [0.5, 1), is 2^(e-8)).
+    Returns max |a - b| / RMS(b)."""
+    import torch
+
+    of_rms, ulps = TOL["rmsnorm_dscale"][dtype_name]
+    x, y = a.float(), b.float()
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"rmsnorm_dscale {dtype_name}: non-finite kernel output")
+    rms = float(y.square().mean().sqrt())
+    lim = torch.full_like(y, of_rms * rms)
+    if ulps:
+        lim += ulps * torch.ldexp(torch.ones_like(y), torch.frexp(y).exponent - 8)
+    err = (x - y).abs()
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"rmsnorm_dscale {dtype_name}: max |kernel - plain| = "
+                             f"{float(err.max())} over {of_rms} RMS + {ulps} ulp")
+    return float(err.max()) / max(rms, 1e-30)
+
+
+def check_dscale(x, s, g, part, ds) -> float:
+    """K5's scale gradient at (x, s, g): the float32 sum of its partial rows
+    ``part`` against the plain float32 sum (TOL["rmsnorm_dscale"]
+    ["float32"], for either scale dtype) and, beside a bf16 scale, the cast
+    result ``ds`` against the plain one's cast (["bfloat16"]). Returns the
+    float32 sum's max |a - b| / RMS(b)."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    err = require_dscale_close("float32", part.sum(dim=0),
+                               ops.rmsnorm_bwd_plain(x, s.float(), g, 1e-5)[1])
+    if s.dtype != torch.float32:
+        require_dscale_close(str(s.dtype).split(".")[-1], ds,
+                             ops.rmsnorm_bwd_plain(x, s, g, 1e-5)[1])
+    return err
 
 
 def require_slots_close(name, dtype_name, a, b, rows) -> float:
@@ -523,13 +580,21 @@ def check_train_kernels(dtype, gen):
 
     dn = str(dtype).split(".")[-1]
     x, s, g = t_norm_inputs(dtype, gen)
-    errs = {
-        "rmsnorm_fwd": require_close("rmsnorm_fwd", dn, ops.rmsnorm_triton(x, s, 1e-5),
-                                     ops.rmsnorm_plain(x, s, 1e-5)),
-        "rmsnorm_bwd": require_close(
-            "rmsnorm_bwd", dn, ops.rmsnorm_bwd_triton(x, s, g, 1e-5),
-            plain_grads(lambda t: ops.rmsnorm_plain(t, s, 1e-5), [x], g)[0]),
-    }
+    errs = {}
+    # The scale in x's dtype, then (bf16) the training path's float32 master
+    # scale beside bf16 rows.
+    for scale in (s, s.float()) if dtype == torch.bfloat16 else (s,):
+        e1 = require_close("rmsnorm_fwd", dn, ops.rmsnorm_cuda(x, scale, 1e-5),
+                           ops.rmsnorm_plain(x, scale, 1e-5))
+        dx, ds = ops.rmsnorm_bwd_cuda(x, scale, g, 1e-5, True)
+        pdx = plain_grads(lambda t: ops.rmsnorm_plain(t, scale, 1e-5), [x], g)[0]
+        e5 = require_close("rmsnorm_bwd", dn, dx, pdx)
+        errs["rmsnorm_fwd"] = max(errs.get("rmsnorm_fwd", 0.0), e1)
+        errs["rmsnorm_bwd"] = max(errs.get("rmsnorm_bwd", 0.0), e5)
+        key = "rmsnorm_dscale" if scale.dtype == dtype else "rmsnorm_dscale_f32_scale"
+        errs[key] = check_dscale(x, scale, g, ops.rmsnorm_bwd_partials(
+            x, scale, g, 1e-5, True)[1], ds)
+        del dx, pdx
     del x, g
     q, k, _, gq = t_attn_inputs(dtype, gen)
     pos = torch.arange(T_S, device="cuda", dtype=torch.int32).expand(T_B, T_S)
@@ -1229,7 +1294,7 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         x, s = k1_inputs(dtype, gen)
-        e1 = require_close("rmsnorm_fwd", dn, ops.rmsnorm_triton(x, s, 1e-5),
+        e1 = require_close("rmsnorm_fwd", dn, ops.rmsnorm_cuda(x, s, 1e-5),
                            ops.rmsnorm_plain(x, s, 1e-5))
         q, k, pos = k2_inputs(dtype, gen)
         e2 = max(
@@ -1274,7 +1339,61 @@ def phase_kernels():
     emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
     emit({"phase": "kernels", "ragged_verify_variants": k10_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
+    emit({"phase": "kernels", "norm_variants": norm_variants(gen), "deterministic": True})
     return errs
+
+
+# K1/K5 off the main shapes: the presets' widths (d_model 2048, 3584, 4096,
+# 8192: the kernels' compiled table) and 64, 100 (no multiple of 8) and 768
+# (the generic kernels), at row counts from one to a few thousand.
+NORM_D = (64, 100, 768, 2048, 3584, 4096, 8192)
+NORM_R = (1, 3, 31, 133, 4096)
+NORM_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"))
+
+
+def norm_variants(gen):
+    """K1 and K5 against rmsnorm_plain / rmsnorm_bwd_plain at every D of
+    NORM_D and R of NORM_R, rows and scale in NORM_DTYPES, and at D 2048
+    and 4096 on rows off 16-byte alignment (a view one element into its
+    storage: the generic kernels' scalar path): the forward and dx within
+    TOL, dscale within TOL["rmsnorm_dscale"]; two K5 launches give the same
+    bits (dx and the partial rows), and a launch without dscale the same
+    dx. One row per (D, dtypes, alignment), errors the largest over R."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    def rows(R, D, dt, skew):
+        flat = torch.randn(R * D + skew, generator=gen, device="cuda").to(dt)
+        return flat[skew:].view(R, D)
+
+    out = []
+    cases = [(D, dts, 0) for D in NORM_D for dts in NORM_DTYPES]
+    cases += [(D, dts, 1) for D in (2048, 4096) for dts in NORM_DTYPES[1:]]
+    for D, (xdn, sdn), skew in cases:
+        xdt, sdt = getattr(torch, xdn), getattr(torch, sdn)
+        e1 = edx = eds = 0.0
+        for R in NORM_R:
+            x, g = rows(R, D, xdt, skew), rows(R, D, xdt, skew)
+            s = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(sdt)
+            e1 = max(e1, require_close("rmsnorm_fwd", xdn, ops.rmsnorm_cuda(x, s, 1e-5),
+                                       ops.rmsnorm_plain(x, s, 1e-5)))
+            dx, part = ops.rmsnorm_bwd_partials(x, s, g, 1e-5, True)
+            dx2, part2 = ops.rmsnorm_bwd_partials(x, s, g, 1e-5, True)
+            dx3, none = ops.rmsnorm_bwd_partials(x, s, g, 1e-5, False)
+            what = f"rmsnorm_bwd D={D} R={R} {xdn}/{sdn} skew={skew}"
+            if not (torch.equal(bits(dx), bits(dx2)) and torch.equal(bits(part), bits(part2))):
+                raise AssertionError(f"{what}: two launches differ")
+            if none is not None or not torch.equal(bits(dx), bits(dx3)):
+                raise AssertionError(f"{what}: the launch without dscale differs")
+            pdx = ops.rmsnorm_bwd_plain(x, s, g, 1e-5)[0]
+            edx = max(edx, require_close("rmsnorm_bwd", xdn, dx, pdx))
+            eds = max(eds, check_dscale(x, s, g, part, part.sum(dim=0).to(sdt)))
+        out.append({"D": D, "dtype": xdn, "scale_dtype": sdn, "unaligned": bool(skew),
+                    "rows": list(NORM_R), "rmsnorm_fwd": e1, "rmsnorm_bwd": edx,
+                    "rmsnorm_dscale_of_rms": eds})
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_variants(gen):
@@ -1561,6 +1680,12 @@ def parity_spec(params, run):
     return launches
 
 
+# csrc/rmsnorm.cu's kernels by name, for the profile tables' groups (K5's
+# scale-gradient finish, one sum over its partial rows, counts as "other").
+RMSNORM_FWD_KERNELS = ["rmsnorm_fwd_kernel", "rmsnorm_fwd_generic_kernel"]
+RMSNORM_BWD_KERNELS = ["rmsnorm_bwd_kernel", "rmsnorm_bwd_generic_kernel"]
+
+
 def profile_drive(name, drive, groups):
     """Run ``drive()`` under torch.profiler: device time by kernel group
     (substring of the kernel's name -> group) and the device's idle share
@@ -1612,7 +1737,7 @@ def profile_serve(eng, prompts):
             eng.step()
 
     profile_drive("serve", drive, {
-        "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+        "rmsnorm_fwd": RMSNORM_FWD_KERNELS, "rope_fwd": ["_rope_fwd"],
         "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
         "paged_decode": ["paged_decode_kernel", "paged_decode_tc_kernel"],
         "paged_decode_merge": ["paged_decode_merge_kernel"],
@@ -1627,7 +1752,7 @@ def profile_train(tr, state, steps=2):
             tr.train_step(state, tr.global_batch(i))
 
     profile_drive("train", drive, {
-        "rmsnorm (K1 + K5)": ["_rmsnorm_fwd", "_rmsnorm_bwd"],
+        "rmsnorm (K1 + K5)": RMSNORM_FWD_KERNELS + RMSNORM_BWD_KERNELS,
         "rope (K2 + K6)": ["_rope_fwd"],
         "flash_fwd (K3)": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
         "flash_dq (K7)": ["flash_dq_kernel", "flash_dq_tc_kernel"],
@@ -1843,7 +1968,7 @@ def phase_serve_chunked(profile=False, params=None):
         third = [sys_prompt + rng.integers(0, V, n).tolist()
                  for n in rng.integers(100, 1001, 8)]
         profile_drive("serve_chunked", lambda: serve_wave(eng, third, 64), {
-            "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+            "rmsnorm_fwd": RMSNORM_FWD_KERNELS, "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
             "paged_decode_int8": ["paged_decode_kernel", "paged_decode_tc_kernel"],
             "paged_decode_merge": ["paged_decode_merge_kernel"],
@@ -1932,7 +2057,7 @@ def serve_spec_drive(name, params, prompts, profile=False):
         raise AssertionError(f"serve_spec {name}: non-finite prefill logits")
     if profile:
         profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
-            "rmsnorm_fwd": ["_rmsnorm_fwd"], "rope_fwd": ["_rope_fwd"],
+            "rmsnorm_fwd": RMSNORM_FWD_KERNELS, "rope_fwd": ["_rope_fwd"],
             "flash_fwd": ["flash_fwd_kernel", "flash_fwd_tc_kernel"],
             "paged_decode (K4)": ["paged_decode_kernel", "paged_decode_tc_kernel",
                                   "paged_decode_merge_kernel"],
@@ -2154,8 +2279,8 @@ def backward_ms(out, inputs, cotangent):
 
 
 def train_timing(gen):
-    """K5-K8, and K3 with its lse output, at the training path's shapes
-    in bfloat16. The plain and library times of K7 and K8 are one
+    """K6-K8, and K3 with its lse output, at the training path's shapes
+    in bfloat16 (K5: norm_timing). The plain and library times of K7 and K8 are one
     backward computing dq, dk and dv together (autograd of the plain
     attention; SDPA's backward with enable_gqa)."""
     import torch
@@ -2165,15 +2290,6 @@ def train_timing(gen):
 
     dt = torch.bfloat16
     res = {}
-    x, s, g = t_norm_inputs(dt, gen)
-    xr = x.detach().requires_grad_()
-    nb = 3 * x.numel() * 2 + s.numel() * 2
-    res["rmsnorm_bwd"] = dict(
-        ms=time_ms(lambda: ops.rmsnorm_bwd_triton(x, s, g, 1e-5)),
-        plain_ms=backward_ms(ops.rmsnorm_plain(xr, s, 1e-5), [xr], g),
-        library_ms=backward_ms(F.rms_norm(xr, (T_D,), s, 1e-5), [xr], g),
-        bound=bound(nb, 8 * x.numel(), F32_FLOPS_S))
-    del x, xr, g
     q, k, _, gq = t_attn_inputs(dt, gen)
     gk = torch.randn(k.shape, generator=gen, device="cuda").to(dt)
     pos = torch.arange(T_S, device="cuda", dtype=torch.int32).expand(T_B, T_S).contiguous()
@@ -2459,6 +2575,70 @@ def ragged_verify_timing(gen):
     return res
 
 
+def host_us(fn, calls=1000):
+    """The host's microseconds per call: wall time of ``calls`` back-to-back
+    calls with one synchronize at the end, over ``calls`` (a call's device
+    time where that is the longer)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def norm_timing(gen):
+    """K1 in bfloat16 at the kernels phase's [8192, 4096], the training
+    rows [16384, 2048] (``_train``) and the serve's decode batch [32, 4096]
+    (``_decode``); K5 with the scale gradient (the kernel and the sum of
+    its partial rows) at the training rows. Each: time_ms, its device time
+    alone (graph_ms) and host_us. Plain: the plain forward, autograd of it
+    for dx and dscale; library: F.rms_norm, and its backward with input and
+    weight requiring grad. Bytes: x (and g) read, y (dx) written, the scale
+    read; K5 also dscale written in the scale's dtype (what (dx, dscale)
+    needs: the float32 partial rows are this kernel's own traffic, counted
+    in ``partial_rows`` and not in the bound); operations (float32): 4 (K1)
+    and 10 (K5) an element."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    dt = torch.bfloat16
+    res = {}
+    for name, (R, D) in (("rmsnorm_fwd", (K1_ROWS, D_MODEL)),
+                         ("rmsnorm_fwd_train", (T_B * T_S, T_D)),
+                         ("rmsnorm_fwd_decode", (B_DEC, D_MODEL))):
+        x = torch.randn(R, D, generator=gen, device="cuda").to(dt)
+        s = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+        res[name] = dict(
+            ms=time_ms(lambda: ops.rmsnorm_cuda(x, s, 1e-5)),
+            device_ms=graph_ms(lambda: ops.rmsnorm_cuda(x, s, 1e-5)),
+            host_us=host_us(lambda: ops.rmsnorm_cuda(x, s, 1e-5)),
+            plain_ms=time_ms(lambda: ops.rmsnorm_plain(x, s, 1e-5)),
+            library_ms=time_ms(lambda: F.rms_norm(x, (D,), s, 1e-5)),
+            bound=bound(2 * x.numel() * 2 + D * 2, 4 * x.numel(), F32_FLOPS_S))
+    x, s, g = t_norm_inputs(dt, gen)
+    xr, sr = x.detach().requires_grad_(), s.detach().requires_grad_()
+    n_part = ops.rmsnorm_bwd_partials(x, s, g, 1e-5, True)[1].shape[0]
+    nb = 3 * x.numel() * x.element_size() + 2 * T_D * s.element_size()
+
+    def k5():
+        return ops.rmsnorm_bwd_cuda(x, s, g, 1e-5, True)
+
+    res["rmsnorm_bwd"] = dict(
+        ms=time_ms(k5), device_ms=graph_ms(k5), host_us=host_us(k5),
+        plain_ms=backward_ms(ops.rmsnorm_plain(xr, sr, 1e-5), [xr, sr], g),
+        library_ms=backward_ms(F.rms_norm(xr, (T_D,), sr, 1e-5), [xr, sr], g),
+        bound=bound(nb, 10 * x.numel(), F32_FLOPS_S), partial_rows=n_part)
+    del x, g, xr, sr
+    torch.cuda.empty_cache()
+    return res
+
+
 def bound(nbytes, flops, rate):
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -2475,15 +2655,7 @@ def phase_timing():
     gen.manual_seed(1)
     res = {}
 
-    x, s = k1_inputs(dt, gen)
-    nb = 2 * x.numel() * 2 + s.numel() * 2
-    res["rmsnorm_fwd"] = dict(
-        ms=time_ms(lambda: ops.rmsnorm_triton(x, s, 1e-5)),
-        plain_ms=time_ms(lambda: ops.rmsnorm_plain(x, s, 1e-5)),
-        library_ms=time_ms(lambda: F.rms_norm(x, (D_MODEL,), s, 1e-5)),
-        bound=bound(nb, 4 * x.numel(), F32_FLOPS_S))
-    del x
-
+    res.update(norm_timing(gen))
     q, k, pos = k2_inputs(dt, gen)
 
     def rope_both(fn):
@@ -2524,7 +2696,8 @@ def phase_timing():
     res.update(train_timing(gen))
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
-                 if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms")}
+                 if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms",
+                          "host_us", "partial_rows")}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})
@@ -2532,25 +2705,27 @@ def phase_timing():
 
 
 def extra_timing(name, timing):
-    """K3 at the training path's shapes (with lse), K4 at the plain
-    serve's decode batch and K10 at the speculative serve's verify batch,
-    beside their main numbers in the kernels line, and the device time
-    alone where the timing phase took it (K4, K10 and their merges; K10
-    also beside K4 at the same contexts)."""
+    """K3 at the training path's shapes (with lse), K1 at the training
+    rows and the serve's decode batch, K4 at the plain serve's decode batch
+    and K10 at the speculative serve's verify batch, beside their main
+    numbers in the kernels line, the device time alone where the timing
+    phase took it (K1, K4, K5, K10 and the merges; K10 also beside K4 at
+    the same contexts) and K1's and K5's host microseconds per call."""
     def device(r):
-        return {"device_ms": r["device_ms"]} if "device_ms" in r else {}
+        return {k: r[k] for k in ("device_ms", "host_us") if k in r}
 
     out = device(timing[name])
     for key in ("k4_ms_same_contexts", "k4_device_ms_same_contexts"):
         if key in timing[name]:
             out[key] = timing[name][key]
-    extra = {"flash_fwd": ("train_shapes", "flash_fwd_train"),
-             "paged_decode": ("serve_shapes", "paged_decode_serve"),
-             "paged_decode_int8": ("serve_shapes", "paged_decode_int8_serve"),
-             "ragged_verify": ("serve_shapes", "ragged_verify_serve"),
-             "ragged_verify_int8": ("serve_shapes", "ragged_verify_int8_serve")}
-    if name in extra:
-        key, row = extra[name]
+    extra = {"flash_fwd": [("train_shapes", "flash_fwd_train")],
+             "paged_decode": [("serve_shapes", "paged_decode_serve")],
+             "paged_decode_int8": [("serve_shapes", "paged_decode_int8_serve")],
+             "ragged_verify": [("serve_shapes", "ragged_verify_serve")],
+             "ragged_verify_int8": [("serve_shapes", "ragged_verify_int8_serve")],
+             "rmsnorm_fwd": [("train_shapes", "rmsnorm_fwd_train"),
+                             ("decode_shapes", "rmsnorm_fwd_decode")]}
+    for key, row in extra.get(name, ()):
         r = timing[row]
         out[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                         bound_by=r["bound"][1], library_ms=r["library_ms"], **device(r),

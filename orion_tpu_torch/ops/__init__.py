@@ -21,9 +21,11 @@ from orion_tpu_torch.ops.attention import (
 from orion_tpu_torch.ops.norms import (
     layernorm,
     rmsnorm,
-    rmsnorm_bwd_triton,
+    rmsnorm_bwd_cuda,
+    rmsnorm_bwd_partials,
+    rmsnorm_bwd_plain,
+    rmsnorm_cuda,
     rmsnorm_plain,
-    rmsnorm_triton,
 )
 from orion_tpu_torch.ops.common import quantize_kv
 from orion_tpu_torch.ops.paged_attention import (
@@ -63,11 +65,11 @@ from orion_tpu_torch.ops.rope import (
 
 # The kernel wrappers of the ported paths, each with its ``launches`` count.
 KERNELS = {
-    "rmsnorm_fwd": rmsnorm_triton,
+    "rmsnorm_fwd": rmsnorm_cuda,
     "rope_fwd": rope_triton,
     "flash_fwd": flash_attention_cuda,
     "paged_decode": paged_attention_cuda,
-    "rmsnorm_bwd": rmsnorm_bwd_triton,
+    "rmsnorm_bwd": rmsnorm_bwd_cuda,
     "rope_bwd": rope_bwd_triton,
     "flash_dq": flash_dq_cuda,
     "flash_dkv": flash_dkv_cuda,
@@ -128,9 +130,11 @@ __all__ = [
     "ragged_verify_merge_plain",
     "reset_launches",
     "rmsnorm",
-    "rmsnorm_bwd_triton",
+    "rmsnorm_bwd_cuda",
+    "rmsnorm_bwd_partials",
+    "rmsnorm_bwd_plain",
+    "rmsnorm_cuda",
     "rmsnorm_plain",
-    "rmsnorm_triton",
     "rope_bwd_triton",
     "rope_frequencies",
     "rope_plain",

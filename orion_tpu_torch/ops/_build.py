@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill", "ragged_verify")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill", "ragged_verify",
+           "rmsnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,32 +1,38 @@
-"""RMSNorm / LayerNorm, with RMSNorm's forward (K1) and its dx (K5) as
-Triton kernels.
+"""RMSNorm / LayerNorm, with RMSNorm's forward (K1) and its backward (K5:
+dx, and the scale's gradient in the same pass) as CUDA kernels for Hopper
+(``csrc/rmsnorm.cu``).
 
 K1 replaces the TPU kernel ``orion_tpu/ops/pallas/norms.py::_fwd_kernel``
 (the ``pl.pallas_call`` in ``_rows_call``): y = x * rsqrt(mean(x^2) + eps)
 * scale, in float32, cast back to x's dtype. K5 replaces ``_dx_kernel``
 (same ``pl.pallas_call``): for a cotangent g it recomputes
 r = rsqrt(mean(x^2) + eps) and writes dx = r * (g*s - x * r^2 *
-mean(g*s*x)) in float32, cast to x's dtype. dscale = sum over rows of
-g * x * r stays a plain PyTorch reduction, as the JAX package leaves it
-to XLA outside the kernel.
+mean(g*s*x)) in float32, cast to x's dtype; where the scale needs a
+gradient it also writes float32 partial sums of dscale = sum over rows of
+g * x * r, which the wrapper adds up with one ``sum(0)`` (the JAX package
+leaves dscale to XLA as one fused reduction beside ``_dx_kernel``; eager
+PyTorch would take it in seven passes over x and g in float32).
 
-What bounds both on an H100: bytes. Each reads its rows once and writes
-them once (K5: x and g in, dx out) with a handful of operations per
-element, far below the card's ridge point. The design keeps one row in
-registers per program: a masked load of the whole row (D rounded up to a
-power of two), the row reductions, and the store in the same pass, so
-every byte crosses device memory exactly once. ``norm_scale_plus_one``
-stays outside the kernels, as in ``models/transformer._norm``, so
-autograd carries the ``(1 + w)`` itself.
+What bounds both on an H100: bytes, a few operations per element moved.
+The kernels give each row a group of 4-8 warps (two 16-byte vectors a
+lane each) over a persistent grid, keep the next rows' loads in flight
+while they reduce and store the current one, read the scale through L1
+in the rows' vector layout, and write dscale's partials without atomics,
+so two launches give the same bits (``csrc/rmsnorm.cu`` says how).
+``norm_scale_plus_one`` stays outside the kernels, as in
+``models/transformer._norm``, so autograd carries the ``(1 + w)`` itself.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from orion_tpu_torch.ops.common import check_dtype, counted, on_cuda, triton_libdevice
+from orion_tpu_torch.ops import _build
+from orion_tpu_torch.ops.common import check_dtype, counted, on_cuda
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -38,122 +44,132 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Ten
     return (y * scale.float()).to(x.dtype)
 
 
-_KERNELS = None
-# Triton's language modules, bound by _kernels() at the first launch: the
-# jitted bodies look them up as module globals, which every Triton release
-# resolves (closure variables are not). The CPU has no Triton.
-tl = libdevice = None
+def rmsnorm_bwd_plain(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain backward, ``_rmsnorm_bwd``'s float32 formulas: (dx in x's
+    dtype, dscale in the scale's dtype) for the cotangent g."""
+    D = x.shape[-1]
+    xf, gf = x.reshape(-1, D).float(), g.reshape(-1, D).float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    u = gf * scale.float()
+    dx = r * (u - xf * r * r * (u * xf).mean(dim=-1, keepdim=True))
+    dscale = torch.einsum("rd,rd->d", gf, xf * r)
+    return dx.to(x.dtype).view(x.shape), dscale.to(scale.dtype)
 
 
-def _kernels():
-    global _KERNELS, tl, libdevice
-    if _KERNELS is not None:
-        return _KERNELS
-    import triton
-    import triton.language as tl
-
-    libdevice = triton_libdevice()  # noqa: F811
-
-    @triton.jit
-    def _rmsnorm_fwd(x_ptr, s_ptr, o_ptr, D, eps, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        m = cols < D
-        x = tl.load(x_ptr + row * D + cols, mask=m, other=0.0).to(tl.float32)
-        r = 1.0 / libdevice.sqrt(tl.sum(x * x, axis=0) / D + eps)
-        s = tl.load(s_ptr + cols, mask=m, other=0.0).to(tl.float32)
-        y = x * r * s
-        tl.store(o_ptr + row * D + cols, y.to(o_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit
-    def _rmsnorm_bwd(x_ptr, s_ptr, g_ptr, o_ptr, D, eps, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        m = cols < D
-        x = tl.load(x_ptr + row * D + cols, mask=m, other=0.0).to(tl.float32)
-        g = tl.load(g_ptr + row * D + cols, mask=m, other=0.0).to(tl.float32)
-        s = tl.load(s_ptr + cols, mask=m, other=0.0).to(tl.float32)
-        r = 1.0 / libdevice.sqrt(tl.sum(x * x, axis=0) / D + eps)
-        u = g * s
-        c = tl.sum(u * x, axis=0) / D
-        dx = r * (u - x * r * r * c)
-        tl.store(o_ptr + row * D + cols, dx.to(o_ptr.dtype.element_ty), mask=m)
-
-    _KERNELS = (triton, _rmsnorm_fwd, _rmsnorm_bwd)
-    return _KERNELS
+_DTYPE = {torch.bfloat16: 1, torch.float32: 0}
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x as contiguous [R, D] rows, after checking both tensors lie on a
+    CUDA device (before anything is built) and their dtypes and shapes."""
+    if not (x.is_cuda and scale.is_cuda):
+        raise ValueError("the RMSNorm kernels take CUDA tensors; CPU tensors go to "
+                         "rmsnorm_plain / rmsnorm_bwd_plain")
     check_dtype("x", x)
     check_dtype("scale", scale)
     D = x.shape[-1]
-    if scale.shape != (D,):
+    if D < 1 or scale.shape != (D,):
         raise ValueError(f"scale shape {tuple(scale.shape)} != ({D},)")
     return x.contiguous().view(-1, D)
 
 
-def _launch(fn, triton, tensors, D: int, eps: float) -> None:
-    """One program per row of ``tensors[0]`` ([R, D])."""
-    block = triton.next_power_of_2(D)
-    fn[(tensors[0].shape[0],)](
-        *tensors, D, float(eps), BLOCK_D=block,
-        num_warps=min(max(block // 512, 1), 16),
-    )
-
-
 @counted
-def rmsnorm_triton(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """Launch K1 on CUDA tensors; x [..., D], scale [D]."""
+def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Launch K1 on CUDA tensors; x [..., D], scale [D] (bf16 or float32,
+    either beside either)."""
     x2 = _rows(x, scale)
-    triton, fwd, _ = _kernels()
+    s = scale.contiguous()
     out = torch.empty_like(x2)
-    if x2.shape[0]:
-        _launch(fwd, triton, (x2, scale.contiguous(), out), x2.shape[1], eps)
-        rmsnorm_triton.launches += 1
+    R, D = x2.shape
+    if R:
+        rc = _build.entry("rmsnorm", "rmsnorm_fwd", _FWD_ARGS)(
+            x2.data_ptr(), s.data_ptr(), out.data_ptr(), R, D, _DTYPE[x2.dtype],
+            int(s.dtype == torch.float32), float(eps),
+            torch.cuda.current_stream(x2.device).cuda_stream)
+        _build.check(rc, "rmsnorm_fwd")
+        rmsnorm_cuda.launches += 1
     return out.view(x.shape)
 
 
-@counted
-def rmsnorm_bwd_triton(
-    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float
-) -> torch.Tensor:
-    """Launch K5 on CUDA tensors: dx of ``rmsnorm`` at x for the
-    cotangent g (same shape as x), in x's dtype."""
+@functools.lru_cache(maxsize=None)
+def _n_partials(R: int, D: int, dtype: int, aligned: int, device: int) -> int:
+    """Partial rows K5 writes at this shape (a function of the shape and
+    the card's residency, so fixed from launch to launch)."""
+    with torch.cuda.device(device):
+        n = _build.entry("rmsnorm", "rmsnorm_bwd_partials", [ctypes.c_int] * 4)(
+            R, D, dtype, aligned)
+    if n < 1:
+        _build.check(-n, "rmsnorm_bwd_partials")
+    return n
+
+
+def rmsnorm_bwd_partials(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float, need_dscale: bool
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K5 on CUDA tensors: (dx in x's dtype, dscale's float32
+    partial rows [n, D] whose sum over rows is dscale, or None unless
+    ``need_dscale``). Counted on ``rmsnorm_bwd_cuda``."""
     x2 = _rows(x, scale)
-    if g.shape != x.shape:
-        raise ValueError(f"cotangent shape {tuple(g.shape)} != x {tuple(x.shape)}")
-    check_dtype("g", g)
+    if not g.is_cuda or g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype} on the same device")
     g2 = g.contiguous().view(x2.shape)
-    triton, _, bwd = _kernels()
-    out = torch.empty_like(x2)
-    if x2.shape[0]:
-        _launch(bwd, triton, (x2, scale.contiguous(), g2, out), x2.shape[1], eps)
-        rmsnorm_bwd_triton.launches += 1
-    return out.view(x.shape)
+    s = scale.contiguous()
+    R, D = x2.shape
+    dx = torch.empty_like(x2)
+    part = None
+    if not R:
+        if need_dscale:
+            part = torch.zeros(1, D, dtype=torch.float32, device=x2.device)
+        return dx.view(x.shape), part
+    dt = _DTYPE[x2.dtype]
+    if need_dscale:
+        aligned = int(all(t.data_ptr() % 16 == 0 for t in (x2, g2, dx, s)))
+        n = _n_partials(R, D, dt, aligned, x2.device.index)
+        part = torch.empty(n, D, dtype=torch.float32, device=x2.device)
+    rc = _build.entry("rmsnorm", "rmsnorm_bwd", _BWD_ARGS)(
+        x2.data_ptr(), s.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), 0 if part is None else part.shape[0],
+        R, D, dt, int(s.dtype == torch.float32), float(eps),
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(rc, "rmsnorm_bwd")
+    rmsnorm_bwd_cuda.launches += 1
+    return dx.view(x.shape), part
+
+
+@counted
+def rmsnorm_bwd_cuda(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float,
+    need_dscale: bool = True,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K5 on CUDA tensors: (dx of ``rmsnorm`` at x for the cotangent g, in
+    x's dtype; dscale in the scale's dtype, or None unless
+    ``need_dscale``)."""
+    dx, part = rmsnorm_bwd_partials(x, scale, g, eps, need_dscale)
+    dscale = None if part is None else part.sum(dim=0).to(scale.dtype)
+    return dx, dscale
 
 
 class _RMSNorm(torch.autograd.Function):
-    """K1 forward, K5 backward; saves (x, scale) as ``_rmsnorm_fwd`` does."""
+    """K1 forward, K5 backward (one launch for dx and dscale); saves
+    (x, scale) as ``_rmsnorm_fwd`` does."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, scale)
-        return rmsnorm_triton(x, scale, eps)
+        return rmsnorm_cuda(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        dx = dscale = None
-        if ctx.needs_input_grad[0]:
-            dx = rmsnorm_bwd_triton(x, scale, g, ctx.eps)
-        if ctx.needs_input_grad[1]:
-            D = x.shape[-1]
-            xf = x.reshape(-1, D).float()
-            r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
-            dscale = torch.einsum("rd,rd->d", g.reshape(-1, D).float(), xf * r)
-            dscale = dscale.to(scale.dtype)
-        return dx, dscale, None
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, g, ctx.eps, ctx.needs_input_grad[1])
+        return (dx if ctx.needs_input_grad[0] else None), dscale, None
 
 
 def rmsnorm(
@@ -164,7 +180,7 @@ def rmsnorm(
     if on_cuda(x, scale):
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
             return _RMSNorm.apply(x, scale, eps)
-        return rmsnorm_triton(x, scale, eps)
+        return rmsnorm_cuda(x, scale, eps)
     return rmsnorm_plain(x, scale, eps)
 
 
