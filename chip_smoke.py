@@ -45,7 +45,13 @@ exits non-zero without printing a result:
            rmsnorm_plain / rmsnorm_bwd_plain over NORM_D x NORM_R in float32,
            bfloat16 and bfloat16 rows beside a float32 scale, and on rows
            that are not 16-byte aligned; two K5 launches give the same bits,
-           dx and the scale gradient's partial rows
+           dx and the scale gradient's partial rows; NaN containment of K4,
+           K10 and K9 in both pool branches (nan_containment): a page in
+           the first split of one slot's walk poisoned as poison_page does
+           it (bf16: K rows NaN; int8: k_scale rows NaN) makes every output
+           row of that slot non-finite and leaves every other slot's output
+           and pool writes bitwise as a clean launch; after scrub_pages of
+           the page, every output is bitwise the clean launch's again
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            then twice with chunked prefill and the prefix cache (float32
@@ -54,7 +60,13 @@ exits non-zero without printing a result:
            token lists must be equal; then three speculative runs (chain,
            tree width 2, tree width 2 with int8 pools, chunked prefill and
            the prefix cache) over cyclic prompts whose streams must equal
-           the cpu run's and the cuda spec-off run's, with equal counters
+           the cpu run's and the cuda spec-off run's, with equal counters;
+           then a fault schedule (the NaN guard, a queue limit with mixed
+           priorities, a NaN at step 2, a decode dispatch fault at step 3, a
+           cancel of a waiting and an active request, a deadline set to now,
+           a pool fault at a page growth, drain() with never-started
+           requests queued) and a max_step_faults run that must re-raise:
+           outcomes, streams and RobustnessStats equal on cuda and cpu
   serve    llama3-8b-infer at full width and depth, seeded random bf16
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
@@ -76,6 +88,18 @@ exits non-zero without printing a result:
            finishes, wave 2 verifies (and accepts drafts in A), K10's
            branches and its merge launch (K4 and its merge in A0 and B),
            the page accounting holds
+  serve_faults  llama3-8b-infer at full width and depth (the serve's
+           weights), the lifecycle and fault containment in four drives:
+           F1 (bf16 pool, NaN guard, 8 slots, queue of 8: the rule's two
+           sheds, admission by priority, a NaN quarantine at step 3, a
+           failed decode step, cancels, an expiry, drain), F2 (the chunked
+           serve's configuration: a NaN victim mid-decode through K4-int8
+           and one mid-prompt through K9-int8, none of their pages cached),
+           F3 (the speculative drive A: three verify faults switch
+           speculation off, K10 stops and K4 goes on) and F4 (F1 with the
+           NaN victim cancelled instead: every stream completed in both
+           byte-identical to F1's). Each drive prints its outcome counts,
+           RobustnessStats, launches, wall seconds and the card
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -100,8 +124,11 @@ exits non-zero without printing a result:
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line,
-and last ``{"ok": true, "device": {...}}``.
+serve, serve_chunked and serve_spec, which inject no fault, require that
+the engine contained none (no dispatch fault, failed step or pool fault):
+a real kernel failure the envelope absorbed must not pass. Then a
+``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line, and
+last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 989 TFLOP/s for bf16
 products on the tensor cores, 67 TFLOP/s for f32 elementwise work.
@@ -121,7 +148,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
-          "serve_spec", "train_parity", "train", "timing")
+          "serve_spec", "serve_faults", "train_parity", "train", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -267,6 +294,10 @@ TRAIN_PARITY_OVERRIDES = [
     "train.num_steps=3", "train.log_interval=1000", "data.packed=true",
     "optimizer.warmup_steps=1",
 ]
+ROBUST_KEYS = ("shed_requests", "shed_context_requests", "expired_requests",
+               "cancelled_requests", "quarantined_requests", "dispatch_faults",
+               "dispatch_retries", "dispatch_fallbacks", "failed_steps", "stalled_steps",
+               "pool_faults")
 SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode", "paged_decode_merge")
 SERVE_CHUNKED_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode_int8",
                          "paged_decode_merge", "paged_prefill_int8", "paged_prefill_merge")
@@ -1283,6 +1314,113 @@ def k10_variants(gen):
     return out
 
 
+def nan_containment(name, launch, cache, page, victim, rows, wrows, quant):
+    """The kernel-level property the NaN quarantine rests on, for one
+    kernel and pool branch: ``launch()`` runs the kernel on ``cache``'s
+    pools (writing them in place; a second launch writes the same bytes).
+    A clean launch with page ``page`` scrubbed (zeros) is the reference.
+    Then ``poison_page`` (NaN K rows; int8: NaN k_scale rows) of that page,
+    which only slot ``victim`` reads: every output row of the victim
+    (``rows`` [B, ...] bool: the rows compared) must be non-finite, every
+    other slot's rows and the pool rows ``wrows`` other slots write
+    bitwise equal to the reference. Then ``scrub_pages`` of the page: every
+    compared row and ``wrows`` bitwise equal to the reference again."""
+    import torch
+
+    from orion_tpu_torch.infer.kv_cache import poison_page, scrub_pages
+
+    kw = dict(n_layers=N_LAYERS, num_pages=NUM_PAGES)
+    pools = list(cache.values())
+    scrub_pages(cache, [page], **kw)
+    ref = launch().clone()
+    ref_rows = [t[wrows].clone() for t in pools]
+    others = rows.clone()
+    others[victim] = False
+    poison_page(cache, page, **kw)
+    out = launch()
+    torch.cuda.synchronize()
+    res = {
+        "victim_nonfinite": not bool(torch.isfinite(out[victim][rows[victim]].float()).any()),
+        "others_bitwise": torch.equal(bits(out[others]), bits(ref[others])),
+        "pool_writes_bitwise": all(torch.equal(bits(t[wrows]), bits(r))
+                                   for t, r in zip(pools, ref_rows)),
+    }
+    scrub_pages(cache, [page], **kw)
+    out = launch()
+    torch.cuda.synchronize()
+    res["scrubbed_bitwise"] = (torch.equal(bits(out[rows]), bits(ref[rows]))
+                               and all(torch.equal(bits(t[wrows]), bits(r))
+                                       for t, r in zip(pools, ref_rows)))
+    emit({"phase": "kernels", "nan_containment": name, "pool": "int8" if quant else "bf16",
+          "dtype": "bfloat16", "victim": victim, "poisoned_page": page, **res})
+    bad = [k for k, ok in res.items() if not ok]
+    if bad:
+        raise AssertionError(f"{name} NaN containment ({'int8' if quant else 'bf16'} pool): "
+                             f"failed {bad}")
+
+
+def check_nan_containment(gen):
+    """NaN-containment rows of K4, K10 and K9 in both pool branches at the
+    kernels phase's shapes: the victim is a slot whose walk spans several
+    splits, poisoned in its first split (not the last one)."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    for quant in (False, True):
+        q, kp, vp, table, lp, kn, vn, base, scales = k4_inputs(torch.bfloat16, gen, quant)
+        cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
+        v = B_DEC - 1                     # last_pos 8191: 16 splits
+        live = torch.arange(B_DEC, device="cuda") >= 2
+        wr = base + table[torch.arange(B_DEC, device="cuda"), lp // PSZ].long()
+        wrows = wr[live & (torch.arange(B_DEC, device="cuda") != v)]
+        cache = {"k": kp, "v": vp, **scales}
+        nan_containment(
+            "paged_decode", lambda: cuda(q, kp, vp, table, lp, layer_base=base, k_new=kn,
+                                         v_new=vn, **scales)[0],
+            cache, int(table[v, 0]), v, live[:, None, None].expand(-1, *q.shape[1:]).clone(),
+            wrows, quant)
+        del q, kp, vp, cache, scales
+        torch.cuda.empty_cache()
+
+        shape = k10_main_shape()
+        q, kp, vp, table, start, lens, kn, vn, base, scales = k10_inputs(
+            torch.bfloat16, gen, quant, **shape)
+        cuda = ops.ragged_verify_int8_cuda if quant else ops.ragged_verify_cuda
+        B, W = q.shape[:2]
+        v = B - 2                          # start ~7687: the walk spans 16 splits
+        real = torch.arange(W, device="cuda")[None] < lens[:, None]
+        real[torch.tensor(shape["pad"], device="cuda")] = False
+        wrows = torch.unique(base + table[[b for b in range(B) if b != v]].long())
+        wrows = wrows[wrows != base]
+        cache = {"k": kp, "v": vp, **scales}
+        nan_containment(
+            "ragged_verify", lambda: cuda(q, kp, vp, table, start, lens, layer_base=base,
+                                          k_new=kn, v_new=vn, **scales)[0],
+            cache, int(table[v, 0]), v, real[:, :, None, None].expand(-1, -1, *q.shape[2:]).clone(),
+            wrows, quant)
+        del q, kp, vp, cache, scales
+        torch.cuda.empty_cache()
+
+        q, kp, vp, walk, start, lens, kn, vn, base, scales, P_pre = k9_inputs(
+            torch.bfloat16, gen, quant)
+        cuda = ops.paged_flash_prefill_int8_cuda if quant else ops.paged_flash_prefill_cuda
+        B, S = q.shape[:2]
+        v = 2                              # start 4096: 64 history pages, 4 splits
+        real = torch.arange(S, device="cuda")[None] < lens[:, None]
+        wrows = (base + walk[[b for b in range(B) if b != v], P_pre:].long()).reshape(-1)
+        wrows = wrows[wrows != base]
+        cache = {"k": kp, "v": vp, **scales}
+        nan_containment(
+            "paged_prefill", lambda: cuda(q, kp, vp, walk, start, lens, kn, vn,
+                                          n_prefix_pages=P_pre, layer_base=base,
+                                          **scales)[0],
+            cache, int(walk[v, 0]), v, real[:, :, None, None].expand(-1, -1, *q.shape[2:]).clone(),
+            wrows, quant)
+        del q, kp, vp, cache, scales
+        torch.cuda.empty_cache()
+
+
 def phase_kernels():
     import torch
 
@@ -1328,6 +1466,7 @@ def phase_kernels():
             for quant in (False, True):
                 check_k4_deterministic(gen, quant)
                 check_k10_deterministic(gen, quant)
+            check_nan_containment(gen)
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
@@ -1579,7 +1718,120 @@ def phase_parity():
           "equal": True, "cuda_streams": gpu})
     out = {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
     out.update({f"spec_{run}": parity_spec(params, run) for run in SPEC_PARITY})
+    out["faults"] = parity_faults(params)
     return out
+
+
+# The parity phase's fault schedule (tiny-llama, decode window 1, the NaN
+# guard, a queue of 3): five requests with mixed priorities (two shed on
+# arrival), three more after step 0, a NaN at step 2, a decode dispatch
+# fault at step 3, a cancel of a waiting and an active request after step
+# 3, an active request's deadline set to now after step 4, a pool fault at
+# a page growth (step PARITY_POOL_STEP), then drain() with two
+# never-started requests queued.
+PARITY_FAULT_OVERRIDES = ["inference.decode_window=1", "inference.nan_guard=true",
+                          "inference.queue_limit=3"]
+PARITY_PRIORITIES = (1, 0, 2, 0, 1)
+PARITY_POOL_STEP = 5
+PARITY_OUTCOMES = {"completed": 2, "shed": 4, "error:nan": 1, "cancelled": 2, "expired": 1}
+
+
+def fault_prompts(n, seed, lo, hi, vocab=256):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, int(k)).tolist() for k in rng.integers(lo, hi, n)]
+
+
+def parity_fault_drive(params, dev):
+    """One run of the parity fault schedule on ``dev``: the typed outcome,
+    stream and step of every request, the robustness counters, the faults
+    fired and the launches (on cuda); then the max_step_faults run, which
+    must re-raise DispatchFault."""
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.runtime.fault import DispatchFault, FaultInjector, FaultSpec
+
+    cfg = get_config("tiny-llama", INFER_OVERRIDES + PARITY_FAULT_OVERRIDES)
+    inj = FaultInjector([FaultSpec("nan", 2), FaultSpec("dispatch", 3, "decode"),
+                         FaultSpec("pool", PARITY_POOL_STEP)])
+    ops.reset_launches()
+    eng = InferenceEngine(cfg, params, device=dev, fault_injector=inj)
+    done = {}
+
+    def step():
+        n = eng.step_no
+        for r in eng.step():
+            done[r.rid] = (r.outcome, list(r.generated), n)
+
+    first = [eng.submit_request(p, 12, priority=pr)
+             for p, pr in zip(fault_prompts(5, 1, 3, 15), PARITY_PRIORITIES)]
+    step()
+    late = [eng.submit_request(p, 12) for p in fault_prompts(3, 2, 3, 15)]
+    for _ in range(3):
+        step()
+    picks = {"cancel_waiting": eng.waiting[-1].rid,
+             "cancel_active": max((r for r in eng.slots if r is not None and not r.done),
+                                  key=lambda r: r.admit_seq).rid}
+    eng.cancel(picks["cancel_waiting"])
+    eng.cancel(picks["cancel_active"])
+    step()
+    expire = min((r for r in eng.slots if r is not None and not r.done), key=lambda r: r.rid)
+    picks["expire"] = expire.rid
+    expire.deadline = time.monotonic()
+    while eng.step_no <= PARITY_POOL_STEP:
+        step()
+    tail = [eng.submit_request(p, 12) for p in fault_prompts(2, 3, 3, 15)]
+    for r in eng.drain():
+        done[r.rid] = (r.outcome, list(r.generated), eng.step_no)
+    robust = {k: v for k, v in eng.reset_timing().items() if k in ROBUST_KEYS}
+    launches = ops.launches() if dev == "cuda" else None
+    eng.close()
+    reqs = first + late + tail
+    res = {"requests": [done[r.rid] for r in reqs], "robust": robust,
+           "fired": list(inj.fired), "picks": picks}
+
+    ladder = FaultInjector([FaultSpec("dispatch", s, count=10) for s in range(8)])
+    eng = InferenceEngine(get_config("tiny-llama", INFER_OVERRIDES
+                                     + ["inference.max_step_faults=2"]),
+                          params, device=dev, fault_injector=ladder)
+    for p in fault_prompts(3, 4, 3, 15):
+        eng.submit_request(p, 12)
+    try:
+        while eng.has_work():
+            eng.step()
+        raise AssertionError(f"parity faults ({dev}): max_step_faults did not re-raise")
+    except DispatchFault:
+        pass
+    res["ladder"] = {"step_no": eng.step_no, "robust": {
+        k: v for k, v in eng.reset_timing().items() if k in ROBUST_KEYS}}
+    return res, launches
+
+
+def parity_faults(params):
+    """The fault schedule on cuda (kernels) and on cpu (plain versions):
+    typed outcomes, streams, the step each request surfaced at and every
+    RobustnessStats counter must be equal, and the counters as scheduled.
+    Returns the cuda run's launches."""
+    got, launches = parity_fault_drive(params, "cuda")
+    want, _ = parity_fault_drive(params, "cpu")
+    if got != want:
+        raise AssertionError(f"parity faults: cuda {got} != cpu {want}")
+    outcomes = [o for o, _, _ in got["requests"]]
+    rb = got["robust"]
+    expect = {"shed_requests": 4, "quarantined_requests": 1, "cancelled_requests": 2,
+              "expired_requests": 1, "dispatch_faults": 1, "failed_steps": 2,
+              "pool_faults": 1}
+    wrong = {k: rb[k] for k, v in expect.items() if rb[k] != v}
+    counts = {o: outcomes.count(o) for o in set(outcomes)}
+    if wrong or counts != PARITY_OUTCOMES or got["ladder"]["robust"]["failed_steps"] != 2:
+        raise AssertionError(f"parity faults: counters off schedule {wrong}, outcomes "
+                             f"{outcomes}, ladder {got['ladder']}")
+    emit({"phase": "parity", "preset": "tiny-llama", "features": "fault_schedule",
+          "equal": True, "outcomes": outcomes, "robust": rb, "fired": got["fired"],
+          "picks": got["picks"], "ladder": got["ladder"], "launches": launches})
+    return launches
 
 
 def parity_chunked(params, pools):
@@ -1818,6 +2070,7 @@ def phase_serve(profile=False):
     missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the serve: {missing}")
+    require_no_faults(eng, "serve")
     tm = eng.timing
     ttft = sorted(r.t_first - r.t_submit for r in reqs)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
@@ -1962,6 +2215,7 @@ def phase_serve_chunked(profile=False, params=None):
     missing = [k for k in SERVE_CHUNKED_KERNELS if totals[k] <= 0]
     if missing:
         raise AssertionError(f"serve_chunked: kernels never launched: {missing}")
+    require_no_faults(eng, "serve_chunked")
     eng.assert_page_accounting()
     if profile:
         # A third wave like the second (the system prompt cached, new tails).
@@ -2055,6 +2309,7 @@ def serve_spec_drive(name, params, prompts, profile=False):
         waves.append((reqs, res))
     if not (finite and all(finite)):
         raise AssertionError(f"serve_spec {name}: non-finite prefill logits")
+    require_no_faults(eng, f"serve_spec {name}")
     if profile:
         profile_drive(f"serve_spec_{name}", lambda: serve_wave(eng, prompts, 64), {
             "rmsnorm_fwd": RMSNORM_FWD_KERNELS, "rope_fwd": ["_rope_fwd"],
@@ -2119,6 +2374,351 @@ def phase_serve_spec(params=None, profile=False):
     emit({"phase": "serve_spec", "streams_A_equal_A0_per_wave": same,
           "requests_per_wave": len(prompts), "launches": totals})
     return {k: sum(t[k] for t in totals.values()) for k in totals["A"]}
+
+
+# serve_faults: llama3-8b-infer at full width and depth on the serve's
+# weights, four drives. F1 and F4 share SERVE_F1_OVERRIDES and the schedule
+# of serve_f1 (F4 cancels F1's NaN victim right after step 3 instead of
+# poisoning it); F2 is the chunked serve's configuration with the guard;
+# F3 the speculative serve's drive A.
+SERVE_F1_OVERRIDES = ["inference.nan_guard=true", "inference.max_batch_size=8",
+                      "inference.queue_limit=8"]
+SERVE_F2_OVERRIDES = SERVE_CHUNKED_OVERRIDES + ["inference.nan_guard=true"]
+F1_OUTCOMES = {"completed": 12, "shed": 4, "error:nan": 1, "cancelled": 2, "expired": 1}
+F4_OUTCOMES = {"completed": 12, "shed": 4, "cancelled": 3, "expired": 1}
+
+
+def require_no_faults(eng, where):
+    """A phase without injected faults must have contained none: a real
+    kernel failure that the envelope absorbed would otherwise pass."""
+    rb = eng.robust
+    if rb.dispatch_faults or rb.failed_steps or rb.pool_faults:
+        raise AssertionError(f"{where}: {rb.dispatch_faults} dispatch faults, "
+                             f"{rb.failed_steps} failed steps, {rb.pool_faults} pool faults")
+
+
+def rule_sheds(queued, arrivals, limit):
+    """The documented overload rule, restated: with the queue at ``limit``,
+    an arrival sheds the lowest priority, then the newest, among the
+    queued never-run requests and itself. ``queued``/``arrivals`` are
+    (rid, priority) pairs (no deadlines); returns the rids shed."""
+    q, shed = list(queued), []
+    for rid, pr in arrivals:
+        if len(q) < limit:
+            q.append((rid, pr))
+            continue
+        victim = min(q + [(rid, pr)], key=lambda t: (t[1], -t[0]))
+        shed.append(victim[0])
+        if victim[0] != rid:
+            q.remove(victim)
+            q.append((rid, pr))
+    return shed
+
+
+def fault_line(name, eng, reqs, t0, launches, **extra):
+    """The drive's JSON line: outcome counts, the robustness counters,
+    launches per kernel, wall seconds and the card."""
+    outcomes = [r.outcome for r in reqs]
+    line = {"phase": "serve_faults", "drive": name, "preset": "llama3-8b-infer",
+            "outcomes": {o: outcomes.count(o) for o in sorted(set(outcomes))},
+            "robust": {k: v for k, v in eng.reset_timing().items() if k in ROBUST_KEYS},
+            "launches": launches, "wall_s": time.perf_counter() - t0,
+            "nvidia_smi": smi_line(), **extra}
+    emit(line)
+    return line
+
+
+def serve_f1(params, nan):
+    """F1 (``nan``) or F4: bf16 pool, the guard, 8 slots, a queue of 8. 8
+    greedy requests of 100-1000 prompt tokens (numpy seed 0), 64 new tokens
+    each, admitted at step 0; then 10 more with priorities cycling 0/1/2
+    (the rule sheds two). A NaN at step 3 (F1; F4 cancels the same oldest
+    request right after step 3), a decode dispatch fault at step 5, a cancel
+    of the newest waiting and the youngest active request after step 6, the
+    youngest active request's deadline set to now after step 8; once the
+    queue is empty, two more submissions and drain()."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
+
+    cfg = get_config("llama3-8b-infer", SERVE_F1_OVERRIDES)
+    V = cfg.model.vocab_size
+    specs = [FaultSpec("dispatch", 5, "decode")] + ([FaultSpec("nan", 3)] if nan else [])
+    inj = FaultInjector(specs)
+    eng = InferenceEngine(cfg, params, device="cuda", fault_injector=inj)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).tolist() for n in rng.integers(100, 1001, 20)]
+    done, first_seq = {}, {}
+
+    def step():
+        n = eng.step_no
+        for r in eng.step():
+            done[r.rid] = n
+        for r in eng.slots:
+            if r is not None and r.rid not in first_seq:
+                first_seq[r.rid] = r.admit_seq
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    wave1 = [eng.submit_request(p, 64) for p in prompts[:8]]
+    step()
+    if any(r.slot is None for r in wave1):
+        raise AssertionError("serve_faults F1: the first 8 requests were not all admitted")
+    wave2 = [eng.submit_request(p, 64, priority=i % 3) for i, p in enumerate(prompts[8:18])]
+    shed_now = [r.rid for r in wave2 if r.outcome == "shed"]
+    want_shed = rule_sheds([], [(r.rid, r.priority) for r in wave2], 8)
+    picks = {"victim": min(wave1, key=lambda r: r.admit_seq).rid}
+    while eng.step_no < 9:
+        if eng.step_no == 4 and not nan:
+            eng.cancel(picks["victim"])
+        if eng.step_no == 7:
+            live = [r for r in eng.slots if r is not None and not r.done]
+            picks["cancel_waiting"] = eng.waiting[-1].rid
+            picks["cancel_active"] = max(live, key=lambda r: r.admit_seq).rid
+            eng.cancel(picks["cancel_waiting"])
+            eng.cancel(picks["cancel_active"])
+        step()
+    live = [r for r in eng.slots if r is not None and not r.done
+            and 0 < len(r.generated) < 64]
+    expire = max(live, key=lambda r: r.admit_seq)
+    picks["expire"] = expire.rid
+    expire.deadline = time.monotonic()
+    while eng.waiting:
+        step()
+    tail = [eng.submit_request(p, 64) for p in prompts[18:]]
+    for r in eng.drain():
+        done[r.rid] = eng.step_no
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    reqs = wave1 + wave2 + tail
+    by_rid = {r.rid: r for r in reqs}
+    admitted2 = [r for r in wave2 if r.rid in first_seq]
+    order = [r.rid for r in sorted(admitted2, key=lambda r: first_seq[r.rid])]
+    want_order = [r.rid for r in sorted(admitted2, key=lambda r: (-r.priority, r.rid))]
+    line = fault_line("F1" if nan else "F4", eng, reqs, t0, launches, picks=picks,
+                      shed_on_arrival=shed_now, admission_order=order,
+                      expired_tokens=len(expire.generated))
+    eng.close()
+    want = F1_OUTCOMES if nan else F4_OUTCOMES
+    bad = []
+    if line["outcomes"] != want:
+        bad.append(f"outcomes {line['outcomes']} != {want}")
+    if shed_now != want_shed:
+        bad.append(f"shed on arrival {shed_now}, the rule sheds {want_shed}")
+    if order != want_order:
+        bad.append(f"admission order {order}, by priority then arrival {want_order}")
+    victim = by_rid[picks["victim"]]
+    if nan and (victim.outcome != "error:nan" or done[victim.rid] != 3):
+        bad.append(f"victim {victim.rid}: {victim.outcome} at step {done.get(victim.rid)}")
+    if not 0 < len(expire.generated) < 64 or expire.outcome != "expired":
+        bad.append(f"expired request: {expire.outcome}, {len(expire.generated)} tokens")
+    if any(r.outcome != "shed" for r in tail):
+        bad.append("drain did not shed the never-started submissions")
+    if any(len(r.generated) != 64 for r in reqs if r.outcome == "completed"):
+        bad.append("a completed request without 64 tokens")
+    rb = line["robust"]
+    if rb["dispatch_faults"] != 1 or rb["failed_steps"] != 1 or rb["pool_faults"]:
+        bad.append(f"fault counters {rb}")
+    if rb["quarantined_requests"] != int(nan) or rb["shed_requests"] != 4:
+        bad.append(f"outcome counters {rb}")
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if bad or missing:
+        raise AssertionError(f"serve_faults {line['drive']}: {bad}, never launched {missing}")
+    return {r.rid: (r.outcome, list(r.generated)) for r in reqs}, launches
+
+
+def serve_f2(params):
+    """F2: the chunked serve's configuration (int8 pool, prefix cache,
+    chunked prefill) with the guard; 8 greedy requests sharing a 1024-token
+    system prompt, 64 new tokens each. A NaN in the first request to finish
+    its prompt (mid-decode: K4-int8 reads the poisoned k_scale rows) and a
+    NaN in the last request once its first chunk is in the pool (its next
+    chunks read the poisoned history through K9-int8; caught at its first
+    guarded step, the decode step after its last chunk)."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
+
+    cfg = get_config("llama3-8b-infer", SERVE_F2_OVERRIDES)
+    V = cfg.model.vocab_size
+    inj = FaultInjector()
+    eng = InferenceEngine(cfg, params, device="cuda", fault_injector=inj)
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, V, 1024).tolist()
+    prompts = [sys_prompt + rng.integers(0, V, n).tolist() for n in rng.integers(100, 1001, 8)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit_request(p, 64) for p in prompts]
+    dec_victim = pre_victim = None
+    surfaced, prefill_end = {}, None
+    while eng.has_work():
+        if dec_victim is None:
+            dec_victim = next((r for r in reqs if r.slot is not None and r.generated
+                               and not r.prefill_pending), None)
+            if dec_victim is not None:
+                inj.specs.append(FaultSpec("nan", eng.step_no, rid=dec_victim.rid))
+        if pre_victim is None and reqs[-1].prefill_pending and reqs[-1].prefill_done > 0:
+            pre_victim = reqs[-1]
+            inj.specs.append(FaultSpec("nan", eng.step_no, rid=pre_victim.rid))
+        pending = pre_victim is not None and pre_victim.prefill_pending
+        n = eng.step_no
+        for r in eng.step():
+            surfaced[r.rid] = n
+        if pending and not pre_victim.prefill_pending and prefill_end is None:
+            prefill_end = n
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    victims = [r for r in (dec_victim, pre_victim) if r is not None]
+    cached = {r.rid: eng.prefix_match_tokens(r.prompt) for r in victims}
+    eng.assert_page_accounting()
+    line = fault_line("F2", eng, reqs, t0, launches, fired=list(inj.fired),
+                      victims={r.rid: surfaced[r.rid] for r in victims},
+                      prefill_victim_last_chunk_step=prefill_end,
+                      victim_cached_tokens=cached)
+    eng.clear_prefix_cache()
+    free = eng.alloc.free_pages
+    eng.close()
+    bad = []
+    if len(victims) != 2 or any(r.outcome != "error:nan" for r in victims):
+        bad.append(f"victims {[(r.rid, r.outcome) for r in victims]}")
+    elif surfaced[pre_victim.rid] != prefill_end + 1:
+        bad.append(f"prefill victim caught at step {surfaced[pre_victim.rid]}, its last "
+                   f"chunk at {prefill_end}")
+    if any(n > 1024 for n in cached.values()):
+        bad.append(f"a victim's pages reached the prefix cache: {cached}")
+    if any(r.outcome != "completed" or len(r.generated) != 64
+           for r in reqs if r not in victims):
+        bad.append("a neighbour did not complete")
+    if free != cfg.inference.num_pages - 1:
+        bad.append(f"{free} free pages after clear_prefix_cache()")
+    rb = line["robust"]
+    if rb["quarantined_requests"] != 2 or rb["dispatch_faults"] or rb["failed_steps"]:
+        bad.append(f"counters {rb}")
+    need = ("paged_decode_int8", "paged_prefill_int8")
+    missing = [k for k in need if launches[k] <= 0]
+    if bad or missing:
+        raise AssertionError(f"serve_faults F2: {bad}, never launched {missing}")
+    return launches
+
+
+def serve_f3(params):
+    """F3: the speculative serve's drive A (chain, bf16 pools, prefix
+    cache): a clean wave of 8, then the same 8 again; once two of wave 2's
+    verify steps have run on K10, verify dispatch faults are scheduled at
+    every step; the third (spec_fault_limit) switches speculation off,
+    after which K10 no longer launches and K4 does."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
+
+    cfg = get_config("llama3-8b-infer", SERVE_SPEC_DRIVES["A"])
+    V, psz = cfg.model.vocab_size, cfg.inference.page_size
+    inj = FaultInjector()
+    eng = InferenceEngine(cfg, params, device="cuda", fault_injector=inj)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 1001, 8)
+    lens[0] = lens[0] // psz * psz
+    prompts = [rng.integers(0, V, n).tolist() for n in lens]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    wave1 = [eng.submit_request(p, 64) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    require_no_faults(eng, "serve_faults F3 wave 1")
+    limit = cfg.inference.spec_fault_limit
+    wave2 = [eng.submit_request(p, 64) for p in prompts]
+    v0 = eng.spec_stats.verify_steps
+    while eng.has_work() and eng.spec_stats.verify_steps < v0 + 2:
+        eng.step()
+    inj.specs.extend(FaultSpec("dispatch", s, "verify") for s in range(eng.step_no,
+                                                                         eng.step_no + 64))
+    at_disable = None
+    while eng.has_work():
+        eng.step()
+        if at_disable is None and eng.spec_stats.disabled_reason:
+            at_disable = dict(ops.launches(), step=eng.step_no - 1)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    eng.assert_page_accounting()
+    fired = [s for _, s, _ in inj.fired]
+    reqs = wave1 + wave2
+    line = fault_line("F3", eng, reqs, t0, launches, fired_steps=fired,
+                      disabled_reason=eng.spec_stats.disabled_reason,
+                      launches_at_disable=at_disable)
+    eng.close()
+    bad = []
+    if at_disable is None or len(fired) != limit or at_disable["step"] != fired[-1]:
+        bad.append(f"speculation not disabled at the {limit}th fault: fired at {fired}, "
+                   f"disabled after {at_disable and at_disable['step']}")
+    elif fired != list(range(fired[0], fired[0] + limit)):
+        bad.append(f"faults at steps {fired}, not consecutive")
+    elif (at_disable["ragged_verify"] <= 0
+          or launches["ragged_verify"] != at_disable["ragged_verify"]
+          or launches["paged_decode"] <= at_disable["paged_decode"]):
+        bad.append("K10 did not launch before speculation was disabled, or launched "
+                   "after it, or K4 did not launch after it")
+    if any(r.outcome != "completed" or len(r.generated) != 64 for r in reqs):
+        bad.append("a request did not complete")
+    rb = line["robust"]
+    if rb["failed_steps"] != len(fired) or rb["dispatch_faults"] != len(fired):
+        bad.append(f"counters {rb}")
+    if bad:
+        raise AssertionError(f"serve_faults F3: {bad}")
+    return launches
+
+
+def phase_serve_faults(params=None):
+    """llama3-8b-infer at full width and depth with the lifecycle and fault
+    containment: drives F1-F4 (see serve_f1, serve_f2, serve_f3) on the
+    serve phase's ``params`` when given, else on fresh seeded weights. F4's
+    streams must equal F1's, byte for byte, for every request that completes
+    in both. Returns the launches of the four drives together."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(get_config("llama3-8b-infer").model, gen, device="cuda",
+                             dtype="bfloat16")
+    totals = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+
+    f1, launches = serve_f1(params, nan=True)
+    add(launches)
+    free_engine()
+    add(serve_f2(params))
+    free_engine()
+    add(serve_f3(params))
+    free_engine()
+    f4, launches = serve_f1(params, nan=False)
+    add(launches)
+    free_engine()
+    both = [rid for rid in f1 if f1[rid][0] == "completed" and f4[rid][0] == "completed"]
+    differ = [rid for rid in both if f1[rid][1] != f4[rid][1]]
+    emit({"phase": "serve_faults", "f4_vs_f1": {"completed_in_both": len(both),
+                                                "streams_differ": differ}})
+    if differ or len(both) != F1_OUTCOMES["completed"]:
+        raise AssertionError(f"serve_faults F4: neighbour streams differ from F1: {differ} "
+                             f"({len(both)} completed in both)")
+    return totals
 
 
 def phase_train_parity():
@@ -2766,7 +3366,7 @@ def main(argv=None) -> int:
         os.remove(os.path.join(OUT_DIR, "chip_smoke.jsonl"))
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
-    train_launches = timing = None
+    train_launches = timing = fault_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2782,6 +3382,9 @@ def main(argv=None) -> int:
         free_engine()
     if "serve_spec" in phases:
         spec_launches = phase_serve_spec(serve_params, args.profile)
+        free_engine()
+    if "serve_faults" in phases:
+        fault_launches = phase_serve_faults(serve_params)
         free_engine()
     del serve_params
     torch.cuda.empty_cache()
@@ -2801,6 +3404,9 @@ def main(argv=None) -> int:
                           "serve_spec": spec_launches[name], "train": train_launches[name],
                           "parity_chunked_f32": parity_launches["float32"][name]}
                    for name in KERNEL_META}
+        if fault_launches:
+            for name in KERNEL_META:
+                by_path[name]["serve_faults"] = fault_launches[name]
         emit({"kernels": [
             dict(name=name, **KERNEL_META[name],
                  launches=sum(by_path[name].values()), launches_by_path=by_path[name],

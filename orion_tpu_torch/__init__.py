@@ -2,8 +2,8 @@
 
 A second package beside the JAX one (``orion_tpu``, the reference), with
 the same module layout and names: ``config``, ``ops``, ``models``,
-``infer``, ``generate``, ``data``, ``metrics``, ``train``. It imports
-``torch`` and numpy, never ``jax`` and nothing of ``orion_tpu``.
+``infer``, ``generate``, ``data``, ``metrics``, ``runtime``, ``train``. It
+imports ``torch`` and numpy, never ``jax`` and nothing of ``orion_tpu``.
 
 It serves (``infer.InferenceEngine`` prefills and decodes over the paged
 KV pool) and trains on one GPU (``train.Trainer``, ``python -m

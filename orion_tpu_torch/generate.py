@@ -6,7 +6,10 @@ Usage:
         --tokens "5,3,9" [--tokens "..."] [--device cuda] [key=value ...]
 
 Each ``--tokens`` list is one request, served concurrently; one JSON
-line per request is printed at the end. Weights are a seeded random init
+line per request, with its typed outcome beside its tokens, is printed at
+the end. On SIGTERM the loop drains at the next step boundary: admission
+stops, never-started requests are shed, live ones finish, and the process
+exits 0. Weights are a seeded random init
 in the model's dtype, made on the device (``--seed``); that exercises the
 whole engine, scheduler, cache and kernel path, not output quality.
 Dotted ``key=value`` arguments override the preset (sampling:
@@ -43,6 +46,7 @@ def main(argv: list[str] | None = None) -> int:
     from orion_tpu_torch.infer import InferenceEngine
     from orion_tpu_torch.infer.engine import resolve_device
     from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.runtime.fault import PreemptionHandler
 
     cfg = get_config(args.preset, args.overrides)
     device = resolve_device(args.device)
@@ -56,9 +60,19 @@ def main(argv: list[str] | None = None) -> int:
     engine = InferenceEngine(cfg, params, eos_id=args.eos_id, seed=args.seed,
                              device=device)
     del params
-    reqs = [engine.submit_request(p, args.max_new_tokens) for p in prompts]
-    while engine.has_work():
-        engine.step()
+    # Graceful shutdown: SIGTERM only flips a flag; at the next step
+    # boundary the engine stops admission, sheds the never-started queue
+    # with typed outcomes and finishes every live request.
+    with PreemptionHandler() as handler:
+        reqs = [engine.submit_request(p, args.max_new_tokens) for p in prompts]
+        while engine.has_work():
+            if handler.preempted:
+                print("SIGTERM: draining (admission stopped, live requests finishing)",
+                      flush=True)
+                engine.drain()
+                break
+            engine.step()
+    engine.close()
     for req in reqs:
         print(json.dumps({"rid": req.rid, "outcome": req.outcome,
                           "prompt": req.prompt, "generated": req.generated}))

@@ -7,9 +7,10 @@ prefills the admitted burst in one dispatch and runs one fused decode
 window (W token steps, one host fetch of the [W, B] token block) over
 every live slot, or — with inference.chunked_prefill, while prompt chunks
 are pending — runs ONE mixed step: up to ``prefill_chunk_tokens`` of
-prompt chunks plus one decode token for every live slot. Admission is in
-arrival order. Page pressure preempts the youngest request, which
-re-enters the queue head and recomputes its context on re-admission.
+prompt chunks plus one decode token for every live slot. Admission takes
+the highest priority class first, arrival order within a class. Page
+pressure preempts the lowest class's youngest request, which re-enters
+the queue head and recomputes its context on re-admission.
 
 With inference.prefix_cache a radix tree (``infer/prefix_cache.py``)
 keeps the full pages of finished and preempted requests; an admission maps
@@ -27,23 +28,39 @@ walks the verdicts, emits the accepted prefix plus one bonus/correction
 token, and releases the pages that held only rejected drafts. Token trees
 (``spec_tree_width`` > 1) verify several branches under an ancestor mask
 and compact an accepted off-primary path's KV. Greedy output is token for
-token that of the engine without speculation. Unlike the JAX engine, a
-failed verify or compaction raises: there is no auto-disable ladder
-(``spec_fault_limit`` other than its default raises at construction).
+token that of the engine without speculation.
+
+Lifecycle and fault containment (README "Robustness"; the serving half of
+``runtime/fault.py``): ``submit`` takes a ``deadline_s`` (default
+inference.default_deadline_s) and a ``priority``; with
+inference.queue_limit an over-limit submit sheds the least defensible
+never-run request (``AdmissionQueue.shed_victim``); expired requests are
+reaped at step boundaries; ``cancel``, ``drain`` (the SIGTERM path: shed
+the queue, finish live requests) and ``close`` end requests with typed
+outcomes. Every dispatch runs inside the executor's envelope
+(``infer/executor.py``): a failed dispatch or page allocation fails the
+STEP (counted in ``RobustnessStats``), a prefill fault unwinds its
+admissions, and inference.max_step_faults consecutive failures re-raise.
+Past inference.spec_fault_limit verify faults speculation switches off
+for the engine's life. With inference.nan_guard a slot whose logits go
+non-finite is quarantined: outcome "error:nan", its private pages scrubbed
+and released with no prefix-cache donation. inference.watchdog_timeout_s
+counts stalled steps. A ``FaultInjector`` drives all of it in tests.
+
+``inference.dispatch_fallback`` is inert here: the JAX engine retries a
+failed Pallas dispatch on its XLA reference, but the port's rule is that
+a failing kernel raises and never gives way to its plain version, so the
+port behaves as the JAX engine does with dispatch_fallback=false.
+``dispatch_retries`` other than 1 and ``dispatch_retry_backoff_s`` other
+than 0 shape only that fallback leg and raise at construction.
 
 Not ported yet (each raises at construction when configured):
 constrained decoding, int8 weights, MoE, the host
-tier and long-context paging, decode-window autotune, NaN guard,
+tier and long-context paging, decode-window autotune,
 sliding-window page rolling (a window on every layer; interleaved
-local/global windows are served), ``paged_prefill=false``, the
-shedding and deadline policy (``queue_limit``, ``default_deadline_s``),
-the watchdog (``watchdog_timeout_s``), the tracer and flight recorder
-(``trace``, ``trace_path``, ``flight_dir``) and the metrics sinks
-(``metrics_jsonl``, ``metrics_prom``). The fault ladder's knobs
-(``dispatch_retries``, ``spec_fault_limit``, ``max_step_faults``) have
-defaults that are not None: those defaults are accepted, any other value
-raises. Also absent: request priorities, fault injection and the
-XLA-fallback degradation ladder (a failing kernel raises).
+local/global windows are served), ``paged_prefill=false``, the tracer
+and flight recorder (``trace``, ``trace_path``, ``flight_dir``) and the
+metrics sinks (``metrics_jsonl``, ``metrics_prom``).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises. ``model.kernels`` is
@@ -54,21 +71,24 @@ on the CPU its plain PyTorch version.
 from __future__ import annotations
 
 import itertools
+import logging
 import time
-from collections import deque
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from orion_tpu_torch.config import Config
+from orion_tpu_torch.infer.executor import DispatchExecutor
 from orion_tpu_torch.infer.kv_cache import (
     PageAllocator,
     compact_draft_kv,
     copy_page,
     init_cache,
     pages_per_seq,
+    poison_page,
     rollback_pages,
+    scrub_pages,
 )
 from orion_tpu_torch.infer.prefix_cache import PrefixCache
 from orion_tpu_torch.infer.runner import (
@@ -79,13 +99,16 @@ from orion_tpu_torch.infer.runner import (
     verify_step,
 )
 from orion_tpu_torch.infer.sampling import sample
-from orion_tpu_torch.infer.scheduler import Request
+from orion_tpu_torch.infer.scheduler import AdmissionQueue, Request, in_flight
 from orion_tpu_torch.infer.spec_decode import NgramProposer
-from orion_tpu_torch.metrics import PrefixCacheStats, SpecDecodeStats
+from orion_tpu_torch.metrics import PrefixCacheStats, RobustnessStats, SpecDecodeStats
 from orion_tpu_torch.models.convert import to_device
 from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
+from orion_tpu_torch.runtime.fault import SERVING_KINDS, DispatchFault, Watchdog
+
+log = logging.getLogger("orion_tpu_torch.infer")
 
 
 def resolve_device(device) -> torch.device:
@@ -110,15 +133,11 @@ def _check_supported(cfg: Config) -> None:
         "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
         "inference.long_context": i.long_context,
         "inference.decode_window_autotune": i.decode_window_autotune,
-        "inference.nan_guard": i.nan_guard,
         "a sliding window on every layer (page rolling)": (
             m.sliding_window is not None and m.sliding_window_pattern is None
         ),
         "inference.paged_prefill=false (the gather body needs explicit "
         "positions in K3)": not i.paged_prefill,
-        "inference.queue_limit (shedding)": i.queue_limit is not None,
-        "inference.default_deadline_s": i.default_deadline_s is not None,
-        "inference.watchdog_timeout_s": i.watchdog_timeout_s is not None,
         "inference.trace / trace_path / flight_dir": (
             i.trace or i.trace_path is not None or i.flight_dir is not None
         ),
@@ -126,16 +145,30 @@ def _check_supported(cfg: Config) -> None:
             i.metrics_jsonl is not None or i.metrics_prom is not None
         ),
     }
-    # The fault ladder's knobs: only their defaults, which the engine's
-    # plain raise-on-failure behaviour stands for.
+    # The knobs that only shape the XLA-fallback leg, which the port does
+    # not have (a failing kernel raises): their defaults only.
     ladder = type(i)()
-    for knob in ("dispatch_retries", "spec_fault_limit", "max_step_faults"):
+    for knob in ("dispatch_retries", "dispatch_retry_backoff_s"):
         default = getattr(ladder, knob)
-        unsupported[f"inference.{knob} != {default}"] = getattr(i, knob) != default
+        unsupported[f"inference.{knob} != {default} (the fallback leg)"] = (
+            getattr(i, knob) != default)
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
+        )
+
+
+def _check_injector(injector) -> None:
+    """Refuse a fault schedule holding kinds the port's engine does not
+    consume (the host tier, migration, checkpoint and replica faults)."""
+    if injector is None:
+        return
+    bad = sorted({s.kind for s in injector.specs if s.kind not in SERVING_KINDS})
+    if bad:
+        raise NotImplementedError(
+            f"not ported to orion_tpu_torch yet: fault kinds {', '.join(bad)} "
+            f"(the serving engine consumes {', '.join(SERVING_KINDS)})"
         )
 
 
@@ -155,8 +188,10 @@ class InferenceEngine:
         eos_id: Optional[int] = None,
         seed: int = 0,
         device=None,
+        fault_injector=None,
     ):
         _check_supported(cfg)
+        _check_injector(fault_injector)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mcfg = cfg.model
@@ -200,7 +235,7 @@ class InferenceEngine:
         self.seq_lens = np.zeros(self.max_batch, np.int32)
         self.last_token = np.zeros(self.max_batch, np.int32)
         self.slots: list[Optional[Request]] = [None] * self.max_batch
-        self.waiting: deque[Request] = deque()
+        self.waiting: AdmissionQueue = AdmissionQueue()
         self._just_finished: list[Request] = []
         self._rid = itertools.count()
         self._admit_seq = itertools.count()
@@ -212,6 +247,26 @@ class InferenceEngine:
         self.slot_top_k = np.full(self.max_batch, self.icfg.top_k, np.int32)
         self.slot_top_p = np.full(self.max_batch, self.icfg.top_p, np.float32)
         self.timing = self._zero_timing()
+
+        # -- Fault tolerance (runtime/fault.py; README "Robustness") -------
+        self._injector = fault_injector
+        self.robust = RobustnessStats()
+        self.step_no = 0            # completed step() calls; FaultSpec.step
+        self._consec_failed = 0     # consecutive failed steps
+        self._spec_faults = 0       # verify-path dispatch faults (lifetime)
+        self._spec_disabled = False
+        self._guard = self.icfg.nan_guard
+        self.draining = False       # drain() or close(): admission stopped
+        self._executor = DispatchExecutor(self)
+        # The serving watchdog flags stalls (counted as stalled_steps) and
+        # never aborts: a stalled step fails nothing by itself.
+        self._watchdog: Optional[Watchdog] = None
+        if self.icfg.watchdog_timeout_s is not None:
+            self._watchdog = Watchdog(
+                self.icfg.watchdog_timeout_s,
+                on_stall=lambda elapsed: log.error(
+                    "serving watchdog: step stalled for %.1fs", elapsed),
+            ).start()
 
     @staticmethod
     def _zero_timing() -> dict:
@@ -278,11 +333,24 @@ class InferenceEngine:
         temperature: Optional[float] = None,
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
+        deadline_s: Optional[float] = None,
+        priority: int = 0,
     ) -> int:
-        """Queue a request; returns its id."""
+        """Queue a request; returns its id.
+
+        ``deadline_s`` (seconds from now; default
+        inference.default_deadline_s) bounds the request's life: past it,
+        the request is reaped at the next step boundary with outcome
+        "expired". ``priority`` (higher = more important) orders admission,
+        page-pressure preemption (low classes evict first) and overload
+        shedding. With inference.queue_limit an over-limit submit SHEDS the
+        lowest-priority / nearest-deadline / newest never-run candidate,
+        possibly this very request, with outcome "shed"; the shed request
+        still surfaces from the next step(). After drain() or close() a
+        submit is shed on arrival."""
         return self.submit_request(
             prompt, max_new_tokens, temperature=temperature, top_k=top_k,
-            top_p=top_p,
+            top_p=top_p, deadline_s=deadline_s, priority=priority,
         ).rid
 
     def submit_request(
@@ -293,9 +361,11 @@ class InferenceEngine:
         temperature: Optional[float] = None,
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
+        deadline_s: Optional[float] = None,
+        priority: int = 0,
     ) -> Request:
         """submit() returning the live Request (``.generated`` grows as
-        tokens are accepted; ``.outcome`` is set at the end)."""
+        tokens are accepted; the typed ``.outcome`` is set at the end)."""
         if not len(prompt):
             raise ValueError("empty prompt")
         if temperature is not None and temperature < 0.0:
@@ -333,26 +403,106 @@ class InferenceEngine:
                 f"has {usable}; raise inference.num_pages or lower "
                 f"max_new_tokens"
             )
+        if deadline_s is None:
+            deadline_s = self.icfg.default_deadline_s
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         req = Request(
             rid=next(self._rid), prompt=list(map(int, prompt)),
             max_new_tokens=max_new, temperature=temperature, top_k=top_k,
-            top_p=top_p, t_submit=time.perf_counter(),
+            top_p=top_p, priority=int(priority),
+            deadline=time.monotonic() + deadline_s if deadline_s is not None else None,
+            t_submit=time.perf_counter(),
         )
+        if self.draining:
+            # Admission is stopped: a typed shed, never queued.
+            self._shed(req, "draining")
+            return req
+        qlim = self.icfg.queue_limit
+        if qlim is not None and len(self.waiting) >= qlim:
+            victim = self.waiting.shed_victim(req)
+            self._shed(victim, f"queue full ({qlim})")
+            if victim is not req:
+                self.waiting.remove(victim)
+                self.waiting.append(req)
+            return req
         self.waiting.append(req)
         return req
 
+    def _shed(self, req: Request, why: str) -> None:
+        log.warning("shedding request %d (priority %d): %s", req.rid, req.priority, why)
+        req.done = True
+        req.outcome = "shed"
+        self.robust.shed += 1
+        self._just_finished.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by id; False when it is unknown or already
+        terminal. A waiting request ends at once; an active one is reaped
+        at the next step boundary (pages released, full pages donated to
+        the prefix cache) exactly like a finished request."""
+        for i, r in enumerate(self.waiting):
+            if r.rid == rid:
+                del self.waiting[i]
+                r.done = True
+                r.outcome = "cancelled"
+                self.robust.cancelled += 1
+                self._just_finished.append(r)
+                return True
+        for r in self.slots:
+            if r is not None and r.rid == rid and not r.done:
+                r.done = True
+                r.outcome = "cancelled"
+                self.robust.cancelled += 1
+                return True
+        return False
+
     def step(self) -> list[Request]:
-        """Admit new requests, then run one mixed step (while prompt chunks
-        are pending) or a prefill of the admitted burst and one decode
-        window over every live slot; returns the requests that finished."""
+        """Reap expired and finished requests, admit new ones, then run one
+        mixed step (while prompt chunks are pending) or a prefill of the
+        admitted burst and one decode window over every live slot; returns
+        the requests that reached a typed outcome.
+
+        A DispatchFault or MemoryError fails the STEP, not the process:
+        injected dispatch faults fire before the device call, a prefill
+        fault unwinds its admissions, a grow fault leaves its pages owned,
+        so the state stays consistent and the next step retries. After
+        inference.max_step_faults consecutive failed steps the fault is
+        not transient and is re-raised."""
+        if self._watchdog is not None and self._watchdog.armed:
+            # Refreshed at step START, so idle time between steps never
+            # reads as a stall; arming stays with the step-end heartbeat.
+            self._watchdog.heartbeat()
+        self._reap_expired()
+        # Expired and cancelled slots go before admission budgets.
         self._reap()
-        self._admit()
-        mixed = self.chunked and any(
-            r is not None and r.prefill_pending and not r.done for r in self.slots
-        )
-        if self._mixed_decode() if mixed else self._decode_all():
+        decoded = False
+        try:
+            self._admit()
+            self._maybe_inject_nan()
+            mixed = self.chunked and any(
+                r is not None and r.prefill_pending and not r.done for r in self.slots
+            )
+            decoded = self._mixed_decode() if mixed else self._decode_all()
+            self._consec_failed = 0
+        except (DispatchFault, MemoryError) as e:
+            if isinstance(e, MemoryError):
+                self.robust.pool_faults += 1
+            self.robust.failed_steps += 1
+            self._consec_failed += 1
+            log.error("engine step %d failed (%s); continuing (%d/%d consecutive)",
+                      self.step_no, e, self._consec_failed, self.icfg.max_step_faults)
+            if self._consec_failed >= self.icfg.max_step_faults:
+                raise
+        if decoded:
             self.timing["windows"] += 1
         self.timing["steps"] += 1
+        if self._watchdog is not None:
+            if self._watchdog.stalled:
+                # The watchdog fired during this step: counted, not fatal.
+                self.robust.stalled_steps += 1
+            self._watchdog.heartbeat()
+        self.step_no += 1
         done, self._just_finished = self._just_finished, []
         return done
 
@@ -418,18 +568,53 @@ class InferenceEngine:
         return pages * self.psz
 
     def reset_timing(self) -> dict:
-        """Return and zero ``timing``, with the current decode_window and,
-        with inference.speculative, the speculation counters of
-        ``spec_stats`` (spec_drafted/accepted/rolled_back/emitted,
-        spec_acceptance_rate, verify_steps, verify_slot_steps,
-        spec_tokens_per_verify, spec_gated_steps and the tree counters),
-        which are zeroed too."""
+        """Return and zero ``timing``, with the current decode_window; with
+        inference.speculative the speculation counters of ``spec_stats``
+        (spec_drafted/accepted/rolled_back/emitted, spec_acceptance_rate,
+        verify_steps, verify_slot_steps, spec_tokens_per_verify,
+        spec_gated_steps, the tree counters and spec_disabled_reason,
+        which survives the drain); and always the robustness counters of
+        ``robust`` (shed/expired/cancelled/quarantined requests, dispatch
+        faults, failed, stalled steps, pool faults). Counters are zeroed."""
         out, self.timing = self.timing, self._zero_timing()
         out["decode_window"] = self.decode_window
         if self._spec is not None:
             out.update(self.spec_stats.as_timing())
-            self.spec_stats = SpecDecodeStats()
+            # Disablement is engine-lifetime state, not a window counter.
+            self.spec_stats = SpecDecodeStats(
+                disabled_reason=self.spec_stats.disabled_reason)
+        out.update(self.robust.as_timing())
+        self.robust = RobustnessStats()
         return out
+
+    def drain(self) -> list[Request]:
+        """Graceful shutdown (the SIGTERM path of ``generate``): stop
+        admission, shed the never-run queue with typed outcomes, finish
+        every live or in-flight request (their pages donated to the prefix
+        cache as on normal completion), and return every request that
+        ended during the drain. Ends with the pool fully accounted
+        (assert_page_accounting). Idempotent."""
+        self.draining = True
+        keep = AdmissionQueue()
+        while self.waiting:
+            r = self.waiting.popleft()
+            if in_flight(r):
+                keep.append(r)   # preempted or unwound after running: finish it
+            else:
+                self._shed(r, "draining")
+        self.waiting = keep
+        drained: list[Request] = []
+        while self.has_work():
+            drained.extend(self.step())
+        self.assert_page_accounting()
+        return drained
+
+    def close(self) -> None:
+        """Stop admission for good (a later submit is a typed shed) and the
+        watchdog's thread. Idempotent."""
+        self.draining = True
+        if self._watchdog is not None:
+            self._watchdog.stop()
 
     def assert_page_accounting(self) -> None:
         """The pool invariant: every page's allocator refcount equals its
@@ -454,6 +639,95 @@ class InferenceEngine:
             f"free-list size {self.alloc.free_pages} != {n - 1 - live} "
             f"(pool {n}, live {live})"
         )
+
+    # -- fault containment -------------------------------------------------
+
+    def _note_spec_fault(self, e: Exception) -> None:
+        """Count a verify-path dispatch fault; past inference.spec_fault_limit
+        speculation switches off for the engine's life
+        (SpecDecodeStats.disabled_reason) and decoding goes on through the
+        plain window (K4)."""
+        self._spec_faults += 1
+        log.warning("speculative verify dispatch fault %d/%d: %s",
+                    self._spec_faults, self.icfg.spec_fault_limit, e)
+        if self._spec_faults >= self.icfg.spec_fault_limit and not self._spec_disabled:
+            self._spec_disabled = True
+            self.spec_stats.disabled_reason = (
+                f"auto-disabled after {self._spec_faults} verify dispatch faults")
+            log.error("speculative decoding %s", self.spec_stats.disabled_reason)
+
+    def _maybe_inject_nan(self) -> None:
+        """FaultSpec kind="nan": poison the victim's newest attended PRIVATE
+        page with NaN. The poison flows through the real attention into
+        that slot's logits only (no other slot reads its pages)."""
+        inj = self._injector
+        if inj is None:
+            return
+        spec = inj.take("nan", self.step_no)
+        if spec is None:
+            return
+        cands = [r for r in self.slots
+                 if r is not None and not r.done and (spec.rid is None or r.rid == spec.rid)]
+        if not cands:
+            log.warning("nan injection at step %d found no victim", self.step_no)
+            return
+        req = min(cands, key=lambda r: r.admit_seq)
+        # Walk back from the cursor's page: the newest written position is
+        # always attended, and shared (refcount > 1) prefix pages are other
+        # requests' data.
+        pos = max(int(self.seq_lens[req.slot]) - 1, 0)
+        for i in range(min(pos // self.psz, len(req.pages) - 1), -1, -1):
+            p = req.pages[i]
+            if self.alloc.refcount(p) == 1:
+                log.warning("injecting NaN into page %d of request %d (step %d)",
+                            p, req.rid, self.step_no)
+                poison_page(self.cache, p, n_layers=self.mcfg.n_layers,
+                            num_pages=self.icfg.num_pages)
+                return
+        log.warning("nan injection: request %d has no private page", req.rid)
+
+    def _quarantine(self, req: Request, reason: str) -> None:
+        """Contain a poisoned slot: typed outcome ``error:<reason>``, its
+        private pages SCRUBBED (every page it owns alone, those provisioned
+        ahead for the window included, padded with scratch page 0 as the
+        JAX engine pads) and released with NO prefix-cache donation.
+        Neighbours never read its pages, so their streams are unchanged."""
+        log.error("quarantining request %d (%s)", req.rid, reason)
+        priv = [p for p in req.pages if self.alloc.refcount(p) == 1]
+        if priv:
+            scrub_pages(self.cache, priv + [0] * (self.pages_per_seq - len(priv)),
+                        n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages)
+        req.done = True
+        req.outcome = f"error:{reason}"
+        self.robust.quarantined += 1
+        self._teardown_slot(req, 0)   # n_cached=0: donate nothing
+        self._just_finished.append(req)
+
+    def _quarantine_failed(self, reqs: list[Request], ok: Optional[np.ndarray]) -> list[Request]:
+        """Quarantine the slots whose guard flag is False; the rest."""
+        if ok is None:
+            return reqs
+        for r in reqs:
+            if not ok[r.slot]:
+                self._quarantine(r, "nan")
+        return [r for r in reqs if r.slot is not None]
+
+    def _reap_expired(self) -> None:
+        """Step-boundary deadline sweep: expired requests, waiting or active
+        (mid-prefill or mid-decode), end with outcome "expired"; active
+        ones are reaped with prefix-cache donation as on completion."""
+        now = time.monotonic()
+        for r in self.waiting.sweep_expired(now):
+            r.done = True
+            r.outcome = "expired"
+            self.robust.expired += 1
+            self._just_finished.append(r)
+        for r in self.slots:
+            if (r is not None and not r.done and r.deadline is not None
+                    and now >= r.deadline):
+                r.done = True
+                r.outcome = "expired"
+                self.robust.expired += 1
 
     # -- scheduler internals ----------------------------------------------
 
@@ -518,7 +792,12 @@ class InferenceEngine:
         return self.alloc.free_pages + ev
 
     def _alloc_pages(self, n: int) -> list[int]:
-        """Allocate n pages, evicting LRU prefix-cache pages as needed."""
+        """Allocate n pages, evicting LRU prefix-cache pages as needed. Every
+        page allocation of the engine comes here: the injection point of
+        FaultSpec kind="pool", which admission absorbs by deferring the
+        request and page growth by failing the step."""
+        if self._injector is not None and self._injector.take("pool", self.step_no) is not None:
+            raise MemoryError(f"injected pool exhaustion (step {self.step_no})")
         short = n - self.alloc.free_pages
         if short > 0 and self._pcache is not None:
             self.prefix_stats.evicted_pages += self._pcache.evict(short)
@@ -540,15 +819,20 @@ class InferenceEngine:
         return len(pages), pages, node
 
     def _admit(self) -> None:
-        # Pass 1 (host): claim slots + pages in arrival order, head-of-line
-        # blocking on resources. ``reserved`` carries the headroom earlier
-        # admissions of this burst claimed but have not allocated yet, so
-        # the burst cannot over-commit the pool.
+        # Pass 1 (host): claim slots + pages, highest priority class first,
+        # arrival order within a class (all-default priorities: arrival
+        # order), head-of-line blocking on resources. ``reserved`` carries
+        # the headroom earlier admissions of this burst claimed but have not
+        # allocated yet, so the burst cannot over-commit the pool. No drain
+        # gate: while draining, the queue holds only in-flight work, which
+        # must re-admit to finish.
         psz = self.psz
         admitted: list[tuple[Request, int]] = []
         reserved = 0
         while self.waiting:
-            req = self.waiting[0]
+            idx = max(range(len(self.waiting)),
+                      key=lambda i: (self.waiting[i].priority, -i))
+            req = self.waiting[idx]
             slot = next((i for i, r in enumerate(self.slots) if r is None), None)
             if slot is None:
                 break
@@ -580,39 +864,57 @@ class InferenceEngine:
                     self._pcache.unlock(m_node)
                 break
             reserved += need - n_alloc
-            self.waiting.popleft()
+            del self.waiting[idx]
             req.slot = slot
             req.admit_seq = next(self._admit_seq)
             req.prefix_node = m_node
             req.freed_until = 0
             stats = self.prefix_stats
-            if full:
-                # Whole context cached: no prefill. Copy the last matched
-                # page (the first decode step rewrites its final slot, and
-                # shared pages are immutable) and restart decode at len-1.
-                cow = self._alloc_pages(1)[0]
-                copy_page(self.cache, m_pages[-1], cow, n_layers=self.mcfg.n_layers,
-                          num_pages=self.icfg.num_pages)
-                for p in m_pages[:-1]:
-                    self.alloc.retain(p)
-                req.pages = list(m_pages[:-1]) + [cow]
-                req.n_prefix = n_match - 1
-                stats.hits += 1
-                stats.cached_tokens += len(context) - 1
-                stats.cow_pages += 1
-            elif n_match:
-                fresh = self._alloc_pages(n_alloc)
-                for p in m_pages:
-                    self.alloc.retain(p)
-                req.pages = list(m_pages) + fresh
-                req.n_prefix = n_match
-                stats.hits += 1
-                stats.cached_tokens += n_match * psz
-            else:
-                req.pages = self._alloc_pages(n_alloc)
-                req.n_prefix = 0
-                if self._pcache is not None:
-                    stats.misses += 1
+            # Fresh pages allocate FIRST in every branch: _alloc_pages is
+            # the only fallible op, so a MemoryError leaves nothing to
+            # unwind beyond the claim.
+            try:
+                if full:
+                    # Whole context cached: no prefill. Copy the last matched
+                    # page (the first decode step rewrites its final slot, and
+                    # shared pages are immutable) and restart decode at len-1.
+                    cow = self._alloc_pages(1)[0]
+                    copy_page(self.cache, m_pages[-1], cow, n_layers=self.mcfg.n_layers,
+                              num_pages=self.icfg.num_pages)
+                    for p in m_pages[:-1]:
+                        self.alloc.retain(p)
+                    req.pages = list(m_pages[:-1]) + [cow]
+                    req.n_prefix = n_match - 1
+                    stats.hits += 1
+                    stats.cached_tokens += len(context) - 1
+                    stats.cow_pages += 1
+                elif n_match:
+                    fresh = self._alloc_pages(n_alloc)
+                    for p in m_pages:
+                        self.alloc.retain(p)
+                    req.pages = list(m_pages) + fresh
+                    req.n_prefix = n_match
+                    stats.hits += 1
+                    stats.cached_tokens += n_match * psz
+                else:
+                    req.pages = self._alloc_pages(n_alloc)
+                    req.n_prefix = 0
+                    if self._pcache is not None:
+                        stats.misses += 1
+            except MemoryError as e:
+                # Pool exhaustion at admit: un-claim completely (admit_seq
+                # -1: it never ran, so it stays sheddable) and retry at the
+                # next step.
+                self.robust.pool_faults += 1
+                log.warning("admission of request %d hit pool exhaustion (%s); deferred",
+                            req.rid, e)
+                if m_node is not None:
+                    self._pcache.unlock(m_node)
+                req.prefix_node = None
+                req.slot = None
+                req.admit_seq = -1
+                self.waiting.appendleft(req)
+                break
             self.slots[slot] = req
             icfg = self.icfg
             self.slot_temp[slot] = (
@@ -681,12 +983,26 @@ class InferenceEngine:
         rows = [(r, r.n_prefix * psz, len(r.context) - r.n_prefix * psz,
                  r.pages[r.n_prefix:]) for r in reqs]
         tokens, lengths, pages, pre_lens, pre_pages = self._chunk_arrays(rows, s_pad)
+
+        def run():
+            logits, _ = prefill_step(
+                self.params, self.cache, tokens, lengths, pages,
+                pre_lens, pre_pages if pre_pages.shape[1] else None, cfg=self.mcfg,
+            )
+            return self._sample(logits, reqs)   # the one host fetch
+
         t0 = time.perf_counter()
-        logits, self.cache = prefill_step(
-            self.params, self.cache, tokens, lengths, pages,
-            pre_lens, pre_pages if pre_pages.shape[1] else None, cfg=self.mcfg,
-        )
-        firsts = self._sample(logits, reqs)   # the one host fetch
+        try:
+            firsts = self._executor.run("prefill", run)
+        except DispatchFault:
+            # Unwind the burst's admissions: pages released with nothing
+            # donated (n_cached=0: no KV is trusted) and the requests back
+            # at the queue head in their order, for the next step.
+            for r in reversed(reqs):
+                self._teardown_slot(r, 0)
+                r.freed_until = 0
+                self.waiting.appendleft(r)
+            raise
         t1 = time.perf_counter()
         self.timing["prefill_s"] += t1 - t0
         self.timing["prefill_tokens"] += sum(n for _, _, n, _ in rows)
@@ -789,13 +1105,18 @@ class InferenceEngine:
     def _grow_pages(self, window: Optional[int] = None) -> None:
         """Pre-provision every live slot with pages for the whole upcoming
         decode window (the device writes up to W positions ahead of the
-        host's view; ``window`` is the verify width on a verify step),
-        oldest request first: cached pages are reclaimed first, then the
-        youngest other request is preempted."""
+        host's view; ``window`` is the verify width on a verify step).
+        Provisioning rank: high priority classes first, oldest admission
+        first within a class (all-default priorities: oldest first).
+        Cached pages are reclaimed first; then the last-ranked request of
+        equal or lower priority is preempted. A request whose only other
+        tenants rank in a higher class preempts itself (it never grows at
+        their expense), as the JAX engine does; alone, it raises
+        MemoryError."""
         W = self.decode_window if window is None else window
-        by_age = sorted(
+        by_rank = sorted(
             (r for r in self.slots if r is not None and not r.done),
-            key=lambda r: r.admit_seq,
+            key=lambda r: (-r.priority, r.admit_seq),
         )
 
         def n_need(req):
@@ -804,31 +1125,33 @@ class InferenceEngine:
 
         if self._pcache is not None:
             # The pass's whole shortfall reclaimed in one eviction sweep.
-            short = sum(max(n_need(r) - len(r.pages), 0) for r in by_age)
+            short = sum(max(n_need(r) - len(r.pages), 0) for r in by_rank)
             short -= self.alloc.free_pages
             if short > 0:
                 self.prefix_stats.evicted_pages += self._pcache.evict(short)
-        for req in by_age:
+        for req in by_rank:
             if req.slot is None:
                 continue  # preempted earlier in this pass
             while req.slot is not None and len(req.pages) < n_need(req):
-                if self.alloc.free_pages < 1:
+                while self.alloc.free_pages < 1:
                     # Cached pages go before live requests (a preemption
                     # may donate pages, reclaimed on the next turn).
                     if self._pcache is not None and self._pcache.evict(1):
                         self.prefix_stats.evicted_pages += 1
                         continue
-                    victim = next(
-                        (r for r in reversed(by_age)
-                         if r.slot is not None and r is not req), None,
-                    )
-                    if victim is None:
-                        raise MemoryError(
-                            "KV pool too small for a single request; "
-                            "raise inference.num_pages"
-                        )
-                    self._preempt(victim)
-                    continue
+                    victims = [r for r in by_rank if r.slot is not None and r is not req
+                               and r.priority <= req.priority]
+                    if not victims:
+                        if not any(r.slot is not None and r is not req for r in by_rank):
+                            raise MemoryError(
+                                "KV pool too small for a single request; "
+                                "raise inference.num_pages"
+                            )
+                        self._preempt(req)
+                        break
+                    self._preempt(victims[-1])
+                if req.slot is None:
+                    break   # preempted itself above
                 page = self._alloc_pages(1)[0]
                 self.page_table[req.slot, len(req.pages)] = page
                 req.pages.append(page)
@@ -836,7 +1159,7 @@ class InferenceEngine:
     def _decode_all(self) -> bool:
         """A verify step when some slot drafted (inference.speculative),
         else the plain decode window."""
-        if self._spec is not None:
+        if self._spec is not None and not self._spec_disabled:
             live = [r for r in self.slots if r is not None and not r.done]
             drafts = self._propose_drafts(live)
             if drafts is not None:
@@ -928,10 +1251,21 @@ class InferenceEngine:
         return tokens, lens, tree_kw
 
     @staticmethod
-    def _fetch_verdicts(acc: torch.Tensor, alt: torch.Tensor):
-        """The verify step's one host fetch: (accept bool [B, W], alt)."""
-        both = torch.stack([acc.to(torch.int32), alt.to(torch.int32)]).cpu().numpy()
-        return both[0].astype(bool), both[1]
+    def _fetch_verdicts(acc: torch.Tensor, alt: torch.Tensor, ok: Optional[torch.Tensor]):
+        """The verify step's one host fetch: (accept bool [B, W], alt, and
+        the guard's ok [B] bool or None)."""
+        rows = [acc.to(torch.int32), alt.to(torch.int32)]
+        if ok is not None:
+            rows.append(ok[:, None].expand_as(acc).to(torch.int32))
+        both = torch.stack(rows).cpu().numpy()
+        return both[0].astype(bool), both[1], both[2, :, 0].astype(bool) if ok is not None else None
+
+    def _live_mask(self, reqs: list[Request]) -> torch.Tensor:
+        """[B] bool on the device: the slots of ``reqs``."""
+        mask = np.zeros(self.max_batch, bool)
+        for r in reqs:
+            mask[r.slot] = True
+        return torch.from_numpy(mask).to(self.device)
 
     def _verify_all(self, drafts: dict[int, Any]) -> bool:
         """One verify dispatch for every live slot (runner.verify_step):
@@ -948,20 +1282,27 @@ class InferenceEngine:
             return self._decode_window_all()
         tokens, lens, tree_kw = self._verify_rows(active, drafts)
         dev = self.device
+        if self._guard:
+            tree_kw.update(active=self._live_mask(active), nan_guard=True)
+
+        def run():
+            out = verify_step(
+                self.params, self.cache, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(lens).to(dev),
+                torch.from_numpy(self.page_table).to(dev), self._gen, cfg=self.mcfg,
+                max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active), **tree_kw,
+            )
+            return self._fetch_verdicts(out[0], out[1], out[2] if self._guard else None)
+
         t0 = time.perf_counter()
-        acc, alt, self.cache = verify_step(
-            self.params, self.cache, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(lens).to(dev),
-            torch.from_numpy(self.page_table).to(dev), self._gen, cfg=self.mcfg,
-            max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active), **tree_kw,
-        )
-        acc, alt = self._fetch_verdicts(acc, alt)
+        acc, alt, ok = self._executor.run("verify", run)
         dt = time.perf_counter() - t0
         tm = self.timing
         tm["decode_s"] += dt
         tm["verify_s"] += dt
         tm["verify_steps"] += 1
         tm["decode_slot_steps"] += len(active)
+        active = self._quarantine_failed(active, ok)
         self._accept_verified(active, tokens, lens, drafts, acc, alt)
         self._reap()
         return True
@@ -1040,8 +1381,10 @@ class InferenceEngine:
         path plus the last node's ``alt``. A path off the primary chain
         lies at non-contiguous verify columns: one compaction over all
         slots (kv_cache.compact_draft_kv) moves its KV to cursor-contiguous
-        positions before anything is emitted; a failure raises. Then the
-        emission and rollback of the chain walk."""
+        positions before anything is emitted; a failure is a dispatch fault
+        of path "compact" (counted toward the speculation-fault limit) and
+        fails the step with nothing emitted. Then the emission and rollback
+        of the chain walk."""
         st = self.spec_stats
         st.verify_steps += 1
         st.verify_slot_steps += len(active)
@@ -1071,7 +1414,8 @@ class InferenceEngine:
                 moves += len(off)
         if moves:
             dev = self.device
-            compact_draft_kv(
+            self._executor.contain(
+                "compact", compact_draft_kv,
                 self.cache, torch.from_numpy(self.page_table).to(dev),
                 torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(src).to(dev),
                 n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages,
@@ -1106,19 +1450,31 @@ class InferenceEngine:
         W = self.decode_window
         mask = np.array([r is not None and not r.done for r in self.slots], bool)
         dev = self.device
+
+        def run():
+            out = decode_window(
+                self.params, self.cache,
+                torch.from_numpy(self.last_token).to(dev),
+                torch.from_numpy(self.seq_lens).to(dev),
+                torch.from_numpy(self.page_table).to(dev),
+                torch.from_numpy(mask).to(dev),
+                self._gen, n_steps=W, cfg=self.mcfg,
+                max_seq_len=self.icfg.max_seq_len, nan_guard=self._guard,
+                **self._sampling_kw(active),
+            )
+            if not self._guard:
+                return out[0].cpu().numpy(), None   # [W, B]: the window's one fetch
+            # The guard's flags ride the same fetch as a last row.
+            both = torch.cat([out[0], out[1][None].to(out[0].dtype)]).cpu().numpy()
+            return both[:-1], both[-1].astype(bool)
+
         t0 = time.perf_counter()
-        toks, self.cache = decode_window(
-            self.params, self.cache,
-            torch.from_numpy(self.last_token).to(dev),
-            torch.from_numpy(self.seq_lens).to(dev),
-            torch.from_numpy(self.page_table).to(dev),
-            torch.from_numpy(mask).to(dev),
-            self._gen, n_steps=W, cfg=self.mcfg,
-            max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active),
-        )
-        tokens = toks.cpu().numpy()   # [W, B]: the window's one host fetch
+        tokens, ok = self._executor.run("decode", run)
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_slot_steps"] += W * len(active)
+        # A poisoned slot's whole window is suspect: quarantined, its
+        # tokens dropped (no other slot reads its pages).
+        active = self._quarantine_failed(active, ok)
         for j in range(W):
             for req in active:
                 if req.done:
@@ -1136,7 +1492,7 @@ class InferenceEngine:
         verify rows (runner.mixed_verify_step); prompt-phase slots never
         draft. Returns True iff a decode slot advanced."""
         drafts = None
-        if self._spec is not None:
+        if self._spec is not None and not self._spec_disabled:
             drafts = self._propose_drafts(
                 [r for r in self.slots
                  if r is not None and not r.done and not r.prefill_pending])
@@ -1179,30 +1535,50 @@ class InferenceEngine:
             drafts = None   # provisioning preempted every drafter
         dev = self.device
         tm = self.timing
+        guard = {}
+        if self._guard:
+            guard = dict(active=self._live_mask(dec), nan_guard=True)
         t0 = time.perf_counter()
         if drafts is not None:
             vtok, vlens, tree_kw = self._verify_rows(dec, drafts)
-            acc, alt, p_logits, self.cache = mixed_verify_step(
-                self.params, self.cache, torch.from_numpy(vtok).to(dev),
-                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(vlens).to(dev),
-                torch.from_numpy(d_pt).to(dev), *arrays, self._gen, cfg=self.mcfg,
-                max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec), **tree_kw,
-            )
-            acc, alt = self._fetch_verdicts(acc, alt)   # the one fetch
+
+            def run():
+                out = mixed_verify_step(
+                    self.params, self.cache, torch.from_numpy(vtok).to(dev),
+                    torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(vlens).to(dev),
+                    torch.from_numpy(d_pt).to(dev), *arrays, self._gen, cfg=self.mcfg,
+                    max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec), **tree_kw,
+                    **guard,
+                )
+                ok = out[2] if self._guard else None
+                return (*self._fetch_verdicts(out[0], out[1], ok), out[-2])   # the one fetch
+
+            acc, alt, ok, p_logits = self._executor.run("mixed_verify", run)
             tm["verify_steps"] += 1
             tm["mixed_verify_steps"] += 1
         else:
-            toks, p_logits, self.cache = mixed_step(
-                self.params, self.cache,
-                torch.from_numpy(self.last_token).to(dev),
-                torch.from_numpy(self.seq_lens).to(dev),
-                torch.from_numpy(d_pt).to(dev), *arrays,
-                # No live decode row: draw nothing from the engine's stream,
-                # so a sampled lone request is the same chunked and unchunked.
-                self._gen if dec else None,
-                cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec),
-            )
-            d_out = toks.cpu().numpy() if toks is not None else None   # the one fetch
+            def run():
+                out = mixed_step(
+                    self.params, self.cache,
+                    torch.from_numpy(self.last_token).to(dev),
+                    torch.from_numpy(self.seq_lens).to(dev),
+                    torch.from_numpy(d_pt).to(dev), *arrays,
+                    # No live decode row: draw nothing from the engine's
+                    # stream, so a sampled lone request is the same chunked
+                    # and unchunked.
+                    self._gen if dec else None,
+                    cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len,
+                    **self._sampling_kw(dec), **guard,
+                )
+                toks, p_logits = out[0], out[-2]
+                if toks is None:
+                    return None, None, p_logits
+                if not self._guard:
+                    return toks.cpu().numpy(), None, p_logits   # the one fetch
+                both = torch.stack([toks, out[1].to(toks.dtype)]).cpu().numpy()
+                return both[0], both[1].astype(bool), p_logits
+
+            d_out, ok, p_logits = self._executor.run("mixed", run)
         real = sum(k for _, k in chunks)
         tm["mixed_steps"] += 1
         tm["prefill_chunks"] += len(chunks)
@@ -1228,6 +1604,9 @@ class InferenceEngine:
                 r.prefill_pending = False
                 self._first_token(r, int(first), t1)
         tm["mixed_s"] += time.perf_counter() - t0
+        # The guard covers decode rows only; a prompt-phase slot is caught
+        # at its first guarded decode step.
+        dec = self._quarantine_failed(dec, ok)
         if drafts is not None:
             self._accept_verified(dec, vtok, vlens, drafts, acc, alt)
         else:

@@ -20,7 +20,9 @@ presence of ``k_scale`` is what marks an int8 pool.
 
 Speculative decoding adds ``rollback_pages`` (release the pages a verify
 step provisioned past the accepted cursor) and ``compact_draft_kv`` (move
-an accepted off-primary tree path's KV to cursor-contiguous positions).
+an accepted off-primary tree path's KV to cursor-contiguous positions);
+the NaN quarantine adds ``poison_page`` (its fault injection) and
+``scrub_pages`` (zero a quarantined request's pages before reuse).
 """
 
 from __future__ import annotations
@@ -86,6 +88,33 @@ def copy_page(cache: Cache, src: int, dst: int, *, n_layers: int, num_pages: int
     base = torch.arange(n_layers, device=cache["k"].device) * num_pages
     for arr in cache.values():
         arr[base + dst] = arr[base + src]
+
+
+def poison_page(cache: Cache, page: int, *, n_layers: int, num_pages: int) -> None:
+    """Overwrite one pool page's K rows (all layers) with NaN, in place: the
+    fault-injection primitive behind the NaN quarantine (FaultSpec
+    kind="nan"). Real NaNs then flow through the real attention into the
+    one slot that owns the page. An int8 pool cannot hold a NaN, so its
+    float32 ``k_scale`` rows are poisoned instead (the dequantized K goes
+    NaN, with the same reach)."""
+    target = "k_scale" if "k_scale" in cache else "k"
+    arr = cache[target]
+    rows = torch.arange(n_layers, device=arr.device) * num_pages + int(page)
+    arr[rows] = float("nan")
+
+
+def scrub_pages(cache: Cache, pages, *, n_layers: int, num_pages: int) -> None:
+    """Zero the given pool pages' rows in every cache tensor (all layers),
+    in place: the quarantine scrubs a poisoned request's private pages
+    before they return to the free list, so no stale NaN reaches a later
+    tenant (a masked column's zero probability times a NaN value is NaN).
+    ``pages`` may repeat and hold scratch page 0 (padding); zeroing scratch
+    is harmless."""
+    dev = cache["k"].device
+    p = torch.as_tensor(list(pages), dtype=torch.long).to(dev)
+    rows = (torch.arange(n_layers, device=dev)[:, None] * num_pages + p[None, :]).reshape(-1)
+    for arr in cache.values():
+        arr[rows] = 0
 
 
 class PageAllocator:

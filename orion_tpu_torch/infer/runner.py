@@ -23,6 +23,12 @@ Counterpart of ``orion_tpu/infer/runner.py``:
     (``ops.ragged_paged_attention``) writes the drafts' K/V in place.
     ``mixed_verify_step`` is ``mixed_step`` with verify rows for decode rows.
 
+With ``nan_guard`` (inference.nan_guard) the decode, verify and mixed
+programs also return a per-slot ``ok`` [B] bool, "the slot's live logits
+were finite", which the engine fetches with the step's tokens (no second
+host round trip) and uses to quarantine a poisoned slot. Guard off, the
+programs are op for op what they are without it.
+
 The pool is one flat [L*num_pages, K, psz, H] tensor per K and V (int8,
 with float32 scale pools, under inference.kv_quant), updated in place:
 whole-prompt prefill by indexed assignment at rows ``l*num_pages + page``
@@ -240,18 +246,24 @@ def decode_window(
     temperature=0.0,
     top_k=0,
     top_p=1.0,
-) -> tuple[torch.Tensor, Cache]:
+    nan_guard: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """``n_steps`` fused decode+sample steps -> (tokens [W, B] int32, cache).
 
     Slots advance only while ``active`` and inside the context window;
     frozen slots clamp their write position to max_seq_len - 1 (their own
     last slot — the host has already finished them). Slots that finish
     mid-window keep decoding garbage the host discards.
+
+    With ``nan_guard`` the return is ``(tokens, ok, cache)``: ``ok`` [B]
+    bool is per slot "every live inner step's logits were finite"; the
+    engine quarantines the slots that trip it. Guard off adds no op.
     """
     from orion_tpu_torch.infer.sampling import sample
 
     tok = tokens.to(torch.int32)
     sl = seq_lens.to(torch.int32)
+    ok = torch.ones_like(active) if nan_guard else None
     out = []
     for _ in range(n_steps):
         act = active & (sl < max_seq_len)
@@ -261,7 +273,11 @@ def decode_window(
                       top_k=top_k, top_p=top_p)
         tok = torch.where(act, toks, tok)
         sl = sl + act.to(sl.dtype)
+        if nan_guard:
+            ok = ok & (torch.isfinite(logits).all(-1) | ~act)
         out.append(toks)
+    if nan_guard:
+        return torch.stack(out), ok, cache
     return torch.stack(out), cache
 
 
@@ -285,7 +301,9 @@ def mixed_step(
     temperature=0.0,
     top_k=0,
     top_p=1.0,
-) -> tuple[Optional[torch.Tensor], torch.Tensor, Cache]:
+    active: Optional[torch.Tensor] = None,   # [B] bool: slot DECODING (guard)
+    nan_guard: bool = False,
+) -> tuple[Optional[torch.Tensor], ...]:
     """One unified prefill-chunk + decode step (inference.chunked_prefill)
     -> (decode tokens [B] or None, chunk logits [Nc, V], cache).
 
@@ -297,6 +315,11 @@ def mixed_step(
     ``decode_window``'s. The decode sample is drawn only when
     ``generator`` is given (the engine passes None when no decode row is
     live, so a step without one draws nothing from its stream).
+
+    With ``nan_guard`` the return is ``(tokens, ok, chunk logits, cache)``:
+    ``ok`` [B] is "the decode row's logits are finite, or the slot is not
+    ``active``". As in the JAX package, only decode rows are guarded: a
+    prompt-phase slot is caught at its first guarded decode step.
     """
     from orion_tpu_torch.infer.sampling import sample
 
@@ -310,11 +333,17 @@ def mixed_step(
         xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg)
         xd = _decode_layer(xd, cache, bp, layer, dctx, cfg)
     toks = None
+    ok = torch.ones_like(active) if nan_guard else None
     if generator is not None:
         d_logits = unembed(params, xd, cfg)[:, 0]
         toks = sample(d_logits, generator, temperature=temperature, top_k=top_k,
                       top_p=top_p)
-    return toks, _prefill_logits(params, xp, p_lengths, cfg), cache
+        if nan_guard:
+            ok = torch.isfinite(d_logits).all(-1) | ~active
+    p_logits = _prefill_logits(params, xp, p_lengths, cfg)
+    if nan_guard:
+        return toks, ok, p_logits, cache
+    return toks, p_logits, cache
 
 
 def _verify_ctx(
@@ -390,6 +419,15 @@ def _draft_next(tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
                        torch.full_like(shifted, -1))
 
 
+def _verify_ok(logits: torch.Tensor, lens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """[B] bool: every real position of an active row has finite logits
+    (the NaN guard of the verify programs; other rows pass)."""
+    W = logits.shape[1]
+    steps = torch.arange(W, device=logits.device)[None, :]
+    valid = active[:, None] & (steps < lens.to(logits.device)[:, None])
+    return torch.where(valid, torch.isfinite(logits).all(-1), True).all(-1)
+
+
 def _verify_sample(logits, tokens, lens, generator, parents, sampling):
     from orion_tpu_torch.infer.sampling import spec_verify_sample, spec_verify_sample_tree
 
@@ -417,15 +455,19 @@ def verify_step(
     depths: Optional[torch.Tensor] = None,     # [B, W] tree depth per column
     parents: Optional[torch.Tensor] = None,    # [B, W] parent column per column
     tree_mask: Optional[torch.Tensor] = None,  # [B, W] packed ancestor words
-) -> tuple[torch.Tensor, torch.Tensor, Cache]:
+    active: Optional[torch.Tensor] = None,     # [B] bool: live decode slot (guard)
+    nan_guard: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Score every live slot's drafts in ONE forward pass (speculative
     decoding's verify half) -> ``(accept [B, W] bool, alt [B, W] int32,
     cache)``, the verdicts of ``sampling.spec_verify_sample`` (chain) or
     ``spec_verify_sample_tree`` (token tree, ``depths``/``parents``/
     ``tree_mask`` given). The drafts' K/V is written into the pool as the
-    layers go; the engine rewinds rejected positions afterwards. The
-    counterpart of the JAX runner's ``verify_step`` without the NaN guard
-    and constraint masks."""
+    layers go; the engine rewinds rejected positions afterwards. With
+    ``nan_guard`` the return is ``(accept, alt, ok, cache)``, ``ok`` [B]
+    "every real position of an ``active`` row has finite logits". The
+    counterpart of the JAX runner's ``verify_step`` without the
+    constraint masks."""
     W = tokens.shape[1]
     ctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
                       depths=depths, tree_mask=tree_mask)
@@ -435,6 +477,8 @@ def verify_step(
     logits = unembed(params, x, cfg)                                # [B, W, V]
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
                                  dict(temperature=temperature, top_k=top_k, top_p=top_p))
+    if nan_guard:
+        return accept, alt, _verify_ok(logits, lens, active), cache
     return accept, alt, cache
 
 
@@ -462,13 +506,17 @@ def mixed_verify_step(
     depths: Optional[torch.Tensor] = None,
     parents: Optional[torch.Tensor] = None,
     tree_mask: Optional[torch.Tensor] = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, Cache]:
+    active: Optional[torch.Tensor] = None,     # [B] bool: slot DECODING (guard)
+    nan_guard: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """``mixed_step`` with the decode half replaced by the verify body:
     speculative decoding composed with chunked prefill -> ``(accept,
-    alt, chunk logits [Nc, V], cache)``. Each layer runs the chunk rows
-    through the prefill body (K9 or K3) and the verify rows through
-    ``_verify_layer`` (K10) over the same pool; they touch disjoint pages,
-    as mid-prefill slots' verify rows are parked on scratch page 0."""
+    alt, chunk logits [Nc, V], cache)``, with ``nan_guard`` ``(accept,
+    alt, ok, chunk logits, cache)`` (``ok`` as ``verify_step``'s, over
+    the verify rows only). Each layer runs the chunk rows through the
+    prefill body (K9 or K3) and the verify rows through ``_verify_layer``
+    (K10) over the same pool; they touch disjoint pages, as mid-prefill
+    slots' verify rows are parked on scratch page 0."""
     W = tokens.shape[1]
     pctx = _prefill_ctx(cache, p_tokens, p_lengths, p_pages, p_prefix_lens,
                         p_prefix_pages if p_prefix_pages.shape[1] else None, cfg)
@@ -482,4 +530,7 @@ def mixed_verify_step(
     logits = unembed(params, xv, cfg)
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
                                  dict(temperature=temperature, top_k=top_k, top_p=top_p))
-    return accept, alt, _prefill_logits(params, xp, p_lengths, cfg), cache
+    p_logits = _prefill_logits(params, xp, p_lengths, cfg)
+    if nan_guard:
+        return accept, alt, _verify_ok(logits, lens, active), p_logits, cache
+    return accept, alt, p_logits, cache

@@ -1,14 +1,17 @@
-"""Scheduler face of the serving engine: the ``Request`` record.
+"""Scheduler face of the serving engine: the ``Request`` record and the
+admission queue's policy.
 
 Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core with
-the prefix-cache and chunked-prefill state; priorities, deadlines,
-overload shedding and host-tier state are not ported yet (the engine
-admits in arrival order from a plain deque and preempts the youngest
-request).
+the prefix-cache and chunked-prefill state, request priorities and
+deadlines, the typed outcomes, and ``AdmissionQueue`` (which request an
+over-limit submit sheds; the step-boundary deadline sweep of the queue).
+The host-tier, router and grammar-constraint state are not ported.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -23,7 +26,17 @@ class Request:
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     top_p: Optional[float] = None
-    # "" while live, then "completed".
+    # SLO class (higher = more important): admission and page-pressure
+    # preemption prefer high-priority requests; overload shedding evicts
+    # the lowest class first.
+    priority: int = 0
+    # Absolute time.monotonic() deadline (None = none). Expired requests
+    # are reaped at step boundaries with a typed "expired" outcome.
+    deadline: Optional[float] = None
+    # Typed terminal outcome: "" while live, then exactly one of
+    # "completed" | "expired" | "cancelled" | "shed" | "shed:<kind>" |
+    # "error:<kind>" ("error:nan": the NaN quarantine). Every submitted
+    # request surfaces from step() with an outcome.
     outcome: str = ""
     # Host clock (time.perf_counter) at submit and at the first token.
     t_submit: float = 0.0
@@ -32,7 +45,7 @@ class Request:
     slot: Optional[int] = None
     pages: list[int] = field(default_factory=list)
     done: bool = False
-    admit_seq: int = -1   # admission order; preemption evicts the youngest
+    admit_seq: int = -1   # admission order; -1 until first admitted
     freed_until: int = 0  # logical pages below this are freed (SWA rolling)
     # Prefix-cache state: the first n_prefix entries of ``pages`` are
     # SHARED (refcounted, immutable) cache pages; prefix_node pins their
@@ -51,3 +64,46 @@ class Request:
         """Tokens whose KV must be in cache: prompt + everything generated
         (what a re-prefill after preemption runs on)."""
         return self.prompt + self.generated
+
+
+def in_flight(req: Request) -> bool:
+    """A queued request that has RUN: admitted at least once and not since
+    un-claimed (admit_seq >= 0; preemption and prefill-fault unwinds keep
+    it), or carrying generated tokens from an earlier residency. In-flight
+    requests are exempt from overload shedding and are finished, not shed,
+    by drain()."""
+    return req.admit_seq >= 0 or bool(req.generated)
+
+
+class AdmissionQueue(deque):
+    """The engine's wait queue plus its admission-side policy: a deque
+    (appendleft, index deletion and iteration work as on any deque) with
+    the two decisions the scheduler face owns, ``shed_victim`` and
+    ``sweep_expired``."""
+
+    def shed_victim(self, incoming: Request) -> Request:
+        """The least defensible overload-shed candidate among the queued
+        never-run requests plus ``incoming``: lowest priority first, then
+        the nearest deadline, then the newest arrival (possibly
+        ``incoming`` itself). In-flight requests are never victims."""
+        return min(
+            [r for r in self if not in_flight(r)] + [incoming],
+            key=lambda r: (
+                r.priority,
+                r.deadline if r.deadline is not None else float("inf"),
+                -r.rid,
+            ),
+        )
+
+    def sweep_expired(self, now: Optional[float] = None) -> list[Request]:
+        """Remove and return every queued request whose deadline has
+        passed (the engine marks them "expired")."""
+        if now is None:
+            now = time.monotonic()
+        if not any(r.deadline is not None and now >= r.deadline for r in self):
+            return []
+        expired = [r for r in self if r.deadline is not None and now >= r.deadline]
+        keep = [r for r in self if not (r.deadline is not None and now >= r.deadline)]
+        self.clear()
+        self.extend(keep)
+        return expired

@@ -1,12 +1,12 @@
-"""Step metrics, throughput and MFU for the training loop; prefix-cache
-and speculative-decoding counters for serving.
+"""Step metrics, throughput and MFU for the training loop; prefix-cache,
+speculative-decoding and robustness counters for serving.
 
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
-and ``Stopwatch``; and the serving engine's ``PrefixCacheStats`` and
-``SpecDecodeStats``. MFU = model FLOPs per token (``ModelConfig
-.flops_per_token``: 6 N plus the attention term) x tokens / (step time x
-devices x the card's peak bf16 rate), the rate from
+and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``,
+``SpecDecodeStats`` and ``RobustnessStats``. MFU = model FLOPs per token
+(``ModelConfig.flops_per_token``: 6 N plus the attention term) x tokens /
+(step time x devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
 """
 
@@ -220,6 +220,57 @@ class SpecDecodeStats:
             "spec_compactions": self.compactions,
             "spec_compacted_tokens": self.compacted_tokens,
             "spec_disabled_reason": self.disabled_reason or "",
+        }
+
+
+@dataclass
+class RobustnessStats:
+    """Fault-tolerance counters, owned by InferenceEngine and drained
+    through ``reset_timing``; a copy of ``orion_tpu/metrics.py``'s, with
+    the same fields and keys.
+
+    Request outcomes: ``shed`` (bounded-queue overload or drain: never
+    admitted), ``expired`` (deadline passed; reaped at a step boundary),
+    ``cancelled`` (cancel(rid)), ``quarantined`` (non-finite logits; the
+    request errored, neighbours unaffected). Every terminal request
+    carries exactly one typed outcome.
+
+    Fault episodes: ``dispatch_faults`` counts dispatch attempts that
+    raised (injected or real), ``failed_steps`` engine steps abandoned
+    after a dispatch or page allocation failed (the engine continues),
+    ``stalled_steps`` steps the watchdog flagged, ``pool_faults`` page-
+    allocation failures absorbed at admit or grow. ``dispatch_retries``,
+    ``dispatch_fallbacks`` and ``shed_context`` keep the JAX package's key
+    set: the port has no fallback path (a failing kernel raises) and no
+    long-context feasibility shed, so they stay 0.
+    """
+
+    shed: int = 0
+    shed_context: int = 0
+    expired: int = 0
+    cancelled: int = 0
+    quarantined: int = 0
+    dispatch_faults: int = 0
+    dispatch_retries: int = 0
+    dispatch_fallbacks: int = 0
+    failed_steps: int = 0
+    stalled_steps: int = 0
+    pool_faults: int = 0
+
+    def as_timing(self) -> dict[str, float]:
+        """Flatten into the engine's reset_timing dict."""
+        return {
+            "shed_requests": self.shed,
+            "shed_context_requests": self.shed_context,
+            "expired_requests": self.expired,
+            "cancelled_requests": self.cancelled,
+            "quarantined_requests": self.quarantined,
+            "dispatch_faults": self.dispatch_faults,
+            "dispatch_retries": self.dispatch_retries,
+            "dispatch_fallbacks": self.dispatch_fallbacks,
+            "failed_steps": self.failed_steps,
+            "stalled_steps": self.stalled_steps,
+            "pool_faults": self.pool_faults,
         }
 
 

@@ -131,15 +131,14 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "inference.nan_guard=true", "inference.decode_window_autotune=true",
+    "inference.decode_window_autotune=true",
     "inference.host_tier_bytes=1048576", "inference.constrained=true",
-    "model.weight_quant=int8", "inference.queue_limit=4",
-    "inference.default_deadline_s=5.0", "inference.watchdog_timeout_s=30.0",
+    "model.weight_quant=int8",
     "inference.trace=true", "inference.trace_path=/nonexistent/trace.json",
     "inference.flight_dir=/nonexistent/flight",
     "inference.metrics_jsonl=/nonexistent/m.jsonl",
     "inference.metrics_prom=/nonexistent/m.prom", "inference.dispatch_retries=2",
-    "inference.spec_fault_limit=5", "inference.max_step_faults=8",
+    "inference.dispatch_retry_backoff_s=0.5",
 ])
 def test_unported_features_raise(override):
     _, _, cfg, tp = _pair(overrides=[override])
@@ -147,9 +146,27 @@ def test_unported_features_raise(override):
         InferenceEngine(cfg, tp, device="cpu")
 
 
+@pytest.mark.parametrize("override", [
+    "inference.nan_guard=true", "inference.queue_limit=4",
+    "inference.default_deadline_s=5.0", "inference.watchdog_timeout_s=30.0",
+    "inference.spec_fault_limit=5", "inference.max_step_faults=8",
+])
+def test_fault_knobs_construct_and_serve(override):
+    """The lifecycle and fault knobs build an engine that serves one prompt
+    as the JAX engine does with the same knob."""
+    jcfg, jp, cfg, tp = _pair(overrides=[override])
+    prompt = [5, 3, 9, 250, 17]
+    j_eng = JEngine(jcfg, jp)
+    want = j_eng.generate([prompt], 8)
+    j_eng.close()
+    eng = InferenceEngine(cfg, tp, device="cpu")
+    assert eng.generate([prompt], 8) == want
+    eng.close()
+
+
 def test_fault_ladder_defaults_construct():
-    # The fault ladder's knobs have non-None defaults; set explicitly to
-    # them, they are accepted (any other value raises, above).
+    # The fallback leg's knobs at their defaults are accepted (any other
+    # value raises, above); the ladder's own knobs at theirs too.
     _, _, cfg, tp = _pair(overrides=["inference.dispatch_retries=1",
                                      "inference.spec_fault_limit=3",
                                      "inference.max_step_faults=4"])
