@@ -66,7 +66,10 @@ exits non-zero without printing a result:
            cancel of a waiting and an active request, a deadline set to now,
            a pool fault at a page growth, drain() with never-started
            requests queued) and a max_step_faults run that must re-raise:
-           outcomes, streams and RobustnessStats equal on cuda and cpu
+           outcomes, streams and RobustnessStats equal on cuda and cpu; then
+           grammar-constrained decoding (a forced regex, a JSON schema and an
+           unconstrained neighbour, chain speculation): streams and
+           ConstraintStats counters equal on cuda and cpu
   serve    llama3-8b-infer at full width and depth, seeded random bf16
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
@@ -88,6 +91,18 @@ exits non-zero without printing a result:
            finishes, wave 2 verifies (and accepts drafts in A), K10's
            branches and its merge launch (K4 and its merge in A0 and B),
            the page accounting holds
+  serve_constrained  llama3-8b-infer at full width and depth (the serve's
+           weights) with grammar-constrained decoding, eos V - 1: C1, 16
+           greedy requests of 100-1000 prompt tokens, 4 under JSON schemas
+           and 4 under regexes, bf16 pools and the prefix cache; A0 the same
+           prompts unconstrained with constrained=false; C2 = C1 with int8
+           pools, chunked prefill and tree speculation of width 2; C0, 8
+           unconstrained requests under constrained=true, byte-identical to
+           constrained=false. Every constrained stream re-walks its grammar
+           from the start state through a fresh compile (a completion ends
+           accepting), no fault is contained, K10 (C1) and K10-int8 (C2)
+           launch; prints each pattern's compile seconds at V = 128256, the
+           mask build and copy times per step and decode tokens/s beside A0
   serve_faults  llama3-8b-infer at full width and depth (the serve's
            weights), the lifecycle and fault containment in four drives:
            F1 (bf16 pool, NaN guard, 8 slots, queue of 8: the rule's two
@@ -99,7 +114,13 @@ exits non-zero without printing a result:
            speculation off, K10 stops and K4 goes on) and F4 (F1 with the
            NaN victim cancelled instead: every stream completed in both
            byte-identical to F1's). Each drive prints its outcome counts,
-           RobustnessStats, launches, wall seconds and the card
+           RobustnessStats, launches, wall seconds and the card. First, the
+           sticky-error row: a tiny-llama bf16 engine in a subprocess, a
+           device-side assert launched inside a decode step after its
+           kernels (sticky_child); the step must fail inside the envelope,
+           every step after it too, counted once each, the engine must
+           re-raise after inference.max_step_faults failed steps, and no
+           token may be appended after the fault
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -124,7 +145,8 @@ exits non-zero without printing a result:
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
 
-serve, serve_chunked and serve_spec, which inject no fault, require that
+serve, serve_chunked, serve_spec and serve_constrained, which inject no
+fault, require that
 the engine contained none (no dispatch fault, failed step or pool fault):
 a real kernel failure the envelope absorbed must not pass. Then a
 ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line, and
@@ -148,7 +170,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
-          "serve_spec", "serve_faults", "train_parity", "train", "timing")
+          "serve_spec", "serve_constrained", "serve_faults", "train_parity", "train",
+          "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -1719,6 +1742,7 @@ def phase_parity():
     out = {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
     out.update({f"spec_{run}": parity_spec(params, run) for run in SPEC_PARITY})
     out["faults"] = parity_faults(params)
+    out["constrained"] = parity_constrained(params)
     return out
 
 
@@ -1929,6 +1953,52 @@ def parity_spec(params, run):
         raise AssertionError(f"parity spec {run}: nothing verified on {kernel}: {st}")
     emit({"phase": "parity", "preset": "tiny-llama", "features": f"speculative_{run}",
           "equal": True, "spec_stats": st, "cuda_streams": got, "launches": launches})
+    return launches
+
+
+def parity_constrained(params):
+    """tiny-llama float32 with grammar-constrained decoding (chain
+    speculation, decode window 1): a forced regex, a JSON schema and an
+    unconstrained neighbour on cuda and on cpu; streams, outcomes and the
+    ConstraintStats counters (the two times aside) must be equal. Returns
+    the cuda run's launches."""
+    import dataclasses
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.constrain import ConstraintSpec, cache_clear
+    from orion_tpu_torch.infer import InferenceEngine
+
+    cfg = get_config("tiny-llama", INFER_OVERRIDES + [
+        "inference.decode_window=1", "inference.constrained=true",
+        "inference.speculative=true", "inference.speculate_tokens=4"])
+    specs = [CON_SPECS[4], CON_SPECS[0], None]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cache_clear()
+        ops.reset_launches()
+        eng = InferenceEngine(cfg, params, device=dev)
+        reqs = [eng.submit_request(p, 32, constraint=None if s is None
+                                   else ConstraintSpec(**{s[0]: s[1]}))
+                for p, s in zip(SPEC_MIX, specs)]
+        while eng.has_work():
+            eng.step()
+        stats = {k: v for k, v in dataclasses.asdict(eng.constraint_stats).items()
+                 if k not in ("compile_s", "advance_s")}
+        out[dev] = ([(r.outcome, list(r.generated)) for r in reqs], stats)
+        if dev == "cuda":
+            launches = ops.launches()
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"parity constrained: cuda {out['cuda']} != cpu {out['cpu']}")
+    for r, s in zip(reqs, specs):
+        if s is not None:
+            check_grammar("parity constrained", r, s, None, 32)
+    stats = out["cuda"][1]
+    if stats["forced_drafted"] < 1 or launches["ragged_verify"] < 1:
+        raise AssertionError(f"parity constrained: no forced draft or no K10 launch: {stats}")
+    emit({"phase": "parity", "preset": "tiny-llama", "features": "constrained",
+          "equal": True, "constrain": stats, "cuda_streams": out["cuda"][0],
+          "launches": launches})
     return launches
 
 
@@ -2701,6 +2771,7 @@ def phase_serve_faults(params=None):
         for k, n in launches.items():
             totals[k] = totals.get(k, 0) + n
 
+    sticky_error_row()
     f1, launches = serve_f1(params, nan=True)
     add(launches)
     free_engine()
@@ -2718,6 +2789,375 @@ def phase_serve_faults(params=None):
     if differ or len(both) != F1_OUTCOMES["completed"]:
         raise AssertionError(f"serve_faults F4: neighbour streams differ from F1: {differ} "
                              f"({len(both)} completed in both)")
+    return totals
+
+
+# serve_faults' sticky-error row: a tiny-llama bf16 engine in a process of
+# its own (a device-side assert poisons the CUDA context for the life of
+# the process), 6 greedy requests; at engine step STICKY_STEP the runner's
+# decode call is wrapped so that, after the step's kernels are queued and
+# before the host fetch, an out-of-range index into a CUDA tensor launches
+# a device-side assert. The child ends with one JSON report within
+# STICKY_TIMEOUT_S or the row fails.
+STICKY_STEP = 2
+STICKY_TIMEOUT_S = 120
+
+
+def sticky_child() -> int:
+    """The sticky-error drive, run by ``sticky_error_row`` as
+    ``python3 -c "import chip_smoke; chip_smoke.sticky_child()"``: prints one
+    JSON line (each failed step's logged error, the robustness counters,
+    the step at which the engine re-raised and what the caller got, every
+    request's outcome and token counts) and exits without tearing the
+    poisoned context down."""
+    import logging
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    import orion_tpu_torch.infer.engine as engine_mod
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params
+
+    class Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage()[:400])
+
+    errors = Errors()
+    logging.getLogger("orion_tpu_torch.infer").addHandler(errors)
+    cfg = get_config("tiny-llama", INFER_OVERRIDES + ["model.dtype=bfloat16"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    eng = InferenceEngine(cfg, params, device="cuda")
+    real = engine_mod.decode_window
+    launched = []
+
+    def decode_then_assert(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if eng.step_no == STICKY_STEP and not launched:
+            launched.append(eng.step_no)
+            x = torch.zeros(4, device="cuda")
+            x[torch.full((1,), 1 << 20, dtype=torch.long, device="cuda")]   # device-side assert
+        return out
+
+    engine_mod.decode_window = decode_then_assert
+    reqs = [eng.submit_request(p, 24) for p in fault_prompts(6, 5, 3, 15)]
+    steps, caller, before = [], None, None
+    while eng.has_work():
+        n = eng.step_no
+        if n == STICKY_STEP:
+            before = [len(r.generated) for r in reqs]
+        f0, e0 = eng.robust.failed_steps, len(errors.lines)
+        try:
+            eng.step()
+        except Exception as e:   # what reaches the caller, recorded and reported
+            caller = {"step": n, "type": type(e).__name__, "text": str(e)[:400]}
+        steps.append({"step": n, "failed": eng.robust.failed_steps > f0 or caller is not None,
+                      "errors": errors.lines[e0:]})
+        if caller is not None:
+            break
+    rb = eng.robust
+    report = {"sticky_step": STICKY_STEP, "assert_launched_at": launched,
+              "max_step_faults": eng.icfg.max_step_faults,
+              "steps": [s for s in steps if s["failed"]],
+              "ok_steps": [s["step"] for s in steps if not s["failed"]],
+              "dispatch_faults": rb.dispatch_faults, "failed_steps": rb.failed_steps,
+              "caller": caller, "outcomes": [r.outcome for r in reqs],
+              "tokens_before_fault": before, "tokens_at_end": [len(r.generated) for r in reqs]}
+    print(json.dumps(report), flush=True)
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def sticky_error_row():
+    """serve_faults' sticky-error row: run ``sticky_child`` in a subprocess
+    (STICKY_TIMEOUT_S) and hold its report to the envelope's contract: the
+    first failure is a contained decode DispatchFault at STICKY_STEP caused
+    by the device-side assert, every later step fails too and is counted
+    once, the engine re-raises DispatchFault after exactly
+    inference.max_step_faults consecutive failed steps, and no token is
+    appended after the fault."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.sticky_child()"],
+                          cwd=HERE, capture_output=True, text=True, timeout=STICKY_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "sticky_child.log"), "w") as f:
+        f.write(proc.stdout + "\n== stderr\n" + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"serve_faults sticky: child exited {proc.returncode} without a "
+                             f"report: {proc.stderr[-2000:]}")
+    rep = json.loads(lines[-1])
+    m = rep["max_step_faults"]
+    failed = [s["step"] for s in rep["steps"]]
+    first = rep["steps"][0]["errors"] if rep["steps"] else []
+    caller = rep["caller"] or {}
+    bad = []
+    if rep["assert_launched_at"] != [STICKY_STEP]:
+        bad.append(f"assert launched at {rep['assert_launched_at']}")
+    if failed != list(range(STICKY_STEP, STICKY_STEP + m)):
+        bad.append(f"failed steps {failed}, want {STICKY_STEP}..{STICKY_STEP + m - 1}")
+    if not any("decode dispatch failed" in e and "device-side assert" in e for e in first):
+        bad.append(f"first failure not a contained decode fault of the assert: {first}")
+    if rep["dispatch_faults"] != m or rep["failed_steps"] != m:
+        bad.append(f"counted {rep['dispatch_faults']} dispatch faults, {rep['failed_steps']} "
+                   f"failed steps for {m} failed steps")
+    if caller.get("type") != "DispatchFault" or caller.get("step") != STICKY_STEP + m - 1:
+        bad.append(f"caller got {caller}")
+    if rep["tokens_at_end"] != rep["tokens_before_fault"]:
+        bad.append(f"tokens appended after the fault: {rep['tokens_before_fault']} -> "
+                   f"{rep['tokens_at_end']}")
+    emit({"phase": "serve_faults", "drive": "sticky_error", "preset": "tiny-llama",
+          "dtype": "bfloat16", "wall_s": wall, "nvidia_smi": smi_line(), **rep})
+    if bad:
+        raise AssertionError(f"serve_faults sticky: {bad}")
+
+
+# serve_constrained: llama3-8b-infer at full width and depth (the serve's
+# weights), bf16 pools and the prefix cache; eos = V - 1, which no byte
+# token is, so eos passes a mask only in an accepting state. C1: 16 greedy
+# requests of 100-1000 random prompt tokens (numpy seed 0), 64 new tokens
+# each, 4 under a JSON schema and 4 under a regex (the patterns of
+# tests/test_constrain.py), 8 unconstrained; A0 the same prompts with no
+# constraint and constrained=false. C2: C1 with int8 pools, chunked
+# prefill and tree speculation of width 2. C0: 8 more prompts,
+# unconstrained, under constrained=true and under constrained=false (the
+# same code path): byte-identical streams.
+CON_OVERRIDES = ["inference.prefix_cache=true"]
+CON_C2 = ["inference.kv_quant=int8", "inference.chunked_prefill=true",
+          "inference.speculative=true", "inference.spec_tree_width=2"]
+CON_SPECS = (
+    [("json_schema", json.dumps(s)) for s in (
+        {"type": "object", "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}}},
+        {"type": "object", "properties": {"k0": {"enum": ["hi", -3, True]},
+                                          "k1": {"type": "string", "maxLength": 3}}},
+        {"type": "array", "items": {"type": "integer"}, "maxItems": 2},
+        {"type": "object", "properties": {
+            "k0": {"type": "array", "items": {"type": "boolean"}, "maxItems": 2},
+            "k1": {"type": "null"}}})]
+    + [("regex", r'\{"key": "val", "n": [0-9]{2}\}'), ("regex", r"(abc|xyz|pqr)[0-9]{2}"),
+       ("regex", r"(ab|cd)+e?"), ("regex", r'\{"n": -?[0-9]{1,3}\}')])
+
+
+def check_grammar(where, req, kind_text, eos_id, n_new):
+    """A constrained stream re-walked from the start state through a fresh
+    compile of the pattern's character DFA (token id == byte): every token
+    legal, and a stream that stopped short of ``n_new`` tokens or on eos
+    (a grammar completion) ends in an accepting state."""
+    from orion_tpu_torch.constrain import ConstraintSpec, compile_regex
+
+    cdfa = compile_regex(ConstraintSpec(**{kind_text[0]: kind_text[1]}).pattern())
+    toks = list(req.generated)
+    eos = bool(toks) and toks[-1] == eos_id
+    s = 0
+    for t in toks[:-1] if eos else toks:
+        s = cdfa.trans[s].get(t) if 0 <= t < 256 else None
+        if s is None:
+            raise AssertionError(f"{where}: request {req.rid} left its grammar "
+                                 f"{kind_text}: {toks}")
+    if req.outcome != "completed":
+        raise AssertionError(f"{where}: request {req.rid} ended {req.outcome!r}")
+    if (eos or len(toks) < n_new) and not cdfa.accepting[s]:
+        raise AssertionError(f"{where}: request {req.rid} stopped outside an accepting "
+                             f"state: {toks}")
+
+
+def constrained_engine(params, overrides, V):
+    """An engine of llama3-8b-infer + CON_OVERRIDES + ``overrides`` with
+    eos V - 1, warmed up as a server is at start (a 300-token request, then
+    two beside each other, one of them under a short regex when the engine
+    is constrained); the warm-up's cached pages and counters are dropped,
+    after the check that it contained no fault."""
+    import numpy as np
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.constrain import ConstraintSpec
+    from orion_tpu_torch.infer import InferenceEngine
+
+    cfg = get_config("llama3-8b-infer", CON_OVERRIDES + overrides)
+    eng = InferenceEngine(cfg, params, device="cuda", eos_id=V - 1)
+    rng = np.random.default_rng(1)
+    eng.generate([rng.integers(0, V, 300).tolist()], 8)
+    spec = ConstraintSpec(regex="[0-9]{4}") if cfg.inference.constrained else None
+    warm = [eng.submit_request(rng.integers(0, V, n).tolist(), 8, constraint=c)
+            for n, c in ((300, spec), (600, None))]
+    while eng.has_work():
+        eng.step()
+    if any(r.outcome != "completed" for r in warm):
+        raise AssertionError(f"serve_constrained warm-up: {[r.outcome for r in warm]}")
+    require_no_faults(eng, "serve_constrained warm-up")
+    eng.clear_prefix_cache()
+    eng.reset_timing()
+    return eng
+
+
+def constrained_wave(name, eng, prompts, specs, n_new=64):
+    """Submit ``prompts`` (``specs[i]`` a (kind, text) constraint or None)
+    and drain the engine, timing every mask build (host) and copy (to the
+    device, synchronised) and each distinct pattern's compile (the delta of
+    constrain_compile_s over its first submit). Checks every request and
+    stream; returns the requests and the drive's numbers."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.constrain import ConstraintSpec
+
+    V = eng.mcfg.vocab_size
+    # Per mask kind ("verify" [B, W, V], "sample" [B, V]): build and copy
+    # seconds and bytes. A copy is timed between two synchronisations, so
+    # it does not count device work queued before it (a prefill's).
+    masks = {kind: {"build": [], "copy": [], "bytes": []} for kind in ("verify", "sample")}
+    verify_masks, sample_masks, device_mask = (eng._verify_masks, eng._sample_masks,
+                                               eng._device_mask)
+
+    def timed_build(fn):
+        def build(*a, **k):
+            t = time.perf_counter()
+            m = fn(*a, **k)
+            if m is not None:
+                rec = masks["verify" if m.ndim == 3 else "sample"]
+                rec["build"].append(time.perf_counter() - t)
+                rec["bytes"].append(m.nbytes)
+            return m
+        return build
+
+    def timed_copy(m):
+        if m is None:
+            return None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = device_mask(m)
+        torch.cuda.synchronize()
+        masks["verify" if m.ndim == 3 else "sample"]["copy"].append(time.perf_counter() - t)
+        return d
+
+    eng._verify_masks, eng._sample_masks = timed_build(verify_masks), timed_build(sample_masks)
+    eng._device_mask = timed_copy
+    tm0 = dict(eng.timing)
+    cs0 = dataclasses.asdict(eng.constraint_stats)
+    compile_s = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = []
+    for p, s in zip(prompts, specs):
+        c0 = eng.constraint_stats.compile_s
+        reqs.append(eng.submit_request(
+            p, n_new, constraint=None if s is None else ConstraintSpec(**{s[0]: s[1]})))
+        if s is not None and s[1] not in compile_s:
+            compile_s[s[1]] = {"kind": s[0], "compile_s": eng.constraint_stats.compile_s - c0,
+                               "dfa_states": reqs[-1].constraint.dfa.n_states}
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    del eng._verify_masks, eng._sample_masks, eng._device_mask
+    require_no_faults(eng, f"serve_constrained {name}")
+    eng.assert_page_accounting()
+    tm = {k: eng.timing[k] - tm0[k] for k in tm0}
+    cs = {k: v - cs0[k] for k, v in dataclasses.asdict(eng.constraint_stats).items()}
+    for r, s in zip(reqs, specs):
+        if s is not None:
+            check_grammar(f"serve_constrained {name}", r, s, V - 1, n_new)
+        elif r.outcome != "completed" or not (
+                len(r.generated) == n_new or r.generated[-1] == V - 1):
+            raise AssertionError(f"serve_constrained {name}: request {r.rid} ended "
+                                 f"{r.outcome!r} with {len(r.generated)} tokens")
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    busy = tm["decode_s"] + tm["mixed_s"]
+    verify_steps = tm["verify_steps"]
+    return reqs, {
+        "requests": len(reqs), "constrained": sum(s is not None for s in specs),
+        "prompt_tokens": sum(map(len, prompts)), "new_tokens_max": n_new, "wall_s": wall,
+        "decode_tokens": decode_tokens, "decode_tok_s": decode_tokens / busy,
+        "prefill_s": tm["prefill_s"], "mixed_s": tm["mixed_s"], "decode_s": tm["decode_s"],
+        "verify_s": tm["verify_s"], "steps": tm["steps"], "verify_steps": verify_steps,
+        "verify_step_wall_ms": 1e3 * tm["verify_s"] / verify_steps if verify_steps else None,
+        "constrain": cs, "compile_s_by_pattern": compile_s,
+        "masks": {kind: {
+            "count": len(rec["build"]),
+            "build_ms_median": 1e3 * statistics.median(rec["build"]) if rec["build"] else None,
+            "copy_ms_median": 1e3 * statistics.median(rec["copy"]) if rec["copy"] else None,
+            "build_ms_max": 1e3 * max(rec["build"]) if rec["build"] else None,
+            "copy_ms_max": 1e3 * max(rec["copy"]) if rec["copy"] else None,
+            "bytes_max": max(rec["bytes"]) if rec["bytes"] else None,
+            "build_s_total": sum(rec["build"]), "copy_s_total": sum(rec["copy"]),
+        } for kind, rec in masks.items()},
+        "outcomes_generated": [len(r.generated) for r in reqs],
+        "launches": launches,
+    }
+
+
+def phase_serve_constrained(params=None):
+    """llama3-8b-infer at full width and depth with grammar-constrained
+    decoding: drives A0 and C0 (constrained=false), C0 and C1
+    (constrained=true), C2 (int8 pools, chunked prefill, tree speculation),
+    on the serve phase's ``params`` when given, else on fresh seeded
+    weights. Returns the launches of every drive together."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+
+    cfg = get_config("llama3-8b-infer")
+    V = cfg.model.vocab_size
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).tolist() for n in rng.integers(100, 1001, 16)]
+    c0_prompts = [rng.integers(0, V, n).tolist() for n in rng.integers(100, 1001, 8)]
+    specs = [CON_SPECS[i // 2] if i % 2 == 0 else None for i in range(16)]
+    totals, res, c0 = {}, {}, {}
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+
+    for name, overrides, drives in (
+            ("off", [], (("C0", c0_prompts, [None] * 8), ("A0", prompts, [None] * 16))),
+            ("on", ["inference.constrained=true"],
+             (("C0", c0_prompts, [None] * 8), ("C1", prompts, specs))),
+            ("C2", ["inference.constrained=true"] + CON_C2, (("C2", prompts, specs),))):
+        eng = constrained_engine(params, overrides, V)
+        for drive, ps, sp in drives:
+            reqs, r = constrained_wave(drive, eng, ps, sp)
+            add(r["launches"])
+            if drive == "C0":
+                c0[name] = [list(q.generated) for q in reqs]
+            else:
+                res[drive] = r
+            emit({"phase": "serve_constrained", "drive": drive, "engine": name,
+                  "overrides": CON_OVERRIDES + overrides, "eos_id": V - 1,
+                  "nvidia_smi": smi_line(), **r})
+        del eng
+        free_engine()
+    if c0["on"] != c0["off"]:
+        raise AssertionError("serve_constrained C0: constrained=true streams differ from "
+                             "constrained=false")
+    missing = [k for drive, k in (("C1", "ragged_verify"), ("C2", "ragged_verify_int8"))
+               if res[drive]["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_constrained: kernels never launched: {missing}")
+    for drive in ("C1", "C2"):
+        cs = res[drive]["constrain"]
+        if cs["requests"] != 8 or cs["masked_steps"] < 1 or cs["dead_ends"]:
+            raise AssertionError(f"serve_constrained {drive}: counters {cs}")
+    emit({"phase": "serve_constrained", "c0_byte_identical": True,
+          "decode_tok_s": {d: res[d]["decode_tok_s"] for d in ("A0", "C1", "C2")},
+          "wall_s": {d: res[d]["wall_s"] for d in ("A0", "C1", "C2")},
+          "launches": totals, "nvidia_smi": smi_line()})
     return totals
 
 
@@ -3366,7 +3806,7 @@ def main(argv=None) -> int:
         os.remove(os.path.join(OUT_DIR, "chip_smoke.jsonl"))
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
-    train_launches = timing = fault_launches = None
+    train_launches = timing = fault_launches = constrained_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -3382,6 +3822,9 @@ def main(argv=None) -> int:
         free_engine()
     if "serve_spec" in phases:
         spec_launches = phase_serve_spec(serve_params, args.profile)
+        free_engine()
+    if "serve_constrained" in phases:
+        constrained_launches = phase_serve_constrained(serve_params)
         free_engine()
     if "serve_faults" in phases:
         fault_launches = phase_serve_faults(serve_params)
@@ -3404,9 +3847,11 @@ def main(argv=None) -> int:
                           "serve_spec": spec_launches[name], "train": train_launches[name],
                           "parity_chunked_f32": parity_launches["float32"][name]}
                    for name in KERNEL_META}
-        if fault_launches:
-            for name in KERNEL_META:
-                by_path[name]["serve_faults"] = fault_launches[name]
+        for path, counts in (("serve_constrained", constrained_launches),
+                             ("serve_faults", fault_launches)):
+            if counts:
+                for name in KERNEL_META:
+                    by_path[name][path] = counts[name]
         emit({"kernels": [
             dict(name=name, **KERNEL_META[name],
                  launches=sum(by_path[name].values()), launches_by_path=by_path[name],

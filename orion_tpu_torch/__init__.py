@@ -2,7 +2,7 @@
 
 A second package beside the JAX one (``orion_tpu``, the reference), with
 the same module layout and names: ``config``, ``ops``, ``models``,
-``infer``, ``generate``, ``data``, ``metrics``, ``runtime``, ``train``. It
+``infer``, ``constrain``, ``generate``, ``data``, ``metrics``, ``runtime``, ``train``. It
 imports ``torch`` and numpy, never ``jax`` and nothing of ``orion_tpu``.
 
 It serves (``infer.InferenceEngine`` prefills and decodes over the paged

@@ -14,6 +14,10 @@ in the model's dtype, made on the device (``--seed``); that exercises the
 whole engine, scheduler, cache and kernel path, not output quality.
 Dotted ``key=value`` arguments override the preset (sampling:
 ``inference.temperature=0.7 inference.top_k=50``).
+
+``--regex PATTERN`` or ``--json-schema FILE`` constrains every request's
+output to the grammar (byte-level patterns over the byte tokenizer, token
+id == byte value); either sets ``inference.constrained=true``.
 """
 
 from __future__ import annotations
@@ -37,8 +41,20 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                              "plain PyTorch versions of the kernels)")
+    parser.add_argument("--regex", default=None, metavar="PATTERN",
+                        help="grammar-constrained decoding: every request emits "
+                             "only tokens the regex's FSM admits (mutually "
+                             "exclusive with --json-schema)")
+    parser.add_argument("--json-schema", default=None, metavar="FILE",
+                        help="grammar-constrained decoding from a JSON Schema "
+                             "file, compiled to a regex and then to the same "
+                             "token-level FSM (mutually exclusive with --regex)")
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
+    overrides = list(args.overrides)
+    constraint = _constraint(args)
+    if constraint is not None:
+        overrides.append("inference.constrained=true")
 
     import torch
 
@@ -48,7 +64,7 @@ def main(argv: list[str] | None = None) -> int:
     from orion_tpu_torch.models import init_params
     from orion_tpu_torch.runtime.fault import PreemptionHandler
 
-    cfg = get_config(args.preset, args.overrides)
+    cfg = get_config(args.preset, overrides)
     device = resolve_device(args.device)
     prompts = [[int(t) for t in spec.split(",")] for spec in args.tokens]
     if not prompts:
@@ -64,7 +80,8 @@ def main(argv: list[str] | None = None) -> int:
     # boundary the engine stops admission, sheds the never-started queue
     # with typed outcomes and finishes every live request.
     with PreemptionHandler() as handler:
-        reqs = [engine.submit_request(p, args.max_new_tokens) for p in prompts]
+        reqs = [engine.submit_request(p, args.max_new_tokens, constraint=constraint)
+                for p in prompts]
         while engine.has_work():
             if handler.preempted:
                 print("SIGTERM: draining (admission stopped, live requests finishing)",
@@ -77,6 +94,34 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"rid": req.rid, "outcome": req.outcome,
                           "prompt": req.prompt, "generated": req.generated}))
     return 0
+
+
+def _constraint(args):
+    """The ConstraintSpec of ``--regex`` / ``--json-schema``, or None; a
+    malformed pattern or schema, or an unreadable schema file, exits with
+    the reason before any engine is built."""
+    if args.regex is not None and args.json_schema is not None:
+        raise SystemExit(
+            "--regex and --json-schema are mutually exclusive (one grammar per request)")
+    if args.regex is None and args.json_schema is None:
+        return None
+    from orion_tpu_torch.constrain import ConstraintError, ConstraintSpec, compile_regex
+
+    try:
+        if args.regex is not None:
+            spec = ConstraintSpec(regex=args.regex)
+        else:
+            try:
+                with open(args.json_schema, encoding="utf-8") as f:
+                    schema_text = f.read()
+            except OSError as e:
+                raise SystemExit(f"--json-schema {args.json_schema}: {e}")
+            spec = ConstraintSpec(json_schema=schema_text)
+        # pattern() parses the schema frontend; compile_regex the regex.
+        compile_regex(spec.pattern())
+    except ConstraintError as e:
+        raise SystemExit(f"invalid constraint: {e}")
+    return spec
 
 
 if __name__ == "__main__":

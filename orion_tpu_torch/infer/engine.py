@@ -30,6 +30,21 @@ token, and releases the pages that held only rejected drafts. Token trees
 and compact an accepted off-primary path's KV. Greedy output is token for
 token that of the engine without speculation.
 
+With inference.constrained a request may carry a grammar
+(``submit(..., constraint=ConstraintSpec(regex=... | json_schema=...))``,
+``orion_tpu_torch.constrain``): the spec compiles at submit to a token DFA
+(memoized by pattern hash), and the request's slots decode through the
+verify dispatch, never the fused window, because the next mask depends on
+the sampled token while along a known draft every position's mask is
+known on the host. The FSM's forced runs (states with one legal token)
+ride as drafts that are always accepted; with spec_tree_width > 1 an
+ambiguous state becomes a tree branch point. The [B, W, V] masks are built
+on the host and copied to the device once per step, inside the dispatch's
+envelope; a prefill's first token is masked the same way. A walk into a
+dead end ends the request with outcome "error:constraint_dead_end";
+completion is an accepting state with no continuation, or eos in an
+accepting state.
+
 Lifecycle and fault containment (README "Robustness"; the serving half of
 ``runtime/fault.py``): ``submit`` takes a ``deadline_s`` (default
 inference.default_deadline_s) and a ``priority``; with
@@ -55,12 +70,15 @@ port behaves as the JAX engine does with dispatch_fallback=false.
 than 0 shape only that fallback leg and raise at construction.
 
 Not ported yet (each raises at construction when configured):
-constrained decoding, int8 weights, MoE, the host
+int8 weights, MoE, the host
 tier and long-context paging, decode-window autotune,
 sliding-window page rolling (a window on every layer; interleaved
 local/global windows are served), ``paged_prefill=false``, the tracer
 and flight recorder (``trace``, ``trace_path``, ``flight_dir``) and the
-metrics sinks (``metrics_jsonl``, ``metrics_prom``).
+metrics sinks (``metrics_jsonl``, ``metrics_prom``). Live migration
+(the JAX engine's ``export_migration_state``) is not ported either; when it
+is, its state carries each request's ``constraint`` as the JAX engine's
+does.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises. ``model.kernels`` is
@@ -79,6 +97,7 @@ import numpy as np
 import torch
 
 from orion_tpu_torch.config import Config
+from orion_tpu_torch.constrain import ConstraintSpec, ConstraintState, compile_constraint
 from orion_tpu_torch.infer.executor import DispatchExecutor
 from orion_tpu_torch.infer.kv_cache import (
     PageAllocator,
@@ -100,8 +119,13 @@ from orion_tpu_torch.infer.runner import (
 )
 from orion_tpu_torch.infer.sampling import sample
 from orion_tpu_torch.infer.scheduler import AdmissionQueue, Request, in_flight
-from orion_tpu_torch.infer.spec_decode import NgramProposer
-from orion_tpu_torch.metrics import PrefixCacheStats, RobustnessStats, SpecDecodeStats
+from orion_tpu_torch.infer.spec_decode import NgramProposer, build_tree
+from orion_tpu_torch.metrics import (
+    ConstraintStats,
+    PrefixCacheStats,
+    RobustnessStats,
+    SpecDecodeStats,
+)
 from orion_tpu_torch.models.convert import to_device
 from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
@@ -129,7 +153,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.weight_quant": m.weight_quant is not None,
         "model.n_experts > 0 (MoE)": m.is_moe,
-        "inference.constrained": i.constrained,
         "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
         "inference.long_context": i.long_context,
         "inference.decode_window_autotune": i.decode_window_autotune,
@@ -284,14 +307,35 @@ class InferenceEngine:
                 "mixed_verify_steps": 0}
 
     def _init_speculation(self) -> None:
-        """inference.speculative: validate the knobs, check that K10's block
-        fits the verify width, and build the n-gram proposer."""
+        """The verify path's state: with inference.speculative validate the
+        knobs and build the n-gram proposer; with speculation or
+        inference.constrained (constrained slots decode through the verify
+        dispatch) check that K10's block fits the verify width."""
         icfg, mcfg = self.icfg, self.mcfg
         self.spec_stats = SpecDecodeStats()
         self._spec: Optional[NgramProposer] = None
         self._tree = False
-        if not icfg.speculative:
-            return
+        self.constrained = icfg.constrained
+        self.constraint_stats = ConstraintStats()
+        # The current verify step's forced-run bookkeeping: slot -> the
+        # number of leading drafts the FSM forced (consumed by acceptance).
+        self._constraint_forced: dict[int, int] = {}
+        if icfg.speculative:
+            self._build_proposer()
+        if icfg.speculative or self.constrained:
+            # K10's float32 kernel holds every query row of a kv head in
+            # one block: a verify width it cannot hold fails here, naming
+            # the knob (the bf16 kernel takes any width).
+            check_verify_fit(
+                icfg.speculate_tokens + 1, n_heads=mcfg.n_heads,
+                n_kv_heads=mcfg.n_kv_heads, head_dim=mcfg.resolved_head_dim,
+                page_size=self.psz, dtype=torch_dtype(mcfg.dtype),
+            )
+
+    def _build_proposer(self) -> None:
+        """inference.speculative: validate the knobs and build the n-gram
+        proposer."""
+        icfg = self.icfg
         if icfg.spec_min_draft_slots < 1:
             raise ValueError(
                 f"inference.spec_min_draft_slots={icfg.spec_min_draft_slots} must be >= 1"
@@ -313,14 +357,6 @@ class InferenceEngine:
             speculate_tokens=icfg.speculate_tokens, max_n=icfg.spec_ngram_max,
             min_n=icfg.spec_ngram_min, tree_width=icfg.spec_tree_width,
         )
-        # K10's float32 kernel holds every query row of a kv head in one
-        # block: a verify width it cannot hold fails here, naming the knob
-        # (the bf16 kernel takes any width).
-        check_verify_fit(
-            icfg.speculate_tokens + 1, n_heads=mcfg.n_heads, n_kv_heads=mcfg.n_kv_heads,
-            head_dim=mcfg.resolved_head_dim, page_size=self.psz,
-            dtype=torch_dtype(mcfg.dtype),
-        )
         self._tree = icfg.spec_tree_width > 1
 
     # -- public API --------------------------------------------------------
@@ -335,6 +371,7 @@ class InferenceEngine:
         top_p: Optional[float] = None,
         deadline_s: Optional[float] = None,
         priority: int = 0,
+        constraint: Optional[Any] = None,
     ) -> int:
         """Queue a request; returns its id.
 
@@ -347,10 +384,18 @@ class InferenceEngine:
         lowest-priority / nearest-deadline / newest never-run candidate,
         possibly this very request, with outcome "shed"; the shed request
         still surfaces from the next step(). After drain() or close() a
-        submit is shed on arrival."""
+        submit is shed on arrival.
+
+        ``constraint`` (an ``orion_tpu_torch.constrain.ConstraintSpec``)
+        asks for grammar-constrained output: every emitted token keeps the
+        output a legal prefix of the spec's regex or JSON schema. It needs
+        inference.constrained=true; the spec compiles here (memoized by
+        pattern hash), and a pattern this vocab can never satisfy raises
+        ``ConstraintError`` here."""
         return self.submit_request(
             prompt, max_new_tokens, temperature=temperature, top_k=top_k,
             top_p=top_p, deadline_s=deadline_s, priority=priority,
+            constraint=constraint,
         ).rid
 
     def submit_request(
@@ -363,6 +408,7 @@ class InferenceEngine:
         top_p: Optional[float] = None,
         deadline_s: Optional[float] = None,
         priority: int = 0,
+        constraint: Optional[Any] = None,
     ) -> Request:
         """submit() returning the live Request (``.generated`` grows as
         tokens are accepted; the typed ``.outcome`` is set at the end)."""
@@ -377,6 +423,7 @@ class InferenceEngine:
             )
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        cstate = None if constraint is None else self._compile_constraint(constraint)
         # Overrides equal to the defaults are the defaults: they must not
         # push the batch off the greedy (sort-free) sampling path.
         if temperature is not None and temperature == self.icfg.temperature:
@@ -412,7 +459,7 @@ class InferenceEngine:
             max_new_tokens=max_new, temperature=temperature, top_k=top_k,
             top_p=top_p, priority=int(priority),
             deadline=time.monotonic() + deadline_s if deadline_s is not None else None,
-            t_submit=time.perf_counter(),
+            t_submit=time.perf_counter(), constraint=cstate,
         )
         if self.draining:
             # Admission is stopped: a typed shed, never queued.
@@ -428,6 +475,34 @@ class InferenceEngine:
             return req
         self.waiting.append(req)
         return req
+
+    def _compile_constraint(self, constraint) -> ConstraintState:
+        """A submitted ConstraintSpec compiled to its token DFA (memoized
+        across requests, LRU of inference.constraint_cache) and a fresh
+        walk over it; the compile counters count it."""
+        if not self.constrained:
+            raise ValueError(
+                "constraint= needs inference.constrained=true (the flag builds "
+                "the verify path constrained slots decode through)"
+            )
+        if not isinstance(constraint, ConstraintSpec):
+            raise ValueError(
+                f"constraint must be a ConstraintSpec, got {type(constraint).__name__}"
+            )
+        t0 = time.perf_counter()
+        dfa, hit = compile_constraint(
+            constraint, self.mcfg.vocab_size,
+            max_states=self.icfg.constraint_max_states,
+            cache_size=self.icfg.constraint_cache,
+        )
+        cs = self.constraint_stats
+        cs.requests += 1
+        cs.compiles += 1
+        if hit:
+            cs.compile_hits += 1
+        else:
+            cs.compile_s += time.perf_counter() - t0
+        return ConstraintState(dfa, self.eos_id)
 
     def _shed(self, req: Request, why: str) -> None:
         log.warning("shedding request %d (priority %d): %s", req.rid, req.priority, why)
@@ -575,7 +650,9 @@ class InferenceEngine:
         spec_gated_steps, the tree counters and spec_disabled_reason,
         which survives the drain); and always the robustness counters of
         ``robust`` (shed/expired/cancelled/quarantined requests, dispatch
-        faults, failed, stalled steps, pool faults). Counters are zeroed."""
+        faults, failed, stalled steps, pool faults); with
+        inference.constrained the grammar counters of ``constraint_stats``
+        (constrain_*). Counters are zeroed."""
         out, self.timing = self.timing, self._zero_timing()
         out["decode_window"] = self.decode_window
         if self._spec is not None:
@@ -583,6 +660,9 @@ class InferenceEngine:
             # Disablement is engine-lifetime state, not a window counter.
             self.spec_stats = SpecDecodeStats(
                 disabled_reason=self.spec_stats.disabled_reason)
+        if self.constrained:
+            out.update(self.constraint_stats.as_timing())
+            self.constraint_stats = ConstraintStats()
         out.update(self.robust.as_timing())
         self.robust = RobustnessStats()
         return out
@@ -1010,7 +1090,10 @@ class InferenceEngine:
             self._first_token(req, int(firsts[i]), t1)
 
     def _first_token(self, req: Request, first: int, t: float) -> None:
-        """Accept a prefill's sampled token (nothing for a scoring request)."""
+        """Accept a prefill's sampled token (nothing for a scoring request
+        or one quarantined while its mask was built)."""
+        if req.done:
+            return
         if req.max_new_tokens <= 0:
             req.done = True   # prefill-only (scoring) request
             return
@@ -1020,14 +1103,48 @@ class InferenceEngine:
             req.t_first = t
         self._maybe_finish(req, first)
 
+    def _sample_masks(self, reqs: list[Request], nb: int) -> Optional[np.ndarray]:
+        """Legal-token masks [nb, V] of one single-token sampling dispatch:
+        row i holds reqs[i]'s FSM legal set (all-True for unconstrained
+        rows); None when no live request is constrained, so unconstrained
+        dispatches run the unmasked code. A row that admits nothing (not
+        reachable through the engine: dead and complete states finish at
+        advance, dead start states are refused at submit) quarantines its
+        request and stays permissive, so its neighbours sample as they
+        would have."""
+        if not any(r.constraint is not None and not r.done for r in reqs):
+            return None
+        rows = np.ones((nb, self.mcfg.vocab_size), bool)
+        masked = 0
+        for i, r in enumerate(reqs):
+            if r.constraint is None or r.done:
+                continue
+            row = r.constraint.mask_row()
+            if not row.any():
+                self.constraint_stats.dead_ends += 1
+                self._quarantine(r, "constraint_all_masked")
+                continue
+            rows[i] = row
+            masked += 1
+        if not masked:
+            return None
+        self.constraint_stats.masked_steps += 1
+        self.constraint_stats.masked_rows += masked
+        return rows
+
     def _sample(self, logits: torch.Tensor, reqs: list[Request]) -> np.ndarray:
+        """The first tokens of a prefill's rows (with inference.constrained
+        masked by their FSMs: one host-to-device copy of the masks); the
+        host fetch of the dispatch that produced ``logits``."""
         icfg = self.icfg
+        legal = self._device_mask(
+            self._sample_masks(reqs, logits.shape[0]) if self.constrained else None)
         if not any(
             r.temperature is not None or r.top_k is not None or r.top_p is not None
             for r in reqs
         ):
             toks = sample(logits, self._gen, temperature=icfg.temperature,
-                          top_k=icfg.top_k, top_p=icfg.top_p)
+                          top_k=icfg.top_k, top_p=icfg.top_p, legal_mask=legal)
             return toks.cpu().numpy()
         nb = logits.shape[0]
         temp = np.full(nb, icfg.temperature, np.float32)
@@ -1043,6 +1160,7 @@ class InferenceEngine:
             temperature=torch.from_numpy(temp).to(dev),
             top_k=torch.from_numpy(top_k).to(dev),
             top_p=torch.from_numpy(top_p).to(dev),
+            legal_mask=legal,
         )
         return toks.cpu().numpy()
 
@@ -1157,10 +1275,14 @@ class InferenceEngine:
                 req.pages.append(page)
 
     def _decode_all(self) -> bool:
-        """A verify step when some slot drafted (inference.speculative),
-        else the plain decode window."""
+        """A verify step when a live slot is constrained (its masks ride the
+        verify rows, its forced runs as drafts; unconstrained co-tenants
+        draft as usual) or some slot drafted (inference.speculative), else
+        the plain decode window."""
+        live = [r for r in self.slots if r is not None and not r.done]
+        if self.constrained and any(r.constraint is not None for r in live):
+            return self._verify_all(self._propose_constrained_drafts(live))
         if self._spec is not None and not self._spec_disabled:
-            live = [r for r in self.slots if r is not None and not r.done]
             drafts = self._propose_drafts(live)
             if drafts is not None:
                 return self._verify_all(drafts)
@@ -1177,6 +1299,7 @@ class InferenceEngine:
         step goes to the plain path and counts as gated."""
         if not cands:
             return None
+        self._constraint_forced = {}   # no forced prefixes on this path
         extra = self._pcache.token_paths() if self._pcache is not None else ()
         drafts: dict[int, Any] = {}
         n_drafted = 0
@@ -1198,6 +1321,109 @@ class InferenceEngine:
             self.spec_stats.gated_steps += 1
             return None
         return drafts
+
+    def _propose_constrained_drafts(self, cands: list[Request]) -> dict[int, Any]:
+        """Drafts by slot for a decode batch holding constrained slots;
+        never None: a constrained slot with no draft still verifies at
+        lens 1 (a masked single-token decode).
+
+        A constrained slot drafts its FSM forced run: a state with one
+        legal token emits it, and its masked target probability is exactly
+        1.0, so it is accepted under the unchanged acceptance rule. With
+        inference.speculative the run extends with the n-gram continuation
+        cut to its FSM-legal prefix; with a tree, an ambiguous state after
+        the run is a branch point, up to spec_tree_width legal tokens, each
+        with its own forced tail, merged by ``spec_decode.build_tree``.
+        Unconstrained co-tenants draft as ``_propose_drafts`` would, or not
+        at all without speculation (their lens-1 rows ride the same
+        dispatch)."""
+        spec_on = self._spec is not None and not self._spec_disabled
+        extra = self._pcache.token_paths() if spec_on and self._pcache is not None else ()
+        tree = self._tree
+        drafts: dict[int, Any] = {}
+        cs = self.constraint_stats
+        self._constraint_forced = {}
+        for r in cands:
+            pos = int(self.seq_lens[r.slot])
+            limit = min(self.icfg.max_seq_len - 1 - pos,
+                        r.max_new_tokens - len(r.generated) - 1,
+                        self.icfg.speculate_tokens)
+            c = r.constraint
+            if c is None:
+                if spec_on and limit > 0:
+                    propose = self._spec.propose_tree if tree else self._spec.propose
+                    drafts[r.slot] = propose(r.rid, r.context, limit, extra)
+                else:
+                    drafts[r.slot] = None if tree else []
+                continue
+            if limit <= 0:
+                drafts[r.slot] = None if tree else []
+                continue
+            forced = c.forced_run(limit)
+            cs.forced_drafted += len(forced)
+            self._constraint_forced[r.slot] = len(forced)
+            end = c.walk(forced)
+            if tree:
+                chains = [forced] if forced else []
+                if end >= 0 and len(forced) < limit and c.mask_choices(end) > 1:
+                    # An FSM branch point: the grammar names the children.
+                    branches = c.branch_tokens(self.icfg.spec_tree_width, end)
+                    if len(branches) > 1:
+                        cs.branch_points += 1
+                    bc = []
+                    for b in branches:
+                        nxt = c.peek(int(b), end)
+                        tail = c.forced_run(limit - len(forced) - 1, nxt) if nxt >= 0 else []
+                        bc.append(forced + [int(b)] + tail)
+                    chains = bc or chains
+                t = build_tree(chains, limit) if chains else None
+                drafts[r.slot] = t if t is not None and len(t) else None
+            else:
+                d = list(forced)
+                if spec_on and end >= 0 and len(d) < limit:
+                    cont = self._spec.propose(r.rid, r.context + d, limit - len(d), extra) or []
+                    for tok in cont:
+                        nxt = c.peek(int(tok), end)
+                        if nxt < 0:
+                            break   # only the FSM-legal prefix
+                        d.append(int(tok))
+                        end = nxt
+                drafts[r.slot] = d
+        return drafts
+
+    def _verify_masks(self, active: list[Request], tokens: np.ndarray, lens: np.ndarray,
+                      parents: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
+        """Legal-token masks [B, W, V] of one verify dispatch: column j of
+        a constrained slot holds the FSM mask after its draft path (chain
+        prefix, or tree ancestors; column 0 the current state). Padding
+        columns, unconstrained slots and columns past an FSM-illegal draft
+        (always rejected: the masked parent gives it probability 0) stay
+        all-True. None when no active slot is constrained, so the dispatch
+        runs the unmasked code."""
+        if not any(r.constraint is not None for r in active):
+            return None
+        B, W = tokens.shape
+        m = np.ones((B, W, self.mcfg.vocab_size), bool)
+        masked = 0
+        for r in active:
+            c = r.constraint
+            if c is None:
+                continue
+            s = r.slot
+            states = np.full(W, -1, np.int64)
+            states[0] = c.state
+            m[s, 0] = c.mask_row()
+            for j in range(1, int(lens[s])):
+                p = int(parents[s, j]) if parents is not None else j - 1
+                ps = int(states[p])
+                nxt = c.peek(int(tokens[s, j]), ps) if ps >= 0 else -1
+                states[j] = nxt
+                if nxt >= 0:
+                    m[s, j] = c.mask_row(nxt)
+            masked += 1
+        self.constraint_stats.masked_steps += 1
+        self.constraint_stats.masked_rows += masked
+        return m
 
     def _build_verify_rows(self, reqs: list[Request], drafts: dict[int, Any]):
         """The [B, speculate_tokens + 1] verify rows: column 0 the pending
@@ -1239,16 +1465,21 @@ class InferenceEngine:
         return tokens, lens, depths, parents, words
 
     def _verify_rows(self, reqs: list[Request], drafts: dict[int, Any]):
-        """(tokens, lens, tree tensors for the runner) of a verify dispatch."""
+        """(tokens, lens, tree tensors for the runner, host legal masks or
+        None) of a verify dispatch."""
         dev = self.device
         if not self._tree:
             tokens, lens = self._build_verify_rows(reqs, drafts)
-            return tokens, lens, {}
+            return tokens, lens, {}, self._verify_masks(reqs, tokens, lens)
         tokens, lens, depths, parents, words = self._build_verify_tree_rows(reqs, drafts)
         tree_kw = dict(depths=torch.from_numpy(depths).to(dev),
                        parents=torch.from_numpy(parents).to(dev),
                        tree_mask=torch.from_numpy(words).to(dev))
-        return tokens, lens, tree_kw
+        return tokens, lens, tree_kw, self._verify_masks(reqs, tokens, lens, parents)
+
+    def _device_mask(self, vmask: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """A step's host legal masks on the device, in one copy."""
+        return None if vmask is None else torch.from_numpy(vmask).to(self.device)
 
     @staticmethod
     def _fetch_verdicts(acc: torch.Tensor, alt: torch.Tensor, ok: Optional[torch.Tensor]):
@@ -1278,9 +1509,12 @@ class InferenceEngine:
         if not active:
             self._reap()
             return False
-        if not any(drafts.get(r.slot) for r in active):
+        if (not any(drafts.get(r.slot) for r in active)
+                and not any(r.constraint is not None for r in active)):
+            # Every drafter was preempted by provisioning. Constrained slots
+            # verify draftless all the same: their masks need the verify rows.
             return self._decode_window_all()
-        tokens, lens, tree_kw = self._verify_rows(active, drafts)
+        tokens, lens, tree_kw, vmask = self._verify_rows(active, drafts)
         dev = self.device
         if self._guard:
             tree_kw.update(active=self._live_mask(active), nan_guard=True)
@@ -1291,6 +1525,7 @@ class InferenceEngine:
                 torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(lens).to(dev),
                 torch.from_numpy(self.page_table).to(dev), self._gen, cfg=self.mcfg,
                 max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active), **tree_kw,
+                legal_mask=self._device_mask(vmask),
             )
             return self._fetch_verdicts(out[0], out[1], out[2] if self._guard else None)
 
@@ -1345,11 +1580,19 @@ class InferenceEngine:
             st.accepted += kept
             st.rolled_back += k - kept
             st.emitted += n_emit
-            self._spec.state(r.rid).update(k, kept, self.icfg.speculate_tokens)
+            self._count_forced(s, kept)
+            if self._spec is not None:   # a constrained-only engine has none
+                self._spec.state(r.rid).update(k, kept, self.icfg.speculate_tokens)
             if not r.done:
                 # A finished slot is reaped whole, donating only the full
                 # pages below its (rewound) cursor.
                 self._rollback_slot(r)
+
+    def _count_forced(self, slot: int, kept: int) -> None:
+        """Tally the accepted drafts of a slot's forced run."""
+        fr = self._constraint_forced.get(slot, 0)
+        if fr:
+            self.constraint_stats.forced_accepted += min(kept, fr)
 
     def _rollback_slot(self, req: Request) -> None:
         """Release the pages a verify step provisioned past the accepted
@@ -1434,9 +1677,11 @@ class InferenceEngine:
             st.emitted += n_emit
             st.tree_nodes += k
             st.tree_branch_nodes += max(k - depth, 0)
+            self._count_forced(s, kept)
             # The adaptive controller steers the depth (the chain-equivalent
             # draft length): drafted = the tree's depth, accepted = the path.
-            self._spec.state(r.rid).update(depth, kept, self.icfg.speculate_tokens)
+            if self._spec is not None:
+                self._spec.state(r.rid).update(depth, kept, self.icfg.speculate_tokens)
             if not r.done:
                 self._rollback_slot(r)
 
@@ -1492,10 +1737,14 @@ class InferenceEngine:
         verify rows (runner.mixed_verify_step); prompt-phase slots never
         draft. Returns True iff a decode slot advanced."""
         drafts = None
-        if self._spec is not None and not self._spec_disabled:
-            drafts = self._propose_drafts(
-                [r for r in self.slots
-                 if r is not None and not r.done and not r.prefill_pending])
+        dec_cands = [r for r in self.slots
+                     if r is not None and not r.done and not r.prefill_pending]
+        if self.constrained and any(r.constraint is not None for r in dec_cands):
+            # Constrained decode slots take the mixed verify rows, as in
+            # _decode_all.
+            drafts = self._propose_constrained_drafts(dec_cands)
+        elif self._spec is not None and not self._spec_disabled:
+            drafts = self._propose_drafts(dec_cands)
         self._grow_pages(self.icfg.speculate_tokens + 1 if drafts is not None else None)
         psz, S = self.psz, self.icfg.prefill_chunk_tokens
         # Pending prompts in admission order, each contributing its next
@@ -1531,7 +1780,8 @@ class InferenceEngine:
             d_pt[r.slot] = 0
         dec = [r for r in self.slots
                if r is not None and not r.done and not r.prefill_pending]
-        if drafts is not None and not any(drafts.get(r.slot) for r in dec):
+        if (drafts is not None and not any(drafts.get(r.slot) for r in dec)
+                and not any(r.constraint is not None for r in dec)):
             drafts = None   # provisioning preempted every drafter
         dev = self.device
         tm = self.timing
@@ -1540,7 +1790,7 @@ class InferenceEngine:
             guard = dict(active=self._live_mask(dec), nan_guard=True)
         t0 = time.perf_counter()
         if drafts is not None:
-            vtok, vlens, tree_kw = self._verify_rows(dec, drafts)
+            vtok, vlens, tree_kw, vmask = self._verify_rows(dec, drafts)
 
             def run():
                 out = mixed_verify_step(
@@ -1548,7 +1798,7 @@ class InferenceEngine:
                     torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(vlens).to(dev),
                     torch.from_numpy(d_pt).to(dev), *arrays, self._gen, cfg=self.mcfg,
                     max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec), **tree_kw,
-                    **guard,
+                    **guard, legal_mask=self._device_mask(vmask),
                 )
                 ok = out[2] if self._guard else None
                 return (*self._fetch_verdicts(out[0], out[1], ok), out[-2])   # the one fetch
@@ -1625,6 +1875,32 @@ class InferenceEngine:
         self._maybe_finish(req, tok)
 
     def _maybe_finish(self, req: Request, tok: int) -> None:
+        """Every emission ends here, so this is where a constrained
+        request's FSM consumes the token: an illegal token (only if
+        something bypassed the mask) or a dead end quarantines it, an
+        accepting state with no continuation completes it."""
+        if req.constraint is not None and not req.done:
+            c = req.constraint
+            t0 = time.perf_counter()
+            # Re-sync first if the advance count disagrees with generated.
+            ok = c.sync(req.generated[:-1]) and c.advance(int(tok))
+            self.constraint_stats.advance_s += time.perf_counter() - t0
+            if not ok:
+                self.constraint_stats.dead_ends += 1
+                self._quarantine(req, "constraint_illegal_token")
+                return
+            if c.is_dead():
+                self.constraint_stats.dead_ends += 1
+                self._quarantine(req, "constraint_dead_end")
+                return
+            if c.is_complete():
+                # Stop now rather than spend a step sampling the forced eos.
+                self.constraint_stats.completed += 1
+                req.done = True
+                return
+            if self.eos_id is not None and tok == self.eos_id:
+                # eos passes the mask only in accepting states.
+                self.constraint_stats.completed += 1
         hit_eos = self.eos_id is not None and tok == self.eos_id
         # seq_lens counts tokens whose KV is cached; the just-sampled token's
         # write position (== seq_lens) must stay inside the context window.

@@ -429,6 +429,9 @@ def _verify_ok(logits: torch.Tensor, lens: torch.Tensor, active: torch.Tensor) -
 
 
 def _verify_sample(logits, tokens, lens, generator, parents, sampling):
+    """The verifiers on ``logits``; a ``legal_mask`` in ``sampling`` masks
+    a copy, so the caller's ``logits`` stay raw for the NaN guard (a mask
+    would turn a NaN at an illegal position into NEG_INF)."""
     from orion_tpu_torch.infer.sampling import spec_verify_sample, spec_verify_sample_tree
 
     if parents is None:
@@ -457,6 +460,7 @@ def verify_step(
     tree_mask: Optional[torch.Tensor] = None,  # [B, W] packed ancestor words
     active: Optional[torch.Tensor] = None,     # [B] bool: live decode slot (guard)
     nan_guard: bool = False,
+    legal_mask: Optional[torch.Tensor] = None,  # [B, W, V] bool constraint masks
 ) -> tuple[torch.Tensor, ...]:
     """Score every live slot's drafts in ONE forward pass (speculative
     decoding's verify half) -> ``(accept [B, W] bool, alt [B, W] int32,
@@ -465,9 +469,12 @@ def verify_step(
     ``tree_mask`` given). The drafts' K/V is written into the pool as the
     layers go; the engine rewinds rejected positions afterwards. With
     ``nan_guard`` the return is ``(accept, alt, ok, cache)``, ``ok`` [B]
-    "every real position of an ``active`` row has finite logits". The
-    counterpart of the JAX runner's ``verify_step`` without the
-    constraint masks."""
+    "every real position of an ``active`` row has finite logits", computed
+    on the logits before any mask. ``legal_mask`` (constrained decoding):
+    position j's legal-token bitmask, walked by the host along the row's
+    draft prefix (chain) or ancestor path (tree); ``None`` runs the
+    unconstrained code. The counterpart of the JAX runner's
+    ``verify_step``."""
     W = tokens.shape[1]
     ctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
                       depths=depths, tree_mask=tree_mask)
@@ -476,7 +483,8 @@ def verify_step(
         x = _verify_layer(x, cache, bp, layer, ctx, cfg)
     logits = unembed(params, x, cfg)                                # [B, W, V]
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
-                                 dict(temperature=temperature, top_k=top_k, top_p=top_p))
+                                 dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                                      legal_mask=legal_mask))
     if nan_guard:
         return accept, alt, _verify_ok(logits, lens, active), cache
     return accept, alt, cache
@@ -508,12 +516,13 @@ def mixed_verify_step(
     tree_mask: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,     # [B] bool: slot DECODING (guard)
     nan_guard: bool = False,
+    legal_mask: Optional[torch.Tensor] = None,  # [B, W, V] bool constraint masks
 ) -> tuple[torch.Tensor, ...]:
     """``mixed_step`` with the decode half replaced by the verify body:
     speculative decoding composed with chunked prefill -> ``(accept,
     alt, chunk logits [Nc, V], cache)``, with ``nan_guard`` ``(accept,
     alt, ok, chunk logits, cache)`` (``ok`` as ``verify_step``'s, over
-    the verify rows only). Each layer runs the chunk rows through the
+    the verify rows only; ``legal_mask`` as ``verify_step``'s). Each layer runs the chunk rows through the
     prefill body (K9 or K3) and the verify rows through ``_verify_layer``
     (K10) over the same pool; they touch disjoint pages, as mid-prefill
     slots' verify rows are parked on scratch page 0."""
@@ -529,7 +538,8 @@ def mixed_verify_step(
         xv = _verify_layer(xv, cache, bp, layer, vctx, cfg)
     logits = unembed(params, xv, cfg)
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
-                                 dict(temperature=temperature, top_k=top_k, top_p=top_p))
+                                 dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                                      legal_mask=legal_mask))
     p_logits = _prefill_logits(params, xp, p_lengths, cfg)
     if nan_guard:
         return accept, alt, _verify_ok(logits, lens, active), p_logits, cache

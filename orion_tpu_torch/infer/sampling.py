@@ -2,9 +2,14 @@
 
 Counterpart of ``orion_tpu/infer/sampling.py`` ``sample``,
 ``filter_logits`` and the speculative verifiers ``spec_verify_sample``
-and ``spec_verify_sample_tree`` (constraint masks are not ported yet). Top-k and top-p
-are masks over the full vocab (sort + cumulative sum), so shapes stay
-static. Randomness comes from an explicit ``torch.Generator``; the JAX
+and ``spec_verify_sample_tree``. Top-k and top-p are masks over the full
+vocab (sort + cumulative sum), so shapes stay static.
+
+Constrained decoding (``orion_tpu_torch.constrain``) composes a per-row
+legal-token bitmask into the same filtered distribution every consumer
+shares: greedy, sampled and both verifiers mask before any filtering, so
+a constrained draft is accepted by the unconstrained acceptance math.
+``legal_mask=None`` runs exactly the unconstrained code. Randomness comes from an explicit ``torch.Generator``; the JAX
 package draws from ``jax.random`` keys, so sampled streams differ between
 the packages while the filtered distributions agree.
 """
@@ -13,7 +18,41 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 NEG_INF = -1e30
+
+
+class AllMaskedRows(ValueError):
+    """Typed per-slot error: legal-mask rows that admit no token. The
+    filtered distribution of such a row is undefined, so the engine fails
+    the offending slots, and only those, before dispatch. ``slots`` lists
+    the guilty row indices."""
+
+    def __init__(self, slots):
+        self.slots = list(slots)
+        super().__init__(
+            f"legal_mask rows {self.slots} admit no token (constraint "
+            f"dead end); quarantine those slots"
+        )
+
+
+def check_legal_mask(legal_mask) -> None:
+    """Host-side pre-dispatch validation: raise :class:`AllMaskedRows`
+    naming every all-masked row (rows are the leading axes flattened)."""
+    m = np.asarray(legal_mask, bool)
+    rows = m.reshape(-1, m.shape[-1])
+    bad = np.flatnonzero(~rows.any(axis=-1))
+    if bad.size:
+        raise AllMaskedRows(bad.tolist())
+
+
+def _apply_mask(logits: torch.Tensor, legal_mask) -> torch.Tensor:
+    """Illegal tokens drop to NEG_INF before temperature/top-k/top-p, so
+    every downstream filter sees the constrained distribution."""
+    if legal_mask is None:
+        return logits
+    return torch.where(legal_mask, logits.float(), NEG_INF)
 
 
 def sample(
@@ -23,13 +62,27 @@ def sample(
     temperature=0.0,
     top_k=0,
     top_p=1.0,
+    legal_mask=None,
 ) -> torch.Tensor:
     """logits [B, V] -> token ids [B] int32.
 
     Each parameter is a python scalar (whole batch) or a [B] tensor (per
     request). temperature <= 0 means greedy argmax for that row; top_k=0 /
     top_p=1.0 disable the filters. All-scalar greedy is a bare argmax.
+
+    ``legal_mask`` ([B, V] bool tensor or None) constrains rows to their
+    legal tokens: illegal logits drop to NEG_INF before any filter, and a
+    row whose mask admits exactly one token takes that token on both the
+    greedy and the sampled path. All-masked rows are a caller bug;
+    validate with ``check_legal_mask`` before dispatch.
     """
+    if legal_mask is not None:
+        logits = _apply_mask(logits, legal_mask)
+        forced = legal_mask.to(torch.uint8).argmax(dim=-1).to(torch.int32)
+        single = legal_mask.sum(dim=-1) == 1
+        toks = sample(logits, generator, temperature=temperature,
+                      top_k=top_k, top_p=top_p)
+        return torch.where(single, forced, toks)
     no_topk = isinstance(top_k, int) and top_k == 0
     no_topp = isinstance(top_p, (int, float)) and top_p >= 1.0
     if isinstance(temperature, (int, float)):
@@ -64,9 +117,14 @@ def filter_logits(
     *,
     no_topk: bool = False,
     no_topp: bool = False,
+    legal_mask=None,
 ) -> torch.Tensor:
-    """Temperature-scaled, top-k/top-p-masked logits [B, V]."""
+    """Temperature-scaled, top-k/top-p-masked logits [B, V].
+
+    ``legal_mask`` applies first, so top-k/top-p renormalize over the
+    constrained support (top-k acts as min(k, legal count))."""
     B, V = logits.shape
+    logits = _apply_mask(logits, legal_mask)
     scaled = logits / torch.where(temp > 0, temp, torch.ones_like(temp))[:, None]
     neg = torch.full_like(scaled, NEG_INF)
     if not (no_topk and no_topp):
@@ -126,10 +184,10 @@ def spec_verify_sample(
     temperature=0.0,
     top_k=0,
     top_p=1.0,
+    legal_mask=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-position draft acceptance: ``(accept [B, W] bool, alt [B, W]
-    int32)``, the counterpart of ``orion_tpu/infer/sampling.py``'s
-    (without ``legal_mask``). The host walks a row left to right, emitting
+    int32)``, the counterpart of ``orion_tpu/infer/sampling.py``'s. The host walks a row left to right, emitting
     draft j+1 while ``accept[j]`` holds and ``alt[j]`` at the first
     rejection or at the row's bonus position.
 
@@ -140,8 +198,14 @@ def spec_verify_sample(
     u ~ U[0, 1) per position, drawn first), else alt from p with the draft
     excluded (the residual; the bonus position excludes nothing). Every
     emitted token's law is p. The draws come from ``generator``, not
-    ``jax.random``: streams differ from the JAX package's, laws do not."""
+    ``jax.random``: streams differ from the JAX package's, laws do not.
+
+    ``legal_mask`` ([B, W, V] bool or None): position j's mask is the
+    constraint state after the row's draft prefix up to j. Masking before
+    filtering makes a forced draft's p exactly 1.0, so it is always
+    accepted, greedy or sampled."""
     B, W, V = logits.shape
+    logits = _apply_mask(logits, legal_mask)
     greedy = logits.argmax(dim=-1).to(torch.int32)
     dn = draft_next.to(logits.device).to(torch.int32)
     if isinstance(temperature, (int, float)) and temperature <= 0.0:
@@ -170,11 +234,11 @@ def spec_verify_sample_tree(
     temperature=0.0,
     top_k=0,
     top_p=1.0,
+    legal_mask=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-tree acceptance, CHILD-indexed: ``accept[c]`` says whether
     node column c is accepted by its parent's logits, ``alt[j]`` is column
-    j's fallback token. Counterpart of ``orion_tpu/infer/sampling.py``'s
-    (without ``legal_mask``).
+    j's fallback token. Counterpart of ``orion_tpu/infer/sampling.py``'s.
 
     Greedy: ``accept[c]`` is an exact argmax match against the parent
     (siblings are distinct, so at most one matches) and nothing is drawn
@@ -182,8 +246,13 @@ def spec_verify_sample_tree(
     probability ``p(x_c) / (1 - elder siblings' p)`` (sequential multi-
     branch rejection against the shared filtered target, one u per
     column drawn first), and ``alt[j]`` is drawn from j's target with
-    j's own children's tokens excluded. Every emitted token's law is p."""
+    j's own children's tokens excluded. Every emitted token's law is p.
+
+    ``legal_mask`` ([B, W, V] bool or None): column j's mask is the
+    constraint state after j's ancestor path, so siblings at an FSM branch
+    point are each legal under their shared parent's mask."""
     B, W, V = logits.shape
+    logits = _apply_mask(logits, legal_mask)
     dev = logits.device
     steps = torch.arange(W, device=dev)[None, :]
     lens = lens.to(dev)

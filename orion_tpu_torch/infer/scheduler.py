@@ -3,9 +3,10 @@ admission queue's policy.
 
 Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core with
 the prefix-cache and chunked-prefill state, request priorities and
-deadlines, the typed outcomes, and ``AdmissionQueue`` (which request an
-over-limit submit sheds; the step-boundary deadline sweep of the queue).
-The host-tier, router and grammar-constraint state are not ported.
+deadlines, the typed outcomes, the grammar constraint's walk, and
+``AdmissionQueue`` (which request an over-limit submit sheds; the
+step-boundary deadline sweep of the queue). The host-tier and router
+state are not ported.
 """
 
 from __future__ import annotations
@@ -58,6 +59,11 @@ class Request:
     # rides mixed steps as a prompt-chunk row, never a decode row.
     prefill_done: int = 0
     prefill_pending: bool = False
+    # Grammar constraint (orion_tpu_torch.constrain.ConstraintState): the
+    # request's walk through its token DFA. Pure host state: it survives
+    # preemption (re-prefill replays prompt + generated; the state re-syncs
+    # off ``generated`` if the advance count disagrees).
+    constraint: Optional[Any] = None
 
     @property
     def context(self) -> list[int]:

@@ -1,10 +1,11 @@
 """Step metrics, throughput and MFU for the training loop; prefix-cache,
-speculative-decoding and robustness counters for serving.
+speculative-decoding, grammar-constraint and robustness counters for
+serving.
 
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
 and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``,
-``SpecDecodeStats`` and ``RobustnessStats``. MFU = model FLOPs per token
+``SpecDecodeStats``, ``ConstraintStats`` and ``RobustnessStats``. MFU = model FLOPs per token
 (``ModelConfig.flops_per_token``: 6 N plus the attention term) x tokens /
 (step time x devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
@@ -220,6 +221,64 @@ class SpecDecodeStats:
             "spec_compactions": self.compactions,
             "spec_compacted_tokens": self.compacted_tokens,
             "spec_disabled_reason": self.disabled_reason or "",
+        }
+
+
+@dataclass
+class ConstraintStats:
+    """Grammar-constrained-decoding counters (inference.constrained), owned
+    by InferenceEngine and drained through ``reset_timing``; a copy of
+    ``orion_tpu/metrics.py``'s, with the same fields and keys.
+
+    Compile side: ``compiles``/``compile_hits`` count constraint-DFA
+    compilations requested at submit and the memo-cache hits among them
+    (``compile_s`` is the cumulative miss cost). Runtime side:
+    ``masked_rows`` counts logits rows a legal-token mask was applied to
+    (per slot per dispatch position), ``masked_steps`` the engine steps
+    that carried at least one constrained row, ``advance_s`` the cumulative
+    host-side FSM-advance time. Speculation: ``forced_drafted``/
+    ``forced_accepted`` count draft tokens from single-legal-continuation
+    FSM states (the free drafts), ``branch_points`` tree branch-outs taken
+    at ambiguous FSM states. Terminals: ``completed`` constraints satisfied
+    to acceptance, ``dead_ends`` walks into a state no vocab token leaves.
+    """
+
+    requests: int = 0
+    compiles: int = 0
+    compile_hits: int = 0
+    compile_s: float = 0.0
+    advance_s: float = 0.0
+    masked_steps: int = 0
+    masked_rows: int = 0
+    forced_drafted: int = 0
+    forced_accepted: int = 0
+    branch_points: int = 0
+    completed: int = 0
+    dead_ends: int = 0
+
+    @property
+    def forced_acceptance_rate(self) -> float:
+        if not self.forced_drafted:
+            return 0.0
+        return self.forced_accepted / self.forced_drafted
+
+    def as_timing(self) -> dict[str, float]:
+        """Flatten into the engine's reset_timing dict."""
+        return {
+            "constrain_requests": self.requests,
+            "constrain_compiles": self.compiles,
+            "constrain_compile_hits": self.compile_hits,
+            "constrain_compile_s": self.compile_s,
+            "constrain_advance_s": self.advance_s,
+            "constrain_masked_steps": self.masked_steps,
+            "constrain_masked_rows": self.masked_rows,
+            "constrain_forced_drafted": self.forced_drafted,
+            "constrain_forced_accepted": self.forced_accepted,
+            "constrain_forced_acceptance_rate":
+                self.forced_acceptance_rate,
+            "constrain_branch_points": self.branch_points,
+            "constrain_completed": self.completed,
+            "constrain_dead_ends": self.dead_ends,
         }
 
 
