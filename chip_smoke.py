@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,serve --profile
     python3 chip_smoke.py --phases device,build,train --profile
     python3 chip_smoke.py --phases device,build,serve_spec --profile
+    python3 chip_smoke.py --phases device,build,train_faults
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -131,6 +132,27 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
+  train_faults  llama-1b-bench at full width and depth on the card, the
+           checkpoint format and the training fault stack, in a temporary
+           directory removed at the end (the free disk is printed first):
+           R0, 6 steps saving every 2 (async, 2 kept); its final checkpoint
+           restored to the host with and without the CRC pass; S, the
+           serving CLI (``orion_tpu_torch.generate``) on R0's checkpoint: 4
+           greedy requests whose streams must equal an engine's built from
+           R0's final params in memory; R1, R0 under run_with_restarts with
+           train.inject_fault_at_step=3: the emergency save commits step 3,
+           the restart resumes there, and the final checkpoint must equal
+           R0's leaf for leaf (sizes and CRCs), its losses R0's; R2, the
+           anomaly guard (limit 2) with NaN-poisoned steps 3 and 4: each
+           skipped with params and moments bitwise as before and the count
+           unchanged, K5-K8 launched inside them, the rollback to step 4
+           skipping 1 batch (rollbacks 1, skipped_batches 1, anomalous and
+           nonfinite 2), then finite losses; R3, a commit torn at step 4:
+           a fresh trainer quarantines it (truncated_array) and restores
+           step 2; then the guarded and the unguarded step in turns. Prints
+           checkpoint bytes, save (capture) and commit medians, restore
+           times, the two step times, the free disk and K1-K3/K5-K8's
+           launches
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K1 also at the training rows and the serve's decode batch, with
            its device time alone and the host's microseconds per call; K5
@@ -171,7 +193,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
           "serve_spec", "serve_constrained", "serve_faults", "train_parity", "train",
-          "timing")
+          "train_faults", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -3255,6 +3277,358 @@ def phase_train(profile=False):
     return launches
 
 
+# train_faults: llama-1b-bench at full width and depth, random weights from
+# train.seed, checkpoints in a temporary directory (at most two committed
+# plus one being written: ~8.3 GB each).
+TF_OVERRIDES = [f"train.num_steps={TRAIN_STEPS}", "train.log_interval=1",
+                "checkpoint.save_interval_steps=2", "checkpoint.async_save=true",
+                "checkpoint.max_to_keep=2"]
+TF_POISON_KERNELS = ("rmsnorm_bwd", "rope_bwd", "flash_dq", "flash_dkv")
+TF_PROMPTS = (100, 250, 400, 550)
+TF_NEW = 16
+
+
+class CkptClock:
+    """Wall seconds of a checkpoint manager's saves (the synchronous part:
+    stacking the layers and the device-to-host copy), commits (on the
+    writer thread: bytes, write, fsync, CRC, manifest, rename, GC) and
+    restores, by wrapping the manager's own methods."""
+
+    def __init__(self):
+        self.save_s, self.commit_s, self.restore_s = [], [], []
+
+    def watch(self, mgr):
+        save, commit, restore = mgr.save, mgr._commit, mgr.restore_latest
+
+        def timed(fn, sink, keep=lambda out: True):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if keep(out):
+                    sink.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        mgr.save = timed(save, self.save_s, keep=bool)
+        mgr._commit = timed(commit, self.commit_s)
+        mgr.restore_latest = timed(restore, self.restore_s, keep=lambda out: out is not None)
+        return mgr
+
+    def summary(self):
+        med = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
+        return {"saves": len(self.save_s), "save_capture_s_median": med(self.save_s),
+                "commits": len(self.commit_s), "commit_s_median": med(self.commit_s),
+                "restores": len(self.restore_s), "restore_s": self.restore_s}
+
+
+def manifest_of(ckpt_dir, step):
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def first_leaf_differing(m_a, m_b):
+    """The first leaf (in file order) whose size or CRC differs, or None."""
+    for key, entry in m_a["leaves"].items():
+        other = m_b["leaves"].get(key)
+        sig = [(s["nbytes"], s["crc32"]) for s in entry["shards"]]
+        if other is None or sig != [(s["nbytes"], s["crc32"]) for s in other["shards"]]:
+            return key
+    return None
+
+
+def state_leaves(state):
+    """Params and moments of a port train state, in one list."""
+    from orion_tpu_torch.models.convert import tree_leaves
+
+    return tree_leaves(state["params"]) + tree_leaves(state["opt"]["mu"]) + \
+        tree_leaves(state["opt"]["nu"])
+
+
+def watch_poisoned_steps(tr, record):
+    """Wrap the trainer's NaN-poisoned step: snapshot params and moments
+    before it, and record whether it left them bitwise as they were, the
+    schedule count, its flags and the K5-K8 launches inside it."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    make = tr._poison_variant
+
+    def variant():
+        fn = make()
+
+        def step(state, batch, limit):
+            before = [t.clone() for t in state_leaves(state)]
+            count, l0 = state["opt"]["count"], ops.launches()
+            state, m = fn(state, batch, limit)
+            torch.cuda.synchronize()
+            l1 = ops.launches()
+            record.append({
+                "step": state["step"] - 1, "anomaly": m["anomaly"],
+                "nonfinite": m["nonfinite"], "loss": m["loss"],
+                "params_moments_bitwise_unchanged": all(
+                    torch.equal(bits(a), bits(b)) for a, b in zip(before, state_leaves(state))),
+                "count_unchanged": state["opt"]["count"] == count,
+                "launches": {k: l1[k] - l0[k] for k in TF_POISON_KERNELS},
+            })
+            del before
+            return state, m
+
+        return step
+
+    tr._poison_variant = variant
+
+
+def tf_generate_streams(argv):
+    """Run the serving CLI (``orion_tpu_torch.generate.main``) and return
+    its first line and its streams."""
+    import contextlib
+    import io
+
+    from orion_tpu_torch.generate import main as generate_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = generate_main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"train_faults S: generate exited {rc}: {lines[-3:]}")
+    return lines[0], [json.loads(line)["generated"] for line in lines if line.startswith("{")]
+
+
+def tf_serve_check(cfg, ckpt_dir, params, step):
+    """S: the CLI serves the checkpoint in ``ckpt_dir``; its greedy streams
+    must equal an engine's built from ``params`` (the same run's final
+    params, in memory)."""
+    import numpy as np
+
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models.convert import to_device
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.model.vocab_size, size=n).tolist() for n in TF_PROMPTS]
+    argv = ["--preset", "llama-1b-bench", "--max-new-tokens", str(TF_NEW),
+            f"checkpoint.directory={ckpt_dir}"]
+    for p in prompts:
+        argv += ["--tokens", ",".join(map(str, p))]
+    t0 = time.perf_counter()
+    head, cli = tf_generate_streams(argv)
+    cli_s = time.perf_counter() - t0
+    free_engine()
+    if head != f"restored checkpoint step {step}":
+        raise AssertionError(f"train_faults S: the CLI said {head!r}")
+    eng = InferenceEngine(cfg, to_device(params, "cuda", dtype=cfg.model.dtype),
+                          device="cuda")
+    reqs = [eng.submit_request(p, TF_NEW) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    mem = [r.generated for r in reqs]
+    eng.close()
+    del eng
+    free_engine()
+    if cli != mem or any(len(g) != TF_NEW for g in mem):
+        raise AssertionError(f"train_faults S: CLI streams {cli} != in-memory {mem}")
+    return {"requests": len(prompts), "new_tokens_each": TF_NEW, "streams_equal": True,
+            "cli_wall_s": cli_s}
+
+
+def tf_guard_step_times(cfg, state, tr, pairs=8):
+    """The guarded and the unguarded step on the same state and batches, in
+    turns after one warm-up each: wall seconds a step (each ends in the
+    step's host fetch), the median and every time."""
+    import dataclasses
+
+    from orion_tpu_torch.train import make_train_step
+
+    on = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, anomaly_guard=True))
+    off = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, anomaly_guard=False))
+    fns = {"unguarded": make_train_step(off, tr._schedule),
+           "guarded": make_train_step(on, tr._schedule)}
+    args = {"unguarded": (), "guarded": (float("inf"),)}
+    times = {k: [] for k in fns}
+    for i in range(pairs + 1):
+        for name in (("unguarded", "guarded") if i % 2 else ("guarded", "unguarded")):
+            batch = tr.global_batch(i)
+            t0 = time.perf_counter()
+            state, _ = fns[name](state, batch, *args[name])
+            if i:
+                times[name].append(time.perf_counter() - t0)
+    return {**{f"{k}_step_s_median": statistics.median(v) for k, v in times.items()},
+            **{f"{k}_step_s": v for k, v in times.items()}}
+
+
+def phase_train_faults():
+    """R0-R3 and S (docstring) at llama-1b-bench; returns the phase's
+    launches."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ckpt import CheckpointManager
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec, run_with_restarts
+    from orion_tpu_torch.train import Trainer, abstract_train_state
+
+    root = tempfile.mkdtemp(prefix="orion_train_faults_")
+    du = shutil.disk_usage(root)
+    smi = smi_line()
+    emit({"phase": "train_faults", "disk_free_gib": du.free / 2 ** 30,
+          "disk_total_gib": du.total / 2 ** 30, "nvidia_smi": smi})
+
+    def cfg_for(name, *extra):
+        return get_config("llama-1b-bench", TF_OVERRIDES + list(extra)
+                          + [f"checkpoint.directory={root}/{name}"])
+
+    def check_finite(name, hist):
+        losses = [m.loss for m in hist]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_faults {name}: non-finite loss {losses}")
+        return losses
+
+    clock = CkptClock()
+    out = {"phase": "train_faults", "preset": "llama-1b-bench", "steps": TRAIN_STEPS}
+    ops.reset_launches()
+    try:
+        # R0: the uninterrupted fit.
+        cfg0 = cfg_for("r0")
+        tr0 = Trainer(cfg0, device="cuda")
+        clock.watch(tr0.ckpt)
+        t0 = time.perf_counter()
+        r0_losses = check_finite("R0", tr0.fit())
+        out["r0"] = {"wall_s": time.perf_counter() - t0, "losses": r0_losses,
+                     "kept": tr0.ckpt._committed_steps()}
+        r0_manifest = manifest_of(f"{root}/r0", TRAIN_STEPS)
+        out["checkpoint_bytes"] = sum(s["nbytes"] for e in r0_manifest["leaves"].values()
+                                      for s in e["shards"])
+        out["checkpoint_files"] = len(r0_manifest["leaves"])
+        # Restore of R0's final checkpoint, with and without the CRC pass
+        # (the files were just written: the page cache holds them).
+        restore = {}
+        abstract = abstract_train_state(cfg0)
+        for verify in (True, False):
+            mgr = CheckpointManager(f"{root}/r0", dataclasses.replace(
+                cfg0.checkpoint, verify_restore=verify))
+            t0 = time.perf_counter()
+            _, step = mgr.restore_latest(abstract)
+            restore[f"verify_{str(verify).lower()}_s"] = time.perf_counter() - t0
+            if step != TRAIN_STEPS:
+                raise AssertionError(f"train_faults: restored step {step}")
+        out["restore_to_host"] = restore
+        # S: the CLI serves R0's checkpoint.
+        out["s"] = tf_serve_check(cfg0, f"{root}/r0", tr0.state["params"], TRAIN_STEPS)
+        del tr0
+        free_engine()
+        shutil.rmtree(f"{root}/r0")
+
+        # R1: R0 under the supervisor, a fault at step 3.
+        cfg1 = cfg_for("r1", "train.inject_fault_at_step=3")
+        attempts, last = [], {"reason": None}
+
+        def make_and_fit(attempt):
+            tr = Trainer(cfg1, device="cuda")
+            clock.watch(tr.ckpt)
+            attempts.append({"attempt": attempt})
+            t0 = time.perf_counter()
+            state, step = tr.restore_or_init()
+            attempts[-1].update(start_step=step, restore_or_init_s=time.perf_counter() - t0)
+            try:
+                return tr.fit(state=state, restart_info=(attempt, last["reason"]))
+            finally:
+                attempts[-1].update(tr.robustness.as_timing())
+                attempts[-1]["quarantined"] = tr.ckpt.quarantined
+
+        def on_retry(attempt, exc):
+            last["reason"] = f"{type(exc).__name__}: {exc}"
+
+        hist = run_with_restarts(make_and_fit, max_restarts=1, on_retry=on_retry)
+        r1_losses = check_finite("R1", hist)
+        r1_manifest = manifest_of(f"{root}/r1", TRAIN_STEPS)
+        differ = first_leaf_differing(r0_manifest, r1_manifest)
+        out["r1"] = {"attempts": attempts, "losses_resumed": r1_losses,
+                     "final_state_bitwise_r0": differ is None, "first_differing_leaf": differ}
+        if len(attempts) != 2 or attempts[0]["emergency_saves"] != 1 \
+                or attempts[1]["start_step"] != 3 or attempts[1]["restarts"] != 1:
+            raise AssertionError(f"train_faults R1: {attempts}")
+        if differ is not None:
+            emit(out)
+            raise AssertionError(f"train_faults R1: the resumed final state differs from "
+                                 f"R0's, first at leaf {differ}")
+        if r1_losses != r0_losses[3:]:
+            raise AssertionError(f"train_faults R1: losses {r1_losses} vs R0 {r0_losses}")
+        free_engine()
+        shutil.rmtree(f"{root}/r1")
+
+        # R2: the guard, two NaN steps, the rollback.
+        cfg2 = cfg_for("r2", "train.anomaly_guard=true", "train.anomaly_limit=2")
+        inj = FaultInjector(specs=[FaultSpec("nan", 3, "train"), FaultSpec("nan", 4, "train")])
+        tr2 = Trainer(cfg2, device="cuda", fault_injector=inj)
+        clock.watch(tr2.ckpt)
+        poisoned = []
+        watch_poisoned_steps(tr2, poisoned)
+        t0 = time.perf_counter()
+        hist = tr2.fit()
+        st = tr2.robustness
+        out["r2"] = {"wall_s": time.perf_counter() - t0, "poisoned_steps": poisoned,
+                     "losses": [m.loss for m in hist], "steps_logged": [m.step for m in hist],
+                     "rolled_back_to": tr2.ckpt.last_restore_step,
+                     "loader_offset": tr2.loader.offset, **st.as_timing()}
+        if (st.rollbacks, st.skipped_batches, st.anomalous_steps, st.nonfinite_steps) \
+                != (1, 1, 2, 2) or tr2.ckpt.last_restore_step != 4:
+            raise AssertionError(f"train_faults R2: {out['r2']}")
+        if [p["step"] for p in poisoned] != [3, 4] or not all(
+                p["anomaly"] == 1.0 and p["nonfinite"] == 1.0
+                and p["params_moments_bitwise_unchanged"] and p["count_unchanged"]
+                and all(n > 0 for n in p["launches"].values()) for p in poisoned):
+            raise AssertionError(f"train_faults R2: poisoned steps {poisoned}")
+        nonfinite = [i for i, m in enumerate(hist) if not math.isfinite(m.loss)]
+        if nonfinite != [3, 4] or hist[-1].step != TRAIN_STEPS:
+            raise AssertionError(f"train_faults R2: non-finite losses at {nonfinite}, "
+                                 f"last step {hist[-1].step}")
+        del tr2, hist
+        free_engine()
+        shutil.rmtree(f"{root}/r2")
+
+        # R3: a torn commit at step 4, then a fresh trainer's restore.
+        cfg3 = cfg_for("r3", "train.num_steps=4")
+        tr3 = Trainer(cfg3, device="cuda",
+                      fault_injector=FaultInjector(specs=[FaultSpec("partial_write", 4)]))
+        clock.watch(tr3.ckpt)
+        check_finite("R3", tr3.fit())
+        fired = list(tr3.fault_injector.fired)
+        del tr3
+        free_engine()
+        tr3b = Trainer(cfg3, device="cuda")
+        clock.watch(tr3b.ckpt)
+        t0 = time.perf_counter()
+        state, step = tr3b.restore_or_init()
+        out["r3"] = {"fired": fired, "restored_step": step,
+                     "quarantined": tr3b.ckpt.quarantined,
+                     "corrupt_checkpoints": tr3b.robustness.corrupt_checkpoints,
+                     "restore_or_init_s": time.perf_counter() - t0}
+        if fired != [("partial_write", 4, "ckpt")] or step != 2 \
+                or tr3b.ckpt.quarantined != [(4, "truncated_array")] \
+                or tr3b.robustness.corrupt_checkpoints != 1:
+            raise AssertionError(f"train_faults R3: {out['r3']}")
+        out["step_times"] = tf_guard_step_times(cfg3, state, tr3b)
+        del tr3b, state
+        free_engine()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = ops.launches()
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train_faults: kernels never launched: {missing}")
+    out.update(checkpoints=clock.summary(), launches={k: launches[k] for k in TRAIN_KERNELS},
+               disk_free_gib_after=shutil.disk_usage(tempfile.gettempdir()).free / 2 ** 30,
+               nvidia_smi=smi)
+    emit(out)
+    return launches
+
+
 def time_ms(fn, runs=5, calls=5):
     """Time of one call: CUDA events around ``runs`` runs of ``calls``
     back-to-back calls after a warm-up, the median of the runs' per-call
@@ -3807,6 +4181,7 @@ def main(argv=None) -> int:
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
     train_launches = timing = fault_launches = constrained_launches = None
+    train_fault_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -3835,6 +4210,8 @@ def main(argv=None) -> int:
         phase_train_parity()
     if "train" in phases:
         train_launches = phase_train(args.profile)
+    if "train_faults" in phases:
+        train_fault_launches = phase_train_faults()
     if "timing" in phases:
         timing = phase_timing()
     if (errs and launches and chunked_launches and spec_launches and parity_launches
@@ -3848,7 +4225,8 @@ def main(argv=None) -> int:
                           "parity_chunked_f32": parity_launches["float32"][name]}
                    for name in KERNEL_META}
         for path, counts in (("serve_constrained", constrained_launches),
-                             ("serve_faults", fault_launches)):
+                             ("serve_faults", fault_launches),
+                             ("train_faults", train_fault_launches)):
             if counts:
                 for name in KERNEL_META:
                     by_path[name][path] = counts[name]

@@ -27,6 +27,14 @@ Batch = Mapping[str, np.ndarray]
 
 log = logging.getLogger("orion_tpu_torch.data")
 
+# Data-stream format version, the JAX package's (``orion_tpu/data/loader.py``)
+# and recorded in every checkpoint manifest. Bump whenever the (seed, step)
+# -> batch mapping changes, because the stream is otherwise silent about it:
+# resume replays a different token order with no error. History:
+#   1 — per-process streams (seed included process_index).
+#   2 — global (seed, step)-deterministic batch sliced per host.
+STREAM_FORMAT = 2
+
 # Tally of pack_rows' bounded token loss (see its docstring).
 pack_stats = {"dropped_tokens": 0}
 
@@ -36,9 +44,11 @@ class Loader(abc.ABC):
 
     The stream is a pure function of ``(shuffle_seed, data_step)`` where
     ``data_step = step + offset``: the ``offset`` cursor (default 0) is the
-    loader's only mutable state; ``skip_batches`` advances it without
-    advancing the optimizer step. (Its serialization into checkpoint
-    manifests arrives with checkpointing.)
+    loader's only mutable state, serialized into every checkpoint manifest
+    (``state_dict``/``load_state_dict``) so resume replays the identical
+    token order bitwise. ``skip_batches`` advances it without advancing the
+    optimizer step: the auto-rollback path uses it to fast-forward past a
+    poisoned batch window.
     """
 
     def __init__(self, cfg: DataConfig, process_index: int, process_count: int):
@@ -52,6 +62,11 @@ class Loader(abc.ABC):
         self.process_count = process_count
         self.host_batch = cfg.batch_size // process_count
         self.offset = 0
+        if process_index == 0:
+            log.info("data stream format v%d (seed=%s): resuming a "
+                     "checkpoint written under an older format replays a "
+                     "different token order (see loader.STREAM_FORMAT)",
+                     STREAM_FORMAT, cfg.shuffle_seed)
 
     @abc.abstractmethod
     def batch_at(self, step: int) -> Batch:
@@ -66,6 +81,32 @@ class Loader(abc.ABC):
         if n < 0:
             raise ValueError(f"skip_batches({n}): cursor never rewinds")
         self.offset += n
+
+    def state_dict(self) -> dict:
+        """The cursor as the checkpoint manifest's ``extra["loader"]``."""
+        return {
+            "version": 1,
+            "offset": self.offset,
+            "stream_format": STREAM_FORMAT,
+            "shuffle_seed": self.cfg.shuffle_seed,
+        }
+
+    def load_state_dict(self, state: Mapping) -> None:
+        fmt = state.get("stream_format")
+        if fmt is not None and fmt != STREAM_FORMAT:
+            log.warning(
+                "loader state was written under data-stream format %s but "
+                "this build uses format %d: resume continues on a "
+                "DIFFERENT token order", fmt, STREAM_FORMAT,
+            )
+        seed = state.get("shuffle_seed")
+        if seed is not None and seed != self.cfg.shuffle_seed:
+            log.warning(
+                "loader state was written under shuffle_seed=%s but this "
+                "run uses %s: resume continues on a different token order",
+                seed, self.cfg.shuffle_seed,
+            )
+        self.offset = int(state.get("offset", 0))
 
 
 def pack_rows(

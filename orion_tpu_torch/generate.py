@@ -9,9 +9,12 @@ Each ``--tokens`` list is one request, served concurrently; one JSON
 line per request, with its typed outcome beside its tokens, is printed at
 the end. On SIGTERM the loop drains at the next step boundary: admission
 stops, never-started requests are shed, live ones finish, and the process
-exits 0. Weights are a seeded random init
-in the model's dtype, made on the device (``--seed``); that exercises the
-whole engine, scheduler, cache and kernel path, not output quality.
+exits 0. Weights are the params of the newest intact trainer checkpoint
+in ``checkpoint.directory`` (this package's or the JAX package's: the
+format is the same), cast to the model's dtype; without one, a seeded
+random init in the model's dtype, made on the device (``--seed``), which
+exercises the whole engine, scheduler, cache and kernel path, not output
+quality.
 Dotted ``key=value`` arguments override the preset (sampling:
 ``inference.temperature=0.7 inference.top_k=50``).
 
@@ -56,12 +59,9 @@ def main(argv: list[str] | None = None) -> int:
     if constraint is not None:
         overrides.append("inference.constrained=true")
 
-    import torch
-
     from orion_tpu_torch.config import get_config
     from orion_tpu_torch.infer import InferenceEngine
     from orion_tpu_torch.infer.engine import resolve_device
-    from orion_tpu_torch.models import init_params
     from orion_tpu_torch.runtime.fault import PreemptionHandler
 
     cfg = get_config(args.preset, overrides)
@@ -70,9 +70,7 @@ def main(argv: list[str] | None = None) -> int:
     if not prompts:
         prompts = [[1, 2, 3, 4]]
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = init_params(cfg.model, gen, device=device, dtype=cfg.model.dtype)
+    params = _params(cfg, device, args.seed)
     engine = InferenceEngine(cfg, params, eos_id=args.eos_id, seed=args.seed,
                              device=device)
     del params
@@ -94,6 +92,33 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"rid": req.rid, "outcome": req.outcome,
                           "prompt": req.prompt, "generated": req.generated}))
     return 0
+
+
+def _params(cfg, device, seed: int):
+    """The params of the newest intact checkpoint in
+    ``checkpoint.directory`` (the moments dropped), else a seeded init; in
+    the model's dtype on ``device``."""
+    import torch
+
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.convert import to_device, unstack_layers
+
+    if cfg.checkpoint.directory:
+        from orion_tpu_torch.ckpt import CheckpointManager
+        from orion_tpu_torch.train.trainer import abstract_train_state
+
+        restored = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint) \
+            .restore_latest(abstract_train_state(cfg))
+        if restored is not None:
+            tree, step = restored
+            print(f"restored checkpoint step {step}")
+            return to_device(unstack_layers(tree["params"], cfg.model), device,
+                             dtype=cfg.model.dtype)
+        print(f"no intact checkpoint in {cfg.checkpoint.directory}: serving the "
+              f"seeded init (--seed {seed})")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return init_params(cfg.model, gen, device=device, dtype=cfg.model.dtype)
 
 
 def _constraint(args):

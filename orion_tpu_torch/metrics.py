@@ -5,7 +5,8 @@ serving.
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
 and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``,
-``SpecDecodeStats``, ``ConstraintStats`` and ``RobustnessStats``. MFU = model FLOPs per token
+``SpecDecodeStats``, ``ConstraintStats`` and ``RobustnessStats``; and the
+trainer's ``TrainRobustnessStats``. MFU = model FLOPs per token
 (``ModelConfig.flops_per_token``: 6 N plus the attention term) x tokens /
 (step time x devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
@@ -330,6 +331,62 @@ class RobustnessStats:
             "failed_steps": self.failed_steps,
             "stalled_steps": self.stalled_steps,
             "pool_faults": self.pool_faults,
+        }
+
+
+@dataclass
+class TrainRobustnessStats:
+    """Training-side fault-tolerance counters, owned by the Trainer; a copy
+    of ``orion_tpu/metrics.py``'s, with the same fields and keys.
+
+    ``anomalous_steps`` counts steps skipped by the gradient anomaly guard
+    (``train.anomaly_guard``), split into ``nonfinite_steps`` (NaN/Inf in
+    the loss or any grad leaf) and ``spike_steps`` (finite, but the global
+    grad norm exceeded ``train.anomaly_spike_factor`` x the running EMA); a
+    skipped step leaves params and optimizer state bit-identical.
+    ``rollbacks`` counts auto-rollback episodes (``train.anomaly_limit``
+    consecutive anomalies -> restore the newest intact checkpoint and skip
+    the poisoned batch window), ``skipped_batches`` the data-cursor
+    fast-forward those episodes applied. ``emergency_saves`` counts
+    preemption/crash force-saves, ``corrupt_checkpoints`` the checkpoints
+    restore quarantined with a typed reason before finding an intact one,
+    ``restarts`` the supervisor attempt this fit runs under
+    (``run_with_restarts``), and ``last_fault_reason`` why the previous
+    attempt died.
+    """
+
+    anomalous_steps: int = 0
+    nonfinite_steps: int = 0
+    spike_steps: int = 0
+    rollbacks: int = 0
+    skipped_batches: int = 0
+    emergency_saves: int = 0
+    corrupt_checkpoints: int = 0
+    restarts: int = 0
+    last_fault_reason: Optional[str] = None
+
+    def as_extras(self) -> dict[str, float]:
+        """Flatten into MetricsLogger extras (floats only; the reason
+        string rides the log line, not the JSONL row)."""
+        return {
+            "anomalous_steps": float(self.anomalous_steps),
+            "rollbacks": float(self.rollbacks),
+            "restarts": float(self.restarts),
+        }
+
+    def as_timing(self) -> dict[str, Any]:
+        """The full counter set (``as_extras`` keeps the step log's
+        subset)."""
+        return {
+            "anomalous_steps": self.anomalous_steps,
+            "nonfinite_steps": self.nonfinite_steps,
+            "spike_steps": self.spike_steps,
+            "rollbacks": self.rollbacks,
+            "skipped_batches": self.skipped_batches,
+            "emergency_saves": self.emergency_saves,
+            "corrupt_checkpoints": self.corrupt_checkpoints,
+            "restarts": self.restarts,
+            "last_fault_reason": self.last_fault_reason or "",
         }
 
 

@@ -122,6 +122,18 @@ def tree_leaves_with_path(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]
     return [(path, tree)]
 
 
+def jax_leaves_with_path(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted at
+    every level, lists by index. The order of the JAX package's checkpoint
+    files and of its sums over a tree, whatever order a tree's dicts were
+    built in."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in jax_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in jax_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
 def tree_leaves(tree: Any) -> list:
     """The leaves of a tree of dicts and lists, in ``tree_map``'s order."""
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
@@ -148,6 +160,36 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def stack_layers(params: Params, cfg: ModelConfig) -> Params:
+    """``params`` in the JAX package's layout: with ``scan_layers`` every
+    block leaf stacked along a leading layer dimension (new tensors),
+    otherwise the per-layer list as it is. The other leaves are the
+    tensors themselves."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    blocks = params["blocks"]
+    if cfg.scan_layers:
+        by_layer = [tree_leaves(b) for b in blocks]
+        out["blocks"] = tree_unflatten(blocks[0], [torch.stack(layers)
+                                                   for layers in zip(*by_layer)])
+    else:
+        out["blocks"] = list(blocks)
+    return out
+
+
+def unstack_layers(tree: Params, cfg: ModelConfig) -> Params:
+    """The inverse of ``stack_layers``: a stacked ``blocks`` dict (the JAX
+    package's ``scan_layers`` layout) split into one dict per layer (each
+    leaf its own copy); a per-layer list is taken as it is."""
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    if isinstance(blocks, dict):
+        out["blocks"] = [tree_map(lambda t: t[layer].clone(), blocks)
+                         for layer in range(cfg.n_layers)]
+    else:
+        out["blocks"] = list(blocks)
+    return out
+
+
 def from_jax_params(
     tree: Params, cfg: ModelConfig, device: Optional[str] = None
 ) -> Params:
@@ -160,16 +202,7 @@ def from_jax_params(
     as it is."""
     if cfg.is_moe:
         raise NotImplementedError("mixture-of-experts weights are not ported yet")
-    out = {k: tree_map(_to_tensor, v) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):
-        stacked = tree_map(_to_tensor, blocks)
-        out["blocks"] = [
-            tree_map(lambda t: t[layer].clone(), stacked)
-            for layer in range(cfg.n_layers)
-        ]
-    else:
-        out["blocks"] = [tree_map(_to_tensor, b) for b in blocks]
+    out = unstack_layers(tree_map(_to_tensor, tree), cfg)
     if device is not None:
         out = to_device(out, device)
     return out

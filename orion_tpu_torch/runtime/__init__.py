@@ -1,5 +1,6 @@
-"""Runtime support shared by serving: fault injection, the watchdog and
-preemption flagging (``runtime/fault.py``)."""
+"""Runtime support shared by serving and training: fault injection,
+supervisor restarts, the watchdog and preemption flagging
+(``runtime/fault.py``)."""
 
 from orion_tpu_torch.runtime.fault import (
     DispatchFault,
@@ -9,7 +10,8 @@ from orion_tpu_torch.runtime.fault import (
     Preempted,
     PreemptionHandler,
     Watchdog,
+    run_with_restarts,
 )
 
 __all__ = ["DispatchFault", "FaultInjector", "FaultSpec", "InjectedFault", "Preempted",
-           "PreemptionHandler", "Watchdog"]
+           "PreemptionHandler", "Watchdog", "run_with_restarts"]

@@ -1,25 +1,32 @@
-"""Failure detection and fault injection for the serving engine.
+"""Failure detection, supervisor restarts and fault injection, for the
+serving engine and the trainer.
 
-Counterpart of the serving half of ``orion_tpu/runtime/fault.py``, which
-is pure Python; this is the port's own copy:
+The port's copy of ``orion_tpu/runtime/fault.py``, which is pure Python:
 
   - ``PreemptionHandler``: SIGTERM only flips a flag, which the serving
     entry point (``orion_tpu_torch.generate``) checks at a step boundary
-    to stop admission and drain the live requests;
+    to stop admission and drain the live requests, and the trainer at a
+    step boundary to save and stop;
+  - ``run_with_restarts``: the in-process supervisor loop that rebuilds
+    the trainer after a recoverable failure, so it resumes from the newest
+    intact checkpoint;
   - ``Watchdog``: a step-progress heartbeat; a wedged dispatch trips the
     callback after ``timeout_s`` without one. The serving engine uses the
-    flag-only default, so a stalled step is counted, never fatal;
+    flag-only default, so a stalled step is counted, never fatal; training
+    takes ``train.watchdog_action``;
   - ``FaultSpec`` / ``FaultInjector``: the deterministic injection
-    schedule the engine consults at its injection points — dispatch
-    exceptions, NaN page poisoning, page-pool exhaustion and stalls, each
-    at a configured engine step.
+    schedule consulted at the injection points — dispatch exceptions, NaN
+    page poisoning, page-pool exhaustion and stalls in the engine, each at
+    a configured engine step; on path "train" a dispatch exception before
+    the step or a NaN-poisoned loss inside it, and a torn checkpoint
+    commit ("partial_write").
 
 ``FaultSpec`` validates every kind the JAX package knows. The engine
-consumes "dispatch", "nan", "pool" and "stall" (``SERVING_KINDS``); an
-engine built with an injector holding any other kind raises
-``NotImplementedError`` (the host tier, KV migration, the router and the
-trainer's checkpoint faults are not ported). ``run_with_restarts`` and the
-trainer-side kinds wait for the port's checkpoints.
+consumes "dispatch", "nan", "pool" and "stall" (``SERVING_KINDS``), the
+trainer "dispatch", "nan" and "partial_write" (``TRAIN_KINDS``); an
+engine or a trainer built with an injector holding any other kind raises
+``NotImplementedError`` (the host tier, KV migration and the router are
+not ported).
 """
 
 from __future__ import annotations
@@ -30,16 +37,17 @@ import signal
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Type
 
 log = logging.getLogger("orion_tpu_torch.fault")
 
-# The kinds the port's serving engine consumes.
+# The kinds the port's serving engine consumes, and the trainer.
 SERVING_KINDS = ("dispatch", "nan", "pool", "stall")
+TRAIN_KINDS = ("dispatch", "nan", "partial_write")
 
 
 class Preempted(RuntimeError):
-    """Raised by a trainer after a preemption-triggered final save."""
+    """Raised by the trainer after a preemption-triggered final save."""
 
 
 class InjectedFault(RuntimeError):
@@ -100,6 +108,51 @@ class PreemptionHandler:
         for s, prev in self._prev.items():
             signal.signal(s, prev)
         self._prev.clear()
+
+
+def run_with_restarts(
+    make_and_fit: Callable[[int], object],
+    *,
+    max_restarts: int = 3,
+    retry_on: tuple[Type[BaseException], ...] = (Exception,),
+    non_retryable: tuple[Type[BaseException], ...] = (ValueError, TypeError),
+    backoff_s: float = 0.0,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+) -> object:
+    """Supervisor loop: call ``make_and_fit(attempt)``, restarting on failure.
+
+    ``make_and_fit`` must rebuild its world from scratch (config -> Trainer
+    -> restore_or_init -> fit) so every attempt resumes from the newest
+    checkpoint. KeyboardInterrupt and Preempted always propagate — those are
+    orderly shutdowns, not failures — as do ``non_retryable`` types
+    (config/typo errors are deterministic; retrying them wastes compute).
+
+    ``on_retry(attempt, exc)`` fires before each restart with the attempt
+    number about to run and the exception that killed the previous one —
+    the hook ``python -m orion_tpu_torch.train`` uses to thread the restart
+    count and last fault reason into the next attempt's step log.
+    """
+    attempt = 0
+    while True:
+        try:
+            return make_and_fit(attempt)
+        except (KeyboardInterrupt, Preempted):
+            raise
+        except non_retryable:
+            raise
+        except retry_on as e:
+            attempt += 1
+            if attempt > max_restarts:
+                log.error("giving up after %d restarts", max_restarts)
+                raise
+            log.warning(
+                "attempt %d failed (%s: %s); restarting (%d/%d)",
+                attempt - 1, type(e).__name__, e, attempt, max_restarts,
+            )
+            if on_retry is not None:
+                on_retry(attempt, e)
+            if backoff_s:
+                time.sleep(backoff_s)
 
 
 class Watchdog:
@@ -210,22 +263,30 @@ class Watchdog:
 class FaultSpec:
     """One scheduled fault.
 
-    ``kind`` (the engine consumes the first four):
+    ``kind`` (the engine consumes the first four, the trainer "dispatch"
+    and "nan" on path "train", and "partial_write"):
       - "dispatch": raise InjectedFault instead of running the dispatch,
-        BEFORE the call, so pool and page state stay untouched;
+        BEFORE the call, so pool and page state stay untouched (training:
+        before the step, feeding run_with_restarts);
       - "nan": poison the victim request's newest private KV page with NaN
         before the step's dispatch (needs inference.nan_guard for the
-        engine to detect and quarantine it);
+        engine to detect and quarantine it); training: the step's loss is
+        multiplied by NaN inside the differentiated function, so NaNs flow
+        through the real backward into every grad leaf;
       - "pool": the next page allocation of this step raises MemoryError,
         as an exhausted pool would;
       - "stall": sleep ``stall_s`` inside the dispatch path (trips the
         watchdog when stall_s > inference.watchdog_timeout_s);
-      - "restore", "migration", "partial_write" and the replica kinds
-        ("replica_kill", "replica_stall", "replica_poison"; these need
-        ``replica``): the JAX package's host tier, KV migration, checkpoint
-        and router faults, validated here and refused by the port's engine.
+      - "partial_write": tear the checkpoint commit of step ``step`` (the
+        largest array file truncated after its checksum is recorded); the
+        trainer's checkpoint manager consumes it;
+      - "restore", "migration" and the replica kinds ("replica_kill",
+        "replica_stall", "replica_poison"; these need ``replica``): the JAX
+        package's host tier, KV migration and router faults, validated here
+        and refused by the port.
 
-    ``step`` is the engine step to fire at (``InferenceEngine.step_no``);
+    ``step`` is the engine step to fire at (``InferenceEngine.step_no``;
+    training: the 0-based step about to run, or the checkpoint's step);
     ``path`` optionally restricts dispatch/stall faults to one dispatch
     path ("prefill" | "decode" | "verify" | "mixed" | "mixed_verify");
     ``rid`` optionally selects the nan victim (default: the oldest active

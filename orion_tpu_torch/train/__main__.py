@@ -3,12 +3,19 @@
 Usage:
     python -m orion_tpu_torch.train --preset llama-1b-bench [key=value ...]
     python -m orion_tpu_torch.train --preset tiny-llama --device cpu train.num_steps=5
+    python -m orion_tpu_torch.train --preset tiny-llama --device cpu \
+        checkpoint.directory=/tmp/c train.num_steps=6 --max-restarts 2
 
 Weights are a seeded random init in ``model.param_dtype`` (``--seed``,
-default ``train.seed``) and batches come from ``data.source`` (the
-synthetic stream by default). Dotted ``key=value`` arguments override the
-preset. Prints a step line every ``train.log_interval`` steps and at the
-end ``done: N steps, final loss ..., mean MFU ...``.
+default ``train.seed``), or the newest intact checkpoint in
+``checkpoint.directory`` (written by this package or by the JAX
+package's ``train.py``: the format is the same), and batches come from
+``data.source`` (the synthetic stream by default). Dotted ``key=value``
+arguments override the preset. ``--max-restarts N`` runs the fit under a
+supervisor that rebuilds the trainer after a failure and resumes from the
+newest checkpoint, up to N times. Prints a step line every
+``train.log_interval`` steps and at the end ``done: N steps, final loss
+..., mean MFU ...``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--print-config", action="store_true")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of the random weights (overrides train.seed)")
+    parser.add_argument(
+        "--max-restarts", type=int, default=None,
+        help="supervisor mode: restart-and-resume after failures, up to N "
+             "times (resumes from the newest intact checkpoint); default "
+             "from train.max_restarts",
+    )
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                              "plain PyTorch versions of the kernels)")
@@ -50,7 +63,33 @@ def main(argv: list[str] | None = None) -> int:
 
     from orion_tpu_torch.train import Trainer
 
-    history = Trainer(cfg, device=args.device).fit()
+    max_restarts = (args.max_restarts if args.max_restarts is not None
+                    else cfg.train.max_restarts)
+    if max_restarts > 0:
+        from orion_tpu_torch.runtime.fault import run_with_restarts
+
+        if not cfg.checkpoint.directory or not cfg.checkpoint.restore:
+            parser.error(
+                "--max-restarts needs checkpoint.directory set (and "
+                "checkpoint.restore=true): without it every restart would "
+                "silently retrain from step 0"
+            )
+        # Thread the supervisor context into each attempt's step log:
+        # restart count in the metrics extras, the previous attempt's
+        # fault reason on the resume log line.
+        last_fault = {"reason": None}
+
+        def _on_retry(attempt, exc):
+            last_fault["reason"] = f"{type(exc).__name__}: {exc}"
+
+        history = run_with_restarts(
+            lambda attempt: Trainer(cfg, device=args.device).fit(
+                restart_info=(attempt, last_fault["reason"])),
+            max_restarts=max_restarts,
+            on_retry=_on_retry,
+        )
+    else:
+        history = Trainer(cfg, device=args.device).fit()
     if history:
         last = history[-1]
         mfu = sum(h.mfu for h in history) / len(history)

@@ -23,7 +23,12 @@ import numpy as np
 import torch
 
 from orion_tpu_torch.config import OptimizerConfig
-from orion_tpu_torch.models.convert import tree_leaves, tree_leaves_with_path, tree_map
+from orion_tpu_torch.models.convert import (
+    jax_leaves_with_path,
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+)
 from orion_tpu_torch.models.transformer import torch_dtype
 
 OptState = dict[str, Any]
@@ -112,7 +117,12 @@ def _decay_mask(path: tuple) -> bool:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)))
+    """The L2 norm over every leaf, summed in ``jax.tree_util``'s leaf order
+    (as optax sums): the same bits whatever order the tree's dicts were
+    built in, so a run resumed from a checkpoint clips as the run that
+    wrote it."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for _, leaf in jax_leaves_with_path(tree)))
 
 
 def tree_all_finite(tree: Any) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The training step loop on one GPU.
+"""The training step loop on one GPU, with checkpoints and the
+training-side fault stack.
 
 Counterpart of ``orion_tpu/train/trainer.py`` (``Trainer.fit`` ->
 ``make_train_step`` -> ``models.transformer.loss_fn``) for a single
@@ -10,14 +11,24 @@ place. Gradient accumulation splits the global batch into
 ``train.grad_accum`` microbatches; ``train.grad_dtype`` takes the
 gradients with respect to a parameter copy in that dtype.
 
+Fault tolerance, as in the JAX package: checkpoints in its on-disk format
+(``ckpt/``; the state travels in its layout, ``state_to_tree``), resume
+from the newest intact one, the gradient anomaly guard
+(``train.anomaly_guard``: a non-finite or spiking step is skipped, its
+params and moments untouched) with auto-rollback after
+``train.anomaly_limit`` consecutive anomalies, the emergency save on
+SIGTERM, on an injected fault and on KeyboardInterrupt
+(``train.emergency_ckpt``), the stall watchdog, ``inject_fault_at_step``
+and a ``FaultInjector``'s "dispatch", "nan" and "partial_write" kinds.
+Supervisor restarts are ``runtime.fault.run_with_restarts`` around a
+fresh Trainer (``python -m orion_tpu_torch.train --max-restarts N``).
+
 Not ported yet, and rejected at construction (``_check_supported``):
-checkpointing, the anomaly guard and rollback, ZeRO-1 and quantized
-gradient collectives, evaluation, profiling windows, tracing/flight
-recorder/Prometheus export, fault injection and supervisor restarts,
-every parallel axis > 1 and more than one process
-(``runtime.num_processes``), MoE, weight quantization, checkify, debug
-asserts, ``runtime.debug_nans`` and ``runtime.deterministic``, and remat
-policies other than none/full.
+ZeRO-1 and quantized gradient collectives, evaluation, profiling windows,
+tracing/flight recorder/Prometheus export, every parallel axis > 1 and
+more than one process (``runtime.num_processes``), MoE, weight
+quantization, checkify, debug asserts, ``runtime.debug_nans`` and
+``runtime.deterministic``, and remat policies other than none/full.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -26,43 +37,73 @@ GPU present it raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from orion_tpu_torch import metrics as metrics_lib
+from orion_tpu_torch.ckpt import CheckpointManager
 from orion_tpu_torch.config import Config, ModelConfig
 from orion_tpu_torch.data import make_loader
 from orion_tpu_torch.infer.engine import resolve_device
 from orion_tpu_torch.models.convert import (
     init_params,
+    stack_layers,
     to_device,
     tree_leaves,
     tree_map,
     tree_unflatten,
+    unstack_layers,
 )
 from orion_tpu_torch.models.transformer import loss_fn, torch_dtype
-from orion_tpu_torch.train.optimizer import apply_updates, init_opt_state, make_schedule
+from orion_tpu_torch.runtime.fault import (
+    TRAIN_KINDS,
+    InjectedFault,
+    Preempted,
+    PreemptionHandler,
+    Watchdog,
+)
+from orion_tpu_torch.train.optimizer import (
+    apply_updates,
+    global_norm,
+    init_opt_state,
+    make_schedule,
+    tree_all_finite,
+)
+
+log = logging.getLogger("orion_tpu_torch.train")
 
 TrainState = dict[str, Any]
 
 
+class FaultInjected(RuntimeError):
+    """Raised by the ``train.inject_fault_at_step`` test hook."""
+
+
+class RollbackFailed(RuntimeError):
+    """Auto-rollback (``train.anomaly_limit`` consecutive anomalies) found
+    no intact checkpoint to restore."""
+
+
+# Each injected fault fires once per (checkpoint dir, step) per process, so
+# a supervisor restart that resumes from before the fault step does not
+# crash again on the same hook: a transient failure, as in the JAX package.
+_FIRED_FAULTS: set = set()
+
+
 def _check_supported(cfg: Config) -> None:
-    m, t, c, r = cfg.model, cfg.train, cfg.checkpoint, cfg.runtime
+    m, t, r = cfg.model, cfg.train, cfg.runtime
     remat = t.remat if t.remat != "inherit" else m.remat
     unsupported = {
-        "checkpoint.directory": c.directory is not None,
-        "train.anomaly_guard": t.anomaly_guard,
         "train.zero1": t.zero1,
         "train.zero1_quantize": t.zero1_quantize is not None,
         "train.grad_quant_bits": t.grad_quant_bits is not None,
         "train.eval_interval": t.eval_interval is not None,
         "train.profile_steps": t.profile_steps is not None,
-        "train.inject_fault_at_step": t.inject_fault_at_step is not None,
-        "train.max_restarts > 0": t.max_restarts > 0,
-        "train.watchdog_timeout_s": t.watchdog_timeout_s is not None,
         "train.trace / trace_path / flight_dir / metrics_prom": (
             t.trace or t.trace_path is not None or t.flight_dir is not None
             or t.metrics_prom is not None
@@ -83,6 +124,66 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
         )
+
+
+def _check_injector(injector) -> None:
+    """Refuse a fault schedule holding kinds training does not consume."""
+    if injector is None:
+        return
+    bad = sorted({s.kind for s in injector.specs if s.kind not in TRAIN_KINDS})
+    if bad:
+        raise NotImplementedError(
+            f"not ported to orion_tpu_torch yet: fault kinds {', '.join(bad)} "
+            f"(the trainer consumes {', '.join(TRAIN_KINDS)})"
+        )
+
+
+def prng_key_data(seed: int) -> list[int]:
+    """``jax.random.key_data(jax.random.key(seed))`` as the JAX package
+    records it in every manifest (threefry, 32-bit seeds): [0, seed mod
+    2**32]."""
+    return [0, seed & 0xFFFFFFFF]
+
+
+def state_to_tree(state: TrainState, mcfg: ModelConfig) -> dict:
+    """The train state in the JAX trainer's layout, the one checkpoints
+    hold: params and moments with their blocks stacked (``scan_layers``),
+    ``opt.count`` and ``step`` as 0-d int32 tensors."""
+    opt = state["opt"]
+    return {
+        "params": stack_layers(state["params"], mcfg),
+        "opt": {
+            "count": torch.tensor(opt["count"], dtype=torch.int32),
+            "mu": stack_layers(opt["mu"], mcfg),
+            "nu": stack_layers(opt["nu"], mcfg),
+        },
+        "step": torch.tensor(state["step"], dtype=torch.int32),
+    }
+
+
+def state_from_tree(tree: dict, mcfg: ModelConfig, device) -> TrainState:
+    """The inverse of ``state_to_tree``, on ``device`` (each leaf moved
+    there before the layers are split)."""
+    opt = tree["opt"]
+
+    def layers(t):
+        return unstack_layers(to_device(t, device), mcfg)
+
+    return {
+        "params": layers(tree["params"]),
+        "opt": {"mu": layers(opt["mu"]), "nu": layers(opt["nu"]),
+                "count": int(opt["count"])},
+        "step": int(tree["step"]),
+    }
+
+
+def abstract_train_state(cfg: Config) -> dict:
+    """The checkpoint tree of a train state on the ``meta`` device: the
+    shapes and dtypes a restore validates against, with no memory."""
+    params = init_params(cfg.model, torch.Generator(), device="meta",
+                         dtype=torch_dtype(cfg.model.param_dtype))
+    state = {"params": params, "opt": init_opt_state(params, cfg.optimizer), "step": 0}
+    return state_to_tree(state, cfg.model)
 
 
 def init_train_state(
@@ -107,12 +208,16 @@ def loss_and_grads(
     mcfg: ModelConfig,
     accum: int = 1,
     grad_dtype: Optional[str] = None,
+    poison: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], Any]:
     """(loss, aux, grads) of ``loss_fn``; ``grads`` is a tree like
     ``params``. With ``accum`` > 1 the batch leaves are [accum, b, S]
     microbatches: grads and loss are means over them (float32
     accumulators), token counts sum. With ``grad_dtype`` the gradients
-    are taken with respect to a copy of the parameters in that dtype."""
+    are taken with respect to a copy of the parameters in that dtype.
+    ``poison`` multiplies the loss by NaN inside the differentiated
+    function, so NaNs flow through the real backward into every gradient
+    (the fault injector's "nan" kind)."""
 
     def value_and_grad(mb):
         leaves = [
@@ -121,6 +226,8 @@ def loss_and_grads(
             for p in tree_leaves(params)
         ]
         loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg)
+        if poison:
+            loss = loss * torch.tensor(float("nan"), dtype=loss.dtype, device=loss.device)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, list(grads)
 
@@ -145,27 +252,69 @@ def loss_and_grads(
 
 
 def make_train_step(
-    cfg: Config, schedule: Callable[[int], float]
-) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    cfg: Config, schedule: Callable[[int], float], poison: bool = False
+) -> Callable[..., tuple[TrainState, dict]]:
     """The per-step function: forward + backward (+ accumulation), clip
-    and AdamW/SGD update in place. Returns (state, step metrics)."""
+    and AdamW/SGD update in place. Returns (state, step metrics as host
+    floats, fetched from the card in one copy).
+
+    With ``train.anomaly_guard`` the returned callable takes a third
+    ``norm_limit`` (the host-kept spike threshold, float32). The loss's and
+    every gradient leaf's finiteness and the global grad norm travel to the
+    host with the metrics, before the update: an anomalous step (non-finite,
+    or a norm above ``norm_limit``) is not applied, so params and moments
+    stay bit-identical and the schedule count does not advance; the
+    metrics carry ``anomaly``/``nonfinite``/``spike`` flags. A clean
+    guarded step runs the same operations as an unguarded one.
+    ``poison=True`` builds the fault injector's "nan" variant
+    (``loss_and_grads(poison=True)``).
+    """
     accum, gdt = cfg.train.grad_accum, cfg.train.grad_dtype
 
-    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def grads_of(state: TrainState, batch: dict):
         lr = schedule(state["opt"]["count"])
-        loss, aux, grads = loss_and_grads(state["params"], batch, cfg.model, accum, gdt)
+        loss, aux, grads = loss_and_grads(state["params"], batch, cfg.model, accum, gdt,
+                                          poison=poison)
+        return lr, loss, aux, grads
+
+    def fetch(*scalars: torch.Tensor) -> list[float]:
+        """The step's one device-to-host copy."""
+        return torch.stack([x.float() for x in scalars]).tolist()
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        lr, loss, aux, grads = grads_of(state, batch)
         _, _, opt_metrics = apply_updates(
             state["params"], grads, state["opt"], cfg.optimizer, lr)
         state["step"] += 1
+        loss, ce, moe, gnorm = fetch(loss, aux["ce_loss"], aux["moe_aux"],
+                                     opt_metrics["grad_norm"])
+        return state, {"loss": loss, "ce_loss": ce, "moe_aux": moe, "grad_norm": gnorm,
+                       "lr": lr}
+
+    if not cfg.train.anomaly_guard:
+        return train_step
+
+    def guarded_step(state: TrainState, batch: dict, norm_limit) -> tuple[TrainState, dict]:
+        lr, loss, aux, grads = grads_of(state, batch)
+        gnorm = global_norm(grads)
+        finite = torch.isfinite(loss) & tree_all_finite(grads).to(loss.device)
+        loss_h, ce, moe, gnorm_h, finite_h = fetch(loss, aux["ce_loss"], aux["moe_aux"],
+                                                   gnorm, finite)
+        finite_h = finite_h > 0
+        # float32 against float32, as the JAX step compares on the device.
+        spike = finite_h and gnorm_h > float(np.float32(norm_limit))
+        ok = finite_h and not spike
+        if ok:
+            apply_updates(state["params"], grads, state["opt"], cfg.optimizer, lr,
+                          gnorm=gnorm)
+        state["step"] += 1
         return state, {
-            "loss": loss,
-            "ce_loss": aux["ce_loss"],
-            "moe_aux": aux["moe_aux"],
-            "grad_norm": opt_metrics["grad_norm"],
-            "lr": lr,
+            "loss": loss_h, "ce_loss": ce, "moe_aux": moe, "grad_norm": gnorm_h, "lr": lr,
+            "anomaly": float(not ok), "nonfinite": float(not finite_h),
+            "spike": float(spike),
         }
 
-    return train_step
+    return guarded_step
 
 
 class Trainer:
@@ -173,14 +322,19 @@ class Trainer:
 
     ``params`` (a parameter tree, e.g. ``models.from_jax_params`` of the
     JAX package's init) replaces the seeded random init; ``device`` is a
-    torch device (default ``cuda``)."""
+    torch device (default ``cuda``); ``fault_injector`` is a
+    ``runtime.fault.FaultInjector`` whose "dispatch" and "nan" specs on
+    path "train" fire at a step, and whose "partial_write" specs tear a
+    checkpoint commit."""
 
-    def __init__(self, cfg: Config, params: Optional[Any] = None, device=None):
+    def __init__(self, cfg: Config, params: Optional[Any] = None, device=None,
+                 fault_injector: Optional[Any] = None):
         if cfg.train.remat != "inherit":
             # train.remat is the training-side spelling of model.remat.
             cfg = dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, remat=cfg.train.remat))
         _check_supported(cfg)
+        _check_injector(fault_injector)
         accum = max(cfg.train.grad_accum, 1)
         if cfg.data.batch_size % accum:
             raise ValueError(
@@ -189,10 +343,23 @@ class Trainer:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.fault_injector = fault_injector
         self._params = params
         self.loader = make_loader(cfg.data, cfg.model.vocab_size)
-        self.train_step = make_train_step(
-            cfg, make_schedule(cfg.optimizer, cfg.train.num_steps))
+        self._schedule = make_schedule(cfg.optimizer, cfg.train.num_steps)
+        self.train_step = make_train_step(cfg, self._schedule)
+        self._poison_step = None
+        self.ckpt: Optional[CheckpointManager] = None
+        if cfg.checkpoint.directory:
+            self.ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint,
+                                          fault_injector=fault_injector)
+        # Anomaly-guard host state (persisted in the checkpoint manifest so a
+        # resume reproduces the same skip decisions) and the counters.
+        self._gnorm_ema: Optional[float] = None
+        self._anomaly_run = 0
+        self.robustness = metrics_lib.TrainRobustnessStats()
+        # The JAX package's record of the seed's PRNG key, checked on resume.
+        self._prng_key_data = prng_key_data(cfg.train.seed)
         # data.batch_size is the global batch per optimizer step; grad_accum
         # only splits it into microbatches.
         self.tokens_per_step = cfg.data.batch_size * cfg.data.seq_len
@@ -206,8 +373,135 @@ class Trainer:
             log_interval=cfg.train.log_interval,
         )
 
+    # -- state ------------------------------------------------------------
+
     def init_state(self) -> TrainState:
         return init_train_state(self.cfg, self.device, self._params)
+
+    def restore_or_init(self) -> tuple[TrainState, int]:
+        """The newest intact checkpoint's state (``checkpoint.restore``),
+        else a fresh ``init_state()``; and its step."""
+        if self.ckpt is not None and self.cfg.checkpoint.restore:
+            restored = self.ckpt.restore_latest(abstract_train_state(self.cfg))
+            self.robustness.corrupt_checkpoints += len(self.ckpt.quarantined)
+            if restored is not None:
+                tree, step = restored
+                self._apply_restore_extra(self.ckpt.last_restore_extra)
+                return state_from_tree(tree, self.cfg.model, self.device), step
+        return self.init_state(), 0
+
+    def _apply_restore_extra(self, extra: Optional[dict]) -> None:
+        """Rehydrate the host-side resume state the manifest carried:
+        data-loader cursor, anomaly-guard EMA/run, PRNG-lineage check."""
+        if not extra:
+            return
+        if extra.get("loader"):
+            loader_state = dict(extra["loader"])
+            # The manifest-level stream-format check already warned on a
+            # mismatch; don't let load_state_dict repeat it.
+            loader_state.pop("stream_format", None)
+            self.loader.load_state_dict(loader_state)
+        if "gnorm_ema" in extra:
+            self._gnorm_ema = extra["gnorm_ema"]
+        self._anomaly_run = int(extra.get("anomaly_run") or 0)
+        key = extra.get("prng_key")
+        if key is not None and list(key) != self._prng_key_data:
+            log.warning(
+                "checkpoint was written under a different train.seed PRNG "
+                "key (%s vs %s): any key-derived randomness diverges from "
+                "the original run", key, self._prng_key_data,
+            )
+
+    def _ckpt_extra(self) -> dict:
+        extra = {
+            "loader": self.loader.state_dict(),
+            "train_seed": self.cfg.train.seed,
+            "prng_key": self._prng_key_data,
+        }
+        if self.cfg.train.anomaly_guard:
+            extra["gnorm_ema"] = self._gnorm_ema
+            extra["anomaly_run"] = self._anomaly_run
+        return extra
+
+    def _save(self, step: int, state: TrainState, **kw) -> bool:
+        """``ckpt.save`` of the state in the checkpoint layout, built only
+        when the step is saved."""
+        return self.ckpt.save(step, lambda: state_to_tree(state, self.cfg.model),
+                              extra=self._ckpt_extra(), **kw)
+
+    def _spike_limit(self) -> np.float32:
+        """The norm threshold fed to the guarded step: factor x the
+        running EMA, or +inf while no reference exists (first steps, or
+        spike checking disabled — finiteness is still checked)."""
+        factor = self.cfg.train.anomaly_spike_factor
+        if factor is None or not self._gnorm_ema:
+            return np.float32(np.inf)
+        return np.float32(factor * self._gnorm_ema)
+
+    def _poison_variant(self):
+        """The FaultInjector "nan" step, built on first use."""
+        if self._poison_step is None:
+            self._poison_step = make_train_step(self.cfg, self._schedule, poison=True)
+        return self._poison_step
+
+    def _rollback(self, failed_step: int) -> tuple[TrainState, int]:
+        """Auto-rollback after train.anomaly_limit consecutive anomalies:
+        restore the newest intact checkpoint and fast-forward the data
+        cursor past the poisoned batch window, so the replayed optimizer
+        steps draw fresh batches instead of the poison. Idempotent under
+        repetition — every episode skips further."""
+        stats = self.robustness
+        stats.rollbacks += 1
+        stats.last_fault_reason = (
+            f"anomaly_rollback: {self._anomaly_run} consecutive anomalous "
+            f"steps ending at step {failed_step}"
+        )
+        if self.ckpt is None:
+            raise RollbackFailed(
+                f"{self._anomaly_run} consecutive anomalous steps at step "
+                f"{failed_step} and no checkpoint.directory to roll back to"
+            )
+        restored = self.ckpt.restore_latest(abstract_train_state(self.cfg))
+        stats.corrupt_checkpoints += len(self.ckpt.quarantined)
+        if restored is None:
+            raise RollbackFailed(
+                f"{self._anomaly_run} consecutive anomalous steps at step "
+                f"{failed_step} and no intact checkpoint to roll back to"
+            )
+        tree, good_step = restored
+        extra = self.ckpt.last_restore_extra or {}
+        loader_state = dict(extra.get("loader") or {})
+        # Defensive clamp: if the newest intact checkpoint is AHEAD of the
+        # failed step, replay starts past the poison already — never ask
+        # the cursor to rewind.
+        skip = max((failed_step + 1) - good_step, 0)
+        self.loader.load_state_dict(loader_state)
+        self.loader.skip_batches(skip)
+        stats.skipped_batches += skip
+        self._gnorm_ema = extra.get("gnorm_ema")
+        self._anomaly_run = 0
+        # Persist the advanced cursor AT the restored step at once: a crash
+        # before the next periodic save would otherwise resume with the old
+        # cursor, replay the poison, and roll back again.
+        self.ckpt.save(good_step, tree, force=True, overwrite=True,
+                       extra=self._ckpt_extra())
+        log.warning(
+            "auto-rollback: restored step %d, skipping the %d-batch poison "
+            "window (data cursor offset now %d)",
+            good_step, skip, self.loader.offset,
+        )
+        return state_from_tree(tree, self.cfg.model, self.device), good_step
+
+    def _overwrite_from(self) -> int:
+        """Newest committed step at rollback time: checkpoints after the
+        restored step captured the abandoned trajectory and are overwritten
+        as the replay passes them."""
+        if self.ckpt is None:
+            return -1
+        latest = self.ckpt.latest_step()
+        return latest if latest is not None else -1
+
+    # -- data -------------------------------------------------------------
 
     def global_batch(self, step: int) -> dict[str, torch.Tensor]:
         """The step's batch on the device, with the grad_accum microbatch
@@ -220,30 +514,148 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in host.items()}
 
-    def fit(self, state: Optional[TrainState] = None) -> list:
-        """Run steps from ``state`` (default: a fresh ``init_state()``) up
-        to ``train.num_steps``; returns the metrics history."""
+    # -- loop -------------------------------------------------------------
+
+    def fit(
+        self,
+        state: Optional[TrainState] = None,
+        preemption_handler: Optional[Any] = None,
+        restart_info: Optional[tuple] = None,
+    ) -> list:
+        """Run steps from ``state`` (default: ``restore_or_init()``) up to
+        ``train.num_steps``; returns the metrics history.
+
+        ``restart_info=(attempt, reason)`` threads the supervisor context
+        (``run_with_restarts``) into the step log: the restart count rides
+        the metrics extras, the previous attempt's fault reason the log
+        line. ``preemption_handler`` replaces the SIGTERM handler the loop
+        installs for itself.
+        """
         cfg = self.cfg
+        stats = self.robustness
+        if restart_info is not None:
+            attempt, reason = restart_info
+            stats.restarts = int(attempt)
+            if reason:
+                stats.last_fault_reason = str(reason)
+            if attempt:
+                log.warning("supervisor restart %d: resuming after %s",
+                            attempt, reason or "unknown fault")
         if state is None:
-            state = self.init_state()
+            state, _ = self.restore_or_init()
+        guard = cfg.train.anomaly_guard
+        injector = self.fault_injector
         watch = metrics_lib.Stopwatch()
+        # After an auto-rollback the replayed trajectory differs from the
+        # one the existing checkpoints captured; overwrite them up to the
+        # rollback point so a crash mid-replay resumes the NEW trajectory.
+        overwrite_until = -1
+        # True while a step may be writing the state in place: an interrupt
+        # there leaves no consistent state to save.
+        mid_step = False
         try:
-            while state["step"] < cfg.train.num_steps:
+            with contextlib.ExitStack() as stack:
+                preempt = (preemption_handler if preemption_handler is not None
+                           else stack.enter_context(PreemptionHandler()))
+                # Disabled no-op when watchdog_timeout_s is None.
+                watchdog = stack.enter_context(
+                    Watchdog(cfg.train.watchdog_timeout_s, action=cfg.train.watchdog_action))
                 step = state["step"]
-                batch = self.global_batch(step)
-                state, m = self.train_step(state, batch)
-                dt = watch.lap(sync_on=self.device)
-                self.metrics.record(
-                    step=step + 1,
-                    loss=float(m["loss"]),
-                    tokens=self.tokens_per_step,
-                    step_time_s=dt,
-                    grad_norm=float(m["grad_norm"]),
-                    learning_rate=m["lr"],
-                    ce_loss=float(m["ce_loss"]),
-                    moe_aux=float(m["moe_aux"]),
-                )
+                while step < cfg.train.num_steps:
+                    if cfg.train.inject_fault_at_step == step:
+                        key = (cfg.checkpoint.directory, step)
+                        if key not in _FIRED_FAULTS:
+                            _FIRED_FAULTS.add(key)
+                            raise FaultInjected(f"injected fault at step {step}")
+                    if injector is not None and injector.take("dispatch", step, "train"):
+                        raise InjectedFault(f"injected train dispatch fault at step {step}")
+                    batch = self.global_batch(step)
+                    step_fn = self.train_step
+                    if injector is not None and injector.take("nan", step, "train") is not None:
+                        log.warning("fault injection: NaN-poisoned train step %d", step)
+                        step_fn = self._poison_variant()
+                    mid_step = True
+                    if guard:
+                        state, m = step_fn(state, batch, self._spike_limit())
+                    else:
+                        state, m = step_fn(state, batch)
+                    mid_step = False
+                    dt = watch.lap(sync_on=self.device)
+                    watchdog.heartbeat()
+                    extras = {"ce_loss": m["ce_loss"], "moe_aux": m["moe_aux"]}
+                    anomalous = bool(guard and m["anomaly"] > 0)
+                    if guard:
+                        extras["anomaly"] = m["anomaly"]
+                        if anomalous:
+                            stats.anomalous_steps += 1
+                            stats.nonfinite_steps += int(m["nonfinite"] > 0)
+                            stats.spike_steps += int(m["spike"] > 0)
+                            self._anomaly_run += 1
+                            log.warning(
+                                "anomalous step %d skipped (%s; grad_norm %.3g; run %d/%d)",
+                                step, "non-finite" if m["nonfinite"] > 0 else "norm spike",
+                                m["grad_norm"], self._anomaly_run, cfg.train.anomaly_limit,
+                            )
+                        else:
+                            self._anomaly_run = 0
+                            beta = cfg.train.anomaly_ema_beta
+                            g = m["grad_norm"]
+                            self._gnorm_ema = (g if self._gnorm_ema is None
+                                               else beta * self._gnorm_ema + (1 - beta) * g)
+                    if stats.restarts or stats.rollbacks or stats.anomalous_steps:
+                        extras.update(stats.as_extras())
+                    self.metrics.record(
+                        step=step + 1,
+                        loss=m["loss"],
+                        tokens=self.tokens_per_step,
+                        step_time_s=dt,
+                        grad_norm=m["grad_norm"],
+                        learning_rate=m["lr"],
+                        **extras,
+                    )
+                    if anomalous and self._anomaly_run >= cfg.train.anomaly_limit:
+                        state, step = self._rollback(step)
+                        overwrite_until = self._overwrite_from()
+                        watch.lap()   # rollback time out of the next step's MFU
+                        continue
+                    if self.ckpt is not None:
+                        self._save(step + 1, state, overwrite=step + 1 <= overwrite_until)
+                    if preempt.preempted:
+                        # Step boundary: the state is consistent. Persist and
+                        # stop cleanly; a supervisor restart resumes
+                        # losslessly. The emergency save queues BEHIND any
+                        # in-flight async save and wait() drains both.
+                        if self.ckpt is not None and cfg.train.emergency_ckpt:
+                            if self._save(step + 1, state, force=True,
+                                          overwrite=step + 1 <= overwrite_until):
+                                stats.emergency_saves += 1
+                            self.ckpt.wait()
+                        raise Preempted(f"preempted after step {step + 1}")
+                    step += 1
+                if self.ckpt is not None:
+                    self._save(cfg.train.num_steps, state, force=True)
             self.state = state
             return self.metrics.history
+        except (KeyboardInterrupt, FaultInjected, InjectedFault):
+            # Preemption-safe path: persist the newest complete state, then
+            # re-raise so a supervisor can restart and restore_or_init. An
+            # interrupt inside a step may have left the state half-updated
+            # in place: then the last periodic checkpoint stands.
+            if self.ckpt is not None and cfg.train.emergency_ckpt:
+                if mid_step:
+                    log.warning("interrupted mid-step; relying on the last "
+                                "periodic checkpoint")
+                else:
+                    at_step = state["step"]
+                    # Inside a rollback-replay window the committed
+                    # checkpoint at this step captured the ABANDONED
+                    # trajectory; the emergency save must replace it.
+                    if self._save(at_step, state, force=True,
+                                  overwrite=at_step <= overwrite_until):
+                        stats.emergency_saves += 1
+                self.ckpt.wait()
+            raise
         finally:
+            if self.ckpt is not None:
+                self.ckpt.wait()
             self.metrics.close()

@@ -274,12 +274,20 @@ def test_train_without_gpu_raises_unless_cpu_requested(monkeypatch):
     assert Trainer(get_config("tiny-llama"), device="cpu").device.type == "cpu"
 
 
-# (h) every trainer knob that is not ported raises.
+# (h) every trainer knob that is not ported raises; the fault-tolerance
+# knobs (tests/test_torch_train_fault.py) build a trainer.
 @pytest.mark.parametrize("override", [
-    "checkpoint.directory=/nonexistent/ckpt", "train.anomaly_guard=true",
+    "checkpoint.directory={tmp}/ckpt", "train.anomaly_guard=true",
+    "train.inject_fault_at_step=2", "train.max_restarts=1", "train.watchdog_timeout_s=30",
+])
+def test_ported_fault_knobs_build_a_trainer(override, tmp_path):
+    tr = Trainer(get_config("tiny-llama", [override.format(tmp=tmp_path)]), device="cpu")
+    assert (tr.ckpt is not None) == override.startswith("checkpoint.directory")
+
+
+@pytest.mark.parametrize("override", [
     "train.zero1=true", "train.grad_quant_bits=8", "train.eval_interval=5",
-    "train.profile_steps=(1,2)", "train.inject_fault_at_step=2",
-    "train.max_restarts=1", "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
+    "train.profile_steps=(1,2)", "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
     "model.remat=names", "train.remat=names", "model.n_experts=4",
     "model.weight_quant=int8", "runtime.checkify=true", "train.trace=true",
     "runtime.debug_nans=true", "runtime.deterministic=true",
