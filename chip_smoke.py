@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,build,train --profile
     python3 chip_smoke.py --phases device,build,serve_spec --profile
     python3 chip_smoke.py --phases device,build,train_faults
+    python3 chip_smoke.py --phases device,build,serve_graphs
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -55,7 +56,10 @@ exits non-zero without printing a result:
            the page, every output is bitwise the clean launch's again
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
-           then twice with chunked prefill and the prefix cache (float32
+           the same prompts on cuda with every dispatch eager
+           (cuda_graphs=False): greedy streams equal to the captured run's,
+           and sampled ones (seed 3, per-slot and scalar sampling) equal
+           captured and eager; then twice with chunked prefill and the prefix cache (float32
            pools, then int8 pools) over two waves that share a system
            prompt (prefix hits and one copy-on-write admission): the greedy
            token lists must be equal; then three speculative runs (chain,
@@ -117,11 +121,24 @@ exits non-zero without printing a result:
            byte-identical to F1's). Each drive prints its outcome counts,
            RobustnessStats, launches, wall seconds and the card. First, the
            sticky-error row: a tiny-llama bf16 engine in a subprocess, a
-           device-side assert launched inside a decode step after its
-           kernels (sticky_child); the step must fail inside the envelope,
+           device-side assert launched inside a decode step right after
+           its window's replay (sticky_child); the step must fail inside the envelope,
            every step after it too, counted once each, the engine must
            re-raise after inference.max_step_faults failed steps, and no
            token may be appended after the fault
+  serve_graphs  llama3-8b-infer at full width and depth (the serve's
+           weights): the engine's dispatch programs as CUDA graphs against
+           the same dispatches run eagerly (cuda_graphs=False). (a) one
+           decode window, one chain verify and one tree verify of the
+           serve's batch after its prefill: outputs equal, the written
+           pool rows byte for byte, every step's logits within
+           TOL["graph_logits"]; (b) the serve's 16 requests eager, then
+           captured: decode tokens/s, TTFT, the host share of a decode step
+           (1 - the window's device time alone over the step's wall),
+           capture seconds, graph pool bytes, launches (equal both ways),
+           every decode window a replay, the eager prefill's enqueue beside
+           its device time; (c) the captured serve under
+           inference.decode_window_autotune: the window's path and rate
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -167,8 +184,10 @@ exits non-zero without printing a result:
            PyTorch library call computing the same function where there is
            one, and the card's bound for the work
 
-serve, serve_chunked, serve_spec and serve_constrained, which inject no
-fault, require that
+On the card every engine's decode, verify and mixed dispatch replays a
+CUDA graph (captured the first time its key comes up; prefill stays
+eager) unless the phase asks for cuda_graphs=False. serve, serve_chunked,
+serve_spec and serve_constrained, which inject no fault, require that
 the engine contained none (no dispatch fault, failed step or pool fault):
 a real kernel failure the envelope absorbed must not pass. Then a
 ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line, and
@@ -192,8 +211,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
-          "serve_spec", "serve_constrained", "serve_faults", "train_parity", "train",
-          "train_faults", "timing")
+          "serve_spec", "serve_constrained", "serve_faults", "serve_graphs", "train_parity",
+          "train", "train_faults", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -251,6 +270,11 @@ TOL = {
     "paged_decode_merge": {"bfloat16": (1e-2, 1e-2)},
     # K10's merge (bf16 only): as K4's, per query row.
     "ragged_verify_merge": {"bfloat16": (1e-2, 1e-2)},
+    # serve_graphs (a): a dispatch program's logits, captured against the
+    # same program run eagerly: the same kernels on the same inputs, so
+    # equal unless cuBLAS picks another GEMM algorithm under capture, which
+    # sums each product in another order (bf16 activations: 2^-8 relative).
+    "graph_logits": {"bfloat16": (2e-2, 2e-2)},
 }
 
 # K4, per live slot: max |kernel - plain| over the slot's N*H outputs,
@@ -1759,13 +1783,51 @@ def phase_parity():
     cpu = InferenceEngine(cfg, params, device="cpu").generate(prompts, 6)
     if gpu != cpu:
         raise AssertionError(f"tiny-llama streams differ: cuda {gpu} cpu {cpu}")
+    eager = parity_eager(cfg, params, prompts, gpu)
     emit({"phase": "parity", "preset": "tiny-llama", "requests": len(prompts),
-          "equal": True, "cuda_streams": gpu})
+          "equal": True, "cuda_streams": gpu, "graphs_vs_eager": eager})
     out = {pools: parity_chunked(params, pools) for pools in ("float32", "int8")}
     out.update({f"spec_{run}": parity_spec(params, run) for run in SPEC_PARITY})
     out["faults"] = parity_faults(params)
     out["constrained"] = parity_constrained(params)
     return out
+
+
+def sampled_streams(cfg, params, prompts, graphs):
+    """Sampled tiny-llama streams on the card (seed 3, temperature 1.0 by
+    default; every other request overrides temperature, top-k and top-p,
+    so windows run the per-slot variant while those live and the scalar
+    one after): captured (``graphs``) or eager."""
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, device="cuda", seed=3, cuda_graphs=graphs)
+    reqs = [eng.submit_request(p, 6, **({} if i % 2 else dict(temperature=0.9, top_k=20,
+                                                             top_p=0.9)))
+            for i, p in enumerate(prompts)]
+    while eng.has_work():
+        eng.step()
+    require_no_faults(eng, "parity sampled")
+    return [r.generated for r in reqs], eng._executor
+
+
+def parity_eager(cfg, params, prompts, captured):
+    """serve_graphs (d): the parity prompts on the card with every dispatch
+    eager (``cuda_graphs=False``): the greedy streams must equal the
+    captured run's, and so must the sampled ones, drawn from one seed."""
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, device="cuda", cuda_graphs=False)
+    eager = eng.generate(prompts, 6)
+    if eager != captured:
+        raise AssertionError(f"parity: eager cuda {eager} != captured {captured}")
+    s_cfg = get_config("tiny-llama", INFER_OVERRIDES + ["inference.temperature=1.0"])
+    s_graph, ex = sampled_streams(s_cfg, params, prompts, True)
+    s_eager, _ = sampled_streams(s_cfg, params, prompts, False)
+    if s_graph != s_eager:
+        raise AssertionError(f"parity: sampled captured {s_graph} != eager {s_eager}")
+    return {"greedy_equal": True, "sampled_equal": True, "sampled_streams": s_graph,
+            "captures": ex.captures, "replays": ex.replays}
 
 
 # The parity phase's fault schedule (tiny-llama, decode window 1, the NaN
@@ -2177,7 +2239,7 @@ def phase_serve(profile=False):
         "decode_tok_s": decode_tokens / tm["decode_s"],
         "decode_slot_steps": tm["decode_slot_steps"], "steps": tm["steps"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "launches": launches,
+        "launches": launches, "graphs": graph_stats(eng),
     })
     if profile:
         profile_serve(eng, prompts)
@@ -2242,7 +2304,7 @@ def serve_wave(eng, prompts, n_new):
         "prefix": {k: st[k] for k in ("hits", "misses", "cached_tokens", "cow_pages",
                                       "inserted_pages", "evicted_pages")},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "launches": ops.launches(),
+        "launches": ops.launches(), "graphs": graph_stats(eng),
     }
 
 
@@ -2487,6 +2549,14 @@ def require_no_faults(eng, where):
     if rb.dispatch_faults or rb.failed_steps or rb.pool_faults:
         raise AssertionError(f"{where}: {rb.dispatch_faults} dispatch faults, "
                              f"{rb.failed_steps} failed steps, {rb.pool_faults} pool faults")
+
+
+def graph_stats(eng):
+    """The engine's dispatch programs: CUDA graphs captured and replayed,
+    capture seconds and the graph pool's bytes."""
+    ex = eng._executor
+    return {"cuda_graphs": ex.graphs, "captures": ex.captures, "replays": ex.replays,
+            "capture_s": ex.capture_s, "pool_bytes": ex.pool_bytes}
 
 
 def rule_sheds(queued, arrivals, limit):
@@ -2816,10 +2886,11 @@ def phase_serve_faults(params=None):
 
 # serve_faults' sticky-error row: a tiny-llama bf16 engine in a process of
 # its own (a device-side assert poisons the CUDA context for the life of
-# the process), 6 greedy requests; at engine step STICKY_STEP the runner's
-# decode call is wrapped so that, after the step's kernels are queued and
-# before the host fetch, an out-of-range index into a CUDA tensor launches
-# a device-side assert. The child ends with one JSON report within
+# the process), 6 greedy requests; at engine step STICKY_STEP the decode
+# dispatch's launch (the executor's ``launch``: the replay of the window's
+# CUDA graph) is wrapped so that, right after the replay is queued and
+# before the host fetch, inside the step's envelope, an out-of-range index
+# into a CUDA tensor launches a device-side assert. The child ends with one JSON report within
 # STICKY_TIMEOUT_S or the row fails.
 STICKY_STEP = 2
 STICKY_TIMEOUT_S = 120
@@ -2837,7 +2908,6 @@ def sticky_child() -> int:
     import torch
 
     sys.path.insert(0, HERE)
-    import orion_tpu_torch.infer.engine as engine_mod
     from orion_tpu_torch.config import get_config
     from orion_tpu_torch.infer import InferenceEngine
     from orion_tpu_torch.models import init_params
@@ -2857,18 +2927,18 @@ def sticky_child() -> int:
     gen.manual_seed(0)
     params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
     eng = InferenceEngine(cfg, params, device="cuda")
-    real = engine_mod.decode_window
+    real = eng._executor.launch
     launched = []
 
-    def decode_then_assert(*args, **kwargs):
-        out = real(*args, **kwargs)
-        if eng.step_no == STICKY_STEP and not launched:
+    def replay_then_assert(path, *args, **kwargs):
+        out = real(path, *args, **kwargs)
+        if path == "decode" and eng.step_no == STICKY_STEP and not launched:
             launched.append(eng.step_no)
             x = torch.zeros(4, device="cuda")
             x[torch.full((1,), 1 << 20, dtype=torch.long, device="cuda")]   # device-side assert
         return out
 
-    engine_mod.decode_window = decode_then_assert
+    eng._executor.launch = replay_then_assert
     reqs = [eng.submit_request(p, 24) for p in fault_prompts(6, 5, 3, 15)]
     steps, caller, before = [], None, None
     while eng.has_work():
@@ -3036,10 +3106,15 @@ def constrained_wave(name, eng, prompts, specs, n_new=64):
     V = eng.mcfg.vocab_size
     # Per mask kind ("verify" [B, W, V], "sample" [B, V]): build and copy
     # seconds and bytes. A copy is timed between two synchronisations, so
-    # it does not count device work queued before it (a prefill's).
+    # it does not count device work queued before it (a prefill's). A
+    # verify mask reaches the card in its dispatch program's staging (a
+    # copy into pinned memory, then to the graph's input; the step's other
+    # inputs are a few hundred bytes more), a prefill's sample mask by
+    # ``_device_mask``.
     masks = {kind: {"build": [], "copy": [], "bytes": []} for kind in ("verify", "sample")}
     verify_masks, sample_masks, device_mask = (eng._verify_masks, eng._sample_masks,
                                                eng._device_mask)
+    stage = eng._executor._stage
 
     def timed_build(fn):
         def build(*a, **k):
@@ -3062,8 +3137,18 @@ def constrained_wave(name, eng, prompts, specs, n_new=64):
         masks["verify" if m.ndim == 3 else "sample"]["copy"].append(time.perf_counter() - t)
         return d
 
+    def timed_stage(prog, tensors):
+        if tensors.get("legal_mask") is None:
+            return stage(prog, tensors)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stage(prog, tensors)
+        torch.cuda.synchronize()
+        masks["verify"]["copy"].append(time.perf_counter() - t)
+
     eng._verify_masks, eng._sample_masks = timed_build(verify_masks), timed_build(sample_masks)
     eng._device_mask = timed_copy
+    eng._executor._stage = timed_stage
     tm0 = dict(eng.timing)
     cs0 = dataclasses.asdict(eng.constraint_stats)
     compile_s = {}
@@ -3082,7 +3167,7 @@ def constrained_wave(name, eng, prompts, specs, n_new=64):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launches()
-    del eng._verify_masks, eng._sample_masks, eng._device_mask
+    del eng._verify_masks, eng._sample_masks, eng._device_mask, eng._executor._stage
     require_no_faults(eng, f"serve_constrained {name}")
     eng.assert_page_accounting()
     tm = {k: eng.timing[k] - tm0[k] for k in tm0}
@@ -3181,6 +3266,353 @@ def phase_serve_constrained(params=None):
           "wall_s": {d: res[d]["wall_s"] for d in ("A0", "C1", "C2")},
           "launches": totals, "nvidia_smi": smi_line()})
     return totals
+
+
+# serve_graphs: llama3-8b-infer at full width and depth (the serve's weights),
+# the engine's dispatch programs as CUDA graphs held against the same
+# dispatches run eagerly. (a) one decode window (W 8), one chain verify and
+# one tree verify (W 5) of the serve's 16 requests after their prefill,
+# eager and captured on the same inputs and pool: tokens and verdicts
+# equal, the written pool rows byte for byte, every step's logits within
+# TOL["graph_logits"]. (b) the serve's 16 requests (SG_NEW new tokens)
+# with cuda_graphs=False and then captured, each after the serve's
+# one-request warm-up: decode tokens/s, TTFT, the host share of a decode
+# step (1 - the window's device time alone, by graph replay, over the
+# step's wall), capture seconds, graph pool bytes, launches (equal both
+# ways), and the eager prefill's enqueue beside its device time. (c) the
+# captured serve with inference.decode_window_autotune: the window's path.
+SG_NEW = 64
+# A tree of 5 columns: two children of the root, one grandchild under each.
+SG_TREE = dict(depths=[0, 1, 1, 2, 2], parents=[0, 0, 0, 1, 2],
+               words=[0b1, 0b11, 0b101, 0b1011, 0b10101])
+
+
+def sg_prompts(V):
+    """The serve phase's 16 prompts (100-2000 tokens, numpy seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, V, size=n).tolist()
+            for n in np.linspace(100, 2000, 16).astype(int)]
+
+
+def sg_rows(eng, width):
+    """Pool rows (every layer) of the pages a dispatch of ``width``
+    positions past each live slot's cursor writes. Not scratch page 0,
+    which idle slots write at once, in no order (the kernels' contract)."""
+    import numpy as np
+    import torch
+
+    pages = set()
+    for r in eng.slots:
+        if r is not None and not r.done:
+            s = r.slot
+            for pos in range(int(eng.seq_lens[s]), int(eng.seq_lens[s]) + width):
+                pages.add(int(eng.page_table[s, min(pos, eng.icfg.max_seq_len - 1) // eng.psz]))
+    NP = eng.icfg.num_pages
+    rows = np.array([layer * NP + p for layer in range(eng.mcfg.n_layers) for p in sorted(pages)])
+    return torch.from_numpy(rows).to(eng.device)
+
+
+def sg_compare(name, eng, executors, path, fn, inputs, static, width, stash, real,
+               restore=True):
+    """Run one dispatch program through each of ``executors`` (eager, then
+    captured) on the same inputs, the written pool rows restored between
+    them unless ``restore`` is False: outputs, pool bytes and each step's
+    logits compared where ``real`` holds: the live slots [B] (decode) or
+    their real verify positions [B, W]. Idle slots read scratch page 0,
+    and a row's padding columns are not tokens."""
+    import torch
+
+    rows = sg_rows(eng, width)
+    before = [t[rows].clone() for t in eng.cache.values()]
+    outs, pools, logits = [], [], []
+    for ex in executors:
+        if restore or not outs:
+            for t, b in zip(eng.cache.values(), before):
+                t[rows] = b
+        stash.clear()
+        out = ex.launch(path, fn, inputs, static)
+        outs.append(out.cpu())
+        # Eager: one block a step. Captured: the warm-up's blocks, then the
+        # capture's, whose memory the replay wrote.
+        n = len(logits[0]) if logits else len(stash)
+        logits.append([t.clone() for t in stash[-n:] if not ex.graphs] or
+                      [t.clone() for t in stash[n:2 * n]])
+        pools.append([t[rows].clone() for t in eng.cache.values()])
+    torch.cuda.synchronize()
+    if len(logits[0]) != len(logits[1]) or not logits[0]:
+        raise AssertionError(f"serve_graphs {name}: {len(logits[0])} eager, "
+                             f"{len(logits[1])} captured logit blocks")
+    sel = torch.from_numpy(real)
+    diff = outs[0] != outs[1]                  # verify: [2, B, W]; decode: [W, B]
+    real_diff = diff[:, sel]
+    pick = lambda t: t[sel.to(t.device)]   # noqa: E731  (logits [B, V] or [B, W, V])
+    errs = [max_err(pick(a), pick(b)) for a, b in zip(logits[0], logits[1])]
+    row = {"outputs_equal": not bool(real_diff.any()), "outputs_differing": int(real_diff.sum()),
+           "outputs_differing_elsewhere": int(diff.sum()) - int(real_diff.sum()),
+           "pool_bytes_equal": all(torch.equal(bits(a), bits(b))
+                                   for a, b in zip(pools[0], pools[1])),
+           "pool_rows": int(rows.numel()), "logit_blocks": len(logits[0]),
+           "max_abs_err": max(errs),
+           "logits_bitwise": all(torch.equal(bits(pick(a)), bits(pick(b)))
+                                 for a, b in zip(logits[0], logits[1]))}
+    atol, rtol = TOL["graph_logits"]["bfloat16"]
+    row["logits_within_tol"] = all(
+        torch.allclose(pick(b).float(), pick(a).float(), atol=atol, rtol=rtol)
+        and bool(torch.isfinite(pick(b)).all()) for a, b in zip(logits[0], logits[1]))
+    return row
+
+
+def sg_window(cfg, params, prompts):
+    """serve_graphs (a): the decode window and the chain and tree verify
+    programs of the serve's batch after its prefill, eager against
+    captured (fresh executors of one engine, the sampler and the verifiers
+    wrapped to keep each step's logits)."""
+    import numpy as np
+
+    import orion_tpu_torch.infer.runner as runner_mod
+    import orion_tpu_torch.infer.sampling as sampling_mod
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.infer.executor import DispatchExecutor
+
+    eng = InferenceEngine(cfg, params, device="cuda")
+    for p in prompts:
+        eng.submit(p, SG_NEW)
+    eng.step()   # admission, the burst's prefill, the first window
+    live = [r for r in eng.slots if r is not None and not r.done]
+    W, Wv, B = eng.decode_window, eng.icfg.speculate_tokens + 1, eng.max_batch
+    eng._grow_pages(max(W, Wv))
+    rng = np.random.default_rng(1)
+    vtok = np.zeros((B, Wv), np.int32)
+    vtok[:, 0] = eng.last_token
+    vtok[:, 1:] = rng.integers(0, eng.mcfg.vocab_size, (B, Wv - 1))
+    lens = np.full(B, Wv, np.int32)
+    lens[::3] = rng.integers(1, Wv, len(lens[::3]))
+    base = dict(seq_lens=eng.seq_lens.copy(), page_table=eng.page_table.copy())
+    greedy = dict(temperature=0.0, top_k=0, top_p=1.0, nan_guard=False)
+    tree = {k: np.tile(np.asarray(v, np.int32), (B, 1)) for k, v in SG_TREE.items()}
+    slots = eng._live_mask(live)
+    real = slots[:, None] & (np.arange(Wv)[None, :] < lens[:, None])
+    cases = {
+        "decode_window": ("decode", eng._decode_program,
+                          dict(tokens=eng.last_token.copy(), active=slots, **base),
+                          dict(n_steps=W, **greedy), W, slots),
+        "verify_chain": ("verify", eng._verify_program,
+                         dict(tokens=vtok, lens=lens, **base), greedy, Wv, real),
+        "verify_tree": ("verify", eng._verify_program,
+                        dict(tokens=vtok, lens=np.full(B, Wv, np.int32), depths=tree["depths"],
+                             parents=tree["parents"], tree_mask=tree["words"], **base),
+                        greedy, Wv, np.repeat(slots[:, None], Wv, 1)),
+    }
+    stash = []
+    real_sample, real_verify = sampling_mod.sample, runner_mod._verify_sample
+
+    def sample_probe(logits, *a, **k):
+        stash.append(logits)
+        return real_sample(logits, *a, **k)
+
+    def verify_probe(logits, *a, **k):
+        stash.append(logits)
+        return real_verify(logits, *a, **k)
+
+    sampling_mod.sample, runner_mod._verify_sample = sample_probe, verify_probe
+    try:
+        out = {}
+        for name, (path, fn, inputs, static, width, real) in cases.items():
+            executors = (DispatchExecutor(eng, graphs=False), DispatchExecutor(eng, graphs=True))
+            out[name] = sg_compare(name, eng, executors, path, fn, inputs, static, width, stash,
+                                   real)
+            out[name]["capture_s"] = executors[1].capture_s
+        # The control: the chain verify eager twice, the second over the
+        # first's pool writes (what a replay finds after its warm-up).
+        path, fn, inputs, static, width, real = cases["verify_chain"]
+        out["control_chain_eager_twice"] = sg_compare(
+            "control", eng, (DispatchExecutor(eng, graphs=False),) * 2, path, fn, inputs,
+            static, width, stash, real, restore=False)
+    finally:
+        sampling_mod.sample, runner_mod._verify_sample = real_sample, real_verify
+    stash.clear()
+    _, _, inputs, static, _, _ = cases["decode_window"]
+    out["failed_capture"] = sg_failed_capture(eng, inputs, static)
+    while eng.has_work():
+        eng.step()
+    require_no_faults(eng, "serve_graphs (a)")
+    return out
+
+
+def sg_failed_capture(eng, inputs, static):
+    """A capture that fails (a host sync inside the step, which a capture
+    refuses) raises a DispatchFault inside the envelope, counted, with no
+    program kept and no eager result; the next capture works."""
+    from orion_tpu_torch.runtime.fault import DispatchFault
+
+    ex = eng._executor
+
+    def synced(**kw):
+        out = eng._decode_program(**kw)
+        out.sum().item()   # a host sync: fine in the warm-up, refused in the capture
+        return out
+
+    n0, f0 = len(ex._programs), eng.robust.dispatch_faults
+    try:
+        ex.run("decode", ex.launch, "decode", synced, inputs, dict(static, n_steps=4))
+        raised = None
+    except DispatchFault as e:
+        raised = str(e)[:300]
+    row = {"raised": raised, "dispatch_faults": eng.robust.dispatch_faults - f0,
+           "programs_kept": len(ex._programs) - n0}
+    ex.run("decode", ex.launch, "decode", eng._decode_program, inputs, dict(static, n_steps=2))
+    row["next_capture_ok"] = len(ex._programs) - n0 == 1
+    if not (raised and row["dispatch_faults"] == 1 and row["next_capture_ok"]):
+        raise AssertionError(f"serve_graphs (a): a failed capture was not contained: {row}")
+    eng.robust.dispatch_faults = f0   # counted above; the serve goes on fault-free
+    return row
+
+
+def sg_window_device_ms(ex, reps=10):
+    """The device time of one decode window alone: the serve's last decode
+    graph replayed back to back between CUDA events."""
+    import torch
+
+    prog = next(p for k, p in ex._programs.items() if k[0] == "decode")
+    prog.graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        prog.graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def sg_serve(cfg, params, prompts, graphs, autotune=False):
+    """serve_graphs (b) and (c): the serve's warm-up, then its 16 requests,
+    each step timed; with ``graphs`` the eager prefill's enqueue and
+    device time are taken too (a synchronisation after its call)."""
+    import numpy as np
+    import torch
+
+    import orion_tpu_torch.infer.engine as engine_mod
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, device="cuda", cuda_graphs=graphs)
+    ex = eng._executor
+    V = cfg.model.vocab_size
+    eng.generate([np.random.default_rng(7).integers(0, V, size=100).tolist()], 2)
+    warm = {"captures": ex.captures, "capture_s": ex.capture_s, "pool_bytes": ex.pool_bytes}
+    eng.reset_timing()
+    prefill = []
+    real_prefill = engine_mod.prefill_step
+
+    def timed_prefill(*a, **k):
+        t = time.perf_counter()
+        out = real_prefill(*a, **k)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        prefill.append((t1 - t, time.perf_counter() - t))
+        return out
+
+    engine_mod.prefill_step = timed_prefill
+    ops.reset_launches()
+    replays0 = ex.replays
+    steps = []
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit_request(p, SG_NEW) for p in prompts]
+        while eng.has_work():
+            w0, p0, n0 = eng.timing["windows"], eng.timing["prefill_s"], eng.decode_window
+            ts = time.perf_counter()
+            eng.step()
+            steps.append((time.perf_counter() - ts, eng.timing["windows"] > w0
+                          and eng.timing["prefill_s"] == p0, n0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.prefill_step = real_prefill
+    launches = ops.launches()
+    require_no_faults(eng, f"serve_graphs {'captured' if graphs else 'eager'}")
+    for r in reqs:
+        if not (r.outcome == "completed" and len(r.generated) == SG_NEW):
+            raise AssertionError(f"serve_graphs: request {r.rid} {r.outcome!r}, "
+                                 f"{len(r.generated)} tokens")
+    tm = eng.reset_timing()
+    decode_walls = [w for w, dec, _ in steps if dec]
+    ttft = sorted(r.t_first - r.t_submit for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    row = {"graphs": graphs, "wall_s": wall, "steps": len(steps),
+           "decode_tok_s": decode_tokens / tm["decode_s"],
+           "ttft_s_median": statistics.median(ttft), "ttft_s_max": ttft[-1],
+           "decode_step_wall_ms_median": 1e3 * statistics.median(decode_walls),
+           "decode_steps": len(decode_walls),
+           "split_s": {k: tm[k] for k in ("device_s", "decode_device_s", "mixed_device_s",
+                                          "prefill_s", "host_s")},
+           "prefill_dispatches": len(prefill),
+           "prefill_enqueue_s": sum(e for e, _ in prefill),
+           "prefill_done_s": sum(d for _, d in prefill),
+           "launches": launches, "launches_per_step": {
+               k: v / len(steps) for k, v in launches.items() if v},
+           "warmup": warm, "window_path": [n for _, _, n in steps] + [eng.decode_window]}
+    if graphs:
+        row.update(captures=ex.captures, capture_s=ex.capture_s, pool_bytes=ex.pool_bytes,
+                   serve_replays=ex.replays - replays0)
+        if not autotune and row["serve_replays"] != tm["windows"]:
+            raise AssertionError(f"serve_graphs: {row['serve_replays']} replays for "
+                                 f"{tm['windows']} decode windows")
+        row["window_device_ms"] = sg_window_device_ms(ex)
+    return row, eng
+
+
+def phase_serve_graphs(params=None):
+    """serve_graphs (a)-(c) on the serve phase's ``params`` when given,
+    else on fresh seeded weights; returns the captured serve's launches."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+
+    cfg = get_config("llama3-8b-infer")
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    prompts = sg_prompts(cfg.model.vocab_size)
+    smi = smi_line()
+    window = sg_window(cfg, params, prompts)
+    free_engine()
+    emit({"phase": "serve_graphs", "part": "a", "preset": "llama3-8b-infer",
+          "nvidia_smi": smi, **window})
+    bad = {name: row for name, row in window.items() if name != "failed_capture"
+           and not (row["outputs_equal"] and row["pool_bytes_equal"] and row["logits_within_tol"])}
+    if bad:
+        raise AssertionError(f"serve_graphs (a): captured differs from eager: {bad}")
+    rows = {}
+    for graphs in (False, True):
+        rows[graphs], eng = sg_serve(cfg, params, prompts, graphs)
+        del eng
+        free_engine()
+    eager, captured = rows[False], rows[True]
+    if eager["launches"] != captured["launches"] or eager["steps"] != captured["steps"]:
+        raise AssertionError(f"serve_graphs: launches differ: eager {eager['launches']} "
+                             f"in {eager['steps']} steps, captured {captured['launches']} "
+                             f"in {captured['steps']}")
+    dev_ms = captured["window_device_ms"]
+    for r in (eager, captured):
+        r["decode_host_share"] = 1.0 - dev_ms / r["decode_step_wall_ms_median"]
+    emit({"phase": "serve_graphs", "part": "b", "preset": "llama3-8b-infer",
+          "requests": len(prompts), "new_tokens_each": SG_NEW, "nvidia_smi": smi,
+          "window_device_ms": dev_ms, "eager": eager, "captured": captured,
+          "decode_speedup": captured["decode_tok_s"] / eager["decode_tok_s"]})
+    at_cfg = get_config("llama3-8b-infer", ["inference.decode_window_autotune=true"])
+    auto, eng = sg_serve(at_cfg, params, prompts, True, autotune=True)
+    del eng
+    free_engine()
+    emit({"phase": "serve_graphs", "part": "c", "preset": "llama3-8b-infer",
+          "nvidia_smi": smi, "decode_window_max": at_cfg.inference.decode_window_max,
+          "host_share_target": at_cfg.inference.decode_host_share_target,
+          "final_window": auto["window_path"][-1], **auto})
+    return captured["launches"]
 
 
 def phase_train_parity():
@@ -4181,7 +4613,7 @@ def main(argv=None) -> int:
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
     train_launches = timing = fault_launches = constrained_launches = None
-    train_fault_launches = None
+    train_fault_launches = graph_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -4203,6 +4635,9 @@ def main(argv=None) -> int:
         free_engine()
     if "serve_faults" in phases:
         fault_launches = phase_serve_faults(serve_params)
+        free_engine()
+    if "serve_graphs" in phases:
+        graph_launches = phase_serve_graphs(serve_params)
         free_engine()
     del serve_params
     torch.cuda.empty_cache()
@@ -4226,6 +4661,7 @@ def main(argv=None) -> int:
                    for name in KERNEL_META}
         for path, counts in (("serve_constrained", constrained_launches),
                              ("serve_faults", fault_launches),
+                             ("serve_graphs", graph_launches),
                              ("train_faults", train_fault_launches)):
             if counts:
                 for name in KERNEL_META:

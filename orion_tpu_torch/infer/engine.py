@@ -69,9 +69,21 @@ port behaves as the JAX engine does with dispatch_fallback=false.
 ``dispatch_retries`` other than 1 and ``dispatch_retry_backoff_s`` other
 than 0 shape only that fallback leg and raise at construction.
 
+On the card every decode window, verify and mixed dispatch is one
+CUDA-graph replay (``infer/executor.py``: the counterpart of the JAX
+executor's jitted programs), captured the first time its path and static
+shapes come up; whole-prompt prefill stays eager, its few hundred
+launches small beside its GEMMs. With inference.decode_window_autotune
+the window doubles while the host's share of a decode step is above
+inference.decode_host_share_target and halves below a quarter of it,
+between inference.decode_window and decode_window_max
+(``_autotune_window``, the JAX engine's rule); admission budgets for
+decode_window_max. ``timing`` splits each step's wall into device_s
+(decode_device_s + mixed_device_s), prefill_s and host_s.
+
 Not ported yet (each raises at construction when configured):
 int8 weights, MoE, the host
-tier and long-context paging, decode-window autotune,
+tier and long-context paging,
 sliding-window page rolling (a window on every layer; interleaved
 local/global windows are served), ``paged_prefill=false``, the tracer
 and flight recorder (``trace``, ``trace_path``, ``flight_dir``) and the
@@ -88,6 +100,7 @@ on the CPU its plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import time
@@ -155,7 +168,6 @@ def _check_supported(cfg: Config) -> None:
         "model.n_experts > 0 (MoE)": m.is_moe,
         "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
         "inference.long_context": i.long_context,
-        "inference.decode_window_autotune": i.decode_window_autotune,
         "a sliding window on every layer (page rolling)": (
             m.sliding_window is not None and m.sliding_window_pattern is None
         ),
@@ -212,7 +224,11 @@ class InferenceEngine:
         seed: int = 0,
         device=None,
         fault_injector=None,
+        cuda_graphs: bool = True,
     ):
+        """``cuda_graphs=False`` runs the card's dispatches eagerly, op by
+        op, as the CPU always does: the yardstick the graphs are held
+        against, not a serving mode."""
         _check_supported(cfg)
         _check_injector(fault_injector)
         self.device = resolve_device(device)
@@ -265,7 +281,21 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.preemptions = 0
+        # Decode window: engine state (inference.decode_window is where the
+        # autotune starts and its floor); admission budgets for
+        # _provision_window, so growth never strands an admitted request.
         self.decode_window = self.icfg.decode_window
+        if self.icfg.decode_window_autotune and (
+            self.icfg.decode_window_max < self.icfg.decode_window
+        ):
+            raise ValueError(
+                f"decode_window_max={self.icfg.decode_window_max} < "
+                f"decode_window={self.icfg.decode_window}"
+            )
+        self._autotune_skip = False   # first decode step after a resize
+        self._spec_step = False       # this step verified instead of decoding
+        # The step's dispatch spans (host clock, each through its fetch).
+        self._dev_span = self._mixed_span = self._prefill_span = 0.0
         self.slot_temp = np.full(self.max_batch, self.icfg.temperature, np.float32)
         self.slot_top_k = np.full(self.max_batch, self.icfg.top_k, np.int32)
         self.slot_top_p = np.full(self.max_batch, self.icfg.top_p, np.float32)
@@ -280,7 +310,8 @@ class InferenceEngine:
         self._spec_disabled = False
         self._guard = self.icfg.nan_guard
         self.draining = False       # drain() or close(): admission stopped
-        self._executor = DispatchExecutor(self)
+        self._executor = DispatchExecutor(
+            self, graphs=cuda_graphs and self.device.type == "cuda")
         # The serving watchdog flags stalls (counted as stalled_steps) and
         # never aborts: a stalled step fails nothing by itself.
         self._watchdog: Optional[Watchdog] = None
@@ -296,11 +327,17 @@ class InferenceEngine:
         """Host-clock spans (each ends in the dispatch's host fetch, which
         waits for the device): prefill, decode (decode windows and pure
         verify dispatches) and mixed-step time, and verify_s, the verify
-        share of decode_s; prefill tokens computed (cached prefixes
-        excluded); the chunked-prefill tally (mixed dispatches, chunk rows,
-        real and padded-out chunk positions); verify dispatches, pure and
-        mixed together, and the mixed ones among them."""
-        return {"prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0, "verify_s": 0.0,
+        share of decode_s; the JAX engine's step split: device_s =
+        decode_device_s (decode windows, verify dispatches and the tree
+        compaction) + mixed_device_s (mixed dispatches), and host_s, the
+        rest of each step's wall after those and prefill_s; prefill tokens
+        computed (cached prefixes excluded); the chunked-prefill tally
+        (mixed dispatches, chunk rows, real and padded-out chunk
+        positions); verify dispatches, pure and mixed together, and the
+        mixed ones among them."""
+        return {"device_s": 0.0, "decode_device_s": 0.0, "mixed_device_s": 0.0,
+                "host_s": 0.0,
+                "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0, "verify_s": 0.0,
                 "prefill_tokens": 0, "decode_slot_steps": 0, "steps": 0,
                 "windows": 0, "mixed_steps": 0, "prefill_chunks": 0,
                 "chunk_tokens": 0, "chunk_pad_tokens": 0, "verify_steps": 0,
@@ -536,7 +573,10 @@ class InferenceEngine:
         """Reap expired and finished requests, admit new ones, then run one
         mixed step (while prompt chunks are pending) or a prefill of the
         admitted burst and one decode window over every live slot; returns
-        the requests that reached a typed outcome.
+        the requests that reached a typed outcome. The step's wall splits
+        into ``timing`` (device_s, prefill_s, host_s), and with
+        inference.decode_window_autotune a plain decode step's split
+        resizes the window.
 
         A DispatchFault or MemoryError fails the STEP, not the process:
         injected dispatch faults fire before the device call, a prefill
@@ -544,14 +584,17 @@ class InferenceEngine:
         so the state stays consistent and the next step retries. After
         inference.max_step_faults consecutive failed steps the fault is
         not transient and is re-raised."""
+        t0 = time.perf_counter()
         if self._watchdog is not None and self._watchdog.armed:
             # Refreshed at step START, so idle time between steps never
             # reads as a stall; arming stays with the step-end heartbeat.
             self._watchdog.heartbeat()
+        self._dev_span = self._mixed_span = self._prefill_span = 0.0
+        self._spec_step = False
         self._reap_expired()
         # Expired and cancelled slots go before admission budgets.
         self._reap()
-        decoded = False
+        decoded = mixed = False
         try:
             self._admit()
             self._maybe_inject_nan()
@@ -569,9 +612,24 @@ class InferenceEngine:
                       self.step_no, e, self._consec_failed, self.icfg.max_step_faults)
             if self._consec_failed >= self.icfg.max_step_faults:
                 raise
+        total = time.perf_counter() - t0
+        tm = self.timing
+        tm["device_s"] += self._dev_span + self._mixed_span
+        tm["decode_device_s"] += self._dev_span
+        tm["mixed_device_s"] += self._mixed_span
+        tm["host_s"] += total - self._dev_span - self._mixed_span - self._prefill_span
         if decoded:
-            self.timing["windows"] += 1
-        self.timing["steps"] += 1
+            tm["windows"] += 1
+            # Only plain decode windows steer the window: a mixed step's or
+            # a verify step's split says nothing about it.
+            if self.icfg.decode_window_autotune and not mixed and not self._spec_step:
+                if self._autotune_skip:
+                    # The first step at a new W carries its graph's capture
+                    # (the JAX engine's recompile): not steady state.
+                    self._autotune_skip = False
+                else:
+                    self._autotune_window(total)
+        tm["steps"] += 1
         if self._watchdog is not None:
             if self._watchdog.stalled:
                 # The watchdog fired during this step: counted, not fatal.
@@ -641,6 +699,39 @@ class InferenceEngine:
         if pages < max(self.icfg.prefix_cache_min_pages, 1):
             return 0
         return pages * self.psz
+
+    def _autotune_window(self, step_total: float) -> None:
+        """Resize the decode window from the step's measured split (the JAX
+        engine's rule): double while the host share of the step exceeds
+        inference.decode_host_share_target, halve when it falls below a
+        quarter of the target; floor inference.decode_window, cap
+        decode_window_max. A resize arms ``_autotune_skip``: the next
+        decode step captures the new W's graph, which would skew the very
+        split this reads."""
+        host = step_total - self._dev_span - self._prefill_span
+        share = host / (step_total if step_total > 0 else 1.0)
+        target = self.icfg.decode_host_share_target
+        if share > target and self.decode_window * 2 <= self.icfg.decode_window_max:
+            self.decode_window *= 2
+        elif share < target / 4 and self.decode_window // 2 >= self.icfg.decode_window:
+            self.decode_window //= 2
+        else:
+            return
+        self._autotune_skip = True
+        log.info("decode_window autotune: host share %.2f, window -> %d",
+                 share, self.decode_window)
+
+    @contextlib.contextmanager
+    def _device_span(self, span: str = "_dev_span", *keys: str):
+        """Time a dispatch through its host fetch into the step's ``span``
+        (and ``timing[k]`` for each of ``keys``); a dispatch that raises
+        credits nothing (the JAX engine's ``_device_span``)."""
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+        setattr(self, span, getattr(self, span) + dt)
+        for k in keys:
+            self.timing[k] += dt
 
     def reset_timing(self) -> dict:
         """Return and zero ``timing``, with the current decode_window; with
@@ -817,11 +908,14 @@ class InferenceEngine:
     @property
     def _provision_window(self) -> int:
         """Positions a step may write past a slot's cursor, which admission
-        budgets for: the decode window, or with speculation at least
-        speculate_tokens + 1 (a verify step writes draft KV that far)."""
+        budgets for: the decode window (with the autotune, the largest it
+        may grow to), or with speculation at least speculate_tokens + 1 (a
+        verify step writes draft KV that far)."""
+        base = (self.icfg.decode_window_max if self.icfg.decode_window_autotune
+                else self.decode_window)
         if self.icfg.speculative:
-            return max(self.decode_window, self.icfg.speculate_tokens + 1)
-        return self.decode_window
+            return max(base, self.icfg.speculate_tokens + 1)
+        return base
 
     def _first_window(self, last_written: int) -> int:
         """Pages a slot needs through the first decode window after its
@@ -1034,8 +1128,9 @@ class InferenceEngine:
         n, pages): the request's context[start:start+n] resumes at the
         page-aligned ``start`` over its first start/psz pages and writes
         ``pages``. Rows pad to a power of two and the prefix walk to a
-        power-of-two width; pad rows have length 1 and write scratch page
-        0, as do positions past a row's own pages."""
+        power-of-two width (so a mixed step's graphs are few); pad rows
+        have length 1 and write scratch page 0, as do positions past a
+        row's own pages. Keyed as the runner's chunk arguments."""
         psz = self.psz
         nb = _pow2(max(len(rows), 1))
         tokens = np.zeros((nb, s_pad), np.int64)
@@ -1052,9 +1147,8 @@ class InferenceEngine:
             pre_lens[i] = start
             pre_pages[i, :npre] = req.pages[:npre]
             pages[i, :len(pg)] = pg
-        dev = self.device
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in (tokens, lengths, pages, pre_lens, pre_pages))
+        return dict(p_tokens=tokens, p_lengths=lengths, p_pages=pages,
+                    p_prefix_lens=pre_lens, p_prefix_pages=pre_pages)
 
     def _prefill_bucket(self, reqs: list[Request], s_pad: int) -> None:
         """Prefill admitted requests in one dispatch; prefix-matched rows
@@ -1062,18 +1156,24 @@ class InferenceEngine:
         psz = self.psz
         rows = [(r, r.n_prefix * psz, len(r.context) - r.n_prefix * psz,
                  r.pages[r.n_prefix:]) for r in reqs]
-        tokens, lengths, pages, pre_lens, pre_pages = self._chunk_arrays(rows, s_pad)
+        a = {k: torch.from_numpy(v).to(self.device)
+             for k, v in self._chunk_arrays(rows, s_pad).items()}
 
         def run():
+            # Eager on the card too: a prefill's launches (a few per layer)
+            # are small beside its GEMMs over every prompt token, and each
+            # bucket length would need a graph of its own.
             logits, _ = prefill_step(
-                self.params, self.cache, tokens, lengths, pages,
-                pre_lens, pre_pages if pre_pages.shape[1] else None, cfg=self.mcfg,
+                self.params, self.cache, a["p_tokens"], a["p_lengths"], a["p_pages"],
+                a["p_prefix_lens"],
+                a["p_prefix_pages"] if a["p_prefix_pages"].shape[1] else None,
+                cfg=self.mcfg,
             )
             return self._sample(logits, reqs)   # the one host fetch
 
-        t0 = time.perf_counter()
         try:
-            firsts = self._executor.run("prefill", run)
+            with self._device_span("_prefill_span", "prefill_s"):
+                firsts = self._executor.run("prefill", run)
         except DispatchFault:
             # Unwind the burst's admissions: pages released with nothing
             # donated (n_cached=0: no KV is trusted) and the requests back
@@ -1084,7 +1184,6 @@ class InferenceEngine:
                 self.waiting.appendleft(r)
             raise
         t1 = time.perf_counter()
-        self.timing["prefill_s"] += t1 - t0
         self.timing["prefill_tokens"] += sum(n for _, _, n, _ in rows)
         for i, req in enumerate(reqs):
             self._first_token(req, int(firsts[i]), t1)
@@ -1164,17 +1263,17 @@ class InferenceEngine:
         )
         return toks.cpu().numpy()
 
-    def _sampling_kw(self, reqs: list[Request]) -> dict:
-        """Decode sampling parameters: python scalars when every request
-        takes the defaults (greedy stays a bare argmax), else per slot."""
+    def _sampling_args(self, reqs: list[Request]) -> tuple[dict, dict]:
+        """Decode sampling parameters as (per-slot host arrays, static
+        scalars): python scalars when every request takes the defaults
+        (greedy stays a bare argmax), else the [B] per-slot arrays. The
+        two are two variants of a dispatch program."""
         if all(r.temperature is None and r.top_k is None and r.top_p is None
                for r in reqs):
-            return dict(temperature=self.icfg.temperature, top_k=self.icfg.top_k,
-                        top_p=self.icfg.top_p)
-        dev = self.device
-        return dict(temperature=torch.from_numpy(self.slot_temp).to(dev),
-                    top_k=torch.from_numpy(self.slot_top_k).to(dev),
-                    top_p=torch.from_numpy(self.slot_top_p).to(dev))
+            return {}, dict(temperature=self.icfg.temperature, top_k=self.icfg.top_k,
+                            top_p=self.icfg.top_p)
+        return dict(temperature=self.slot_temp, top_k=self.slot_top_k,
+                    top_p=self.slot_top_p), {}
 
     def _release_request(self, req: Request, n_cached: int) -> None:
         """Release a leaving request's pages. With the prefix cache, the
@@ -1281,10 +1380,12 @@ class InferenceEngine:
         the plain decode window."""
         live = [r for r in self.slots if r is not None and not r.done]
         if self.constrained and any(r.constraint is not None for r in live):
+            self._spec_step = True
             return self._verify_all(self._propose_constrained_drafts(live))
         if self._spec is not None and not self._spec_disabled:
             drafts = self._propose_drafts(live)
             if drafts is not None:
+                self._spec_step = True
                 return self._verify_all(drafts)
         return self._decode_window_all()
 
@@ -1465,38 +1566,78 @@ class InferenceEngine:
         return tokens, lens, depths, parents, words
 
     def _verify_rows(self, reqs: list[Request], drafts: dict[int, Any]):
-        """(tokens, lens, tree tensors for the runner, host legal masks or
+        """(tokens, lens, the runner's tree arrays, host legal masks or
         None) of a verify dispatch."""
-        dev = self.device
         if not self._tree:
             tokens, lens = self._build_verify_rows(reqs, drafts)
             return tokens, lens, {}, self._verify_masks(reqs, tokens, lens)
         tokens, lens, depths, parents, words = self._build_verify_tree_rows(reqs, drafts)
-        tree_kw = dict(depths=torch.from_numpy(depths).to(dev),
-                       parents=torch.from_numpy(parents).to(dev),
-                       tree_mask=torch.from_numpy(words).to(dev))
-        return tokens, lens, tree_kw, self._verify_masks(reqs, tokens, lens, parents)
+        tree = dict(depths=depths, parents=parents, tree_mask=words)
+        return tokens, lens, tree, self._verify_masks(reqs, tokens, lens, parents)
 
     def _device_mask(self, vmask: Optional[np.ndarray]) -> Optional[torch.Tensor]:
         """A step's host legal masks on the device, in one copy."""
         return None if vmask is None else torch.from_numpy(vmask).to(self.device)
 
     @staticmethod
-    def _fetch_verdicts(acc: torch.Tensor, alt: torch.Tensor, ok: Optional[torch.Tensor]):
-        """The verify step's one host fetch: (accept bool [B, W], alt, and
-        the guard's ok [B] bool or None)."""
+    def _pack_verdicts(acc: torch.Tensor, alt: torch.Tensor, ok: Optional[torch.Tensor]):
+        """A verify program's verdicts as one int32 tensor [2 or 3, B, W]
+        (accept, alt, and the guard's ok broadcast over W), for the step's
+        one host fetch."""
         rows = [acc.to(torch.int32), alt.to(torch.int32)]
         if ok is not None:
             rows.append(ok[:, None].expand_as(acc).to(torch.int32))
-        both = torch.stack(rows).cpu().numpy()
-        return both[0].astype(bool), both[1], both[2, :, 0].astype(bool) if ok is not None else None
+        return torch.stack(rows)
 
-    def _live_mask(self, reqs: list[Request]) -> torch.Tensor:
-        """[B] bool on the device: the slots of ``reqs``."""
+    def _fetch_verdicts(self, packed: torch.Tensor):
+        """The verify step's one host fetch: (accept bool [B, W], alt, and
+        the guard's ok [B] bool or None)."""
+        both = packed.cpu().numpy()
+        return both[0].astype(bool), both[1], both[2, :, 0].astype(bool) if self._guard else None
+
+    def _live_mask(self, reqs: list[Request]) -> np.ndarray:
+        """[B] bool: the slots of ``reqs``."""
         mask = np.zeros(self.max_batch, bool)
         for r in reqs:
             mask[r.slot] = True
-        return torch.from_numpy(mask).to(self.device)
+        return mask
+
+    def _program_kw(self) -> dict:
+        """What every decode-facing runner call takes besides its inputs:
+        the bound params and pool, the generator, the model and the
+        context limit."""
+        return dict(params=self.params, cache=self.cache, generator=self._gen,
+                    cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len)
+
+    def _decode_program(self, **kw) -> torch.Tensor:
+        """The decode window as a dispatch program: the [W, B] token block,
+        the guard's flags as one more row."""
+        out = decode_window(**self._program_kw(), **kw)
+        if not self._guard:
+            return out[0]
+        return torch.cat([out[0], out[1][None].to(out[0].dtype)])
+
+    def _verify_program(self, **kw) -> torch.Tensor:
+        out = verify_step(**self._program_kw(), **kw)
+        return self._pack_verdicts(out[0], out[1], out[2] if self._guard else None)
+
+    def _mixed_program(self, *, draw: bool, **kw):
+        """The mixed step as a dispatch program: (the decode tokens [B],
+        the guard's flags stacked under them, or None without a live
+        decode row; the chunk rows' logits). Without a live decode row
+        (``draw`` False) the engine's stream is not drawn from."""
+        pk = self._program_kw()
+        if not draw:
+            pk["generator"] = None
+        out = mixed_step(**pk, **kw)
+        toks, p_logits = out[0], out[-2]
+        if toks is None or not self._guard:
+            return toks, p_logits
+        return torch.stack([toks, out[1].to(toks.dtype)]), p_logits
+
+    def _mixed_verify_program(self, **kw):
+        out = mixed_verify_step(**self._program_kw(), **kw)
+        return self._pack_verdicts(out[0], out[1], out[2] if self._guard else None), out[-2]
 
     def _verify_all(self, drafts: dict[int, Any]) -> bool:
         """One verify dispatch for every live slot (runner.verify_step):
@@ -1513,28 +1654,23 @@ class InferenceEngine:
                 and not any(r.constraint is not None for r in active)):
             # Every drafter was preempted by provisioning. Constrained slots
             # verify draftless all the same: their masks need the verify rows.
+            self._spec_step = False
             return self._decode_window_all()
-        tokens, lens, tree_kw, vmask = self._verify_rows(active, drafts)
-        dev = self.device
+        tokens, lens, tree, vmask = self._verify_rows(active, drafts)
+        samp, samp_static = self._sampling_args(active)
+        inputs = dict(tokens=tokens, seq_lens=self.seq_lens, lens=lens,
+                      page_table=self.page_table, legal_mask=vmask, **tree, **samp)
         if self._guard:
-            tree_kw.update(active=self._live_mask(active), nan_guard=True)
+            inputs["active"] = self._live_mask(active)
 
         def run():
-            out = verify_step(
-                self.params, self.cache, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(lens).to(dev),
-                torch.from_numpy(self.page_table).to(dev), self._gen, cfg=self.mcfg,
-                max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(active), **tree_kw,
-                legal_mask=self._device_mask(vmask),
-            )
-            return self._fetch_verdicts(out[0], out[1], out[2] if self._guard else None)
+            return self._fetch_verdicts(self._executor.launch(
+                "verify", self._verify_program, inputs,
+                dict(nan_guard=self._guard, **samp_static)))
 
-        t0 = time.perf_counter()
-        acc, alt, ok = self._executor.run("verify", run)
-        dt = time.perf_counter() - t0
+        with self._device_span("_dev_span", "decode_s", "verify_s"):
+            acc, alt, ok = self._executor.run("verify", run)
         tm = self.timing
-        tm["decode_s"] += dt
-        tm["verify_s"] += dt
         tm["verify_steps"] += 1
         tm["decode_slot_steps"] += len(active)
         active = self._quarantine_failed(active, ok)
@@ -1657,12 +1793,13 @@ class InferenceEngine:
                 moves += len(off)
         if moves:
             dev = self.device
-            self._executor.contain(
-                "compact", compact_draft_kv,
-                self.cache, torch.from_numpy(self.page_table).to(dev),
-                torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(src).to(dev),
-                n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages,
-            )
+            with self._device_span():
+                self._executor.contain(
+                    "compact", compact_draft_kv,
+                    self.cache, torch.from_numpy(self.page_table).to(dev),
+                    torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(src).to(dev),
+                    n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages,
+                )
             st.compactions += 1
             st.compacted_tokens += moves
         for r, t, path, emit in plans:
@@ -1693,29 +1830,21 @@ class InferenceEngine:
             self._reap()
             return False
         W = self.decode_window
-        mask = np.array([r is not None and not r.done for r in self.slots], bool)
-        dev = self.device
+        samp, samp_static = self._sampling_args(active)
+        inputs = dict(tokens=self.last_token, seq_lens=self.seq_lens,
+                      page_table=self.page_table, active=self._live_mask(active), **samp)
 
         def run():
-            out = decode_window(
-                self.params, self.cache,
-                torch.from_numpy(self.last_token).to(dev),
-                torch.from_numpy(self.seq_lens).to(dev),
-                torch.from_numpy(self.page_table).to(dev),
-                torch.from_numpy(mask).to(dev),
-                self._gen, n_steps=W, cfg=self.mcfg,
-                max_seq_len=self.icfg.max_seq_len, nan_guard=self._guard,
-                **self._sampling_kw(active),
-            )
+            # [W, B], the guard's flags as a last row: the window's one fetch.
+            rows = self._executor.launch(
+                "decode", self._decode_program, inputs,
+                dict(n_steps=W, nan_guard=self._guard, **samp_static)).cpu().numpy()
             if not self._guard:
-                return out[0].cpu().numpy(), None   # [W, B]: the window's one fetch
-            # The guard's flags ride the same fetch as a last row.
-            both = torch.cat([out[0], out[1][None].to(out[0].dtype)]).cpu().numpy()
-            return both[:-1], both[-1].astype(bool)
+                return rows, None
+            return rows[:-1], rows[-1].astype(bool)
 
-        t0 = time.perf_counter()
-        tokens, ok = self._executor.run("decode", run)
-        self.timing["decode_s"] += time.perf_counter() - t0
+        with self._device_span("_dev_span", "decode_s"):
+            tokens, ok = self._executor.run("decode", run)
         self.timing["decode_slot_steps"] += W * len(active)
         # A poisoned slot's whole window is suspect: quarantined, its
         # tokens dropped (no other slot reads its pages).
@@ -1783,77 +1912,68 @@ class InferenceEngine:
         if (drafts is not None and not any(drafts.get(r.slot) for r in dec)
                 and not any(r.constraint is not None for r in dec)):
             drafts = None   # provisioning preempted every drafter
-        dev = self.device
         tm = self.timing
-        guard = {}
+        samp, samp_static = self._sampling_args(dec)
+        inputs = dict(seq_lens=self.seq_lens, page_table=d_pt, **arrays, **samp)
+        static = dict(nan_guard=self._guard, **samp_static)
         if self._guard:
-            guard = dict(active=self._live_mask(dec), nan_guard=True)
-        t0 = time.perf_counter()
-        if drafts is not None:
-            vtok, vlens, tree_kw, vmask = self._verify_rows(dec, drafts)
+            inputs["active"] = self._live_mask(dec)
+        with self._device_span("_mixed_span", "mixed_s"):
+            if drafts is not None:
+                vtok, vlens, tree, vmask = self._verify_rows(dec, drafts)
+                inputs.update(tokens=vtok, lens=vlens, legal_mask=vmask, **tree)
 
-            def run():
-                out = mixed_verify_step(
-                    self.params, self.cache, torch.from_numpy(vtok).to(dev),
-                    torch.from_numpy(self.seq_lens).to(dev), torch.from_numpy(vlens).to(dev),
-                    torch.from_numpy(d_pt).to(dev), *arrays, self._gen, cfg=self.mcfg,
-                    max_seq_len=self.icfg.max_seq_len, **self._sampling_kw(dec), **tree_kw,
-                    **guard, legal_mask=self._device_mask(vmask),
-                )
-                ok = out[2] if self._guard else None
-                return (*self._fetch_verdicts(out[0], out[1], ok), out[-2])   # the one fetch
+                def run():
+                    packed, p_logits = self._executor.launch(
+                        "mixed_verify", self._mixed_verify_program, inputs, static)
+                    return (*self._fetch_verdicts(packed), p_logits)   # the one fetch
 
-            acc, alt, ok, p_logits = self._executor.run("mixed_verify", run)
-            tm["verify_steps"] += 1
-            tm["mixed_verify_steps"] += 1
-        else:
-            def run():
-                out = mixed_step(
-                    self.params, self.cache,
-                    torch.from_numpy(self.last_token).to(dev),
-                    torch.from_numpy(self.seq_lens).to(dev),
-                    torch.from_numpy(d_pt).to(dev), *arrays,
-                    # No live decode row: draw nothing from the engine's
-                    # stream, so a sampled lone request is the same chunked
-                    # and unchunked.
-                    self._gen if dec else None,
-                    cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len,
-                    **self._sampling_kw(dec), **guard,
-                )
-                toks, p_logits = out[0], out[-2]
-                if toks is None:
-                    return None, None, p_logits
-                if not self._guard:
-                    return toks.cpu().numpy(), None, p_logits   # the one fetch
-                both = torch.stack([toks, out[1].to(toks.dtype)]).cpu().numpy()
-                return both[0], both[1].astype(bool), p_logits
+                acc, alt, ok, p_logits = self._executor.run("mixed_verify", run)
+                tm["verify_steps"] += 1
+                tm["mixed_verify_steps"] += 1
+            else:
+                inputs["tokens"] = self.last_token
+                # No live decode row: draw nothing from the engine's stream, so
+                # a sampled lone request is the same chunked and unchunked.
+                static["draw"] = bool(dec)
 
-            d_out, ok, p_logits = self._executor.run("mixed", run)
-        real = sum(k for _, k in chunks)
-        tm["mixed_steps"] += 1
-        tm["prefill_chunks"] += len(chunks)
-        tm["chunk_tokens"] += real
-        tm["chunk_pad_tokens"] += arrays[0].shape[0] * S - real
-        tm["prefill_tokens"] += real
-        tm["decode_slot_steps"] += len(dec)
-        # Advance the chunk cursors (seq_lens tracks them, so a preemption
-        # donates exactly the completed pages); prompts that just
-        # completed sample their first token — their logits are fetched
-        # only now, so other steps never pay that transfer.
-        finishing = []
-        for i, (r, k) in enumerate(chunks):
-            r.prefill_done += k
-            self.seq_lens[r.slot] = r.prefill_done
-            if r.prefill_done >= len(r.context):
-                finishing.append((i, r))
-        if finishing:
-            rows = torch.tensor([i for i, _ in finishing], device=dev)
-            firsts = self._sample(p_logits[rows], [r for _, r in finishing])
-            t1 = time.perf_counter()
-            for (_, r), first in zip(finishing, firsts):
-                r.prefill_pending = False
-                self._first_token(r, int(first), t1)
-        tm["mixed_s"] += time.perf_counter() - t0
+                def run():
+                    toks, p_logits = self._executor.launch("mixed", self._mixed_program,
+                                                           inputs, static)
+                    if toks is None:
+                        return None, None, p_logits
+                    rows = toks.cpu().numpy()   # the one fetch
+                    if not self._guard:
+                        return rows, None, p_logits
+                    return rows[0], rows[1].astype(bool), p_logits
+
+                d_out, ok, p_logits = self._executor.run("mixed", run)
+            real = sum(k for _, k in chunks)
+            tm["mixed_steps"] += 1
+            tm["prefill_chunks"] += len(chunks)
+            tm["chunk_tokens"] += real
+            tm["chunk_pad_tokens"] += arrays["p_tokens"].shape[0] * S - real
+            tm["prefill_tokens"] += real
+            tm["decode_slot_steps"] += len(dec)
+            # Advance the chunk cursors (seq_lens tracks them, so a preemption
+            # donates exactly the completed pages); prompts that just
+            # completed sample their first token — their logits are fetched
+            # only now (before the next replay overwrites them), so other
+            # steps never pay that transfer.
+            finishing = []
+            for i, (r, k) in enumerate(chunks):
+                r.prefill_done += k
+                self.seq_lens[r.slot] = r.prefill_done
+                if r.prefill_done >= len(r.context):
+                    finishing.append((i, r))
+            if finishing:
+                rows = torch.tensor([i for i, _ in finishing], device=self.device)
+                firsts = self._sample(p_logits[rows], [r for _, r in finishing])
+                t1 = time.perf_counter()
+                for (_, r), first in zip(finishing, firsts):
+                    r.prefill_pending = False
+                    self._first_token(r, int(first), t1)
+
         # The guard covers decode rows only; a prompt-phase slot is caught
         # at its first guarded decode step.
         dec = self._quarantine_failed(dec, ok)

@@ -94,9 +94,9 @@ def sample(
     B, _ = logits.shape
     dev = logits.device
     logits = logits.float()
-    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(B)
-    top_k = torch.as_tensor(top_k, dtype=torch.int32, device=dev).expand(B)
-    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev).expand(B)
+    temp = _rows(temperature, torch.float32, B, dev)
+    top_k = _rows(top_k, torch.int32, B, dev)
+    top_p = _rows(top_p, torch.float32, B, dev)
     greedy = logits.argmax(dim=-1).to(torch.int32)
     scaled = filter_logits(logits, temp, top_k, top_p,
                            no_topk=no_topk, no_topp=no_topp)
@@ -104,9 +104,26 @@ def sample(
     return torch.where(temp > 0, sampled, greedy)
 
 
+def _rows(a, dtype, n: int, device) -> torch.Tensor:
+    """A python scalar or an [n] per-row tensor as an [n] tensor of
+    ``dtype`` on ``device``; a scalar is filled on the device, never
+    copied from the host (a CUDA-graph capture refuses the copy)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype).expand(n)
+    return torch.full((n,), a, dtype=dtype, device=device)
+
+
 def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(logits): ``torch.multinomial``'s own
+    one-sample path written out (exponential noise q, argmax of p / q), so
+    it draws the same numbers from ``generator`` and picks the same
+    tokens. Written out because ``multinomial`` checks its input first,
+    with a host sync or a device-side assert, which a CUDA-graph capture
+    refuses and which would turn a NaN row into a sticky device error
+    instead of a row for the NaN guard."""
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def filter_logits(
@@ -154,10 +171,9 @@ def filter_logits(
 def _per_row(a, dtype, B: int, W: int, device) -> torch.Tensor:
     """A python scalar or a [B] per-request tensor, repeated over each
     row's W positions -> [B * W]."""
-    t = torch.as_tensor(a, dtype=dtype, device=device)
-    if t.dim():
-        t = t.reshape(B, 1)
-    return t.expand(B, W).reshape(B * W)
+    if not isinstance(a, torch.Tensor):
+        return _rows(a, dtype, B * W, device)
+    return a.to(device=device, dtype=dtype).reshape(B, 1).expand(B, W).reshape(B * W)
 
 
 def _filtered(logits: torch.Tensor, temperature, top_k, top_p) -> torch.Tensor:

@@ -62,6 +62,14 @@ def _norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return ops.layernorm(x, scale, p.get("bias"), eps=cfg.norm_eps)
 
 
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as a host float: multiplying by it is
+    multiplying by the constant in the activation dtype (the JAX
+    package's arithmetic) without a host-to-device copy, which a
+    CUDA-graph capture refuses."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def embed(
     params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 ) -> torch.Tensor:
@@ -70,7 +78,7 @@ def embed(
     x = params["embed"]["tokens"][tokens.long()].to(dtype)
     if cfg.embed_scale:
         # Gemma-family: scaled by sqrt(d_model), rounded in the activation dtype.
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+        x = x * _rounded(cfg.d_model ** 0.5, dtype)
     if cfg.pos_embedding == "learned":
         x = x + params["embed"]["positions"][positions.long()].to(dtype)
     return x
@@ -112,8 +120,7 @@ def qkv_proj(
         k = ops.apply_rope(k, positions, theta=cfg.rope_theta)
     if cfg.query_scale is not None:
         # Kernels divide by sqrt(head_dim); pre-multiply q by the ratio.
-        q = q * torch.tensor(cfg.query_scale * (H ** 0.5), dtype=q.dtype,
-                             device=q.device)
+        q = q * _rounded(cfg.query_scale * (H ** 0.5), q.dtype)
     return q, k, v
 
 

@@ -10,9 +10,15 @@ Conventions every kernel wrapper in ``orion_tpu_torch.ops`` follows:
   ``ModelConfig.kernels`` is not read by the port.
 - Each kernel wrapper carries a launch counter (``wrapper.launches``, a
   plain int) that it increments exactly where it launches its kernel.
+  A CUDA-graph replay runs no Python, so the serving engine's graphs
+  (``infer/executor.py``) record at capture what each wrapper launched
+  (``recording_launches``) and credit it at every replay
+  (``credit_launches``): the counts stay launches that ran.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -83,10 +89,38 @@ def check_pools(q, k_pool, v_pool, k_scale, v_scale) -> None:
         raise ValueError("pools must be contiguous (they are updated in place)")
 
 
+_COUNTED: list = []   # every wrapper ``counted`` made
+
+
 def counted(fn):
     """Give a kernel wrapper its launch counter (``fn.launches = 0``)."""
     fn.launches = 0
+    _COUNTED.append(fn)
     return fn
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record what a CUDA-graph capture launches: yields a dict that holds,
+    on exit, ``{wrapper: launches}`` for every wrapper the block called,
+    and leaves each wrapper's own count as it was before the block (a
+    capture records its launches; none of them runs)."""
+    before = [(fn, fn.launches) for fn in _COUNTED]
+    rec: dict = {}
+    try:
+        yield rec
+    finally:
+        for fn, n in before:
+            if fn.launches != n:
+                rec[fn] = fn.launches - n
+                fn.launches = n
+
+
+def credit_launches(rec: dict) -> None:
+    """Count a replay's launches: ``rec`` as ``recording_launches`` filled
+    it at the graph's capture."""
+    for fn, n in rec.items():
+        fn.launches += n
 
 
 def triton_libdevice():
