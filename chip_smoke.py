@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,build,serve_spec --profile
     python3 chip_smoke.py --phases device,build,train_faults
     python3 chip_smoke.py --phases device,build,serve_graphs
+    python3 chip_smoke.py --phases device,build,kernels,serve_host_tier,serve_long,serve_gather
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -53,7 +54,11 @@ exits non-zero without printing a result:
            it (bf16: K rows NaN; int8: k_scale rows NaN) makes every output
            row of that slot non-finite and leaves every other slot's output
            and pool writes bitwise as a clean launch; after scrub_pages of
-           the page, every output is bitwise the clean launch's again
+           the page, every output is bitwise the clean launch's again; K3's
+           explicit-positions branch in both dtypes at the gather body's
+           layout (4 rows over prefixes of 0-7936 tokens, 256-token tails;
+           no window and 4096) and a striped permutation at the training
+           shapes, and identity positions bitwise K3's index path
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            the same prompts on cuda with every dispatch eager
@@ -139,6 +144,30 @@ exits non-zero without printing a result:
            every decode window a replay, the eager prefill's enqueue beside
            its device time; (c) the captured serve under
            inference.decode_window_autotune: the window's path and rate
+  serve_host_tier  llama3-8b-infer at full width and depth (the serve's
+           weights), the prefix cache over a 320-page pool and a host tier
+           of a quarter of the free RAM, at most 4 GiB: 8 distinct
+           2048-token prompts, then 8 others (their allocations demote the
+           first wave's pages), then the first 8 with 100-token tails
+           (restored, one batched copy a hit); the restored pages bit for
+           bit the demoted ones, waves 1 and 3 token for token those of a
+           2048-page pool that evicts nothing; pinned-memory d2h/h2d GB/s,
+           the restore time a call and its overhead, the break-even
+           threshold from the measured constants beside the defaults,
+           offload_prefix_cache, and a "restore" fault unwound on both
+           tiers (the step fails once, the request completes)
+  serve_gather  llama3-8b-infer with the prefix cache and
+           paged_prefill=false: a second wave's hits run the gather body
+           (K3 with positions, no K9); each warm row's first logits within
+           GATHER_LOGIT_REL (relative RMS) of the paged_prefill=true
+           engine's; tiny-llama float32: both settings' streams equal
+  serve_long  Mistral-7B (mistral-7b-fsdp, parallel.fsdp=1: window 4096 on
+           all 32 layers) at full width and depth, seeded bf16 weights after
+           the Llama weights are freed: two 8064-token prompts at once over
+           96 pages (one spans 127), chunked by 512, a residency cap of 32
+           pages; page rolling, demotion, page-ins and a preemption to the
+           host fire, peak device pages stay inside the pool, and the
+           streams equal the long_context=false run's over 300 pages
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -211,7 +240,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
-          "serve_spec", "serve_constrained", "serve_faults", "serve_graphs", "train_parity",
+          "serve_spec", "serve_constrained", "serve_faults", "serve_graphs",
+          "serve_host_tier", "serve_gather", "serve_long", "train_parity",
           "train", "train_faults", "timing")
 
 HBM_BYTES_S = 3.35e12
@@ -226,6 +256,7 @@ TOL = {
     "rmsnorm_fwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
     "rope_fwd": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)},
     "flash_fwd": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    "flash_fwd_pos": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
     "paged_decode": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
     # K3's lse: both sides take the same float32 logits of the (upcast)
     # inputs and differ only in the order of the sum, in either dtype.
@@ -295,6 +326,8 @@ KERNEL_META = {
                      replaces="orion_tpu/ops/pallas/rope.py:52"),
     "flash_fwd": dict(route="cuda", source="orion_tpu_torch/csrc/flash_fwd.cu",
                       replaces="orion_tpu/ops/pallas/flash_attention.py:353"),
+    "flash_fwd_pos": dict(route="cuda", source="orion_tpu_torch/csrc/flash_fwd.cu",
+                          replaces="orion_tpu/ops/pallas/flash_attention.py:178"),
     "paged_decode": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
                          replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
     "rmsnorm_bwd": dict(route="cuda", source="orion_tpu_torch/csrc/rmsnorm.cu",
@@ -1490,6 +1523,104 @@ def check_nan_containment(gen):
         torch.cuda.empty_cache()
 
 
+# K3's explicit-positions branch at the gather prefill body's shapes: 4
+# rows whose 256-token tails (K9_LENS real) resume over prefixes of
+# K9_STARTS tokens, the prefix gathered at [0, 128 pages x 64) as the
+# runner gathers it, llama3-8b-infer heads; with no window and Mistral's.
+# And a striped permutation (positions j*STRIPES + r: what sequence
+# parallelism gives a shard) at the training path's shapes, causal.
+K3POS_P_PRE, K3POS_WINDOW, STRIPES = 128, 4096, 4
+
+
+def k3pos_gather_inputs(dtype, gen):
+    import torch
+
+    B, S, n_pre = len(K9_STARTS), K9_S, K3POS_P_PRE * PSZ
+    q = torch.randn(B, S, N_HEADS, HEAD, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, n_pre + S, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, n_pre + S, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
+    start = torch.tensor(K9_STARTS, device="cuda")[:, None]
+    lens = torch.tensor(K9_LENS, device="cuda")[:, None]
+    ar, pre = torch.arange(S, device="cuda"), torch.arange(n_pre, device="cuda")
+    qpos = (start + ar).to(torch.int32)
+    qseg = (ar[None] < lens).to(torch.int32)
+    kw = dict(q_positions=qpos,
+              kv_positions=torch.cat([pre.expand(B, -1).to(torch.int32), qpos], 1),
+              q_segment_ids=qseg,
+              kv_segment_ids=torch.cat([(pre[None] < start).to(torch.int32), qseg], 1))
+    return q, k, v, kw
+
+
+def k3pos_striped_inputs(dtype, gen):
+    import torch
+
+    q, k, v, _ = t_attn_inputs(dtype, gen)
+    S = q.shape[1]
+    perm = torch.arange(S, device="cuda").reshape(S // STRIPES, STRIPES).t().reshape(-1)
+    pos = perm[None].expand(q.shape[0], -1).to(torch.int32).contiguous()
+    return q, k, v, dict(q_positions=pos, kv_positions=pos)
+
+
+def check_k3pos(dtype, gen):
+    """K3's explicit-positions branch against attention_plain with the same
+    positions: the gather body's layout without and with a window (real
+    rows compared), and the striped permutation, causal. Then identity
+    positions at the serve's prefill shapes must give K3's index path
+    bit for bit (the same steps in the same order; a step one path skips
+    and the other computes is wholly masked). Returns the max error."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    dn = str(dtype).split(".")[-1]
+    errs = []
+    q, k, v, kw = k3pos_gather_inputs(dtype, gen)
+    real = kw["q_segment_ids"] > 0
+    for window in (None, K3POS_WINDOW):
+        got = ops.flash_attention_pos_cuda(
+            q, k, v, kw["q_positions"], kw["kv_positions"],
+            q_segment_ids=kw["q_segment_ids"], kv_segment_ids=kw["kv_segment_ids"],
+            seg_pad_zero=True, window=window)
+        errs.append(require_close("flash_fwd_pos", dn, got,
+                                  ops.attention_plain(q, k, v, window=window, **kw), rows=real))
+    del q, k, v, got
+    q, k, v, kw = k3pos_striped_inputs(dtype, gen)
+    got = ops.flash_attention_pos_cuda(q, k, v, kw["q_positions"], kw["kv_positions"])
+    errs.append(require_close("flash_fwd_pos", dn, got, ops.attention_plain(q, k, v, **kw)))
+    del q, k, v, got
+    q, k, v, seg = k3_inputs(dtype, gen)
+    pos = torch.arange(S_PRE, device="cuda", dtype=torch.int32).expand(B_PRE, -1).contiguous()
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
+    if not torch.equal(bits(ops.flash_attention_pos_cuda(q, k, v, pos, pos, **kw)),
+                       bits(ops.flash_attention_cuda(q, k, v, **kw))):
+        raise AssertionError(f"K3 {dn}: identity positions differ from the index path")
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def k3pos_pairs(qpos, kpos, qseg, kseg, window):
+    """(query, key) pairs in the (16-row warp, 32-key step) tiles that K3's
+    positions branch computes on this data: tiles not skipped by their
+    position extremes or by seg_pad_zero liveness (64-row q tiles)."""
+    import torch
+
+    B, Sq = qpos.shape
+    Skv = kpos.shape[1]
+    qp = qpos.view(B, Sq // 16, 16).long()
+    kp = kpos.view(B, Skv // 32, 32).long()
+    pmin, pmax = qp.amin(-1)[:, :, None], qp.amax(-1)[:, :, None]
+    kmin, kmax = kp.amin(-1)[:, None, :], kp.amax(-1)[:, None, :]
+    dead = kmin > pmax
+    if window is not None:
+        dead |= kmax <= pmin - window
+    live = ~dead
+    if qseg is not None:
+        qlive = (qseg.view(B, Sq // 64, 64) > 0).any(-1).repeat_interleave(4, dim=1)
+        klive = (kseg.view(B, Skv // 32, 32) > 0).any(-1)
+        live &= qlive[:, :, None] & klive[:, None, :]
+    return int(live.sum()) * 16 * 32
+
+
 def phase_kernels():
     import torch
 
@@ -1518,7 +1649,8 @@ def phase_kernels():
         )
         del q, k, v
         torch.cuda.empty_cache()
-        errs[dn] = {"rmsnorm_fwd": e1, "rope_fwd": e2, "flash_fwd": e3}
+        errs[dn] = {"rmsnorm_fwd": e1, "rope_fwd": e2, "flash_fwd": e3,
+                    "flash_fwd_pos": check_k3pos(dtype, gen)}
         for name, check, quant in (
             ("paged_decode", check_k4, False), ("paged_decode_int8", check_k4, True),
             ("paged_prefill", check_k9, False), ("paged_prefill_int8", check_k9, True),
@@ -2256,7 +2388,7 @@ def free_engine():
     torch.cuda.empty_cache()
 
 
-def serve_wave(eng, prompts, n_new):
+def serve_wave(eng, prompts, n_new, on_step=None):
     """Submit ``prompts`` together and drain the engine: the requests and
     the wave's numbers (timing and prefix-cache deltas, TTFT, rates, peak
     memory, launches). Prefill and decode rates divide by the time of the
@@ -2275,6 +2407,8 @@ def serve_wave(eng, prompts, n_new):
     reqs = [eng.submit_request(p, n_new) for p in prompts]
     while eng.has_work():
         eng.step()
+        if on_step is not None:
+            on_step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tm = {k: eng.timing[k] - tm0[k] for k in tm0}
@@ -3614,6 +3748,431 @@ def phase_serve_graphs(params=None):
           "final_window": auto["window_path"][-1], **auto})
     return captured["launches"]
 
+# -- the host KV tier, long context and the gather prefill body -------------
+
+# serve_host_tier: llama3-8b-infer (bf16, full width and depth) with the
+# prefix cache over a 320-page pool (2.7 GB) and a host tier: a wave of 8
+# distinct 2048-token prompts (256 pages) is demoted by a second such wave,
+# and a third wave (the first's prompts + 100-token tails) restores them.
+HT_PROMPTS, HT_LEN, HT_TAIL, HT_NEW, HT_POOL = 8, 2048, 100, 16, 320
+HT_MAX_BYTES = 4 << 30
+# serve_long: Mistral-7B (mistral-7b-fsdp at parallel.fsdp=1: window 4096
+# on all 32 layers, vocab 32000, bf16) serving two 8064-token prompts at
+# once over a 96-page pool (one such request spans 127 pages), chunked by
+# 512, a residency cap of 32 pages; its reference serves the same with
+# long_context off over 300 pages.
+LONG_LEN, LONG_NEW, LONG_POOL, LONG_CAP = 8064, 64, 96, 32
+LONG_OVERRIDES = ["parallel.fsdp=1", "inference.long_context=true",
+                  "inference.chunked_prefill=true", "inference.prefill_chunk_tokens=512",
+                  "inference.prefill_chunk=512", "inference.max_batch_size=2",
+                  "inference.max_seq_len=8192", f"inference.num_pages={LONG_POOL}",
+                  f"inference.request_resident_pages={LONG_CAP}"]
+LONG_REF_OVERRIDES = ["parallel.fsdp=1", "inference.chunked_prefill=true",
+                      "inference.prefill_chunk_tokens=512", "inference.prefill_chunk=512",
+                      "inference.max_batch_size=2", "inference.max_seq_len=8192",
+                      "inference.num_pages=300"]
+# serve_gather: paged_prefill=false, prefix-cache hits through the gather
+# body (K3 with positions), against paged_prefill=true (K9). The first
+# token's logits of each warm row: two different bf16 kernels over 32
+# layers, held per row to a relative RMS of 2^-4 (K4_SLOT_REL's bound).
+GATHER_OVERRIDES = ["inference.prefix_cache=true", "inference.max_batch_size=8"]
+GATHER_LOGIT_REL = 2.0 ** -4
+
+
+def mem_available() -> int:
+    """The machine's MemAvailable (/proc/meminfo), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def host_tier_budget():
+    """(host_tier_bytes, MemAvailable): a quarter of the free RAM, at most
+    4 GiB (512 pages of llama3-8b-infer or Mistral-7B)."""
+    avail = mem_available()
+    return min(HT_MAX_BYTES, avail // 4), avail
+
+
+def pinned_rates(nbytes):
+    """Device-to-host and host-to-device GB/s over pinned memory: one copy
+    of ``nbytes``, CUDA events, the median of 5 after a warm-up."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        dst.copy_(src, non_blocking=True)
+        times = []
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        out[name] = nbytes / statistics.median(times) / 1e9
+    del dev, host
+    return out
+
+
+def prefix_snapshot(eng, prompts, n_pages):
+    """Device copies of the cached prefix pages of each prompt (every cache
+    tensor, all layers), through ``gather_pages``."""
+    import torch
+
+    from orion_tpu_torch.infer.kv_cache import gather_pages
+
+    snaps = []
+    for p in prompts:
+        pages, node = eng._pcache.match(p + [0], n_pages)
+        if node is None or len(pages) != n_pages or not all(isinstance(x, int) for x in pages):
+            raise AssertionError(f"prefix of {n_pages} device pages not cached: {pages}")
+        snaps.append({k: v.clone() for k, v in gather_pages(
+            eng.cache, torch.tensor(pages), n_layers=eng.mcfg.n_layers,
+            num_pages=eng.icfg.num_pages).items()})
+        eng._pcache.unlock(node)
+    return snaps
+
+
+def phase_serve_host_tier(params=None):
+    """The host tier at llama3-8b-infer: three waves over an undersized
+    pool (demote, then restore), the restored pages bit for bit the
+    demoted ones, the third wave's streams those of a pool that evicts
+    nothing, the copy rates over pinned memory, the restore overhead, the
+    break-even it gives, offload_prefix_cache, and a restore fault."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.infer.kv_cache import host_tier_break_even_tokens
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
+
+    hbytes, avail = host_tier_budget()
+    ov = ["inference.prefix_cache=true", f"inference.host_tier_bytes={hbytes}",
+          f"inference.num_pages={HT_POOL}", f"inference.max_batch_size={HT_PROMPTS}"]
+    cfg = get_config("llama3-8b-infer", ov)
+    V, psz = cfg.model.vocab_size, cfg.inference.page_size
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    rng = np.random.default_rng(7)
+    wave1 = [rng.integers(0, V, HT_LEN).tolist() for _ in range(HT_PROMPTS)]
+    wave2 = [rng.integers(0, V, HT_LEN).tolist() for _ in range(HT_PROMPTS)]
+    wave3 = [p + rng.integers(0, V, HT_TAIL).tolist() for p in wave1]
+    warm = rng.integers(0, V, 300).tolist()
+    n_pre = HT_LEN // psz
+    inj = FaultInjector([])
+    eng = InferenceEngine(cfg, params, device="cuda", fault_injector=inj)
+    hp = eng._host_pool
+    eng.generate([warm], 2)
+    eng.clear_prefix_cache()
+    eng.reset_timing()
+    totals = {}
+
+    def wave(i, prompts):
+        reqs, res = serve_wave(eng, prompts, HT_NEW)
+        for k, n in res["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        emit({"phase": "serve_host_tier", "wave": i, **res})
+        return reqs, res
+
+    r1, w1 = wave(1, wave1)
+    t1 = eng.reset_timing()
+    before = prefix_snapshot(eng, wave1, n_pre)
+    r2, _ = wave(2, wave2)
+    t2 = eng.reset_timing()
+    # Wave 2's allocations demote the coldest of wave 1's pages (all but
+    # what the free pages absorbed); wave 3's restores demote the rest,
+    # colder than wave 2's, so every prefix comes back from the host.
+    demoted = t2["evicted_to_host"]
+    if demoted < HT_PROMPTS * n_pre // 2 or eng._pcache.host_pages != demoted:
+        raise AssertionError(f"serve_host_tier: wave 2 demoted {demoted} pages, "
+                             f"{eng._pcache.host_pages} host-resident")
+    r3, _ = wave(3, wave3)
+    t3 = eng.reset_timing()
+    if t3["host_hits"] != HT_PROMPTS or t3["host_restored_pages"] != HT_PROMPTS * n_pre:
+        raise AssertionError(f"serve_host_tier: wave 3 restored {t3['host_restored_pages']} "
+                             f"pages in {t3['host_hits']} hits")
+    after = prefix_snapshot(eng, wave1, n_pre)
+    restored_equal = all(torch.equal(bits(a[k]), bits(b[k]))
+                         for a, b in zip(before, after) for k in a)
+    if not restored_equal:
+        raise AssertionError("serve_host_tier: restored pages differ from the demoted ones")
+    restored_bytes = sum(t.numel() * t.element_size() for s_ in after for t in s_.values())
+    del before, after
+    # offload_prefix_cache: every idle cached page to the host, then the
+    # copies' end through their events (spill_s is the enqueue).
+    t0 = time.perf_counter()
+    n_off = eng.offload_prefix_cache()
+    for ev in {id(e): e for e in hp._pending.values()}.values():
+        ev.synchronize()
+    offload_wall = time.perf_counter() - t0
+    t_off = eng.reset_timing()
+    # A restore fault: the next admission's restore raises in its envelope.
+    free0, marks0, slots0 = eng.alloc.free_pages, eng._pcache.host_pages, hp.free_slots
+    inj.specs.append(FaultSpec("restore", step=eng.step_no))
+    fr = eng.submit_request(wave3[0], HT_NEW)
+    eng.step()
+    unwound = dict(failed_steps=eng.robust.failed_steps,
+                   dispatch_faults=eng.robust.dispatch_faults,
+                   pool_free_equal=eng.alloc.free_pages == free0,
+                   host_markers_equal=eng._pcache.host_pages == marks0,
+                   host_slots_equal=hp.free_slots == slots0)
+    eng.assert_page_accounting()
+    while eng.has_work():
+        eng.step()
+    if not (unwound["failed_steps"] == 1 and unwound["dispatch_faults"] == 1
+            and unwound["pool_free_equal"] and unwound["host_markers_equal"]
+            and unwound["host_slots_equal"] and fr.outcome == "completed"):
+        raise AssertionError(f"serve_host_tier: restore fault not contained: {unwound}, "
+                             f"{fr.outcome}")
+    t_fault = eng.reset_timing()
+    eng.assert_page_accounting()
+    streams = [[r.generated for r in rs] for rs in (r1, r3)]
+    pb = hp.page_bytes
+    del eng, hp
+    free_engine()
+
+    # The reference: a pool that evicts nothing (2048 pages), waves 1 and 3.
+    ref = InferenceEngine(get_config("llama3-8b-infer", ["inference.prefix_cache=true",
+                                                         f"inference.max_batch_size={HT_PROMPTS}"]),
+                          params, device="cuda")
+    ref.generate([warm], 2)
+    ref.clear_prefix_cache()
+    ref_streams = [[r.generated for r in serve_wave(ref, w, HT_NEW)[0]] for w in (wave1, wave3)]
+    del ref
+    free_engine()
+    if ref_streams != streams:
+        raise AssertionError("serve_host_tier: streams differ from the non-evicting pool's")
+
+    rates = pinned_rates(n_pre * pb)
+    # Wave 3's restores wait behind the spill of the pages their fresh
+    # pages displaced (one stream); the fault's retry restores into free
+    # pages: the restore alone, and its overhead past the bytes' time.
+    per_call = t3["restore_s"] / t3["host_hits"]
+    clean = t_fault["restore_s"] / t_fault["host_hits"]
+    clean_pages = t_fault["host_restored_pages"] / t_fault["host_hits"]
+    overhead = max(clean - clean_pages * pb / (rates["h2d"] * 1e9), 0.0)
+    prefill_tok_s = t1["prefill_tokens"] / t1["prefill_s"]
+    icfg = cfg.inference
+    emit({"phase": "serve_host_tier", "preset": "llama3-8b-infer", "overrides": ov,
+          "host_tier_bytes": hbytes, "mem_available_bytes": avail, "host_slots": hbytes // pb,
+          "page_bytes": pb, "pool_pages": HT_POOL,
+          "demoted_pages_wave2": demoted, "demoted_pages_wave3": t3["evicted_to_host"],
+          "restored_pages": t3["host_restored_pages"], "host_hits": t3["host_hits"],
+          "restored_bytes": restored_bytes, "restored_bytes_equal": restored_equal,
+          "wave3_streams_equal_non_evicting": True,
+          "d2h_gbps_pinned": rates["d2h"], "h2d_gbps_pinned": rates["h2d"],
+          "copy_bytes": n_pre * pb,
+          "restore_s_per_call_wave3": per_call, "restore_s_clean": clean,
+          "restore_clean_pages": clean_pages,
+          "restore_overhead_s": overhead,
+          "spill_s_waves": t2["spill_s"] + t3["spill_s"],
+          "prefill_tok_s_measured": prefill_tok_s,
+          "break_even_tokens_measured": host_tier_break_even_tokens(
+              pb, psz, rates["h2d"], overhead, prefill_tok_s),
+          "break_even_tokens_defaults": host_tier_break_even_tokens(
+              pb, psz, icfg.host_tier_h2d_gbps, icfg.host_tier_restore_overhead_s,
+              icfg.host_tier_prefill_tok_s),
+          "offload_pages": n_off, "offload_spill_s": t_off["spill_s"],
+          "offload_wall_s": offload_wall, "restore_fault": unwound,
+          "restore_fault_counters": {k: t_fault[k] for k in ("dispatch_faults", "failed_steps",
+                                                             "host_hits",
+                                                             "host_restored_pages")},
+          "smi": smi_line()})
+    missing = [k for k in ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode",
+                           "paged_prefill") if totals[k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_host_tier: kernels never launched: {missing}")
+    return totals
+
+
+def phase_serve_gather(params=None):
+    """paged_prefill=false at llama3-8b-infer: a second wave's prefix hits
+    run the gather body (K3 with positions, no K9); each warm row's first
+    logits against the paged_prefill=true engine's (GATHER_LOGIT_REL).
+    Then tiny-llama in float32: both settings' streams equal."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params
+
+    rng = np.random.default_rng(11)
+    V = get_config("llama3-8b-infer").model.vocab_size
+    sys_p = rng.integers(0, V, 1024).tolist()
+    wave1 = [sys_p + rng.integers(0, V, n).tolist() for n in (100, 300, 500, 700)]
+    wave2 = [sys_p + rng.integers(0, V, n).tolist() for n in (150, 350, 450, 640)]
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(get_config("llama3-8b-infer").model, gen, device="cuda",
+                             dtype="bfloat16")
+    out = {}
+    for paged in (False, True):
+        cfg = get_config("llama3-8b-infer",
+                         GATHER_OVERRIDES + [f"inference.paged_prefill={str(paged).lower()}"])
+        eng = InferenceEngine(cfg, params, device="cuda")
+        logits = []
+        sample = eng._sample
+
+        def keep(lg, reqs, sample=sample, logits=logits):
+            logits.append(lg[: len(reqs)].float().clone())
+            return sample(lg, reqs)
+
+        eng._sample = keep
+        _, w1 = serve_wave(eng, wave1, 8)
+        logits.clear()
+        reqs, w2 = serve_wave(eng, wave2, 8)
+        if eng.prefix_stats.hits < len(wave2):
+            raise AssertionError(f"serve_gather: {eng.prefix_stats.hits} prefix hits")
+        require_no_faults(eng, "serve_gather")
+        out[paged] = dict(logits=torch.cat(logits), launches=w2["launches"],
+                          prefill_tok_s=w2["prefill_tok_s"], ttft=w2["ttft_s_median"])
+        emit({"phase": "serve_gather", "paged_prefill": paged, "wave": 2, **w2})
+        del eng
+        free_engine()
+    g, p = out[False], out[True]
+    if g["launches"]["flash_fwd_pos"] <= 0 or g["launches"]["paged_prefill"] != 0:
+        raise AssertionError(f"serve_gather: gather body launches {g['launches']}")
+    d = (g["logits"] - p["logits"]).pow(2).mean(-1).sqrt()
+    rel = (d / p["logits"].pow(2).mean(-1).sqrt()).tolist()
+    if max(rel) > GATHER_LOGIT_REL:
+        raise AssertionError(f"serve_gather: first-token logits rel RMS {rel}")
+
+    # tiny-llama, float32, on the card: paged_prefill false and true.
+    small = ["inference.max_seq_len=128", "inference.page_size=16", "inference.num_pages=32",
+             "inference.max_batch_size=4", "inference.prefill_chunk=16",
+             "inference.prefix_cache=true", "inference.chunked_prefill=true",
+             "inference.prefill_chunk_tokens=32"]
+    tcfg = get_config("tiny-llama", small)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tparams = init_params(tcfg.model, gen, device="cuda")
+    sys_t = rng.integers(1, 256, 32).tolist()
+    waves = [[sys_t + rng.integers(1, 256, n).tolist() for n in (5, 20, 37)],
+             [sys_t + rng.integers(1, 256, n).tolist() for n in (3, 18)]]
+    tiny = {}
+    for paged in (False, True):
+        eng = InferenceEngine(get_config("tiny-llama", small + [
+            f"inference.paged_prefill={str(paged).lower()}"]), tparams, device="cuda")
+        ops.reset_launches()
+        tiny[paged] = [eng.generate(w, 8) for w in waves]
+        tiny[f"launches_{paged}"] = ops.launches()
+    if tiny[False] != tiny[True] or tiny["launches_False"]["flash_fwd_pos"] <= 0:
+        raise AssertionError("serve_gather: tiny-llama f32 streams differ, or no K3-pos launch")
+    emit({"phase": "serve_gather", "preset": "llama3-8b-infer", "overrides": GATHER_OVERRIDES,
+          "first_logits_rel_rms": rel, "tolerance": GATHER_LOGIT_REL,
+          "gather_launches": {k: g["launches"][k] for k in ("flash_fwd", "flash_fwd_pos",
+                                                            "paged_prefill")},
+          "paged_launches": {k: p["launches"][k] for k in ("flash_fwd", "flash_fwd_pos",
+                                                           "paged_prefill")},
+          "prefill_tok_s": {"gather": g["prefill_tok_s"], "paged": p["prefill_tok_s"]},
+          "ttft_s_median": {"gather": g["ttft"], "paged": p["ttft"]},
+          "tiny_f32_streams_equal": True,
+          "tiny_f32_k3pos_launches": tiny["launches_False"]["flash_fwd_pos"]})
+    return g["launches"]
+
+
+def phase_serve_long():
+    """Long context at Mistral-7B, full width and depth: two 8064-token
+    requests at once over a 96-page pool (page rolling, residency
+    demotion, preemption to the host), streams equal to the long_context
+    off run over 300 pages."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params
+
+    hbytes, avail = host_tier_budget()
+    ov = LONG_OVERRIDES + [f"inference.host_tier_bytes={hbytes}"]
+    cfg = get_config("mistral-7b-fsdp", ov)
+    V = cfg.model.vocab_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg.model, gen, device="cuda", dtype="bfloat16")
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, V, LONG_LEN).tolist() for _ in range(2)]
+    warm = rng.integers(0, V, 600).tolist()
+    eng = InferenceEngine(cfg, params, device="cuda")
+    eng.generate([warm], 2)
+    eng.reset_timing()
+    peak = [0]
+    alloc = eng.alloc
+
+    def track():
+        peak[0] = max(peak[0], alloc.num_pages - 1 - alloc.free_pages)
+
+    reqs, res = serve_wave(eng, prompts, LONG_NEW, on_step=track)
+    t = eng.reset_timing()
+    rb = {k: t[k] for k in ("dispatch_faults", "failed_steps", "pool_faults")}
+    if rb["dispatch_faults"] or rb["failed_steps"]:
+        raise AssertionError(f"serve_long: faults {rb}")
+    eng.assert_page_accounting()
+    streams = [r.generated for r in reqs]
+    rolled = sum(r.freed_until for r in reqs)
+    preempted = eng.preemptions
+    del eng
+    free_engine()
+    ref = InferenceEngine(get_config("mistral-7b-fsdp", LONG_REF_OVERRIDES), params,
+                          device="cuda")
+    ref.generate([warm], 2)
+    ref_reqs, ref_res = serve_wave(ref, prompts, LONG_NEW)
+    ref_streams = [r.generated for r in ref_reqs]
+    del ref, params
+    free_engine()
+    if ref_streams != streams:
+        raise AssertionError("serve_long: streams differ from the long_context-off run")
+    if not (t["request_paged_out"] > 0 and t["request_paged_in"] > 0 and preempted > 0
+            and rolled > 0 and peak[0] <= LONG_POOL - 1):
+        raise AssertionError(f"serve_long: paging did not fire: {t}, preempted {preempted}, "
+                             f"rolled {rolled}, peak {peak[0]}")
+    emit({"phase": "serve_long", "preset": "mistral-7b-fsdp", "overrides": ov,
+          "params": n_params, "setup_s": setup_s, "host_tier_bytes": hbytes,
+          "mem_available_bytes": avail, "prompt_tokens_each": LONG_LEN,
+          "pages_per_request": -(-(LONG_LEN + LONG_NEW) // cfg.inference.page_size),
+          "pool_pages": LONG_POOL, "peak_device_pages": peak[0],
+          "pages_rolled": rolled, "pages_demoted": t["request_paged_out"],
+          "pages_restored": t["request_paged_in"], "preemptions": preempted,
+          "page_in_s": t["page_in_s"], "spill_s": t["spill_s"],
+          "page_in_s_per_step": t["page_in_s"] / t["steps"], **rb,
+          "streams_equal_reference": True, **res,
+          "reference": {k: ref_res[k] for k in ("ttft_s_median", "decode_tok_s",
+                                                "prefill_tok_s", "wall_s")},
+          "smi": smi_line()})
+    missing = [k for k in ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode",
+                           "paged_prefill") if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_long: kernels never launched: {missing}")
+    return res["launches"]
+
+
+def tensor_leaves(tree):
+    """The tensors of a nested dict or list of tensors."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    else:
+        yield tree
+
 
 def phase_train_parity():
     import math
@@ -4490,6 +5049,36 @@ def bound(nbytes, flops, rate):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def k3pos_timing(gen):
+    """K3 with positions at the gather body's shapes (no window): the bound
+    by operations over the tiles it computes on this data; the library
+    call is SDPA with enable_gqa and the bool mask of the same positions
+    and segments."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    q, k, v, kw = k3pos_gather_inputs(torch.bfloat16, gen)
+    pairs = k3pos_pairs(kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
+                        kw["kv_segment_ids"], None)
+    nb = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * sum(t.numel() for t in kw.values())
+    mask = ops.attention_mask(q.shape[1], k.shape[1], causal=True, **kw)[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos_args = (kw["q_positions"], kw["kv_positions"])
+    seg_kw = dict(q_segment_ids=kw["q_segment_ids"], kv_segment_ids=kw["kv_segment_ids"],
+                  seg_pad_zero=True)
+    out = dict(
+        ms=time_ms(lambda: ops.flash_attention_pos_cuda(q, k, v, *pos_args, **seg_kw)),
+        plain_ms=time_ms(lambda: ops.attention_plain(q, k, v, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S), pairs_computed=pairs)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing():
     import torch
     import torch.nn.functional as F
@@ -4531,6 +5120,7 @@ def phase_timing():
         bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S))
     del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
+    res["flash_fwd_pos"] = k3pos_timing(gen)
 
     for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
         res[name] = k4_timing(gen, quant, K4_LAST_POS)
@@ -4543,7 +5133,7 @@ def phase_timing():
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
                  if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms",
-                          "host_us", "partial_rows")}
+                          "host_us", "partial_rows", "pairs_computed")}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})
@@ -4614,6 +5204,7 @@ def main(argv=None) -> int:
     errs = launches = chunked_launches = spec_launches = parity_launches = None
     train_launches = timing = fault_launches = constrained_launches = None
     train_fault_launches = graph_launches = None
+    host_tier_launches = gather_launches = long_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -4639,8 +5230,18 @@ def main(argv=None) -> int:
     if "serve_graphs" in phases:
         graph_launches = phase_serve_graphs(serve_params)
         free_engine()
+    if "serve_host_tier" in phases:
+        host_tier_launches = phase_serve_host_tier(serve_params)
+        free_engine()
+    if "serve_gather" in phases:
+        gather_launches = phase_serve_gather(serve_params)
+        free_engine()
     del serve_params
-    torch.cuda.empty_cache()
+    free_engine()
+    if "serve_long" in phases:
+        # Mistral-7B's weights after the Llama weights are freed.
+        long_launches = phase_serve_long()
+        free_engine()
     if "train_parity" in phases:
         phase_train_parity()
     if "train" in phases:
@@ -4662,6 +5263,9 @@ def main(argv=None) -> int:
         for path, counts in (("serve_constrained", constrained_launches),
                              ("serve_faults", fault_launches),
                              ("serve_graphs", graph_launches),
+                             ("serve_host_tier", host_tier_launches),
+                             ("serve_gather", gather_launches),
+                             ("serve_long", long_launches),
                              ("train_faults", train_fault_launches)):
             if counts:
                 for name in KERNEL_META:

@@ -13,6 +13,24 @@
 // A row with nothing attended returns 0 (l == 0 -> l_safe = 1), not NaN.
 // Padded query rows (segment 0) hold values that the caller discards.
 //
+// Explicit positions (the has_pos branch of _fwd_kernel: _block_mask and
+// _block_run, flash_attention.py:88-140): with non-null qpos [B, Sq] and
+// kpos [B, Skv] (int32) the causal and window tests compare positions,
+// not indices (q_offset unused). The serving caller is the gather prefill
+// body: tail queries at prefix_len + i over a prefix gathered at [0,
+// P_pre*psz) and the tail, so a row with a short prefix meets prefix
+// columns that are padding, and a striped layout (sequence parallelism)
+// gives positions that do not rise. Positions are read, never assumed:
+// each block first lists the key steps it may attend (flash_tc.cuh
+// live_steps: the block's q position extremes against each step's kv
+// extremes, and the seg_pad_zero liveness), in shared memory, and its
+// loop walks that list, so a dead step is neither loaded nor computed;
+// inside, the bf16 kernel tests each warp's extremes per step (dead, or
+// full with no mask) as the index path does, and the mask compares the
+// pair's positions. The list costs one pass over the row's kv positions
+// per block (4 bytes a key, from L2) against 2 * H * 2 bytes a key of K
+// and V.
+//
 // What bounds it on an H100: operations. Attention does two products of
 // 2*H flops per (query, key) pair (q.k and p.v: about 4*H flops) against
 // ~4*H bytes per query row, far above the card's ridge point, so the
@@ -88,16 +106,21 @@ struct Args {
   float* lse;       // [B, N, Sq] or null
   const int* qseg;  // [B, Sq] or null
   const int* kseg;  // [B, Skv] or null
+  const int* qpos;  // [B, Sq] explicit positions, or null
+  const int* kpos;  // [B, Skv]
   int Sq, Skv, N, K;
   int causal, q_offset, window, seg_pad_zero;
   float softcap, scale;
 };
 
+// Explicit positions add the tile's q and kv positions, live_steps'
+// three reduction ints and its step list (n_kt ints).
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1)) +
          sizeof(int) * (BQ + BK);
 }
+constexpr size_t pos_smem_f32(int n_kt) { return sizeof(int) * (BQ + BK + 4 + n_kt); }
 
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
@@ -109,6 +132,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   float* Ps = Vs + BK * HD;            // [BQ][BK+1] probabilities
   int* qseg_s = reinterpret_cast<int*>(Ps + BQ * (BK + 1));  // [BQ]
   int* kseg_s = qseg_s + BQ;                                 // [BK]
+  int* qpos_s = kseg_s + BK;                                 // [BQ] (positions)
+  int* kpos_s = qpos_s + BQ;                                 // [BK]
+  int* red = kpos_s + BK;                                    // [4]
+  int* steps = red + 4;                                      // [n_kt]
 
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -130,9 +157,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     if (s < a.Sq) x = q[((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + h];
     Qs[r * (HD + 1) + h] = x * a.scale;
   }
+  const bool has_pos = a.qpos != nullptr;
   if (tid < BQ) {
     const int s = q0 + tid;
     qseg_s[tid] = (has_seg && s < a.Sq) ? a.qseg[static_cast<int64_t>(b) * a.Sq + s] : 0;
+    if (has_pos) qpos_s[tid] = s < a.Sq ? a.qpos[static_cast<int64_t>(b) * a.Sq + s] : 0;
   }
   const int q_live = __syncthreads_or(tid < BQ && qseg_s[tid] > 0);
   const bool skip_pad = has_seg && a.seg_pad_zero;
@@ -150,6 +179,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     const int cmin = q0 + a.q_offset - a.window + 1;
     kt_begin = cmin > 0 ? cmin / BK : 0;
   }
+  int n_iter = max(kt_end - kt_begin, 0);
+  if (has_pos) {
+    // The tile's live key steps from the positions (flash_tc.cuh).
+    const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, has_seg, skip_pad,
+                      a.qpos, a.kpos};
+    n_iter = ftc::live_steps<BQ>(m, a.kseg, b, q0, !skip_pad || q_live, steps, red);
+  }
 
   float acc[4][HC];
   float m_i[4], l_i[4];
@@ -161,12 +197,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (has_pos ? steps[it] : kt_begin + it) * BK;
     __syncthreads();  // the previous tile's reads of Ks/Vs/Ps/kseg_s are done
     if (tid < BK) {
       const int c = k0 + tid;
       kseg_s[tid] = (has_seg && c < a.Skv) ? a.kseg[static_cast<int64_t>(b) * a.Skv + c] : 0;
+      if (has_pos) kpos_s[tid] = c < a.Skv ? a.kpos[static_cast<int64_t>(b) * a.Skv + c] : 0;
     }
     const int kv_live = __syncthreads_or(tid < BK && kseg_s[tid] > 0);
     if (skip_pad && !(kv_live && q_live)) continue;  // uniform over the block
@@ -214,7 +251,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
         if (a.softcap > 0.f) z = a.softcap * tanhf(z / a.softcap);
         bool keep = c < a.Skv;
         if (a.causal) {
-          const int d = qpos - c;
+          const int d = has_pos ? qpos_s[r] - kpos_s[cl] : qpos - c;
           keep = keep && d >= 0;
           if (a.window > 0) keep = keep && d < a.window;
         }
@@ -286,10 +323,14 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
   __nv_bfloat16* ring = qs + ROWS * LD;                // [2][K [KB][LD], V [KB][LD]]
   int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
+  int* kpos_ring = kseg_ring + 2 * KB;  // [2][KB] (positions)
+  int* red = kpos_ring + 2 * KB;        // [4]
+  int* steps = red + 4;                 // [n_kt]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = lane >> 2, tig = lane & 3;
   const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
-                    a.qseg != nullptr && a.seg_pad_zero != 0};
+                    a.qseg != nullptr && a.seg_pad_zero != 0, a.qpos, a.kpos};
+  const bool has_pos = a.qpos != nullptr;
   const int n = blockIdx.x, b = blockIdx.y;
   const int q0 = ftc::q_tile<true>(m) * ROWS;
   const int kvh = n / (a.N / a.K);
@@ -301,7 +342,10 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
   int kt_begin, kt_end;
   ftc::step_range(m, q0, kt_begin, kt_end);
   if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
-  const int n_steps = kt_end - kt_begin;
+  int n_steps = kt_end - kt_begin;
+  if (has_pos) n_steps = any_live ? ftc::live_steps<ROWS>(m, a.kseg, b, q0, true, steps, red) : 0;
+  // The key step of loop iteration i.
+  auto step_k0 = [&](int i) { return (has_pos ? steps[i] : kt_begin + i) * KB; };
 
   if (n_steps > 0) {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -311,7 +355,7 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
       const int64_t off = in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + c : 0;
       tc::cp16(qs + r * LD + c, q + off, in);
     }
-    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, kt_begin * KB, ring, kseg_ring);
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, step_k0(0), ring, kseg_ring, kpos_ring);
     tc::cp_commit();
   }
 
@@ -327,14 +371,16 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
     tc::cp_wait_all();
     __syncthreads();  // step i staged; every read of the previous step done
     if (i + 1 < n_steps)
-      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (kt_begin + i + 1) * KB,
-                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB);
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, step_k0(i + 1),
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB,
+                         kpos_ring + (st ^ 1) * KB);
     tc::cp_commit();
     const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
     const __nv_bfloat16* vt = kt + KB * LD;
     const int* ks = kseg_ring + st * KB;
-    const int k0 = (kt_begin + i) * KB;
-    const ftc::Step step = ftc::classify(m, rows, k0, ks);
+    const int* kp = kpos_ring + st * KB;
+    const int k0 = step_k0(i);
+    const ftc::Step step = ftc::classify(m, rows, k0, ks, kp);
     if (step.dead) continue;  // uniform over the warp
 
     // S = Q . K^T for the warp's 16 rows x 32 keys.
@@ -366,7 +412,10 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
         if (a.softcap > 0.f) z = a.softcap * tanhf(z / a.softcap);
         if (!step.full) {
           const int h = e4 >> 1, cl = j * 8 + 2 * tig + (e4 & 1);
-          if (!ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl])) z = -INFINITY;
+          // kp (the positions' ring) is allocated only with positions.
+          if (!ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl],
+                         has_pos ? rows.qp[h] : 0, has_pos ? kp[cl] : 0))
+            z = -INFINITY;
         }
         s[j][e4] = z;
       }
@@ -449,11 +498,16 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
 }
 
 // bf16: the tensor-core kernel; float32 keeps flash_fwd_kernel (CUDA cores).
+// Explicit positions add shared memory for the step list (n_kt ints) and
+// the kv positions' ring.
 template <int HD>
 cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
+  const int n_kt = (a.Skv + ftc::KB - 1) / ftc::KB;
+  const bool pos = a.qpos != nullptr;
   if (bf16) {
-    constexpr size_t smem = sizeof(__nv_bfloat16) * (ftc::ROWS + 2 * 2 * ftc::KB) * (HD + 8) +
-                            sizeof(int) * 2 * ftc::KB;
+    const size_t smem = sizeof(__nv_bfloat16) * (ftc::ROWS + 2 * 2 * ftc::KB) * (HD + 8) +
+                        sizeof(int) * 2 * ftc::KB +
+                        (pos ? sizeof(int) * (2 * ftc::KB + 4 + n_kt) : 0);
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -461,7 +515,7 @@ cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
     dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
     flash_fwd_tc_kernel<HD><<<grid, ftc::NT, smem, stream>>>(a);
   } else {
-    constexpr size_t smem = smem_bytes<HD>();
+    const size_t smem = smem_bytes<HD>() + (pos ? pos_smem_f32(n_kt) : 0);
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -486,13 +540,14 @@ cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, cudaStream_t str
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none;
-// lse may be null. Returns cudaGetLastError() after the launch (0 on success).
+// lse, the segment ids and the positions may be null (qpos and kpos go
+// together). Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                         const int* qseg, const int* kseg, int B, int Sq, int Skv,
-                         int N, int K, int H, int causal, int q_offset, int window,
-                         int seg_pad_zero, float softcap, float scale, int dtype,
+                         const int* qseg, const int* kseg, const int* qpos, const int* kpos,
+                         int B, int Sq, int Skv, int N, int K, int H, int causal, int q_offset,
+                         int window, int seg_pad_zero, float softcap, float scale, int dtype,
                          void* stream) {
-  Args a{q, k, v, o, lse, qseg, kseg, Sq, Skv, N, K, causal, q_offset, window,
+  Args a{q, k, v, o, lse, qseg, kseg, qpos, kpos, Sq, Skv, N, K, causal, q_offset, window,
          seg_pad_zero, softcap, scale};
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

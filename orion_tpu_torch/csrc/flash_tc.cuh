@@ -23,6 +23,18 @@
 // warp's min/max row id against the step's min/max key id). The serve
 // always passes segment ids, so without that last test the fast path
 // would never fire there.
+//
+// Explicit positions (K3 only: qpos [B, Sq], kpos [B, Skv] in Mask): the
+// causal and window tests compare positions, not indices, and nothing
+// assumes they rise (a striped layout's do not). live_steps lists the key
+// steps a block may attend from the extremes of its q positions and of
+// each step's kv positions (and, under seg_pad_zero, the step's
+// liveness), so the ring loads only those; classify then tests each warp's
+// q extremes against the step's: dead when the warp's largest q position
+// precedes the step's smallest kv position, or, under a window, when the
+// step's largest kv position is at or below the warp's smallest q
+// position less the window; full when every pair lies inside the diagonal
+// and the window.
 
 #pragma once
 
@@ -39,16 +51,20 @@ constexpr int SUB = 64;    // the float32 K3's q tile: the unit of q liveness
 constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int POS_MAX = 0x7fffffff;
+constexpr int POS_MIN = -POS_MAX - 1;
 
 // Blocks per SM the kernels are compiled for: two (at most 128 registers
 // a thread) up to H = 128, one at H = 256.
 template <int HD> __host__ __device__ constexpr int min_blocks() { return HD <= 128 ? 2 : 1; }
 
-// The mask arguments both kernels' Args carry.
+// The mask arguments both kernels' Args carry (positions: K3's only).
 struct Mask {
   int Sq, Skv;
   int causal, q_offset, window;
   bool has_seg, skip_pad;
+  const int* qpos = nullptr;  // [B, Sq] explicit q positions, or null
+  const int* kpos = nullptr;  // [B, Skv] explicit kv positions
 };
 
 // Key steps [begin, end) of the block at q0: steps wholly past the
@@ -76,6 +92,8 @@ struct Rows {
   int qseg[2];    // segment ids of the thread's rows (0 past Sq or without segments)
   int smin, smax; // the warp's least and greatest row segment id
   bool live;      // seg_pad_zero: the warp's 64-row q tile holds a real row
+  int qp[2];      // explicit positions of the thread's rows
+  int pmin, pmax; // the warp's least and greatest q position (rows < Sq)
 };
 
 // Reads the rows' segment ids; liveness of both 64-row tiles of the block
@@ -94,6 +112,20 @@ __device__ __forceinline__ bool load_rows(const Mask& m, const int* qseg, int b,
     r.smin = __reduce_min_sync(FULL, min(r.qseg[0], r.qseg[1]));
     r.smax = __reduce_max_sync(FULL, max(r.qseg[0], r.qseg[1]));
   }
+  if (m.qpos != nullptr) {
+    int lo = POS_MAX, hi = POS_MIN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = r.r0 + grp + 8 * h;
+      r.qp[h] = qi < m.Sq ? m.qpos[static_cast<int64_t>(b) * m.Sq + qi] : 0;
+      if (qi < m.Sq) {
+        lo = min(lo, r.qp[h]);
+        hi = max(hi, r.qp[h]);
+      }
+    }
+    r.pmin = __reduce_min_sync(FULL, lo);
+    r.pmax = __reduce_max_sync(FULL, hi);
+  }
   r.live = true;
   if (!m.skip_pad) return true;
   int own = 0;
@@ -104,13 +136,15 @@ __device__ __forceinline__ bool load_rows(const Mask& m, const int* qseg, int b,
   return lo || hi;
 }
 
-// Asynchronous load of key step k0 (K and V rows of kv head kvh, and the
-// keys' segment ids) into ring stage `kv` ([K [KB][LD], V [KB][LD]]) and
-// `ks` ([KB]); keys past Skv are zero-filled (segment 0).
+// Asynchronous load of key step k0 (K and V rows of kv head kvh, the
+// keys' segment ids and, with positions, their positions) into ring stage
+// `kv` ([K [KB][LD], V [KB][LD]]), `ks` and `kp` ([KB] each); keys past
+// Skv are zero-filled (segment 0).
 template <int HD>
 __device__ __forceinline__ void load_step(const Mask& m, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, const int* kseg, int b,
-                                          int kvh, int K, int k0, __nv_bfloat16* kv, int* ks) {
+                                          int kvh, int K, int k0, __nv_bfloat16* kv, int* ks,
+                                          int* kp = nullptr) {
   constexpr int LD = HD + 8, CH = HD / 8;
   const int tid = threadIdx.x;
   for (int idx = tid; idx < 2 * KB * CH; idx += NT) {
@@ -127,6 +161,78 @@ __device__ __forceinline__ void load_step(const Mask& m, const __nv_bfloat16* k,
                          : static_cast<const void*>(k);
     tc::cp4(ks + tid, src, in);
   }
+  if (m.kpos != nullptr && tid >= KB && tid < 2 * KB) {
+    const int j = k0 + tid - KB;
+    const bool in = j < m.Skv;
+    const void* src = in ? static_cast<const void*>(m.kpos + static_cast<int64_t>(b) * m.Skv + j)
+                         : static_cast<const void*>(m.kpos);
+    tc::cp4(kp + tid - KB, src, in);
+  }
+}
+
+// Explicit positions: the key steps the block at q0 (R rows) may attend,
+// in order, into `steps` (n_kt ints of shared memory; `red` 3 more), and
+// their number (every thread must call it; it returns the same to all).
+// A step is out when it is all padding under seg_pad_zero (or no row is
+// live), when its least kv position exceeds the block's greatest q
+// position, or, under a window, when its greatest kv position is at or
+// below the block's least q position less the window.
+template <int R>
+__device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b, int q0,
+                                          bool rows_live, int* steps, int* red) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  int lo = POS_MAX, hi = POS_MIN;
+  for (int r = tid; r < R; r += NT) {
+    if (q0 + r < m.Sq) {
+      const int p = m.qpos[static_cast<int64_t>(b) * m.Sq + q0 + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  if (tid == 0) {
+    red[0] = POS_MAX;
+    red[1] = POS_MIN;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    atomicMin(red, lo);
+    atomicMax(red + 1, hi);
+  }
+  __syncthreads();
+  const int64_t qmin = red[0], qmax = red[1];
+  const int n_kt = (m.Skv + KB - 1) / KB;
+  for (int t = tid; t < n_kt; t += NT) {
+    int kmin = POS_MAX, kmax = POS_MIN;
+    bool kv_live = !m.skip_pad;
+    const int64_t base = static_cast<int64_t>(b) * m.Skv;
+    for (int c = t * KB; c < min(t * KB + KB, m.Skv); ++c) {
+      const int p = m.kpos[base + c];
+      kmin = min(kmin, p);
+      kmax = max(kmax, p);
+      if (m.skip_pad && kseg[base + c] > 0) kv_live = true;
+    }
+    bool live = rows_live && kv_live;
+    if (m.causal) live = live && kmin <= qmax && (m.window <= 0 || kmax > qmin - m.window);
+    steps[t] = live;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    // In-place compaction by one warp: a chunk's flags are all read
+    // before the ballot, and its writes land at or below the chunk.
+    int count = 0;
+    for (int base = 0; base < n_kt; base += 32) {
+      const int t = base + lane;
+      const bool f = t < n_kt && steps[t] != 0;
+      const unsigned bal = __ballot_sync(FULL, f);
+      if (f) steps[count + __popc(bal & ((1u << lane) - 1u))] = t;
+      count += __popc(bal);
+    }
+    if (lane == 0) red[2] = count;
+  }
+  __syncthreads();
+  return red[2];
 }
 
 // What a warp does with the step at k0 whose key segment ids are ks.
@@ -135,7 +241,9 @@ struct Step {
   bool full;  // every pair counts: no mask
 };
 
-__device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, const int* ks) {
+// `kp`: the step's kv positions (with explicit positions).
+__device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, const int* ks,
+                                         const int* kp = nullptr) {
   const int lane = threadIdx.x % 32;
   const int kown = ks[lane];
   bool kv_live = true, same = true;
@@ -144,21 +252,32 @@ __device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, c
     const int kmin = __reduce_min_sync(FULL, kown), kmax = __reduce_max_sync(FULL, kown);
     same = r.smin == r.smax && kmin == kmax && kmin == r.smin;
   }
-  const int qfirst = r.r0 + m.q_offset, qlast = r.r0 + 15 + m.q_offset;
+  bool behind, inside;  // causal: no pair attends / every pair attends
+  if (m.qpos != nullptr) {
+    const bool in = k0 + lane < m.Skv;
+    const int64_t pmin = __reduce_min_sync(FULL, in ? kp[lane] : POS_MAX);
+    const int64_t pmax = __reduce_max_sync(FULL, in ? kp[lane] : POS_MIN);
+    behind = pmin > r.pmax || (m.window > 0 && pmax <= static_cast<int64_t>(r.pmin) - m.window);
+    inside = pmax <= r.pmin && (m.window <= 0 || r.pmax - pmin < m.window);
+  } else {
+    const int qfirst = r.r0 + m.q_offset, qlast = r.r0 + 15 + m.q_offset;
+    behind = k0 > qlast || (m.window > 0 && k0 + KB - 1 <= qfirst - m.window);
+    inside = k0 + KB - 1 <= qfirst && (m.window <= 0 || qlast - k0 < m.window);
+  }
   Step s;
-  s.dead = r.r0 >= m.Sq || (m.skip_pad && !(r.live && kv_live)) ||
-           (m.causal && (k0 > qlast || (m.window > 0 && k0 + KB - 1 <= qfirst - m.window)));
-  s.full = !s.dead && r.r0 + 16 <= m.Sq && k0 + KB <= m.Skv && same &&
-           (!m.causal || (k0 + KB - 1 <= qfirst && (m.window <= 0 || qlast - k0 < m.window)));
+  s.dead = r.r0 >= m.Sq || (m.skip_pad && !(r.live && kv_live)) || (m.causal && behind);
+  s.full = !s.dead && r.r0 + 16 <= m.Sq && k0 + KB <= m.Skv && same && (!m.causal || inside);
   return s;
 }
 
 // Whether the pair (row qi with segment id qs, key c with segment id cs)
-// counts on a step that is neither dead nor full (liveness is the warp's).
-__device__ __forceinline__ bool keep(const Mask& m, int qi, int qs, int c, int cs) {
+// counts on a step that is neither dead nor full (liveness is the warp's);
+// with explicit positions qp and kp are the pair's positions.
+__device__ __forceinline__ bool keep(const Mask& m, int qi, int qs, int c, int cs, int qp = 0,
+                                     int kp = 0) {
   bool k = qi < m.Sq && c < m.Skv;
   if (m.causal) {
-    const int d = qi + m.q_offset - c;
+    const int d = m.qpos != nullptr ? qp - kp : qi + m.q_offset - c;
     k = k && d >= 0;
     if (m.window > 0) k = k && d < m.window;
   }

@@ -81,13 +81,33 @@ between inference.decode_window and decode_window_max
 decode_window_max. ``timing`` splits each step's wall into device_s
 (decode_device_s + mixed_device_s), prefill_s and host_s.
 
+The host tier (inference.host_tier_bytes, behind the prefix cache): LRU
+eviction demotes cached pages to a ``HostPagePool`` in pinned host memory
+(one batched device-to-host copy per sweep, ``non_blocking`` on the
+engine's stream) and a later match restores them (one batched
+host-to-device copy) when the host span passes the break-even gate
+(inference.host_tier_min_tokens, or the crossing of the three
+host_tier_* constants); below it the match is recomputed. A failed
+restore is a typed ``DispatchFault`` that unwinds both tiers and fails
+the step. ``offload_prefix_cache`` demotes the whole idle tree. Page
+copies run between dispatches, eagerly, never inside a captured graph.
+
+Long context (inference.long_context, with chunked prefill and the
+tier): a request whose eager footprint exceeds the pool is admitted on its
+sliding-window working set, chunks provision their own pages, and
+``_roll_window`` frees pages behind the window (a window on every layer);
+inference.request_resident_pages demotes a long request's oldest live
+pages between its chunks, pool pressure preempts a long request to the
+host (resuming at its cursor), and an infeasible request (full attention
+over the pool) ends "shed:context_too_long". A slot whose pages are not
+all resident does not draft. With inference.paged_prefill=false rows that
+resume over cached pages run the gather body (K3 with explicit
+positions) in place of K9.
+
 Not ported yet (each raises at construction when configured):
-int8 weights, MoE, the host
-tier and long-context paging,
-sliding-window page rolling (a window on every layer; interleaved
-local/global windows are served), ``paged_prefill=false``, the tracer
-and flight recorder (``trace``, ``trace_path``, ``flight_dir``) and the
-metrics sinks (``metrics_jsonl``, ``metrics_prom``). Live migration
+int8 weights, MoE, the tracer and flight recorder (``trace``,
+``trace_path``, ``flight_dir``) and the metrics sinks (``metrics_jsonl``,
+``metrics_prom``). Live migration
 (the JAX engine's ``export_migration_state``) is not ported either; when it
 is, its state carries each request's ``constraint`` as the JAX engine's
 does.
@@ -113,16 +133,21 @@ from orion_tpu_torch.config import Config
 from orion_tpu_torch.constrain import ConstraintSpec, ConstraintState, compile_constraint
 from orion_tpu_torch.infer.executor import DispatchExecutor
 from orion_tpu_torch.infer.kv_cache import (
+    HostPagePool,
     PageAllocator,
     compact_draft_kv,
     copy_page,
+    gather_pages,
+    host_page_bytes,
+    host_tier_break_even_tokens,
     init_cache,
     pages_per_seq,
     poison_page,
     rollback_pages,
+    scatter_pages,
     scrub_pages,
 )
-from orion_tpu_torch.infer.prefix_cache import PrefixCache
+from orion_tpu_torch.infer.prefix_cache import HostPage, PrefixCache
 from orion_tpu_torch.infer.runner import (
     decode_window,
     mixed_step,
@@ -143,7 +168,12 @@ from orion_tpu_torch.models.convert import to_device
 from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
-from orion_tpu_torch.runtime.fault import SERVING_KINDS, DispatchFault, Watchdog
+from orion_tpu_torch.runtime.fault import (
+    SERVING_KINDS,
+    DispatchFault,
+    InjectedFault,
+    Watchdog,
+)
 
 log = logging.getLogger("orion_tpu_torch.infer")
 
@@ -166,13 +196,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.weight_quant": m.weight_quant is not None,
         "model.n_experts > 0 (MoE)": m.is_moe,
-        "inference.host_tier_bytes > 0": i.host_tier_bytes > 0,
-        "inference.long_context": i.long_context,
-        "a sliding window on every layer (page rolling)": (
-            m.sliding_window is not None and m.sliding_window_pattern is None
-        ),
-        "inference.paged_prefill=false (the gather body needs explicit "
-        "positions in K3)": not i.paged_prefill,
         "inference.trace / trace_path / flight_dir": (
             i.trace or i.trace_path is not None or i.flight_dir is not None
         ),
@@ -196,7 +219,7 @@ def _check_supported(cfg: Config) -> None:
 
 def _check_injector(injector) -> None:
     """Refuse a fault schedule holding kinds the port's engine does not
-    consume (the host tier, migration, checkpoint and replica faults)."""
+    consume (the migration, checkpoint and replica faults)."""
     if injector is None:
         return
     bad = sorted({s.kind for s in injector.specs if s.kind not in SERVING_KINDS})
@@ -254,7 +277,23 @@ class InferenceEngine:
                 f"must be a positive multiple of page_size={self.psz} "
                 f"(chunks split at page granularity)"
             )
-        if self.chunked or self.icfg.prefix_cache:
+        # Long context (inference.long_context): per-request paging to the
+        # host tier and lazy page provisioning under chunked prefill.
+        self._long = self.icfg.long_context
+        if self._long:
+            if not self.chunked:
+                raise ValueError(
+                    "inference.long_context=true requires "
+                    "inference.chunked_prefill=true (over-pool contexts "
+                    "prefill through page-aligned chunks)"
+                )
+            if self.icfg.host_tier_bytes <= 0:
+                raise ValueError(
+                    "inference.long_context=true requires "
+                    "inference.host_tier_bytes > 0 (per-request paging "
+                    "needs somewhere to page to)"
+                )
+        if (self.chunked or self.icfg.prefix_cache) and self.icfg.paged_prefill:
             # Rows resuming over cached pages run K9: a page size its
             # blocks cannot hold fails here, not mid-serve.
             check_prefill_fit(
@@ -266,10 +305,22 @@ class InferenceEngine:
         self.cache = init_cache(self.mcfg, self.icfg, self.device)
         self.params = to_device(params, self.device)
         self.alloc = PageAllocator(self.icfg.num_pages)
-        self._pcache = (
-            PrefixCache(self.psz, self.alloc) if self.icfg.prefix_cache else None
-        )
         self.prefix_stats = PrefixCacheStats()
+        self._init_host_tier()
+        self._pcache = (
+            PrefixCache(self.psz, self.alloc, host_pool=self._host_pool,
+                        spill=self._spill_pages if self._host_pool is not None else None)
+            if self.icfg.prefix_cache else None
+        )
+        # Page management's window: with interleaved local/global layers
+        # the global layers read the whole history, so pages never die;
+        # only a window on every layer rolls pages (_roll_window).
+        self.page_window = (
+            self.mcfg.sliding_window if self.mcfg.sliding_window_pattern is None else None
+        )
+        # Lazy chunk provisioning (the over-pool admission path) needs a
+        # window: a full-attention chunk reads its whole history.
+        self._lazy = self._long and self.page_window is not None
         self.page_table = np.zeros((self.max_batch, self.pages_per_seq), np.int32)
         self.seq_lens = np.zeros(self.max_batch, np.int32)
         self.last_token = np.zeros(self.max_batch, np.int32)
@@ -294,8 +345,10 @@ class InferenceEngine:
             )
         self._autotune_skip = False   # first decode step after a resize
         self._spec_step = False       # this step verified instead of decoding
-        # The step's dispatch spans (host clock, each through its fetch).
+        # The step's dispatch spans (host clock, each through its fetch) and
+        # the host tier's copy spans.
         self._dev_span = self._mixed_span = self._prefill_span = 0.0
+        self._spill_span = self._restore_span = self._pagein_span = 0.0
         self.slot_temp = np.full(self.max_batch, self.icfg.temperature, np.float32)
         self.slot_top_k = np.full(self.max_batch, self.icfg.top_k, np.int32)
         self.slot_top_p = np.full(self.max_batch, self.icfg.top_p, np.float32)
@@ -322,6 +375,41 @@ class InferenceEngine:
                     "serving watchdog: step stalled for %.1fs", elapsed),
             ).start()
 
+    def _init_host_tier(self) -> None:
+        """inference.host_tier_bytes > 0: the HostPagePool (capacity in
+        whole pages over every cache tensor) and the break-even threshold
+        in tokens: inference.host_tier_min_tokens, or else the crossing of
+        the host_tier_* constants (inf when restore never wins: the tier
+        still absorbs evictions, every local hit recomputes)."""
+        self._host_pool: Optional[HostPagePool] = None
+        self._host_min_tokens = 0.0
+        icfg = self.icfg
+        if icfg.host_tier_bytes <= 0:
+            return
+        if not (icfg.prefix_cache or self._long):
+            raise ValueError(
+                "inference.host_tier_bytes > 0 requires "
+                "inference.prefix_cache=true (the tier lives behind the "
+                "radix tree) or inference.long_context=true (per-request "
+                "paging owns its slots directly)"
+            )
+        pb = host_page_bytes(self.cache, self.mcfg.n_layers)
+        cap = icfg.host_tier_bytes // pb
+        if cap < 1:
+            raise ValueError(
+                f"inference.host_tier_bytes={icfg.host_tier_bytes} is smaller "
+                f"than one page's KV footprint ({pb} bytes); raise it or "
+                f"disable the tier with 0"
+            )
+        self._host_pool = HostPagePool(cap, page_bytes=pb)
+        if icfg.host_tier_min_tokens is not None:
+            self._host_min_tokens = float(icfg.host_tier_min_tokens)
+        else:
+            auto = host_tier_break_even_tokens(
+                pb, self.psz, icfg.host_tier_h2d_gbps,
+                icfg.host_tier_restore_overhead_s, icfg.host_tier_prefill_tok_s)
+            self._host_min_tokens = float(auto) if auto is not None else float("inf")
+
     @staticmethod
     def _zero_timing() -> dict:
         """Host-clock spans (each ends in the dispatch's host fetch, which
@@ -334,14 +422,18 @@ class InferenceEngine:
         computed (cached prefixes excluded); the chunked-prefill tally
         (mixed dispatches, chunk rows, real and padded-out chunk
         positions); verify dispatches, pure and mixed together, and the
-        mixed ones among them."""
+        mixed ones among them; the host tier's copy spans: spill_s (each
+        demotion's batched device-to-host copy, enqueued), restore_s (each
+        prefix restore's host-to-device copy through its event) and
+        page_in_s (long-context page-ins, likewise)."""
         return {"device_s": 0.0, "decode_device_s": 0.0, "mixed_device_s": 0.0,
                 "host_s": 0.0,
                 "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0, "verify_s": 0.0,
                 "prefill_tokens": 0, "decode_slot_steps": 0, "steps": 0,
                 "windows": 0, "mixed_steps": 0, "prefill_chunks": 0,
                 "chunk_tokens": 0, "chunk_pad_tokens": 0, "verify_steps": 0,
-                "mixed_verify_steps": 0}
+                "mixed_verify_steps": 0, "spill_s": 0.0, "restore_s": 0.0,
+                "page_in_s": 0.0}
 
     def _init_speculation(self) -> None:
         """The verify path's state: with inference.speculative validate the
@@ -481,12 +573,21 @@ class InferenceEngine:
         max_context = min(len(prompt) + max(max_new, 0), limit)
         needed = self._worst_admission_need(len(prompt), max_context)
         usable = self.icfg.num_pages - 1
+        shed_kind = None
         if needed > usable:
-            raise ValueError(
-                f"request needs up to {needed} KV pages but the pool only "
-                f"has {usable}; raise inference.num_pages or lower "
-                f"max_new_tokens"
-            )
+            if self._lazy and self._long_admission_need() <= usable:
+                # Over-pool long context: the lazy working set fits (pages
+                # materialize per chunk and die behind the window).
+                pass
+            elif self._long:
+                # Infeasible long work is a typed outcome, not a raise.
+                shed_kind = "context_too_long"
+            else:
+                raise ValueError(
+                    f"request needs up to {needed} KV pages but the pool only "
+                    f"has {usable}; raise inference.num_pages or lower "
+                    f"max_new_tokens"
+                )
         if deadline_s is None:
             deadline_s = self.icfg.default_deadline_s
         if deadline_s is not None and deadline_s <= 0:
@@ -498,6 +599,11 @@ class InferenceEngine:
             deadline=time.monotonic() + deadline_s if deadline_s is not None else None,
             t_submit=time.perf_counter(), constraint=cstate,
         )
+        if shed_kind is not None:
+            self._shed(req, f"context needs up to {needed} KV pages, pool has "
+                            f"{usable} and the lazy working set does not fit",
+                       kind=shed_kind)
+            return req
         if self.draining:
             # Admission is stopped: a typed shed, never queued.
             self._shed(req, "draining")
@@ -541,11 +647,16 @@ class InferenceEngine:
             cs.compile_s += time.perf_counter() - t0
         return ConstraintState(dfa, self.eos_id)
 
-    def _shed(self, req: Request, why: str) -> None:
+    def _shed(self, req: Request, why: str, kind: Optional[str] = None) -> None:
+        """End a request with outcome "shed" (or "shed:<kind>"; the
+        context_too_long kind also counts in ``robust.shed_context``)."""
         log.warning("shedding request %d (priority %d): %s", req.rid, req.priority, why)
         req.done = True
-        req.outcome = "shed"
+        req.outcome = "shed" if kind is None else f"shed:{kind}"
         self.robust.shed += 1
+        if kind == "context_too_long":
+            self.robust.shed_context += 1
+        self._drop_host_pages(req)
         self._just_finished.append(req)
 
     def cancel(self, rid: int) -> bool:
@@ -559,6 +670,7 @@ class InferenceEngine:
                 r.done = True
                 r.outcome = "cancelled"
                 self.robust.cancelled += 1
+                self._drop_host_pages(r)
                 self._just_finished.append(r)
                 return True
         for r in self.slots:
@@ -590,6 +702,7 @@ class InferenceEngine:
             # reads as a stall; arming stays with the step-end heartbeat.
             self._watchdog.heartbeat()
         self._dev_span = self._mixed_span = self._prefill_span = 0.0
+        self._spill_span = self._restore_span = self._pagein_span = 0.0
         self._spec_step = False
         self._reap_expired()
         # Expired and cancelled slots go before admission budgets.
@@ -617,7 +730,13 @@ class InferenceEngine:
         tm["device_s"] += self._dev_span + self._mixed_span
         tm["decode_device_s"] += self._dev_span
         tm["mixed_device_s"] += self._mixed_span
-        tm["host_s"] += total - self._dev_span - self._mixed_span - self._prefill_span
+        # The host tier's copies have buckets of their own: neither decode
+        # device time nor scheduler host time.
+        tm["spill_s"] += self._spill_span
+        tm["restore_s"] += self._restore_span
+        tm["page_in_s"] += self._pagein_span
+        tm["host_s"] += (total - self._dev_span - self._mixed_span - self._prefill_span
+                         - self._tier_span())
         if decoded:
             tm["windows"] += 1
             # Only plain decode windows steer the window: a mixed step's or
@@ -638,6 +757,10 @@ class InferenceEngine:
         self.step_no += 1
         done, self._just_finished = self._just_finished, []
         return done
+
+    def _tier_span(self) -> float:
+        """The step's host-tier copy time so far (spill, restore, page-in)."""
+        return self._spill_span + self._restore_span + self._pagein_span
 
     def has_work(self) -> bool:
         return (
@@ -691,12 +814,22 @@ class InferenceEngine:
 
     def prefix_match_tokens(self, context: Sequence[int]) -> int:
         """Tokens of ``context`` the prefix cache could serve right now
-        (read only: no locks, no LRU stamps, no splits); 0 below
-        prefix_cache_min_pages or with the cache off."""
+        (read only: no locks, no LRU stamps, no splits), with
+        ``_match_prefix``'s gates: 0 below prefix_cache_min_pages, below
+        the window's dead-page boundary, or with the cache off. A
+        host-resident span counts only when the break-even gate would
+        restore it."""
         if self._pcache is None:
             return 0
-        pages = self._pcache.peek(context, len(context) // self.psz)
+        cap = len(context) // self.psz
+        if self.page_window is not None:
+            cap = (len(context) - 1) // self.psz   # no full match under a window
+        pages, host, first_host = self._pcache.peek_tiered(context, cap)
+        if host and (self._host_pool is None or host * self.psz < self._host_min_tokens):
+            pages = first_host
         if pages < max(self.icfg.prefix_cache_min_pages, 1):
+            return 0
+        if self.page_window is not None and pages < self._first_live_page(len(context)):
             return 0
         return pages * self.psz
 
@@ -708,7 +841,7 @@ class InferenceEngine:
         decode_window_max. A resize arms ``_autotune_skip``: the next
         decode step captures the new W's graph, which would skew the very
         split this reads."""
-        host = step_total - self._dev_span - self._prefill_span
+        host = step_total - self._dev_span - self._prefill_span - self._tier_span()
         share = host / (step_total if step_total > 0 else 1.0)
         target = self.icfg.decode_host_share_target
         if share > target and self.decode_window * 2 <= self.icfg.decode_window_max:
@@ -735,6 +868,9 @@ class InferenceEngine:
 
     def reset_timing(self) -> dict:
         """Return and zero ``timing``, with the current decode_window; with
+        the prefix cache or long context the counters of ``prefix_stats``
+        (prefix_hits/misses/hit_rate, cached_tokens, inserted/evicted/cow
+        pages, the host tier's and per-request paging's); with
         inference.speculative the speculation counters of ``spec_stats``
         (spec_drafted/accepted/rolled_back/emitted, spec_acceptance_rate,
         verify_steps, verify_slot_steps, spec_tokens_per_verify,
@@ -746,6 +882,11 @@ class InferenceEngine:
         (constrain_*). Counters are zeroed."""
         out, self.timing = self.timing, self._zero_timing()
         out["decode_window"] = self.decode_window
+        # prefix_stats also carries the per-request paging counters, which
+        # exist without a prefix tree.
+        if self._pcache is not None or self._long:
+            out.update(self.prefix_stats.as_timing())
+            self.prefix_stats = PrefixCacheStats()
         if self._spec is not None:
             out.update(self.spec_stats.as_timing())
             # Disablement is engine-lifetime state, not a window counter.
@@ -790,15 +931,17 @@ class InferenceEngine:
     def assert_page_accounting(self) -> None:
         """The pool invariant: every page's allocator refcount equals its
         owners — one per page a request maps plus one per prefix-cache
-        node holding it — and the free list holds exactly the rest. A
-        double release or a leak in any teardown path trips it."""
+        node holding it — and the free list holds exactly the rest; with
+        the host tier, the same of its slots. A double release or a leak
+        in any teardown path trips it."""
         n = self.icfg.num_pages
         refs = [0] * n
         owners = [r for r in self.slots if r is not None]
         owners += list(self.waiting) + list(self._just_finished)
         for req in owners:
             for p in req.pages:
-                refs[p] += 1
+                if p is not None:
+                    refs[p] += 1
         if self._pcache is not None:
             for p in self._pcache.held_pages():
                 refs[p] += 1
@@ -810,6 +953,35 @@ class InferenceEngine:
             f"free-list size {self.alloc.free_pages} != {n - 1 - live} "
             f"(pool {n}, live {live})"
         )
+        if self._host_pool is not None:
+            self._assert_host_accounting(owners)
+
+    def _assert_host_accounting(self, owners: list[Request]) -> None:
+        """The host half of the invariant: each held host slot's refcount
+        is its owners (one per tree HostPage marker, one per entry of a
+        request's host_pages), the free list holds the rest, and the
+        tree's host_pages counter equals its markers."""
+        hp = self._host_pool
+        hrefs = [0] * hp.capacity
+        tlive = 0
+        if self._pcache is not None:
+            for h in self._pcache.held_host_pages():
+                hrefs[h] += 1
+            tlive = sum(1 for h in range(hp.capacity) if hrefs[h] > 0)
+        for req in owners:
+            for h in req.host_pages.values():
+                hrefs[h] += 1
+        hbad = [(h, hrefs[h], hp.refcount(h))
+                for h in range(hp.capacity) if hrefs[h] != hp.refcount(h)]
+        assert not hbad, f"host slot refcount mismatch (slot, owners, refcount): {hbad[:8]}"
+        hlive = sum(1 for h in range(hp.capacity) if hrefs[h] > 0)
+        assert hp.free_slots == hp.capacity - hlive, (
+            f"host free-list size {hp.free_slots} != {hp.capacity - hlive} "
+            f"(capacity {hp.capacity}, live {hlive})"
+        )
+        if self._pcache is not None:
+            assert self._pcache.host_pages == tlive, (
+                f"host_pages counter {self._pcache.host_pages} != marker count {tlive}")
 
     # -- fault containment -------------------------------------------------
 
@@ -849,7 +1021,7 @@ class InferenceEngine:
         pos = max(int(self.seq_lens[req.slot]) - 1, 0)
         for i in range(min(pos // self.psz, len(req.pages) - 1), -1, -1):
             p = req.pages[i]
-            if self.alloc.refcount(p) == 1:
+            if p is not None and self.alloc.refcount(p) == 1:
                 log.warning("injecting NaN into page %d of request %d (step %d)",
                             p, req.rid, self.step_no)
                 poison_page(self.cache, p, n_layers=self.mcfg.n_layers,
@@ -864,7 +1036,7 @@ class InferenceEngine:
         JAX engine pads) and released with NO prefix-cache donation.
         Neighbours never read its pages, so their streams are unchanged."""
         log.error("quarantining request %d (%s)", req.rid, reason)
-        priv = [p for p in req.pages if self.alloc.refcount(p) == 1]
+        priv = [p for p in req.pages if p is not None and self.alloc.refcount(p) == 1]
         if priv:
             scrub_pages(self.cache, priv + [0] * (self.pages_per_seq - len(priv)),
                         n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages)
@@ -892,6 +1064,7 @@ class InferenceEngine:
             r.done = True
             r.outcome = "expired"
             self.robust.expired += 1
+            self._drop_host_pages(r)
             self._just_finished.append(r)
         for r in self.slots:
             if (r is not None and not r.done and r.deadline is not None
@@ -923,22 +1096,30 @@ class InferenceEngine:
         last = min(last_written + self._provision_window, self.icfg.max_seq_len - 1)
         return min(last // self.psz + 1, self.pages_per_seq)
 
-    def _admission_need(self, context_len: int) -> tuple[int, int]:
-        """(n_pages, need): the prefill's pages and the pool demand of
-        admitting a request whose context is ``context_len`` tokens — the
-        prefill's pages or the first decode window's, plus one spare."""
+    def _admission_need(self, context_len: int) -> tuple[int, int, int]:
+        """(n_pages, first_live, need): the prefill's pages, the first page
+        a windowed sequence still reads (pages below it are dead on
+        arrival: never allocated), and the pool demand of admitting a
+        request whose context is ``context_len`` tokens — the live prefill
+        pages or the first decode window's, plus one spare. Chunked
+        prefill allocates every logical page (a later chunk reads
+        window-distant positions from the pool; _roll_window frees them
+        as the chunk cursor advances)."""
         n_pages = self._bucket_len(context_len) // self.psz
+        first_live = 0 if self.chunked else self._first_live_page(context_len)
         first_window = self._first_window(context_len - 1)
-        return n_pages, max(n_pages + 1, first_window + 1)
+        return n_pages, first_live, max(n_pages - first_live + 1,
+                                        first_window - first_live + 1)
 
     def _admission_need_warm(
         self, context_len: int, n_match: int, full: bool
-    ) -> tuple[int, int, int]:
-        """(n_pages, n_alloc, need) of a prefix-matched admission:
-        ``n_alloc`` fresh pages (the uncached tail, no bucket padding, or
-        the one copy-on-write page of a full match) and ``need`` the same
-        prefill + first-window demand as a cold admission's. Never above
-        the cold need submit() checked."""
+    ) -> tuple[int, int, int, int]:
+        """(n_pages, first_live, n_alloc, need) of a prefix-matched
+        admission: ``n_alloc`` fresh pages (the uncached tail, no bucket
+        padding, or the one copy-on-write page of a full match), the
+        matched pages behind the window left unmapped, and ``need`` the
+        same prefill + first-window demand as a cold admission's. Never
+        above the cold need submit() checked."""
         if full:
             # Decode restarts at position len-1, rewriting the final
             # token's KV slot in a private copy of the last matched page.
@@ -948,16 +1129,23 @@ class InferenceEngine:
             n_pages = -(-context_len // self.psz)
             n_alloc = n_pages - n_match
             first_window = self._first_window(context_len - 1)
-        return n_pages, n_alloc, max(n_alloc + 1, n_alloc + first_window - n_pages + 1)
+        first_live = 0 if full else self._first_live_page(n_match * self.psz)
+        return (n_pages, first_live, n_alloc,
+                max(n_alloc + 1, n_alloc + first_window - n_pages + 1))
 
     def _worst_admission_need(self, min_ctx: int, max_ctx: int) -> int:
-        """Max admission need over every context in [min_ctx, max_ctx]."""
+        """Max admission need over every context in [min_ctx, max_ctx]
+        (under a window the peak sits at a prefill bucket's bottom, not
+        at max_ctx)."""
         ctxs = np.arange(min_ctx, max_ctx + 1, dtype=np.int64)
-        msl = self.icfg.max_seq_len
+        msl, W, psz = self.icfg.max_seq_len, self.page_window, self.psz
         bucket = np.minimum(round_up(ctxs, self.icfg.prefill_chunk), msl)
+        first_live = (np.maximum(ctxs - W + 1, 0) // psz if W is not None and not self.chunked
+                      else np.zeros_like(ctxs))
         last = np.minimum(ctxs + self._provision_window - 1, msl - 1)
-        first_window = np.minimum(last // self.psz + 1, self.pages_per_seq)
-        return int(np.maximum(bucket // self.psz + 1, first_window + 1).max())
+        first_window = np.minimum(last // psz + 1, self.pages_per_seq)
+        return int(np.maximum(bucket // psz - first_live + 1,
+                              first_window - first_live + 1).max())
 
     def _available(self) -> int:
         """Pool headroom: free pages plus every cached page no live request
@@ -977,20 +1165,349 @@ class InferenceEngine:
             self.prefix_stats.evicted_pages += self._pcache.evict(short)
         return self.alloc.alloc(n)
 
+    # -- host tier (inference.host_tier_bytes): the two batched copy
+    #    envelopes and the break-even gate ------------------------------
+
+    def _copies_done(self) -> None:
+        """Wait for the copies just enqueued on the engine's stream (an
+        event, not the whole device), so a failed copy surfaces inside
+        its envelope."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+
+    def _spill_pages(self, pages: list[int], *, tree: bool = True) -> Optional[list[int]]:
+        """The prefix cache's spill callback (and per-request paging's):
+        copy the pages' KV (every cache tensor, scale rows included) into
+        host slots with ONE batched gather and device-to-host copy,
+        enqueued on the engine's stream (the pool's events guard the
+        slots). Returns the slot ids (one engine ref each), or None when
+        the tier cannot take them: the caller discards or stays resident,
+        so a failed spill degrades the cache, never the step."""
+        hp = self._host_pool
+        try:
+            hids = hp.alloc(len(pages))
+        except MemoryError:
+            return None
+        idx = torch.as_tensor(pages, dtype=torch.long)
+
+        def copy():
+            blocks = gather_pages(self.cache, idx.to(self.device), n_layers=self.mcfg.n_layers,
+                                  num_pages=self.icfg.num_pages)
+            hp.store(hids, blocks)
+
+        try:
+            with self._device_span("_spill_span"):
+                self._executor.contain("spill", copy)
+        except DispatchFault as e:
+            hp.free(hids)
+            log.error("host-tier spill failed (%s); discarding instead", e)
+            return None
+        if tree:
+            # Per-request paging's pages never pass through the tree: they
+            # count as request_paged_out.
+            self.prefix_stats.evicted_to_host += len(pages)
+        return hids
+
+    def _scatter_from_host(self, hids: list[int], pages: list[int]) -> None:
+        """One batched host-to-device copy of ``hids`` into pool ``pages``,
+        through its event (raises inside the caller's envelope); a
+        "restore" fault of this step fires here."""
+        if (self._injector is not None
+                and self._injector.take("restore", self.step_no) is not None):
+            raise InjectedFault(f"injected restore fault (step {self.step_no})")
+        blocks = self._host_pool.load_to(hids, self.device)
+        scatter_pages(self.cache, torch.as_tensor(pages, dtype=torch.long).to(self.device),
+                      blocks, n_layers=self.mcfg.n_layers, num_pages=self.icfg.num_pages)
+        self._copies_done()
+
+    def _restore_pages(self, pages: list, node, host_idx: list[int]) -> None:
+        """Restore a matched path's host-resident entries into fresh pool
+        pages (one batched copy), then promote the tree's markers to them;
+        the caller maps the match as a warm device hit. Runs under the
+        match's lock, with one engine ref per slot in flight. Pool
+        exhaustion raises MemoryError; a failed copy (or an injected
+        "restore" fault) frees the fresh pages, drops the in-flight refs,
+        leaves the markers as they were and raises DispatchFault."""
+        hp = self._host_pool
+        hids = [pages[i].hid for i in host_idx]
+        for h in hids:
+            hp.retain(h)
+        try:
+            fresh = self._alloc_pages(len(hids))
+        except MemoryError:
+            hp.free(hids)
+            raise
+        try:
+            with self._device_span("_restore_span"):
+                self._executor.contain("restore", self._scatter_from_host, hids, fresh)
+        except DispatchFault:
+            self.alloc.free(fresh)
+            hp.free(hids)
+            raise
+        self._pcache.promote_path(node, dict(zip(host_idx, fresh)))
+        hp.free(hids)
+        for i, p in zip(host_idx, fresh):
+            pages[i] = p
+        self.prefix_stats.host_hits += 1
+        self.prefix_stats.host_restored_pages += len(hids)
+
+    def _resolve_host_match(self, context, pages: list, node):
+        """A match holding host-resident entries: restore them all when
+        the host span passes the break-even gate, else re-match cut at the
+        first host entry (prefill needs a contiguous device prefix).
+        Returns the mappable (pages, node)."""
+        host_idx = [i for i, p in enumerate(pages) if isinstance(p, HostPage)]
+        if self._host_pool is not None and len(host_idx) * self.psz >= self._host_min_tokens:
+            try:
+                self._restore_pages(pages, node, host_idx)
+                return pages, node
+            except MemoryError as e:
+                # Too tight for the restore now: recompute always works.
+                log.warning("host-tier restore deferred to recompute (%s)", e)
+            except DispatchFault:
+                self._pcache.unlock(node)   # the step fails; retry re-matches
+                raise
+        self.prefix_stats.host_recompute_skips += 1
+        self._pcache.unlock(node)
+        if host_idx[0] == 0:
+            return [], None
+        return self._pcache.match(context, host_idx[0])
+
+    def offload_prefix_cache(self) -> int:
+        """Demote every evictable device-resident cached page to the host
+        tier (one batched copy): a replica handing off its traffic parks
+        its working set in host memory, and later hits restore it. Returns
+        the pages demoted; 0 with the tier or the cache off. Runs outside
+        step(), so its spill time goes straight into timing["spill_s"]."""
+        if self._pcache is None or self._host_pool is None:
+            return 0
+        self._spill_span = 0.0
+        n = self._pcache.demote(self._pcache.evictable_pages())
+        self.prefix_stats.evicted_pages += n
+        self.timing["spill_s"] += self._spill_span
+        self._spill_span = 0.0
+        return n
+
+    # -- sliding-window page rolling and per-request paging
+    #    (inference.long_context) -------------------------------------------
+
+    def _first_live_page(self, context_len: int) -> int:
+        """First logical page a sequence at ``context_len`` still reads:
+        the next query (position ``context_len``) attends positions above
+        context_len - window, so pages wholly before that are dead. 0
+        without a window on every layer."""
+        W = self.page_window
+        if W is None:
+            return 0
+        return max(context_len - W + 1, 0) // self.psz
+
+    def _roll_window(self) -> None:
+        """Return the pages behind the sliding window to the pool (the
+        kernels' masks exclude them), so a windowed sequence holds
+        O(window) pages. Freed logical pages keep a None entry so indices
+        stay position-aligned; their table entries point at scratch page
+        0. A host-resident page the window passed is dropped from the
+        tier, never restored just to die."""
+        if self.page_window is None:
+            return
+        for req in self.slots:
+            if req is None or req.slot is None:
+                continue
+            first = min(self._first_live_page(int(self.seq_lens[req.slot])), len(req.pages))
+            if first <= req.freed_until:
+                continue
+            dead = [p for p in req.pages[req.freed_until:first] if p is not None]
+            for j in range(req.freed_until, first):
+                req.pages[j] = None
+            self.page_table[req.slot, req.freed_until:first] = 0
+            req.freed_until = first
+            if dead:
+                self.alloc.free(dead)
+            if req.host_pages:
+                rolled = [j for j in req.host_pages if j < first]
+                if rolled:
+                    self._host_pool.free([req.host_pages.pop(j) for j in rolled])
+
+    def _long_admission_need(self) -> int:
+        """Worst-instant pool demand of the lazy chunked path: the pages
+        spanned by [cursor - W + 1, cursor + X - 1] for any page-aligned
+        cursor (X the larger of a chunk and the provisioning window), one
+        page of misalignment and the spare. O(window), whatever the
+        context's length."""
+        X = max(self.icfg.prefill_chunk_tokens, self._provision_window)
+        return (self.page_window + X - 2) // self.psz + 3
+
+    def _drop_host_pages(self, req: Request) -> None:
+        """Release every host slot a request holds (terminal paths and a
+        recompute-from-scratch preemption: stale KV leaves the tier)."""
+        if req.host_pages:
+            self._host_pool.free(list(req.host_pages.values()))
+            req.host_pages.clear()
+        req.host_cursor = 0
+
+    def _page_out(self, req: Request) -> None:
+        """Residency cap (inference.request_resident_pages): after a long
+        request's chunk, demote its oldest live private pages beyond the
+        cap to host slots in one batched copy, freeing device pages for
+        co-tenants between its turns. They page back in before the chunk
+        that reads them. A failed spill leaves them resident."""
+        cap = self.icfg.request_resident_pages
+        if not cap or not self._long or req.slot is None:
+            return
+        live = [j for j in range(req.freed_until, len(req.pages))
+                if req.pages[j] is not None and j >= req.n_prefix]
+        excess = len(live) - cap
+        if excess <= 0:
+            return
+        victims = live[:excess]
+        pages = [req.pages[j] for j in victims]
+        hids = self._spill_pages(pages, tree=False)
+        if hids is None:
+            return
+        for j, h in zip(victims, hids):
+            req.host_pages[j] = h
+            req.pages[j] = None
+        self.page_table[req.slot, victims] = 0
+        self.alloc.free(pages)
+        self.prefix_stats.request_paged_out += len(pages)
+
+    def _page_in_request(self, req: Request) -> None:
+        """Restore a live request's host-resident pages into fresh pool
+        pages with one batched copy, ahead of the dispatch that reads
+        them. Pool exhaustion raises MemoryError (the request keeps its
+        host refs); a failed copy (or an injected "restore" fault) frees
+        the fresh pages, keeps every host ref and raises DispatchFault, so
+        the step fails and a retry pages in from scratch."""
+        if not req.host_pages:
+            return
+        due = sorted(req.host_pages)
+        hids = [req.host_pages[j] for j in due]
+        fresh = self._alloc_pages(len(hids))
+        try:
+            with self._device_span("_pagein_span"):
+                self._executor.contain("page_in", self._scatter_from_host, hids, fresh)
+        except DispatchFault:
+            self.alloc.free(fresh)
+            raise
+        for j, p in zip(due, fresh):
+            req.pages[j] = p
+            del req.host_pages[j]
+        self._host_pool.free(hids)
+        self.page_table[req.slot, due] = fresh
+        self.prefix_stats.request_paged_in += len(hids)
+
+    def _provision_chunk_pages(self, req: Request, k: int) -> None:
+        """Lazy pages for the next chunk (the over-pool admission path
+        allocates none up front): extend the request's pages to cover
+        [cursor, cursor + k). Pool exhaustion raises MemoryError."""
+        n_need = -(-(req.prefill_done + k) // self.psz)
+        while len(req.pages) < n_need:
+            page = self._alloc_pages(1)[0]
+            self.page_table[req.slot, len(req.pages)] = page
+            req.pages.append(page)
+
+    def _preempt_to_host(self, req: Request, cursor: int) -> bool:
+        """Preempt-to-host (inference.long_context): spill the victim's
+        live private pages to host slots and resume at ``cursor`` on
+        re-admission, in place of the O(context) re-prefill, when the span
+        passes the break-even gate. Returns True when the request left its
+        slot host-resident; False runs the plain preemption."""
+        if not self._long or self._host_pool is None or req.n_prefix:
+            # Shared prefix pages belong to the tree, which tiers them.
+            return False
+        live = [j for j in range(req.freed_until, len(req.pages)) if req.pages[j] is not None]
+        if (len(live) + len(req.host_pages)) * self.psz < self._host_min_tokens:
+            return False
+        if live:
+            hids = self._spill_pages([req.pages[j] for j in live], tree=False)
+            if hids is None:
+                return False   # tier full or a failed copy: plain preemption
+            req.host_pages.update(zip(live, hids))
+            self.prefix_stats.request_paged_out += len(live)
+        slot = req.slot
+        req.host_cursor = cursor
+        req.host_last_token = int(self.last_token[slot])
+        self.alloc.free([req.pages[j] for j in live])
+        req.pages = []
+        if self._spec is not None:
+            self._spec.drop(req.rid)
+        req.slot = None
+        self.slots[slot] = None
+        self.page_table[slot] = 0
+        self.seq_lens[slot] = 0
+        self.last_token[slot] = 0
+        self.waiting.appendleft(req)
+        return True
+
+    def _readmit_host(self, req: Request, slot: int, reserved: int) -> Optional[int]:
+        """Re-admit a host-resident request: fresh pages for every spilled
+        logical page, one batched restore, and decode or chunking resumes
+        at the spill-time cursor with no re-prefill. Returns the claimed
+        but unallocated pages (the caller's ``reserved`` delta), or None
+        (head-of-line block) when the pool lacks the headroom; a failed
+        restore re-queues the request at the head, still host-resident,
+        and raises."""
+        n = len(req.host_pages)
+        first_window = self._first_window(req.host_cursor - 1)
+        n_logical = max(max(req.host_pages) + 1 if req.host_pages else 0,
+                        -(-req.host_cursor // self.psz))
+        need = max(n + 1, n + first_window - n_logical + 1)
+        if self._available() - reserved < need:
+            return None
+        req.slot = slot
+        req.admit_seq = next(self._admit_seq)
+        req.pages = [None] * n_logical
+        self.slots[slot] = req
+        self.page_table[slot] = 0
+        try:
+            self._page_in_request(req)
+        except (MemoryError, DispatchFault):
+            req.pages = []
+            req.slot = None
+            self.slots[slot] = None
+            self.waiting.appendleft(req)
+            raise
+        self._set_sampling(req)
+        self.seq_lens[slot] = req.host_cursor
+        self.last_token[slot] = req.host_last_token
+        req.prefill_done = req.host_cursor
+        req.prefill_pending = req.host_cursor < len(req.context)
+        req.host_cursor = 0
+        return need - n
+
     def _match_prefix(self, context: list[int]):
         """(n_match, pages, node): the longest usable cached prefix of
         ``context``, page-granular, LOCKED against eviction (the caller
         owns the unlock). A full match of a page-multiple context is
-        allowed: the copy-on-write admission recomputes its last token
-        through decode."""
+        allowed (the copy-on-write admission recomputes its last token
+        through decode), except under a window, where a match must also
+        reach the dead-page boundary of a cold admission. Host-resident
+        entries are restored or cut off first (``_resolve_host_match``)."""
         if self._pcache is None:
             return 0, [], None
-        pages, node = self._pcache.match(context, len(context) // self.psz)
-        if len(pages) < max(self.icfg.prefix_cache_min_pages, 1):
+        cap = len(context) // self.psz
+        if self.page_window is not None:
+            cap = (len(context) - 1) // self.psz
+        pages, node = self._pcache.match(context, cap)
+        if node is not None and any(isinstance(p, HostPage) for p in pages):
+            pages, node = self._resolve_host_match(context, pages, node)
+        ok = len(pages) >= max(self.icfg.prefix_cache_min_pages, 1)
+        if ok and self.page_window is not None:
+            ok = len(pages) >= self._first_live_page(len(context))
+        if not ok:
             if node is not None:
                 self._pcache.unlock(node)
             return 0, [], None
         return len(pages), pages, node
+
+    def _set_sampling(self, req: Request) -> None:
+        """The slot's sampling parameters: the request's, else the defaults."""
+        icfg, slot = self.icfg, req.slot
+        self.slot_temp[slot] = icfg.temperature if req.temperature is None else req.temperature
+        self.slot_top_k[slot] = icfg.top_k if req.top_k is None else req.top_k
+        self.slot_top_p[slot] = icfg.top_p if req.top_p is None else req.top_p
 
     def _admit(self) -> None:
         # Pass 1 (host): claim slots + pages, highest priority class first,
@@ -1010,6 +1527,16 @@ class InferenceEngine:
             slot = next((i for i, r in enumerate(self.slots) if r is None), None)
             if slot is None:
                 break
+            if req.host_pages:
+                # A request preempted to the host resumes at its cursor; a
+                # failed restore has re-queued it already and fails the step.
+                del self.waiting[idx]
+                delta = self._readmit_host(req, slot, reserved)
+                if delta is None:
+                    self.waiting.insert(idx, req)
+                    break
+                reserved += delta
+                continue
             context = req.context
             n_match, m_pages, m_node = self._match_prefix(context)
             full = bool(n_match) and n_match * psz >= len(context)
@@ -1025,14 +1552,28 @@ class InferenceEngine:
                     n_match, m_pages, m_node = 0, [], None
                 else:
                     m_pages = m_pages[:n_match]
+            if n_match and self._lazy and self._admission_need_warm(
+                    len(context), n_match, full)[3] > self.icfg.num_pages - 1:
+                # An over-pool request's eager tail can never fit: drop the
+                # match and take the lazy cold branch.
+                self._pcache.unlock(m_node)
+                n_match, m_pages, m_node = 0, [], None
+                full = False
             if n_match:
-                n_pages, n_alloc, need = self._admission_need_warm(
+                n_pages, first_live, n_alloc, need = self._admission_need_warm(
                     len(context), n_match, full)
                 s_pad = self._bucket_len(len(context) - n_match * psz)
             else:
-                n_pages, need = self._admission_need(len(context))
-                n_alloc = n_pages
+                # Pages wholly behind the window are dead on arrival: no
+                # pool page, table entries on scratch page 0.
+                n_pages, first_live, need = self._admission_need(len(context))
+                n_alloc = n_pages - first_live
                 s_pad = self._bucket_len(len(context))
+                if self._lazy and need > self.icfg.num_pages - 1:
+                    # Over-pool long context: admit on the O(window) lazy
+                    # working set; chunks provision their own pages.
+                    first_live = n_alloc = 0
+                    need = self._long_admission_need()
             if self._available() - reserved < need:
                 if m_node is not None:
                     self._pcache.unlock(m_node)
@@ -1042,7 +1583,6 @@ class InferenceEngine:
             req.slot = slot
             req.admit_seq = next(self._admit_seq)
             req.prefix_node = m_node
-            req.freed_until = 0
             stats = self.prefix_stats
             # Fresh pages allocate FIRST in every branch: _alloc_pages is
             # the only fallible op, so a MemoryError leaves nothing to
@@ -1059,20 +1599,24 @@ class InferenceEngine:
                         self.alloc.retain(p)
                     req.pages = list(m_pages[:-1]) + [cow]
                     req.n_prefix = n_match - 1
+                    req.freed_until = 0
                     stats.hits += 1
                     stats.cached_tokens += len(context) - 1
                     stats.cow_pages += 1
                 elif n_match:
                     fresh = self._alloc_pages(n_alloc)
-                    for p in m_pages:
+                    live = m_pages[first_live:]
+                    for p in live:
                         self.alloc.retain(p)
-                    req.pages = list(m_pages) + fresh
+                    req.pages = [None] * first_live + list(live) + fresh
                     req.n_prefix = n_match
+                    req.freed_until = first_live
                     stats.hits += 1
                     stats.cached_tokens += n_match * psz
                 else:
-                    req.pages = self._alloc_pages(n_alloc)
+                    req.pages = [None] * first_live + self._alloc_pages(n_alloc)
                     req.n_prefix = 0
+                    req.freed_until = first_live
                     if self._pcache is not None:
                         stats.misses += 1
             except MemoryError as e:
@@ -1090,13 +1634,9 @@ class InferenceEngine:
                 self.waiting.appendleft(req)
                 break
             self.slots[slot] = req
-            icfg = self.icfg
-            self.slot_temp[slot] = (
-                icfg.temperature if req.temperature is None else req.temperature
-            )
-            self.slot_top_k[slot] = icfg.top_k if req.top_k is None else req.top_k
-            self.slot_top_p[slot] = icfg.top_p if req.top_p is None else req.top_p
-            self.page_table[slot, :len(req.pages)] = req.pages
+            self._set_sampling(req)
+            # The lazy branch admitted with no pages (they come per chunk).
+            self.page_table[slot, :len(req.pages)] = [0 if p is None else p for p in req.pages]
             if full:
                 self.seq_lens[slot] = len(context) - 1
                 self.last_token[slot] = context[-1]
@@ -1130,7 +1670,8 @@ class InferenceEngine:
         ``pages``. Rows pad to a power of two and the prefix walk to a
         power-of-two width (so a mixed step's graphs are few); pad rows
         have length 1 and write scratch page 0, as do positions past a
-        row's own pages. Keyed as the runner's chunk arguments."""
+        row's own pages and pages rolled behind the window (never read).
+        Keyed as the runner's chunk arguments."""
         psz = self.psz
         nb = _pow2(max(len(rows), 1))
         tokens = np.zeros((nb, s_pad), np.int64)
@@ -1145,8 +1686,8 @@ class InferenceEngine:
             tokens[i, :n] = req.context[start:start + n]
             lengths[i] = n
             pre_lens[i] = start
-            pre_pages[i, :npre] = req.pages[:npre]
-            pages[i, :len(pg)] = pg
+            pre_pages[i, :npre] = [0 if p is None else p for p in req.pages[:npre]]
+            pages[i, :len(pg)] = [0 if p is None else p for p in pg]
         return dict(p_tokens=tokens, p_lengths=lengths, p_pages=pages,
                     p_prefix_lens=pre_lens, p_prefix_pages=pre_pages)
 
@@ -1167,7 +1708,7 @@ class InferenceEngine:
                 self.params, self.cache, a["p_tokens"], a["p_lengths"], a["p_pages"],
                 a["p_prefix_lens"],
                 a["p_prefix_pages"] if a["p_prefix_pages"].shape[1] else None,
-                cfg=self.mcfg,
+                cfg=self.mcfg, paged_prefill=self.icfg.paged_prefill,
             )
             return self._sample(logits, reqs)   # the one host fetch
 
@@ -1282,7 +1823,11 @@ class InferenceEngine:
         preempted request re-matches its own pages. insert() retains what
         it keeps; the request then drops its own refs uniformly."""
         if self._pcache is not None and req.pages:
-            k = min(n_cached // self.psz, len(req.pages))
+            # Only the contiguous resident run from page 0 can be cached.
+            n_full = min(n_cached // self.psz, len(req.pages))
+            k = 0
+            while k < n_full and req.pages[k] is not None:
+                k += 1
             if k:
                 self.prefix_stats.inserted_pages += self._pcache.insert(
                     req.context[: k * self.psz], req.pages[:k]
@@ -1290,9 +1835,12 @@ class InferenceEngine:
         if req.prefix_node is not None:
             self._pcache.unlock(req.prefix_node)
             req.prefix_node = None
-        self.alloc.free(req.pages)
+        self.alloc.free([p for p in req.pages if p is not None])
         req.pages = []
         req.n_prefix = 0
+        # Host-resident pages are stale once the device side is gone (the
+        # preempt-to-host path never comes here).
+        self._drop_host_pages(req)
 
     def _teardown_slot(self, req: Request, n_cached: int) -> None:
         """The one slot-teardown path (reap and preemption). A preempted
@@ -1311,9 +1859,14 @@ class InferenceEngine:
         """Evict an active request, returning its pages; it re-enters at the
         head of the queue and recomputes its context on re-admission (from
         whatever the prefix cache kept: the completed chunks of a mid-
-        prefill request are donated, seq_lens being its chunk cursor)."""
+        prefill request are donated, seq_lens being its chunk cursor). A
+        long request past the break-even goes to the host instead and
+        resumes at its cursor (``_preempt_to_host``)."""
         self.preemptions += 1
-        self._teardown_slot(req, int(self.seq_lens[req.slot]))
+        cursor = int(self.seq_lens[req.slot])
+        if self._preempt_to_host(req, cursor):
+            return
+        self._teardown_slot(req, cursor)
         req.freed_until = 0
         req.prefill_pending = False
         req.prefill_done = 0
@@ -1377,8 +1930,14 @@ class InferenceEngine:
         """A verify step when a live slot is constrained (its masks ride the
         verify rows, its forced runs as drafts; unconstrained co-tenants
         draft as usual) or some slot drafted (inference.speculative), else
-        the plain decode window."""
+        the plain decode window. First the window rolls and a long
+        request's host-resident residue (a page-in that failed) pages in."""
+        self._roll_window()
         live = [r for r in self.slots if r is not None and not r.done]
+        if self._long:
+            for r in live:
+                if r.host_pages:
+                    self._page_in_request(r)
         if self.constrained and any(r.constraint is not None for r in live):
             self._spec_step = True
             return self._verify_all(self._propose_constrained_drafts(live))
@@ -1405,6 +1964,12 @@ class InferenceEngine:
         drafts: dict[int, Any] = {}
         n_drafted = 0
         for r in cands:
+            if r.host_pages:
+                # Part of this slot's KV is host-resident (a page-in fault
+                # left residue): a multi-token verify would read pages not
+                # restored yet. A plain one-token row this step.
+                drafts[r.slot] = None if self._tree else []
+                continue
             pos = int(self.seq_lens[r.slot])
             limit = min(self.icfg.max_seq_len - 1 - pos,
                         r.max_new_tokens - len(r.generated) - 1)
@@ -1629,14 +2194,15 @@ class InferenceEngine:
         pk = self._program_kw()
         if not draw:
             pk["generator"] = None
-        out = mixed_step(**pk, **kw)
+        out = mixed_step(**pk, paged_prefill=self.icfg.paged_prefill, **kw)
         toks, p_logits = out[0], out[-2]
         if toks is None or not self._guard:
             return toks, p_logits
         return torch.stack([toks, out[1].to(toks.dtype)]), p_logits
 
     def _mixed_verify_program(self, **kw):
-        out = mixed_verify_step(**self._program_kw(), **kw)
+        out = mixed_verify_step(**self._program_kw(), paged_prefill=self.icfg.paged_prefill,
+                                **kw)
         return self._pack_verdicts(out[0], out[1], out[2] if self._guard else None), out[-2]
 
     def _verify_all(self, drafts: dict[int, Any]) -> bool:
@@ -1864,7 +2430,14 @@ class InferenceEngine:
         waits at most one chunk budget behind a prompt burst. With
         speculation, decode-phase slots draft and the decode rows become
         verify rows (runner.mixed_verify_step); prompt-phase slots never
-        draft. Returns True iff a decode slot advanced."""
+        draft. Returns True iff a decode slot advanced.
+
+        Long context: host-resident pages a chunk or decode row reads page
+        in first (after drafting, which held such slots to one token), the
+        lazy path provisions each chunk's pages (a chunk the pool cannot
+        hold parks its request), and after the step a long request past
+        inference.request_resident_pages demotes its oldest pages."""
+        self._roll_window()
         drafts = None
         dec_cands = [r for r in self.slots
                      if r is not None and not r.done and not r.prefill_pending]
@@ -1874,6 +2447,10 @@ class InferenceEngine:
             drafts = self._propose_constrained_drafts(dec_cands)
         elif self._spec is not None and not self._spec_disabled:
             drafts = self._propose_drafts(dec_cands)
+        if self._long:
+            for r in dec_cands:
+                if r.host_pages:
+                    self._page_in_request(r)
         self._grow_pages(self.icfg.speculate_tokens + 1 if drafts is not None else None)
         psz, S = self.psz, self.icfg.prefill_chunk_tokens
         # Pending prompts in admission order, each contributing its next
@@ -1897,6 +2474,19 @@ class InferenceEngine:
                     break
             budget -= k
             chunks.append((r, k))
+        if self._long:
+            for r, k in chunks:
+                if r.host_pages:
+                    self._page_in_request(r)
+                try:
+                    self._provision_chunk_pages(r, k)
+                except MemoryError:
+                    # Chunk provisioning has no preemption valve of its own:
+                    # park this request (to the host past the break-even)
+                    # and let its co-tenants drain the pressure.
+                    self.robust.pool_faults += 1
+                    self._preempt(r)
+            chunks = [(r, k) for r, k in chunks if r.slot is not None]
         arrays = self._chunk_arrays(
             [(r, r.prefill_done, k,
               r.pages[r.prefill_done // psz:(r.prefill_done - (-k // psz * psz)) // psz])
@@ -1906,7 +2496,8 @@ class InferenceEngine:
         # page their chunks fill in this very step.
         d_pt = self.page_table.copy()
         for r in pending:
-            d_pt[r.slot] = 0
+            if r.slot is not None:   # provisioning may have preempted it
+                d_pt[r.slot] = 0
         dec = [r for r in self.slots
                if r is not None and not r.done and not r.prefill_pending]
         if (drafts is not None and not any(drafts.get(r.slot) for r in dec)
@@ -1973,6 +2564,14 @@ class InferenceEngine:
                 for (_, r), first in zip(finishing, firsts):
                     r.prefill_pending = False
                     self._first_token(r, int(first), t1)
+        if self._long and self.icfg.request_resident_pages:
+            # Roll first (never demote a page the window already passed),
+            # then demote the still-prefilling chunk rows past the cap; a
+            # failed demotion leaves pages resident, never fails the step.
+            self._roll_window()
+            for r, _ in chunks:
+                if r.prefill_pending and not r.done:
+                    self._page_out(r)
 
         # The guard covers decode rows only; a prompt-phase slot is caught
         # at its first guarded decode step.

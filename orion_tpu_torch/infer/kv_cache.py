@@ -23,9 +23,21 @@ step provisioned past the accepted cursor) and ``compact_draft_kv`` (move
 an accepted off-primary tree path's KV to cursor-contiguous positions);
 the NaN quarantine adds ``poison_page`` (its fault injection) and
 ``scrub_pages`` (zero a quarantined request's pages before reuse).
+
+The host tier (inference.host_tier_bytes) adds ``HostPagePool``, a
+refcounted store of whole pages in host memory (pinned when the pool is on
+the card), ``gather_pages``/``scatter_pages`` (all layers of a page set,
+every cache tensor, the int8 pools' scale rows included), and the sizing
+arithmetic ``host_page_bytes`` and ``host_tier_break_even_tokens``. The
+copies are plain tensor indexing and copies, as the JAX package leaves
+them to XLA outside any kernel.
 """
 
 from __future__ import annotations
+
+import itertools
+import math
+from typing import Optional
 
 import torch
 
@@ -242,3 +254,236 @@ def compact_draft_kv(
     vals = {name: arr[rows_src, :, off_src] for name, arr in cache.items()}
     for name, arr in cache.items():
         arr[rows_dst, :, off_dst] = vals[name]
+
+
+class HostPagePool:
+    """Host-memory page store: the second tier behind the radix tree and
+    the per-request paging of long-context serving.
+
+    ``PageAllocator``'s counterpart for host memory: the same refcounted
+    free list (``alloc`` hands slots out at refcount 1, ``retain`` adds an
+    owner, ``release`` drops one), its own LRU clock (``touch``,
+    ``evict_lru``, which never takes a slot with a second owner), and the
+    bytes: per cache tensor one buffer ``[capacity, n_layers, ...]``,
+    allocated on the first store. A pool serving a card keeps its buffers
+    in pinned memory and copies with ``non_blocking`` on the current
+    stream: ``store`` enqueues the device-to-host copies and records an
+    event per slot, and nothing reads or rewrites those bytes before the
+    event: ``load`` waits for it on the host, ``load_to`` on the stream,
+    and ``alloc`` before it hands the slot out again. Nothing here knows
+    what the bytes mean.
+    """
+
+    def __init__(self, capacity: int, page_bytes: int = 0):
+        if capacity < 1:
+            raise ValueError(f"HostPagePool needs capacity >= 1, got {capacity}")
+        self.capacity = capacity
+        self.page_bytes = page_bytes
+        self._free: list[int] = list(range(capacity - 1, -1, -1))
+        self._refs: list[int] = [0] * capacity
+        self._stamps: list[int] = [0] * capacity
+        self._clock = itertools.count(1)
+        self._store: dict[str, torch.Tensor] = {}
+        # Slot -> the CUDA event after the last async copy touching it.
+        self._pending: dict[int, torch.cuda.Event] = {}
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def refcount(self, hid: int) -> int:
+        return self._refs[hid]
+
+    def _settle(self, hids) -> None:
+        """Wait on the host for the copies still in flight on ``hids``."""
+        for ev in {id(e): e for e in (self._pending.pop(h, None) for h in hids)
+                   if e is not None}.values():
+            ev.synchronize()
+
+    def alloc(self, n: int) -> list[int]:
+        if n > len(self._free):
+            raise MemoryError(
+                f"host page pool exhausted: want {n} slots, have {len(self._free)}"
+            )
+        hids = [self._free.pop() for _ in range(n)]
+        self._settle(hids)   # a slot's old copy ends before it is reused
+        now = next(self._clock)
+        for h in hids:
+            self._refs[h] = 1
+            self._stamps[h] = now
+        return hids
+
+    def retain(self, hid: int) -> None:
+        assert 0 <= hid < self.capacity, hid
+        assert self._refs[hid] > 0, f"retain of free host slot {hid}"
+        self._refs[hid] += 1
+
+    def release(self, hid: int) -> bool:
+        """Drop one ownership ref; returns True iff the slot was freed."""
+        assert 0 <= hid < self.capacity, hid
+        assert self._refs[hid] > 0, f"release of free host slot {hid}"
+        self._refs[hid] -= 1
+        if self._refs[hid] == 0:
+            self._free.append(hid)
+            return True
+        return False
+
+    def free(self, hids: list[int]) -> None:
+        """Bulk release for owners holding one ref per slot."""
+        for h in hids:
+            self.release(h)
+
+    def touch(self, hid: int) -> None:
+        self._stamps[hid] = next(self._clock)
+
+    def evict_lru(self, n: int) -> list[int]:
+        """Free up to ``n`` of the coldest single-owner slots (a slot with
+        a second owner is skipped, never stolen); returns them. The caller
+        drops its own entries for them."""
+        if n <= 0:
+            return []
+        victims = sorted(
+            (h for h in range(self.capacity) if self._refs[h] == 1),
+            key=lambda h: self._stamps[h],
+        )[:n]
+        for h in victims:
+            self.release(h)
+        return victims
+
+    @staticmethod
+    def _runs(hids):
+        """(i, h, n): runs of consecutive slot ids, so one copy serves a
+        run (slots hand out in ascending order)."""
+        i = 0
+        while i < len(hids):
+            j = i + 1
+            while j < len(hids) and hids[j] == hids[j - 1] + 1:
+                j += 1
+            yield i, hids[i], j - i
+            i = j
+
+    def store(self, hids: list[int], blocks: dict[str, torch.Tensor],
+              n: Optional[int] = None) -> None:
+        """Copy the first ``n`` rows of each page block (``gather_pages``'
+        shape; row i -> ``hids[i]``) into the slots: asynchronously from a
+        card, with one event recorded for the whole store."""
+        n = len(hids) if n is None else n
+        assert n <= len(hids), (n, len(hids))
+        rows = list(hids[:n])
+        cuda = False
+        for name, blk in blocks.items():
+            buf = self._store.get(name)
+            if buf is None:
+                buf = torch.empty((self.capacity,) + tuple(blk.shape[1:]), dtype=blk.dtype,
+                                  pin_memory=blk.is_cuda)
+                self._store[name] = buf
+            cuda = cuda or blk.is_cuda
+            for i, h, m in self._runs(rows):
+                buf[h:h + m].copy_(blk[i:i + m], non_blocking=blk.is_cuda)
+        now = next(self._clock)
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        for h in rows:
+            self._stamps[h] = now
+            if cuda:
+                self._pending[h] = ev
+
+    def load(self, hids: list[int]) -> dict[str, torch.Tensor]:
+        """The slots' bytes as host page blocks (row i = ``hids[i]``),
+        once their copies have landed."""
+        rows = list(hids)
+        self._settle(rows)
+        now = next(self._clock)
+        for h in rows:
+            self._stamps[h] = now
+        idx = torch.as_tensor(rows, dtype=torch.long)
+        return {name: buf[idx] for name, buf in self._store.items()}
+
+    def load_to(self, hids: list[int], device) -> dict[str, torch.Tensor]:
+        """The slots' bytes as page blocks on ``device`` (``scatter_pages``'
+        shape): host-to-device copies from the pinned slots, ``non_blocking``
+        on the current stream, ordered after the slots' earlier copies by
+        a wait on the stream, not the host. An event marks the slots until
+        the copies have read them."""
+        rows = list(hids)
+        device = torch.device(device)
+        now = next(self._clock)
+        for h in rows:
+            self._stamps[h] = now
+        if device.type != "cuda":
+            return self.load(rows)
+        stream = torch.cuda.current_stream(device)
+        for ev in {id(e): e for e in (self._pending.get(h) for h in rows)
+                   if e is not None}.values():
+            stream.wait_event(ev)
+        out = {}
+        for name, buf in self._store.items():
+            dst = torch.empty((len(rows),) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                              device=device)
+            for i, h, m in self._runs(rows):
+                dst[i:i + m].copy_(buf[h:h + m], non_blocking=True)
+            out[name] = dst
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        for h in rows:
+            self._pending[h] = ev
+        return out
+
+
+def _page_rows(pages: torch.Tensor, n_layers: int, num_pages: int) -> torch.Tensor:
+    """[n, n_layers] pool rows of ``pages`` in every layer."""
+    pages = pages.long()
+    return pages[:, None] + torch.arange(n_layers, device=pages.device)[None, :] * num_pages
+
+
+def gather_pages(cache: Cache, pages: torch.Tensor, *, n_layers: int,
+                 num_pages: int) -> Cache:
+    """Whole pool pages (all layers, every cache tensor: the int8 pools'
+    scale rows ride along) as dense blocks ``[n, n_layers, ...]``: the
+    device half of a demotion's one batched device-to-host copy. The pool
+    is read, not changed."""
+    rows = _page_rows(pages.to(cache["k"].device), n_layers, num_pages)
+    return {name: arr[rows] for name, arr in cache.items()}
+
+
+def scatter_pages(cache: Cache, pages: torch.Tensor, blocks: Cache, *, n_layers: int,
+                  num_pages: int) -> None:
+    """Write dense page blocks (``gather_pages``' shape) into the pool
+    pages, in place: the device half of a restore's one batched
+    host-to-device copy."""
+    rows = _page_rows(pages.to(cache["k"].device), n_layers, num_pages)
+    for name, arr in cache.items():
+        arr[rows] = blocks[name].to(device=arr.device, dtype=arr.dtype)
+
+
+def host_page_bytes(cache: Cache, n_layers: int) -> int:
+    """Host bytes one pool page takes over every cache tensor (all layers;
+    the scale rows of an int8 pool included): the unit
+    inference.host_tier_bytes is divided by."""
+    return sum(n_layers * math.prod(arr.shape[1:]) * arr.element_size()
+               for arr in cache.values())
+
+
+def host_tier_break_even_tokens(
+    page_bytes: int,
+    page_size: int,
+    h2d_gbps: float,
+    restore_overhead_s: float,
+    prefill_tok_s: float,
+) -> Optional[int]:
+    """The match length above which restoring a host-resident prefix beats
+    recomputing it:
+
+        restore(t)   = overhead + t * bytes_per_token / (bw * 1e9)
+        recompute(t) = t / prefill_tok_s
+
+    so t* = overhead / (1/prefill_tok_s - bytes_per_token/bw). None when
+    the restore slope is not below the recompute slope (restore never
+    wins); else the crossing, floored at one page."""
+    per_tok_restore = (page_bytes / page_size) / (h2d_gbps * 1e9)
+    per_tok_compute = 1.0 / prefill_tok_s
+    if per_tok_restore >= per_tok_compute:
+        return None
+    gain = per_tok_compute - per_tok_restore
+    return max(page_size, math.ceil(restore_overhead_s / gain))

@@ -10,7 +10,12 @@ Counterpart of ``orion_tpu/infer/runner.py``:
     Rows that resume over cached pages (``prefix_pages`` with P_pre > 0:
     a prefix-cache hit or a prefill chunk) start at their page-aligned
     ``prefix_lens``: K9 (``ops.paged_flash_prefill``) attends the paged
-    history plus the chunk and writes the chunk's pages in the same call;
+    history plus the chunk and writes the chunk's pages in the same call,
+    or with ``paged_prefill=False`` (inference.paged_prefill) the gather
+    body: the prefix pages gathered from the pool (dequantized from an
+    int8 pool), attention with explicit positions over prefix + chunk (K3's
+    explicit-positions branch on the card) and the chunk's pages
+    scattered, as the JAX package's gather body does;
   - ``decode_window`` advances every batch slot ``n_steps`` tokens with
     sampling on the device, and returns the [W, B] token block for ONE
     host fetch by the engine — nothing inside the window reads a value
@@ -34,9 +39,7 @@ with float32 scale pools, under inference.kv_quant), updated in place:
 whole-prompt prefill by indexed assignment at rows ``l*num_pages + page``
 (the JAX package's scatter is outside any kernel too), chunk prefill
 inside K9, decode inside K4, verify inside K10. Inactive slots point at
-scratch page 0 and are masked by their lengths. ``paged_prefill=false`` (the JAX package's
-gather body for P_pre > 0, which needs explicit positions in K3) is not
-ported.
+scratch page 0 and are masked by their lengths.
 """
 
 from __future__ import annotations
@@ -70,29 +73,57 @@ def _prefill_ctx(
     cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor,
     pages: torch.Tensor, prefix_lens: Optional[torch.Tensor],
     prefix_pages: Optional[torch.Tensor], cfg: ModelConfig,
+    paged_prefill: bool = True,
 ) -> dict:
     """Batch-level tensors the per-layer prefill body consumes. A prefill
     chunk is a mid-sequence tail prefill: it resumes at a page-aligned
     ``prefix_lens`` over pages already written, so its positions start
-    there and K9 walks ``prefix_pages`` ++ ``pages``."""
+    there and K9 walks ``prefix_pages`` ++ ``pages``. For the gather body
+    (``paged_prefill`` False) also the kv positions and segments over
+    prefix + chunk: prefix columns sit at their absolute positions
+    [0, P_pre*psz), and those past a row's own prefix are segment 0."""
     Nb, S_pad = tokens.shape
     psz = cache["k"].shape[2]
     P_pre = 0 if prefix_pages is None else prefix_pages.shape[1]
     arange = torch.arange(S_pad, dtype=torch.int32, device=tokens.device)
-    walk = None
-    if P_pre:
-        positions = prefix_lens.to(torch.int32)[:, None] + arange
-        walk = torch.cat([prefix_pages, pages], dim=1)
-    else:
-        positions = arange.expand(Nb, S_pad)
     # Ragged burst: each row's padding tail is segment 0, which K3 skips.
     seg = (arange[None] < lengths[:, None]).to(torch.int32)
+    walk = kv_pos = kv_seg = None
+    paged = bool(P_pre) and paged_prefill
+    if P_pre:
+        positions = prefix_lens.to(torch.int32)[:, None] + arange
+        if paged:
+            walk = torch.cat([prefix_pages, pages], dim=1)
+        else:
+            pre_idx = torch.arange(P_pre * psz, dtype=torch.int32, device=tokens.device)
+            kv_pos = torch.cat([pre_idx.expand(Nb, -1), positions], dim=1)
+            kv_seg = torch.cat(
+                [(pre_idx[None] < prefix_lens[:, None]).to(torch.int32), seg], dim=1)
+    else:
+        positions = arange.expand(Nb, S_pad)
     return dict(
         Nb=Nb, S_pad=S_pad, psz=psz, NP=cache["k"].shape[0] // cfg.n_layers,
         n_pages=S_pad // psz, P_pre=P_pre, positions=positions, seg=seg,
         pages=pages.long(), walk=walk, prefix_lens=prefix_lens, lengths=lengths,
-        quant="k_scale" in cache,
+        quant="k_scale" in cache, paged=paged, kv_pos=kv_pos, kv_seg=kv_seg,
+        prefix_pages=None if prefix_pages is None else prefix_pages.long(),
     )
+
+
+def _gather_prefix(cache: Cache, ctx: dict, layer: int, dtype: torch.dtype):
+    """This layer's cached prefix K and V as [Nb, P_pre*psz, K, H] in the
+    model's dtype (an int8 pool dequantized through its scales in float32,
+    as the JAX gather body does)."""
+    Nb, psz, P_pre = ctx["Nb"], ctx["psz"], ctx["P_pre"]
+    rows = layer * ctx["NP"] + ctx["prefix_pages"]            # [Nb, P_pre]
+    out = []
+    for name in ("k", "v"):
+        pre = cache[name][rows].transpose(2, 3)                # [Nb, P, psz, K, H]
+        if ctx["quant"]:
+            sc = cache[f"{name}_scale"][rows][..., :psz].transpose(2, 3)   # [Nb, P, psz, K]
+            pre = pre.float() * sc[..., None]
+        out.append(pre.reshape(Nb, P_pre * psz, pre.shape[3], pre.shape[4]).to(dtype))
+    return out
 
 
 def _prefill_layer(
@@ -100,14 +131,15 @@ def _prefill_layer(
     cfg: ModelConfig,
 ) -> torch.Tensor:
     """One layer of (possibly mid-sequence) prefill, the pool updated in
-    place: K9 over the paged history + the chunk when P_pre > 0, else
-    causal attention over the row's own K/V and a page scatter."""
+    place: K9 over the paged history + the chunk when P_pre > 0 (paged
+    prefill), else causal attention over the row's own K/V, or the
+    gathered prefix + its own K/V by position, and a page scatter."""
     Nb, psz, n_pages = ctx["Nb"], ctx["psz"], ctx["n_pages"]
     seg, quant = ctx["seg"], ctx["quant"]
     window = cfg.layer_window(layer)
     h = _norm(x, bp["attn_norm"], cfg)
     q, k, v = qkv_proj(h, bp["attn"], cfg, ctx["positions"])
-    if ctx["P_pre"]:
+    if ctx["paged"]:
         out = paged_flash_prefill(
             q, cache["k"], cache["v"], ctx["walk"], ctx["prefix_lens"],
             ctx["lengths"], k, v, n_prefix_pages=ctx["P_pre"],
@@ -116,11 +148,23 @@ def _prefill_layer(
             v_scale=cache.get("v_scale"),
         )[0]
     else:
-        out = attention(
-            q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
-            seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
-            window=window,
-        )
+        if ctx["P_pre"]:
+            # The gather body: tail queries over prefix + tail, compared by
+            # explicit positions.
+            k_pre, v_pre = _gather_prefix(cache, ctx, layer, k.dtype)
+            out = attention(
+                q, torch.cat([k_pre, k], dim=1), torch.cat([v_pre, v], dim=1),
+                causal=True, q_segment_ids=seg, kv_segment_ids=ctx["kv_seg"],
+                seg_pad_zero=True, q_positions=ctx["positions"],
+                kv_positions=ctx["kv_pos"], logit_softcap=cfg.attn_logit_softcap,
+                window=window,
+            )
+        else:
+            out = attention(
+                q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+                seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
+                window=window,
+            )
         # Positions past a row's length hold padding garbage: decode masks
         # them by length and the next real token overwrites its slot.
         K, H = k.shape[2], k.shape[3]
@@ -164,13 +208,16 @@ def prefill_step(
     prefix_pages: Optional[torch.Tensor] = None,  # [Nb, P_pre] their pages
     *,
     cfg: ModelConfig,
+    paged_prefill: bool = True,
 ) -> tuple[torch.Tensor, Cache]:
     """Prefill a batch of same-bucket prompts; returns (next-token logits
     [Nb, V], the cache updated in place). With ``prefix_pages`` (P_pre >
     0) rows hold only the uncached tail, resuming at page-aligned
-    ``prefix_lens``. Padding rows carry all-zero page lists: their K/V
-    lands on scratch page 0 and is never read."""
-    ctx = _prefill_ctx(cache, tokens, lengths, pages, prefix_lens, prefix_pages, cfg)
+    ``prefix_lens``, through K9 or, with ``paged_prefill`` False, the
+    gather body. Padding rows carry all-zero page lists: their K/V lands
+    on scratch page 0 and is never read."""
+    ctx = _prefill_ctx(cache, tokens, lengths, pages, prefix_lens, prefix_pages, cfg,
+                       paged_prefill)
     x = embed(params, tokens, ctx["positions"], cfg)
     for layer, bp in enumerate(params["blocks"]):
         x = _prefill_layer(x, cache, bp, layer, ctx, cfg)
@@ -303,6 +350,7 @@ def mixed_step(
     top_p=1.0,
     active: Optional[torch.Tensor] = None,   # [B] bool: slot DECODING (guard)
     nan_guard: bool = False,
+    paged_prefill: bool = True,
 ) -> tuple[Optional[torch.Tensor], ...]:
     """One unified prefill-chunk + decode step (inference.chunked_prefill)
     -> (decode tokens [B] or None, chunk logits [Nc, V], cache).
@@ -325,7 +373,8 @@ def mixed_step(
 
     wp = torch.clamp(seq_lens.to(torch.int32), max=max_seq_len - 1)
     pctx = _prefill_ctx(cache, p_tokens, p_lengths, p_pages, p_prefix_lens,
-                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg)
+                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg,
+                        paged_prefill)
     dctx = _decode_ctx(cache, wp, page_table, cfg)
     xp = embed(params, p_tokens, pctx["positions"], cfg)
     xd = embed(params, tokens.to(torch.int32)[:, None], dctx["positions"], cfg)
@@ -517,6 +566,7 @@ def mixed_verify_step(
     active: Optional[torch.Tensor] = None,     # [B] bool: slot DECODING (guard)
     nan_guard: bool = False,
     legal_mask: Optional[torch.Tensor] = None,  # [B, W, V] bool constraint masks
+    paged_prefill: bool = True,
 ) -> tuple[torch.Tensor, ...]:
     """``mixed_step`` with the decode half replaced by the verify body:
     speculative decoding composed with chunked prefill -> ``(accept,
@@ -528,7 +578,8 @@ def mixed_verify_step(
     slots' verify rows are parked on scratch page 0."""
     W = tokens.shape[1]
     pctx = _prefill_ctx(cache, p_tokens, p_lengths, p_pages, p_prefix_lens,
-                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg)
+                        p_prefix_pages if p_prefix_pages.shape[1] else None, cfg,
+                        paged_prefill)
     vctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
                        depths=depths, tree_mask=tree_mask)
     xp = embed(params, p_tokens, pctx["positions"], cfg)

@@ -2,11 +2,11 @@
 admission queue's policy.
 
 Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core with
-the prefix-cache and chunked-prefill state, request priorities and
-deadlines, the typed outcomes, the grammar constraint's walk, and
-``AdmissionQueue`` (which request an over-limit submit sheds; the
-step-boundary deadline sweep of the queue). The host-tier and router
-state are not ported.
+the prefix-cache and chunked-prefill state, the long-context host paging
+state, request priorities and deadlines, the typed outcomes, the grammar
+constraint's walk, and ``AdmissionQueue`` (which request an over-limit
+submit sheds; the step-boundary deadline sweep of the queue). The
+router's trace context is not ported.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ class Request:
     t_first: Optional[float] = None
     # scheduler state
     slot: Optional[int] = None
-    pages: list[int] = field(default_factory=list)
+    # Pool pages by logical page; None for a page behind the sliding
+    # window (rolled) or resident in the host tier (``host_pages``).
+    pages: list = field(default_factory=list)
     done: bool = False
     admit_seq: int = -1   # admission order; -1 until first admitted
     freed_until: int = 0  # logical pages below this are freed (SWA rolling)
@@ -59,6 +61,18 @@ class Request:
     # rides mixed steps as a prompt-chunk row, never a decode row.
     prefill_done: int = 0
     prefill_pending: bool = False
+    # Long-context host paging (inference.long_context): logical page
+    # index -> HostPagePool slot holding that page's KV, one engine-owned
+    # ref per slot (the prefix tree never sees these). Filled by residency
+    # demotion (inference.request_resident_pages) and preempt-to-host;
+    # drained by the engine's page-in before the dispatch that reads them,
+    # or dropped when the window rolls past a page or the request ends.
+    host_pages: dict[int, int] = field(default_factory=dict)
+    # Preempt-to-host snapshot: KV is valid in [0, host_cursor) over
+    # device and host pages, and host_last_token is the token in flight;
+    # re-admission restores and resumes there instead of re-prefilling.
+    host_cursor: int = 0
+    host_last_token: int = 0
     # Grammar constraint (orion_tpu_torch.constrain.ConstraintState): the
     # request's walk through its token DFA. Pure host state: it survives
     # preemption (re-prefill replays prompt + generated; the state re-syncs

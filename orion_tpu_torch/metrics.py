@@ -145,10 +145,21 @@ class MetricsLogger:
 
 @dataclass
 class PrefixCacheStats:
-    """Serving-side prefix-cache counters (``orion_tpu/metrics.py``'s,
-    without the host-tier ones): hits/misses count admissions,
+    """Serving-side prefix-cache counters, a copy of
+    ``orion_tpu/metrics.py``'s: hits/misses count admissions,
     cached_tokens the prompt tokens served from shared pages instead of
-    prefill, inserted/evicted/cow pages the pool churn the cache causes."""
+    prefill, inserted/evicted/cow pages the pool churn the cache causes.
+
+    Host tier (inference.host_tier_bytes > 0): ``evicted_to_host`` pages
+    demoted to host memory instead of discarded (a subset of
+    ``evicted_pages``), ``host_hits`` admissions that restored a
+    host-resident path, ``host_restored_pages`` the pages those restores
+    copied back, ``host_recompute_skips`` host-resident matches the
+    break-even gate (or a tight pool) sent to recompute instead.
+    Per-request paging (inference.long_context): ``request_paged_out``
+    pages a live request demoted to host slots (residency cap,
+    preempt-to-host) and ``request_paged_in`` those restored ahead of the
+    dispatch that reads them; they never pass through the tree."""
 
     hits: int = 0
     misses: int = 0
@@ -156,6 +167,35 @@ class PrefixCacheStats:
     inserted_pages: int = 0
     evicted_pages: int = 0
     cow_pages: int = 0
+    evicted_to_host: int = 0
+    host_hits: int = 0
+    host_restored_pages: int = 0
+    host_recompute_skips: int = 0
+    request_paged_out: int = 0
+    request_paged_in: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def as_timing(self) -> dict[str, float]:
+        """Flatten into the engine's reset_timing dict (the JAX keys)."""
+        return {
+            "prefix_hits": self.hits,
+            "prefix_misses": self.misses,
+            "prefix_hit_rate": self.hit_rate,
+            "cached_tokens": self.cached_tokens,
+            "inserted_pages": self.inserted_pages,
+            "evicted_pages": self.evicted_pages,
+            "cow_pages": self.cow_pages,
+            "evicted_to_host": self.evicted_to_host,
+            "host_hits": self.host_hits,
+            "host_restored_pages": self.host_restored_pages,
+            "host_recompute_skips": self.host_recompute_skips,
+            "request_paged_out": self.request_paged_out,
+            "request_paged_in": self.request_paged_in,
+        }
 
 
 @dataclass

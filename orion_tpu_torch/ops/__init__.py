@@ -15,6 +15,7 @@ from orion_tpu_torch.ops.attention import (
     attention_plain,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    flash_attention_pos_cuda,
     flash_dkv_cuda,
     flash_dq_cuda,
 )
@@ -68,6 +69,7 @@ KERNELS = {
     "rmsnorm_fwd": rmsnorm_cuda,
     "rope_fwd": rope_triton,
     "flash_fwd": flash_attention_cuda,
+    "flash_fwd_pos": flash_attention_pos_cuda,
     "paged_decode": paged_attention_cuda,
     "rmsnorm_bwd": rmsnorm_bwd_cuda,
     "rope_bwd": rope_bwd_triton,
@@ -104,6 +106,7 @@ __all__ = [
     "check_verify_fit",
     "flash_attention_bwd_cuda",
     "flash_attention_cuda",
+    "flash_attention_pos_cuda",
     "flash_dkv_cuda",
     "flash_dq_cuda",
     "launches",

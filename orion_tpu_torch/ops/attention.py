@@ -17,8 +17,11 @@ source notes say what bounds them and how the design answers. The
 wrappers keep the JAX package's [B, S, N, H] layout: the kernels read and
 write it directly, so no transpose or padding copy is made. They cover
 causal + segment ids (+ seg_pad_zero tile skip) + q_offset + window +
-softcap; explicit masks and explicit positions (the prefix-cache and
-sequence-parallel callers) are not on the ported paths and raise.
+softcap, and K3 also explicit per-token positions (``q_positions``
+[B, Sq], ``kv_positions`` [B, Skv]: the causal and window tests compare
+positions, not indices; the gather prefill body's layout, and striped
+ones). Explicit masks raise on the card, and so do positions where a
+gradient is needed (K7's and K8's positions branches are not ported).
 """
 
 from __future__ import annotations
@@ -53,10 +56,15 @@ def attention_mask(
     kv_segment_ids: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     device=None,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Optional[torch.Tensor]:
     """Boolean [.., q_len, kv_len] mask; True = attend.
 
     ``window`` keeps only 0 <= q_pos - kv_pos < window (requires causal).
+    Positions are the token indices (+ q_offset for q) unless explicit
+    per-token ``q_positions`` [.., q_len] / ``kv_positions`` [.., kv_len]
+    are given.
     """
     if window is not None and (not causal or window < 1):
         raise ValueError(
@@ -66,9 +74,11 @@ def attention_mask(
         device = q_segment_ids.device
     mask = None
     if causal:
-        q_pos = torch.arange(q_len, device=device) + q_offset
-        kv_pos = torch.arange(kv_len, device=device)
-        dist = q_pos[:, None] - kv_pos[None, :]
+        q_pos = (q_positions.long() if q_positions is not None
+                 else torch.arange(q_len, device=device) + q_offset)
+        kv_pos = (kv_positions.long() if kv_positions is not None
+                  else torch.arange(kv_len, device=device))
+        dist = q_pos[..., :, None] - kv_pos[..., None, :]
         mask = dist >= 0
         if window is not None:
             mask = mask & (dist < window)
@@ -80,7 +90,7 @@ def attention_mask(
 
 def _masked_logits(
     q, k, *, causal, mask, q_segment_ids, kv_segment_ids, logit_softcap,
-    q_offset, window,
+    q_offset, window, q_positions=None, kv_positions=None,
 ):
     """float32 [B, N, Sq, Skv] logits (softcapped, NEG_INF where masked)
     and the broadcast boolean mask (None when nothing is masked)."""
@@ -100,7 +110,8 @@ def _masked_logits(
         mask = attention_mask(
             q.shape[1], k.shape[1], causal=causal, q_offset=q_offset,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            window=window, device=q.device,
+            window=window, device=q.device, q_positions=q_positions,
+            kv_positions=kv_positions,
         )
     if mask is not None:
         if mask.dim() == 2:
@@ -123,12 +134,17 @@ def attention_plain(
     logit_softcap: Optional[float] = None,
     q_offset: int = 0,
     window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """q: [B, Sq, N, H]; k, v: [B, Skv, K, H] with N % K == 0 -> [B, Sq, N, H]."""
+    """q: [B, Sq, N, H]; k, v: [B, Skv, K, H] with N % K == 0 -> [B, Sq, N, H].
+    With ``q_positions`` [B, Sq] and ``kv_positions`` [B, Skv] the causal
+    and window tests compare those positions."""
     logits, mask = _masked_logits(
         q, k, causal=causal, mask=mask, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
-        q_offset=q_offset, window=window,
+        q_offset=q_offset, window=window, q_positions=q_positions,
+        kv_positions=kv_positions,
     )
     probs = torch.softmax(logits, dim=-1)
     if mask is not None:
@@ -161,6 +177,20 @@ def attention_lse_plain(
     if mask is not None:
         lse = torch.where(mask.any(dim=-1), lse, torch.full_like(lse, NEG_INF))
     return lse
+
+
+def _check_positions(q_positions, kv_positions, B, Sq, Skv):
+    """The int32 contiguous positions (or None, None)."""
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError("q_positions and kv_positions go together")
+    if q_positions is None:
+        return None, None
+    qpos = q_positions.to(torch.int32).contiguous()
+    kpos = kv_positions.to(torch.int32).contiguous()
+    if qpos.shape != (B, Sq) or kpos.shape != (B, Skv):
+        raise ValueError(f"positions must be [B, Sq] = [{B}, {Sq}] and [B, Skv] = "
+                         f"[{B}, {Skv}], got {tuple(qpos.shape)}, {tuple(kpos.shape)}")
+    return qpos, kpos
 
 
 def _check_args(q, k, v, q_segment_ids, kv_segment_ids, causal, window):
@@ -213,6 +243,28 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _flash_fwd(q, k, v, *, causal, q_segment_ids, kv_segment_ids, logit_softcap, q_offset,
+               window, seg_pad_zero, return_lse, q_positions=None, kv_positions=None):
+    """One K3 launch (both wrappers' body)."""
+    if not on_cuda(q, k, v):
+        raise ValueError("K3 takes CUDA tensors; CPU tensors go to attention_plain")
+    q, k, v, qseg, kseg, shape = _check_args(
+        q, k, v, q_segment_ids, kv_segment_ids, causal, window)
+    B, Sq, Skv, N, _, _ = shape
+    qpos, kpos = _check_positions(q_positions, kv_positions, B, Sq, Skv)
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    rc = _build.entry("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 9 + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(qseg), _ptr(kseg), _ptr(qpos), _ptr(kpos),
+        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
+                 q.dtype, q.device),
+    )
+    _build.check(rc, "flash_fwd")
+    return (out, lse) if return_lse else out
+
+
 @counted
 def flash_attention_cuda(
     q: torch.Tensor,
@@ -231,21 +283,45 @@ def flash_attention_cuda(
     """Launch K3 on CUDA tensors; shapes and semantics as attention_plain.
     With ``return_lse`` also returns the float32 [B, N, Sq] log-sum-exp
     residual that K7/K8 take (NEG_INF on rows that attend nothing)."""
-    q, k, v, qseg, kseg, shape = _check_args(
-        q, k, v, q_segment_ids, kv_segment_ids, causal, window)
-    B, Sq, _, N, _, _ = shape
-    out = torch.empty_like(q)
-    lse = (torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    rc = _build.entry("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 7 + _TAIL_TYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        _ptr(qseg), _ptr(kseg),
-        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
-                 q.dtype, q.device),
-    )
-    _build.check(rc, "flash_fwd")
+    res = _flash_fwd(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
+                     q_offset=q_offset, window=window, seg_pad_zero=seg_pad_zero,
+                     return_lse=return_lse)
     flash_attention_cuda.launches += 1
-    return (out, lse) if return_lse else out
+    return res
+
+
+@counted
+def flash_attention_pos_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    seg_pad_zero: bool = False,
+    return_lse: bool = False,
+):
+    """Launch K3's explicit-positions branch on CUDA tensors:
+    ``q_positions`` [B, Sq] and ``kv_positions`` [B, Skv] (any order; they
+    need not rise) take the place of the row indices in the causal and
+    window tests. Each block first lists its live key steps from the
+    positions' extremes, then each warp (bf16) or tile (float32) skips a
+    step whose largest q position precedes its smallest kv position, or,
+    under a window, whose smallest q position less its largest kv position
+    reaches the window. Counted apart from K3's index path."""
+    res = _flash_fwd(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
+                     q_offset=0, window=window, seg_pad_zero=seg_pad_zero,
+                     return_lse=return_lse, q_positions=q_positions,
+                     kv_positions=kv_positions)
+    flash_attention_pos_cuda.launches += 1
+    return res
 
 
 def _bwd_operands(q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal,
@@ -359,14 +435,17 @@ def attention(
     q_offset: int = 0,
     window: Optional[int] = None,
     seg_pad_zero: bool = False,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Grouped-query scaled-dot-product attention. Shapes as attention_plain.
 
     CUDA tensors go to K3, which takes no explicit ``mask`` (express it
-    through causal / segment ids / window), and through K7/K8 when a
-    gradient is needed; CPU tensors to the plain version. ``seg_pad_zero``
-    declares segment id 0 as padding so the kernels may skip all-padding
-    tiles; the plain version has no tiles and ignores it.
+    through causal / segment ids / window / positions), and through K7/K8
+    when a gradient is needed (not with positions); CPU tensors to the
+    plain version. ``seg_pad_zero`` declares segment id 0 as padding so
+    the kernels may skip all-padding tiles; the plain version has no
+    tiles and ignores it.
     """
     if on_cuda(q, k, v):
         if mask is not None:
@@ -378,13 +457,23 @@ def attention(
                        q_offset=q_offset, window=window, seg_pad_zero=seg_pad_zero)
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
+            if q_positions is not None:
+                raise NotImplementedError(
+                    "not ported to orion_tpu_torch yet: the gradient of attention "
+                    "with explicit positions (K7's and K8's positions branches)")
             return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
                                          mask_kw)
+        if q_positions is not None:
+            del mask_kw["q_offset"]
+            return flash_attention_pos_cuda(
+                q, k, v, q_positions, kv_positions, q_segment_ids=q_segment_ids,
+                kv_segment_ids=kv_segment_ids, **mask_kw)
         return flash_attention_cuda(
             q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             **mask_kw)
     return attention_plain(
         q, k, v, causal=causal, mask=mask, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
-        q_offset=q_offset, window=window,
+        q_offset=q_offset, window=window, q_positions=q_positions,
+        kv_positions=kv_positions,
     )

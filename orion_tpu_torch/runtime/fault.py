@@ -16,17 +16,18 @@ The port's copy of ``orion_tpu/runtime/fault.py``, which is pure Python:
     takes ``train.watchdog_action``;
   - ``FaultSpec`` / ``FaultInjector``: the deterministic injection
     schedule consulted at the injection points — dispatch exceptions, NaN
-    page poisoning, page-pool exhaustion and stalls in the engine, each at
+    page poisoning, page-pool exhaustion, stalls and host-tier restore
+    faults in the engine, each at
     a configured engine step; on path "train" a dispatch exception before
     the step or a NaN-poisoned loss inside it, and a torn checkpoint
     commit ("partial_write").
 
 ``FaultSpec`` validates every kind the JAX package knows. The engine
-consumes "dispatch", "nan", "pool" and "stall" (``SERVING_KINDS``), the
-trainer "dispatch", "nan" and "partial_write" (``TRAIN_KINDS``); an
-engine or a trainer built with an injector holding any other kind raises
-``NotImplementedError`` (the host tier, KV migration and the router are
-not ported).
+consumes "dispatch", "nan", "pool", "stall" and "restore"
+(``SERVING_KINDS``), the trainer "dispatch", "nan" and "partial_write"
+(``TRAIN_KINDS``); an engine or a trainer built with an injector holding
+any other kind raises ``NotImplementedError`` (KV migration and the
+router are not ported).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from typing import Callable, Optional, Sequence, Type
 log = logging.getLogger("orion_tpu_torch.fault")
 
 # The kinds the port's serving engine consumes, and the trainer.
-SERVING_KINDS = ("dispatch", "nan", "pool", "stall")
+SERVING_KINDS = ("dispatch", "nan", "pool", "stall", "restore")
 TRAIN_KINDS = ("dispatch", "nan", "partial_write")
 
 
@@ -280,10 +281,13 @@ class FaultSpec:
       - "partial_write": tear the checkpoint commit of step ``step`` (the
         largest array file truncated after its checksum is recorded); the
         trainer's checkpoint manager consumes it;
-      - "restore", "migration" and the replica kinds ("replica_kill",
+      - "restore": the next host-tier restore of this step (a prefix-cache
+        restore or a long-context page-in) raises inside its copy
+        envelope, which unwinds both tiers and fails the step;
+      - "migration" and the replica kinds ("replica_kill",
         "replica_stall", "replica_poison"; these need ``replica``): the JAX
-        package's host tier, KV migration and router faults, validated here
-        and refused by the port.
+        package's KV migration and router faults, validated here and
+        refused by the port.
 
     ``step`` is the engine step to fire at (``InferenceEngine.step_no``;
     training: the 0-based step about to run, or the checkpoint's step);

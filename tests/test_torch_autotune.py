@@ -174,10 +174,8 @@ def test_window_max_below_window_raises_as_jax(weights):
 
 
 # The JAX engine's timing keys that belong to modules the port has not
-# ported (the host tier, migration) or that it does not keep (the
-# decode-waste tally).
-JAX_ONLY_KEYS = {"spill_s", "restore_s", "page_in_s", "migrate_out_s", "migrate_in_s",
-                 "slot_steps", "wasted_steps"}
+# ported (migration) or that it does not keep (the decode-waste tally).
+JAX_ONLY_KEYS = {"migrate_out_s", "migrate_in_s", "slot_steps", "wasted_steps"}
 
 
 def test_reset_timing_keys_and_split_match_jax(weights):

@@ -131,7 +131,6 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "inference.host_tier_bytes=1048576",
     "model.weight_quant=int8",
     "inference.trace=true", "inference.trace_path=/nonexistent/trace.json",
     "inference.flight_dir=/nonexistent/flight",

@@ -461,7 +461,7 @@ def test_watchdog_stall_counted_not_fatal(tiny):
 
 
 def test_engine_refuses_unported_fault_kinds(tiny):
-    inj = FaultInjector([FaultSpec("restore", step=0)])
+    inj = FaultInjector([FaultSpec("migration", step=0)])
     with pytest.raises(NotImplementedError, match="not ported"):
         InferenceEngine(get_config("tiny-llama", INFER), tiny["torch"], device="cpu",
                         fault_injector=inj)

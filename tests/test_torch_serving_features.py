@@ -203,12 +203,11 @@ def test_sampled_lone_request_same_chunked_and_unchunked():
 @pytest.mark.parametrize("override,error,match", [
     ("inference.prefill_chunk_tokens=24", ValueError, "prefill_chunk_tokens"),
     ("inference.prefill_chunk_tokens=8", ValueError, "prefill_chunk_tokens"),
-    ("inference.paged_prefill=false", NotImplementedError, "paged_prefill"),
     ("inference.kv_quant=int4", ValueError, "kv_quant"),
 ])
 def test_config_validation(override, error, match):
     """(i) bad chunk budgets and an unknown kv_quant raise as they do in the
-    JAX engine; paged_prefill=false is not ported and raises."""
+    JAX engine (paged_prefill=false serves: tests/test_torch_attention_pos.py)."""
     ov = ["inference.chunked_prefill=true", override]
     jcfg, jp, cfg, tp = _pair("tiny-llama", ov)
     if error is ValueError:
