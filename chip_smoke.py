@@ -17,7 +17,7 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
-  kernels  K1-K10 and K4's, K9's and K10's split merges against their plain
+  kernels  K1-K10 and K4's, K9's, K10's and K3-pos's split merges against their plain
            PyTorch versions on the card (the backward kernels against
            autograd of the plain forward; K5's scale gradient too, within
            TOL["rmsnorm_dscale"], also beside a float32 scale), at the
@@ -58,7 +58,12 @@ exits non-zero without printing a result:
            explicit-positions branch in both dtypes at the gather body's
            layout (4 rows over prefixes of 0-7936 tokens, 256-token tails;
            no window and 4096) and a striped permutation at the training
-           shapes, and identity positions bitwise K3's index path
+           shapes, output and lse; bf16 (the split walk and its merge): two
+           launches give the same bits, the split run within TOL of the
+           one-split run, a shape whose blocks mostly have splits with no
+           live step and a row that attends nothing (zeros, lse NEG_INF),
+           and the merge against its plain version; identity positions on
+           one split bitwise K3's index path
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            the same prompts on cuda with every dispatch eager
@@ -158,7 +163,7 @@ exits non-zero without printing a result:
            tiers (the step fails once, the request completes)
   serve_gather  llama3-8b-infer with the prefix cache and
            paged_prefill=false: a second wave's hits run the gather body
-           (K3 with positions, no K9); each warm row's first logits within
+           (K3 with positions and its merge, no K9); each warm row's first logits within
            GATHER_LOGIT_REL (relative RMS) of the paged_prefill=true
            engine's; tiny-llama float32: both settings' streams equal
   serve_long  Mistral-7B (mistral-7b-fsdp, parallel.fsdp=1: window 4096 on
@@ -301,6 +306,9 @@ TOL = {
     "paged_decode_merge": {"bfloat16": (1e-2, 1e-2)},
     # K10's merge (bf16 only): as K4's, per query row.
     "ragged_verify_merge": {"bfloat16": (1e-2, 1e-2)},
+    # K3-pos's merge (bf16 only): as K9's (float32 sums over a block's
+    # splits in another order, then one bf16 rounding on both sides).
+    "flash_fwd_pos_merge": {"bfloat16": (1e-2, 1e-2)},
     # serve_graphs (a): a dispatch program's logits, captured against the
     # same program run eagerly: the same kernels on the same inputs, so
     # equal unless cuBLAS picks another GEMM algorithm under capture, which
@@ -361,6 +369,10 @@ KERNEL_META = {
     # across blocks and merges the splits' states, per query row, here.
     "ragged_verify_merge": dict(route="cuda", source="orion_tpu_torch/csrc/ragged_verify.cu",
                                 replaces="orion_tpu/ops/pallas/ragged_paged_attention.py:483"),
+    # The same for K3's positions branch: the bf16 kernel splits a block's
+    # live key steps across blocks and merges the splits' states here.
+    "flash_fwd_pos_merge": dict(route="cuda", source="orion_tpu_torch/csrc/flash_fwd.cu",
+                                replaces="orion_tpu/ops/pallas/flash_attention.py:178"),
 }
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
@@ -1562,46 +1574,165 @@ def k3pos_striped_inputs(dtype, gen):
 
 
 def check_k3pos(dtype, gen):
-    """K3's explicit-positions branch against attention_plain with the same
-    positions: the gather body's layout without and with a window (real
-    rows compared), and the striped permutation, causal. Then identity
-    positions at the serve's prefill shapes must give K3's index path
-    bit for bit (the same steps in the same order; a step one path skips
-    and the other computes is wholly masked). Returns the max error."""
+    """K3's explicit-positions branch against attention_plain (and its lse
+    against attention_lse_plain) with the same positions: the gather body's
+    layout without and with a window (real rows compared), and the striped
+    permutation, causal. bf16 (the split walk): two launches give the same
+    bits, the split run is within TOL of the one-split run, and the many-
+    splits shape holds. Then identity positions at the serve's prefill
+    shapes must give K3's index path bit for bit, on one split (the same
+    steps in the same order; a step one path skips and the other computes
+    is wholly masked). Returns the max error."""
     import torch
 
     from orion_tpu_torch import ops
 
     dn = str(dtype).split(".")[-1]
+    bf16 = dtype == torch.bfloat16
     errs = []
     q, k, v, kw = k3pos_gather_inputs(dtype, gen)
     real = kw["q_segment_ids"] > 0
+    args = (q, k, v, kw["q_positions"], kw["kv_positions"])
+    seg = dict(q_segment_ids=kw["q_segment_ids"], kv_segment_ids=kw["kv_segment_ids"],
+               seg_pad_zero=True)
     for window in (None, K3POS_WINDOW):
-        got = ops.flash_attention_pos_cuda(
-            q, k, v, kw["q_positions"], kw["kv_positions"],
-            q_segment_ids=kw["q_segment_ids"], kv_segment_ids=kw["kv_segment_ids"],
-            seg_pad_zero=True, window=window)
+        got, lse = ops.flash_attention_pos_cuda(*args, window=window, return_lse=True, **seg)
         errs.append(require_close("flash_fwd_pos", dn, got,
                                   ops.attention_plain(q, k, v, window=window, **kw), rows=real))
-    del q, k, v, got
+        require_close("flash_lse", dn, lse.transpose(1, 2),
+                      ops.attention_lse_plain(q, k, window=window, **kw).transpose(1, 2),
+                      rows=real)
+        if bf16:
+            again, lse2 = ops.flash_attention_pos_cuda(*args, window=window, return_lse=True,
+                                                       **seg)
+            if not (torch.equal(bits(got), bits(again)) and torch.equal(bits(lse), bits(lse2))):
+                raise AssertionError(f"K3-pos bf16 window={window}: two launches differ")
+            one = ops.flash_attention_pos_cuda(*args, window=window, _one_split=True, **seg)
+            errs.append(require_close("flash_fwd_pos", dn, got, one, rows=real))
+    del q, k, v, got, lse, args
     q, k, v, kw = k3pos_striped_inputs(dtype, gen)
-    got = ops.flash_attention_pos_cuda(q, k, v, kw["q_positions"], kw["kv_positions"])
+    got, lse = ops.flash_attention_pos_cuda(q, k, v, kw["q_positions"], kw["kv_positions"],
+                                            return_lse=True)
     errs.append(require_close("flash_fwd_pos", dn, got, ops.attention_plain(q, k, v, **kw)))
-    del q, k, v, got
+    require_close("flash_lse", dn, lse, ops.attention_lse_plain(q, k, **kw))
+    del q, k, v, got, lse
+    if bf16:
+        errs.append(check_k3pos_many_splits(gen))
     q, k, v, seg = k3_inputs(dtype, gen)
     pos = torch.arange(S_PRE, device="cuda", dtype=torch.int32).expand(B_PRE, -1).contiguous()
     kw = dict(q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
-    if not torch.equal(bits(ops.flash_attention_pos_cuda(q, k, v, pos, pos, **kw)),
+    if not torch.equal(bits(ops.flash_attention_pos_cuda(q, k, v, pos, pos, _one_split=True,
+                                                         **kw)),
                        bits(ops.flash_attention_cuda(q, k, v, **kw))):
         raise AssertionError(f"K3 {dn}: identity positions differ from the index path")
     torch.cuda.empty_cache()
     return max(errs)
 
 
+# The many-splits shape: a 16384-key prefix (520 key steps: 5 splits in
+# the grid at these widths); row 0 resumes at 0 (its blocks walk the tail
+# alone: one active split, four with no live step), row 1 over the whole
+# prefix (every split active), and row 2 attends nothing (its kv positions
+# all past its queries'). With a window on row 1's long walk too.
+K3POS_MANY_PRE = 16384
+
+
+def check_k3pos_many_splits(gen):
+    """The bf16 split walk where most splits of a block have no live step
+    and one row attends nothing: real rows against attention_plain and
+    attention_lse_plain, row 2 exactly zeros with lse NEG_INF, with and
+    without a window. Returns the max error."""
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.flash_pos import grid_splits
+
+    B, S, n_pre = 3, K9_S, K3POS_MANY_PRE
+    q = torch.randn(B, S, N_HEADS, HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, n_pre + S, N_KV, HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, n_pre + S, N_KV, HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    ar, pre = torch.arange(S, device="cuda"), torch.arange(n_pre, device="cuda")
+    qpos = torch.stack([ar, n_pre + ar, ar]).to(torch.int32)
+    kpos = torch.cat([pre.expand(B, -1), qpos], 1).to(torch.int32)
+    kpos[2] += 10 ** 6
+    kseg = torch.ones(B, n_pre + S, dtype=torch.int32, device="cuda")
+    kseg[0, :n_pre] = 0
+    qseg = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    kw = dict(q_positions=qpos, kv_positions=kpos, q_segment_ids=qseg, kv_segment_ids=kseg)
+    if grid_splits(B, S, n_pre + S, N_HEADS, N_KV) < 4:
+        raise AssertionError("K3-pos many splits: the grid does not split")
+    errs = []
+    for window in (None, K3POS_WINDOW):
+        got, lse = ops.flash_attention_pos_cuda(q, k, v, qpos, kpos, q_segment_ids=qseg,
+                                                kv_segment_ids=kseg, seg_pad_zero=True,
+                                                window=window, return_lse=True)
+        if got[2].any() or not (lse[2] <= -1e30 / 2).all() or (lse[:2] <= -1e30 / 2).any():
+            raise AssertionError(f"K3-pos many splits window={window}: the row that "
+                                 "attends nothing is not zeros with lse NEG_INF")
+        errs.append(require_close("flash_fwd_pos", "bfloat16", got,
+                                  ops.attention_plain(q, k, v, window=window, **kw)))
+        require_close("flash_lse", "bfloat16", lse,
+                      ops.attention_lse_plain(q, k, window=window, **kw))
+    del q, k, v, got, lse
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def pos_merge_inputs(gen, *, B=4, S=K9_S, N=N_HEADS, K=N_KV, H=HEAD, n_sp=8):
+    """Partials of the positions kernel's merge at the gather body's widths:
+    float32 O and (m, l) of n_sp splits, each (row, q tile) block with 1 to
+    n_sp active splits (cycling), and one query row of each merged block
+    whose splits attended nothing (m NEG_INF, l 0, O 0); out and lse
+    filled with noise the merge must overwrite only on merged blocks."""
+    import torch
+
+    from orion_tpu_torch.ops.common import q_tile
+
+    tq = q_tile(N // K)
+    n_qt = -(-S // tq)
+    o = torch.randn(n_sp, B, S, N, H, generator=gen, device="cuda")
+    ml = torch.randn(n_sp, B, S, N, 2, generator=gen, device="cuda")
+    ml[..., 0] *= 4
+    ml[..., 1] = 4 * ml[..., 1].abs() + 0.5
+    n_act = (torch.arange(B * n_qt, device="cuda") % n_sp + 1).to(torch.int32).view(B, n_qt)
+    ml[:, :, ::tq, :, 0], ml[:, :, ::tq, :, 1], o[:, :, ::tq] = -1e30, 0.0, 0.0
+    out = torch.randn(B, S, N, H, generator=gen, device="cuda").to(torch.bfloat16)
+    lse = torch.randn(B, N, S, generator=gen, device="cuda")
+    return o, ml, n_act, out, lse, tq
+
+
+def check_pos_merge(gen):
+    """K3-pos's merge kernel against its plain version: the merged rows
+    (out and lse; a row with nothing attended 0 and NEG_INF) and every
+    other row of out and lse untouched."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    o, ml, n_act, out, lse, tq = pos_merge_inputs(gen)
+    want, want_lse = ops.flash_pos_merge_plain(o, ml, n_act, out.clone(), lse.clone(), tq=tq)
+    before, before_lse = out.clone(), lse.clone()
+    got, got_lse = ops.flash_pos_merge_cuda(o, ml, n_act, out, lse, tq=tq)
+    torch.cuda.synchronize()
+    merged = (n_act > 1).repeat_interleave(tq, dim=1)[:, :out.shape[1]]   # [B, S]
+    if not (torch.equal(bits(got[~merged]), bits(before[~merged]))
+            and torch.equal(bits(got_lse.transpose(1, 2)[~merged]),
+                            bits(before_lse.transpose(1, 2)[~merged]))):
+        raise AssertionError("flash_fwd_pos_merge: a row of a one-split block changed")
+    empty = torch.zeros_like(merged)
+    empty[:, ::tq] = True
+    empty &= merged
+    if got[empty].any() or not (got_lse.transpose(1, 2)[empty] <= -1e30 / 2).all():
+        raise AssertionError("flash_fwd_pos_merge: a row with nothing attended is not 0")
+    require_close("flash_lse", "bfloat16", got_lse, want_lse)
+    return require_close("flash_fwd_pos_merge", "bfloat16", got, want)
+
+
 def k3pos_pairs(qpos, kpos, qseg, kseg, window):
-    """(query, key) pairs in the (16-row warp, 32-key step) tiles that K3's
-    positions branch computes on this data: tiles not skipped by their
-    position extremes or by seg_pad_zero liveness (64-row q tiles)."""
+    """(query, key) pairs in the (16-row warp, 32-key step) tiles that the
+    first K3 positions kernel computed on this data: tiles not skipped by
+    their position extremes or by seg_pad_zero liveness (64-row q tiles).
+    Printed beside the admitted pairs, which the bound now reads."""
     import torch
 
     B, Sq = qpos.shape
@@ -1619,6 +1750,15 @@ def k3pos_pairs(qpos, kpos, qseg, kseg, window):
         klive = (kseg.view(B, Skv // 32, 32) > 0).any(-1)
         live &= qlive[:, :, None] & klive[:, None, :]
     return int(live.sum()) * 16 * 32
+
+
+def k3pos_admitted_pairs(q, k, kw, window):
+    """(query, key) pairs the mask admits over the real query rows (segment
+    > 0): the work of attention with these positions, whatever the tiling."""
+    from orion_tpu_torch import ops
+
+    mask = ops.attention_mask(q.shape[1], k.shape[1], causal=True, window=window, **kw)
+    return int((mask & (kw["q_segment_ids"] > 0)[:, :, None]).sum())
 
 
 def phase_kernels():
@@ -1664,6 +1804,7 @@ def phase_kernels():
             errs[dn]["paged_prefill_merge"] = check_merge(gen)
             errs[dn]["paged_decode_merge"] = check_decode_merge(gen)
             errs[dn]["ragged_verify_merge"] = check_verify_merge(gen)
+            errs[dn]["flash_fwd_pos_merge"] = check_pos_merge(gen)
             for quant in (False, True):
                 check_k4_deterministic(gen, quant)
                 check_k10_deterministic(gen, quant)
@@ -3777,6 +3918,7 @@ LONG_REF_OVERRIDES = ["parallel.fsdp=1", "inference.chunked_prefill=true",
 # layers, held per row to a relative RMS of 2^-4 (K4_SLOT_REL's bound).
 GATHER_OVERRIDES = ["inference.prefix_cache=true", "inference.max_batch_size=8"]
 GATHER_LOGIT_REL = 2.0 ** -4
+GATHER_KERNELS = ("flash_fwd", "flash_fwd_pos", "flash_fwd_pos_merge", "paged_prefill")
 
 
 def mem_available() -> int:
@@ -4042,7 +4184,8 @@ def phase_serve_gather(params=None):
         del eng
         free_engine()
     g, p = out[False], out[True]
-    if g["launches"]["flash_fwd_pos"] <= 0 or g["launches"]["paged_prefill"] != 0:
+    if (g["launches"]["flash_fwd_pos"] <= 0 or g["launches"]["flash_fwd_pos_merge"] <= 0
+            or g["launches"]["paged_prefill"] != 0):
         raise AssertionError(f"serve_gather: gather body launches {g['launches']}")
     d = (g["logits"] - p["logits"]).pow(2).mean(-1).sqrt()
     rel = (d / p["logits"].pow(2).mean(-1).sqrt()).tolist()
@@ -4072,10 +4215,8 @@ def phase_serve_gather(params=None):
         raise AssertionError("serve_gather: tiny-llama f32 streams differ, or no K3-pos launch")
     emit({"phase": "serve_gather", "preset": "llama3-8b-infer", "overrides": GATHER_OVERRIDES,
           "first_logits_rel_rms": rel, "tolerance": GATHER_LOGIT_REL,
-          "gather_launches": {k: g["launches"][k] for k in ("flash_fwd", "flash_fwd_pos",
-                                                            "paged_prefill")},
-          "paged_launches": {k: p["launches"][k] for k in ("flash_fwd", "flash_fwd_pos",
-                                                           "paged_prefill")},
+          "gather_launches": {k: g["launches"][k] for k in GATHER_KERNELS},
+          "paged_launches": {k: p["launches"][k] for k in GATHER_KERNELS},
           "prefill_tok_s": {"gather": g["prefill_tok_s"], "paged": p["prefill_tok_s"]},
           "ttft_s_median": {"gather": g["ttft"], "paged": p["ttft"]},
           "tiny_f32_streams_equal": True,
@@ -5049,18 +5190,28 @@ def bound(nbytes, flops, rate):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+K3POS_WAS_MS = 0.857   # the first, unsplit kernel at these shapes (PERF.md kernel table)
+
+
 def k3pos_timing(gen):
-    """K3 with positions at the gather body's shapes (no window): the bound
-    by operations over the tiles it computes on this data; the library
-    call is SDPA with enable_gqa and the bool mask of the same positions
-    and segments."""
+    """K3 with positions at the gather body's shapes (no window): the split
+    kernel and its merge as the wrapper launches them (and its device time
+    alone), the bound by operations over the (query, key) pairs the mask
+    admits on the real rows; the library call is SDPA with enable_gqa and
+    the bool mask of the same positions and segments. Then the merge alone
+    on partials of the same shapes and the same plan (each block's active
+    splits), bound by its bytes: each merged row's partials read once, its
+    output and lse written."""
     import torch
     import torch.nn.functional as F
 
     from orion_tpu_torch import ops
+    from orion_tpu_torch.ops.common import q_tile
+    from orion_tpu_torch.ops.flash_pos import grid_splits, split_plan
 
     q, k, v, kw = k3pos_gather_inputs(torch.bfloat16, gen)
-    pairs = k3pos_pairs(kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
+    pairs = k3pos_admitted_pairs(q, k, kw, None)
+    tiles = k3pos_pairs(kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
                         kw["kv_segment_ids"], None)
     nb = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * sum(t.numel() for t in kw.values())
     mask = ops.attention_mask(q.shape[1], k.shape[1], causal=True, **kw)[:, None]
@@ -5068,15 +5219,46 @@ def k3pos_timing(gen):
     pos_args = (kw["q_positions"], kw["kv_positions"])
     seg_kw = dict(q_segment_ids=kw["q_segment_ids"], kv_segment_ids=kw["kv_segment_ids"],
                   seg_pad_zero=True)
-    out = dict(
-        ms=time_ms(lambda: ops.flash_attention_pos_cuda(q, k, v, *pos_args, **seg_kw)),
+    B, S, N, H = q.shape
+    n_sp = grid_splits(B, S, k.shape[1], N, N_KV)
+    _, n_act = split_plan(*(t.cpu() for t in (kw["q_positions"], kw["kv_positions"],
+                                              kw["q_segment_ids"], kw["kv_segment_ids"])),
+                          n_heads=N, n_kv_heads=N_KV, seg_pad_zero=True, n_splits=n_sp)
+
+    def fwd():
+        return ops.flash_attention_pos_cuda(q, k, v, *pos_args, **seg_kw)
+
+    res = {"flash_fwd_pos": dict(
+        ms=time_ms(fwd), device_ms=graph_ms(fwd),
         plain_ms=time_ms(lambda: ops.attention_plain(q, k, v, **kw)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-        bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S), pairs_computed=pairs)
+        bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S), pairs_admitted=pairs,
+        pairs_in_first_kernel_tiles=tiles, was_ms=K3POS_WAS_MS, n_splits=n_sp,
+        n_act=n_act.flatten().tolist())}
     del q, k, v, qt, kt, vt, mask
+
+    tq = q_tile(N // N_KV)
+    o = torch.randn(n_sp, B, S, N, H, generator=gen, device="cuda")
+    ml = torch.rand(n_sp, B, S, N, 2, generator=gen, device="cuda") + 0.5
+    n_act = n_act.to(device="cuda", dtype=torch.int32)
+    out = torch.empty(B, S, N, H, dtype=torch.bfloat16, device="cuda")
+    lse = torch.empty(B, N, S, device="cuda")
+    blocks = n_act.repeat_interleave(tq, dim=1)[:, :S]                 # [B, S] splits read
+    n_read = int(blocks[blocks > 1].sum()) * N
+    n_rows = int((blocks > 1).sum()) * N
+    mb = n_read * (H + 2) * 4 + n_rows * (H * 2 + 4) + n_act.numel() * 4
+
+    def merge():
+        return ops.flash_pos_merge_cuda(o, ml, n_act, out, lse, tq=tq)
+
+    res["flash_fwd_pos_merge"] = dict(
+        ms=time_ms(merge), device_ms=graph_ms(merge),
+        plain_ms=time_ms(lambda: ops.flash_pos_merge_plain(o, ml, n_act, out, lse, tq=tq)),
+        library_ms=None, bound=bound(mb, 6 * n_read * H, F32_FLOPS_S))
+    del o, ml, out, lse
     torch.cuda.empty_cache()
-    return out
+    return res
 
 
 def phase_timing():
@@ -5120,7 +5302,7 @@ def phase_timing():
         bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S))
     del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
-    res["flash_fwd_pos"] = k3pos_timing(gen)
+    res.update(k3pos_timing(gen))
 
     for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
         res[name] = k4_timing(gen, quant, K4_LAST_POS)
@@ -5133,7 +5315,8 @@ def phase_timing():
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
                  if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms",
-                          "host_us", "partial_rows", "pairs_computed")}
+                          "host_us", "partial_rows", "pairs_admitted",
+                          "pairs_in_first_kernel_tiles", "was_ms", "n_splits", "n_act")}
         emit({"phase": "timing", "kernel": name, "dtype": "bfloat16", "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], **extra})

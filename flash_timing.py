@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Time K3 (the flash-attention forward) through the port's wrappers in one
+or more checkouts of the repo, in turns on one GPU: its index path at the
+serve's and the training path's shapes, and its explicit-positions branch
+at the gather prefill body's shapes, beside SDPA.
+
+    python3 flash_timing.py                                   # this checkout
+    python3 flash_timing.py --tree _scratch/parent --tree .   # two, in turns
+    python3 flash_timing.py --splits 1,4,5,8                  # + split counts
+
+Each ``--tree`` is a directory holding an ``orion_tpu_torch`` package; all
+are imported into this one process (one after another, each keeping its
+own modules and building its own kernels) and timed round by round in the
+order given, so two trees share the card, its clocks and its neighbours.
+bfloat16 rows, chip_smoke.py's inputs:
+
+  k3_serve   flash_attention_cuda at the serve's prefill (4 x 2048 ragged,
+             32 heads, 8 kv heads, head_dim 128, seg_pad_zero)
+  k3_train   flash_attention_cuda with lse at the training shapes
+  k3pos      flash_attention_pos_cuda at the gather body's shapes (4 rows
+             of 256 over 128 prefix pages of 64), merge included
+  sdpa_pos   SDPA with enable_gqa and the bool mask of the same positions
+             (once a round)
+
+``--splits`` adds, for the last tree, ``k3pos_splits_<n>``: the positions
+branch with the grid's split count forced to n (the tree's
+``ops.attention.grid_splits`` replaced for the row). Per row: ``ms``
+(chip_smoke's time_ms) and ``device_ms`` (chip_smoke's graph_ms), and for
+each tree after the first whether ``k3_serve``'s output is bitwise the
+first tree's. One JSON line per round, then a summary line with the
+median, min and max over the rounds, then the card's nvidia-smi name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from norm_timing import summary
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_ops(tree):
+    """``orion_tpu_torch.ops`` of ``tree`` and its ``ops.attention`` module;
+    earlier trees' modules stay alive through the references held."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "orion_tpu_torch"]:
+        del sys.modules[name]
+    path = os.path.abspath(tree)
+    sys.path.insert(0, path)
+    try:
+        from orion_tpu_torch import ops
+    finally:
+        sys.path.remove(path)
+    return ops, sys.modules["orion_tpu_torch.ops.attention"]
+
+
+def timed(fn):
+    from chip_smoke import graph_ms, time_ms
+
+    return {"ms": time_ms(fn), "device_ms": graph_ms(fn)}
+
+
+def rows(ops, att, inputs, splits):
+    """Every row for one tree; also k3_serve's output for the bitwise check."""
+    serve, train, pos = inputs
+    q, k, v, seg = serve
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
+    res = {"k3_serve": timed(lambda: ops.flash_attention_cuda(q, k, v, **kw))}
+    out = ops.flash_attention_cuda(q, k, v, **kw)
+    tq, tk, tv = train
+    res["k3_train"] = timed(lambda: ops.flash_attention_cuda(tq, tk, tv, causal=True,
+                                                             return_lse=True))
+    pq, pk, pv, pkw = pos
+    args = (pq, pk, pv, pkw["q_positions"], pkw["kv_positions"])
+    seg_kw = dict(q_segment_ids=pkw["q_segment_ids"], kv_segment_ids=pkw["kv_segment_ids"],
+                  seg_pad_zero=True)
+    res["k3pos"] = timed(lambda: ops.flash_attention_pos_cuda(*args, **seg_kw))
+    if splits:
+        grid_splits = att.grid_splits
+        try:
+            for n in splits:
+                att.grid_splits = lambda *a, n=n: n
+                res[f"k3pos_splits_{n}"] = timed(
+                    lambda: ops.flash_attention_pos_cuda(*args, **seg_kw))
+        finally:
+            att.grid_splits = grid_splits
+    return res, out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--tree", action="append",
+                        help="checkout holding orion_tpu_torch (repeatable; default: this one)")
+    parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--splits", default="",
+                        help="comma-separated split counts of K3-pos to time in the last tree")
+    args = parser.parse_args(argv)
+
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("flash_timing: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
+    trees = args.tree or [HERE]
+    loaded = {tree: load_ops(tree) for tree in trees}
+    splits = [int(s) for s in args.splits.split(",") if s]
+    gen = torch.Generator(device="cuda")
+    rounds = []
+    for i in range(args.rounds):
+        gen.manual_seed(i)
+        serve = cs.k3_inputs(torch.bfloat16, gen)
+        train = cs.t_attn_inputs(torch.bfloat16, gen)[:3]
+        pos = cs.k3pos_gather_inputs(torch.bfloat16, gen)
+        pq, pk, pv, pkw = pos
+        mask = loaded[trees[-1]][0].attention_mask(pq.shape[1], pk.shape[1], causal=True,
+                                                   **pkw)[:, None]
+        lib = [t.transpose(1, 2) for t in (pq, pk, pv)]
+        rnd, first = {}, None
+        for tree in trees:
+            ops, att = loaded[tree]
+            r, out = rows(ops, att, (serve, train, pos), splits if tree == trees[-1] else [])
+            if first is None:
+                first = cs.bits(out)
+            else:
+                r["k3_serve_bitwise_first_tree"] = bool(torch.equal(cs.bits(out), first))
+            rnd[tree] = r
+        rnd["sdpa_pos"] = {"sdpa": timed(lambda: F.scaled_dot_product_attention(
+            *lib, attn_mask=mask, enable_gqa=True))}
+        del serve, train, pos, pq, pk, pv, pkw, mask, lib, first
+        torch.cuda.empty_cache()
+        print(json.dumps({"round": i, **rnd}), flush=True)
+        rounds.append({t: {k: v for k, v in r.items() if isinstance(v, dict)}
+                       for t, r in rnd.items()})
+    print(json.dumps({"summary": summary(rounds), "rounds": args.rounds}), flush=True)
+    print(cs.smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

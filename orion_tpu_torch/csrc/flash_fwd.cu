@@ -1,5 +1,5 @@
 // K3: flash-attention forward for prefill and training, hand-written for
-// Hopper (sm_90a).
+// Hopper (sm_90a), and the merge of its positions branch's split walk.
 //
 // Replaces the TPU kernel orion_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (the pl.pallas_call in _fwd_call): grouped-query attention with an online
@@ -21,15 +21,39 @@
 // P_pre*psz) and the tail, so a row with a short prefix meets prefix
 // columns that are padding, and a striped layout (sequence parallelism)
 // gives positions that do not rise. Positions are read, never assumed:
-// each block first lists the key steps it may attend (flash_tc.cuh
+// a block first lists the key steps it may attend (flash_tc.cuh
 // live_steps: the block's q position extremes against each step's kv
 // extremes, and the seg_pad_zero liveness), in shared memory, and its
 // loop walks that list, so a dead step is neither loaded nor computed;
-// inside, the bf16 kernel tests each warp's extremes per step (dead, or
-// full with no mask) as the index path does, and the mask compares the
-// pair's positions. The list costs one pass over the row's kv positions
-// per block (4 bytes a key, from L2) against 2 * H * 2 bytes a key of K
-// and V.
+// inside, each warp tests its own extremes per step (dead, or full with
+// no mask), and the mask compares the pair's positions. The list costs
+// one coalesced pass over the row's kv positions per block (4 bytes a key,
+// from L2) against 2 * H * 2 bytes a key of K and V.
+//
+// bfloat16 with positions (flash_fwd_pos_tc_kernel) is its own kernel,
+// because at the gather body's shapes (4 rows of 256 queries over up to
+// 8448 keys, rows resuming at 0 to 7936) a block per (q tile, head, row)
+// leaves the time to the serial walk of the longest rows' blocks, ~260
+// steps each, while the short rows' blocks sit idle, and the four heads of
+// a group would load the same K and V steps in four blocks:
+//   - the group's G query heads share a block, tq = the largest power of
+//     two with G * tq <= 128 queries of each (flash_tc.cuh PackRows), so a
+//     K/V step is loaded once per kv head, not once per query head (K9's
+//     packing);
+//   - the (row, q tile, kv head) walk splits over the grid's n_splits
+//     (from the shapes, ops/flash_pos.py grid_splits): every split block
+//     computes the same live-step list and takes an even share of it, one
+//     split per split_steps live steps and at most n_splits. Splitting the
+//     list, not fixed key ranges, balances the gather layout's long and
+//     short rows and a striped layout alike: a split never holds dead
+//     steps, and a short row takes one split, whose block writes the
+//     normalized output (and lse) itself;
+//   - otherwise each split writes float32 partials (O unnormalized, m, l;
+//     [n_splits, B, Sq, N, H] and [.., 2]) and flash_pos_merge_kernel
+//     combines them in split order, so the same inputs give the same
+//     bits; each block's active splits reach the merge through n_act;
+//   - the step itself is the index kernel's (attend_step, below),
+//     so identity positions on one split give the index path's bits.
 //
 // What bounds it on an H100: operations. Attention does two products of
 // 2*H flops per (query, key) pair (q.k and p.v: about 4*H flops) against
@@ -89,6 +113,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_tc.cuh"
 
 namespace {
@@ -111,6 +137,14 @@ struct Args {
   int Sq, Skv, N, K;
   int causal, q_offset, window, seg_pad_zero;
   float softcap, scale;
+  // bf16 with positions (flash_fwd_pos_tc_kernel) and its merge: queries
+  // per block, splits in the grid, live steps per split, the float32
+  // partials [n_splits, B, Sq, N, HD] / [.., 2] (m, l) and each (row, q
+  // tile) block's active splits [B, ceil(Sq / tq)] (null with one split).
+  int tq, n_splits, split_steps, B;
+  float* o_part;
+  float* ml_part;
+  int* n_act;
 };
 
 // Explicit positions add the tile's q and kv positions, live_steps'
@@ -184,7 +218,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     // The tile's live key steps from the positions (flash_tc.cuh).
     const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, has_seg, skip_pad,
                       a.qpos, a.kpos};
-    n_iter = ftc::live_steps<BQ>(m, a.kseg, b, q0, !skip_pad || q_live, steps, red);
+    n_iter = ftc::live_steps(m, a.kseg, b, q0, BQ, !skip_pad || q_live, steps, red);
   }
 
   float acc[4][HC];
@@ -323,14 +357,10 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
   __nv_bfloat16* ring = qs + ROWS * LD;                // [2][K [KB][LD], V [KB][LD]]
   int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
-  int* kpos_ring = kseg_ring + 2 * KB;  // [2][KB] (positions)
-  int* red = kpos_ring + 2 * KB;        // [4]
-  int* steps = red + 4;                 // [n_kt]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = lane >> 2, tig = lane & 3;
   const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
-                    a.qseg != nullptr && a.seg_pad_zero != 0, a.qpos, a.kpos};
-  const bool has_pos = a.qpos != nullptr;
+                    a.qseg != nullptr && a.seg_pad_zero != 0};
   const int n = blockIdx.x, b = blockIdx.y;
   const int q0 = ftc::q_tile<true>(m) * ROWS;
   const int kvh = n / (a.N / a.K);
@@ -342,10 +372,7 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
   int kt_begin, kt_end;
   ftc::step_range(m, q0, kt_begin, kt_end);
   if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
-  int n_steps = kt_end - kt_begin;
-  if (has_pos) n_steps = any_live ? ftc::live_steps<ROWS>(m, a.kseg, b, q0, true, steps, red) : 0;
-  // The key step of loop iteration i.
-  auto step_k0 = [&](int i) { return (has_pos ? steps[i] : kt_begin + i) * KB; };
+  const int n_steps = kt_end - kt_begin;
 
   if (n_steps > 0) {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -355,7 +382,7 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
       const int64_t off = in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + n) * HD + c : 0;
       tc::cp16(qs + r * LD + c, q + off, in);
     }
-    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, step_k0(0), ring, kseg_ring, kpos_ring);
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, kt_begin * KB, ring, kseg_ring);
     tc::cp_commit();
   }
 
@@ -371,16 +398,14 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
     tc::cp_wait_all();
     __syncthreads();  // step i staged; every read of the previous step done
     if (i + 1 < n_steps)
-      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, step_k0(i + 1),
-                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB,
-                         kpos_ring + (st ^ 1) * KB);
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (kt_begin + i + 1) * KB,
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB);
     tc::cp_commit();
     const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
     const __nv_bfloat16* vt = kt + KB * LD;
     const int* ks = kseg_ring + st * KB;
-    const int* kp = kpos_ring + st * KB;
-    const int k0 = step_k0(i);
-    const ftc::Step step = ftc::classify(m, rows, k0, ks, kp);
+    const int k0 = (kt_begin + i) * KB;
+    const ftc::Step step = ftc::classify(m, rows, k0, ks);
     if (step.dead) continue;  // uniform over the warp
 
     // S = Q . K^T for the warp's 16 rows x 32 keys.
@@ -412,10 +437,7 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
         if (a.softcap > 0.f) z = a.softcap * tanhf(z / a.softcap);
         if (!step.full) {
           const int h = e4 >> 1, cl = j * 8 + 2 * tig + (e4 & 1);
-          // kp (the positions' ring) is allocated only with positions.
-          if (!ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl],
-                         has_pos ? rows.qp[h] : 0, has_pos ? kp[cl] : 0))
-            z = -INFINITY;
+          if (!ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl])) z = -INFINITY;
         }
         s[j][e4] = z;
       }
@@ -497,17 +519,293 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_tc_k
   }
 }
 
-// bf16: the tensor-core kernel; float32 keeps flash_fwd_kernel (CUDA cores).
-// Explicit positions add shared memory for the step list (n_kt ints) and
-// the kv positions' ring.
+// ---------------------------------------------------------------------------
+// bfloat16 with explicit positions: the group's G query heads packed into
+// one block, its live key steps split across blocks, and a merge (see the
+// note at the top of the file).
+
+// One key step of K3's bf16 forward for the warp's 16 rows (rows warp * 16
+// .. + 15 of the Q tile qs) against the staged K and V (kt, vt; rows of HD
+// + 8): S = Q . K^T with mma.sync, the scale and softcap in f32 (H^-0.5 is
+// no power of two: q * scale rounded to bf16 would move the lse), where the
+// step is not full the mask as -inf (keep(h, cl): the thread's row grp + 8h
+// against key cl of the step), the online softmax per row (m_run, l_run;
+// a row's four lanes reduce by shuffles), and O += P . V with P as bf16 A
+// fragments straight from the logits' registers (the C layout of two
+// adjacent 8-key blocks is the A layout of one 16-key block). It is the
+// index kernel's loop body, operation for operation, so identity positions
+// on one split give the index path's bits (the identity check holds them
+// bitwise); the index kernel keeps its copy inline, where calling this one
+// measured slower.
+template <int HD, typename Keep>
+__device__ __forceinline__ void attend_step(const __nv_bfloat16* qs, const __nv_bfloat16* kt,
+                                            const __nv_bfloat16* vt, bool full, float scale,
+                                            float softcap, float (&o)[HD / 8][4],
+                                            float (&m_run)[2], float (&l_run)[2], Keep keep) {
+  constexpr int LD = HD + 8;
+  constexpr int NH = HD / 8;  // 8-column blocks of the output per warp
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  // S = Q . K^T for the warp's 16 rows x 32 keys.
+  float s[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 16) {
+    uint32_t qa[4];
+    tc::load_a(qa, qs, LD, warp * 16, kk, lane);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t kb4[4];
+      tc::load_b_nk(kb4, kt, LD, jp * 16, kk, lane);
+      tc::mma(s[2 * jp], qa, kb4[0], kb4[1]);
+      tc::mma(s[2 * jp + 1], qa, kb4[2], kb4[3]);
+    }
+  }
+
+  const int tig = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) {
+      float z = s[j][e4] * scale;
+      if (softcap > 0.f) z = softcap * tanhf(z / softcap);
+      if (!full && !keep(e4 >> 1, j * 8 + 2 * tig + (e4 & 1))) z = -INFINITY;
+      s[j][e4] = z;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(ftc::FULL, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(ftc::FULL, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h]);  // finite: m_run starts at NEG_INF
+    alpha[h] = tc::exp_(m_run[h] - m_new);
+    m_run[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) {
+      const float p = tc::exp_(s[j][e4] - m_run[e4 >> 1]);  // 0 for a masked key
+      sum[e4 >> 1] += p;
+      s[j][e4] = p;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(ftc::FULL, sum[h], 1);
+    sum[h] += __shfl_xor_sync(ftc::FULL, sum[h], 2);
+    l_run[h] = l_run[h] * alpha[h] + sum[h];
+  }
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+
+  // O += P . V.
+#pragma unroll
+  for (int kk = 0; kk < ftc::KB / 16; ++kk) {
+    uint32_t pa[4];
+    pa[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int jp = 0; jp < NH / 2; ++jp) {
+      uint32_t vb[4];
+      tc::load_b_kn(vb, vt, LD, kk * 16, jp * 16, lane);
+      tc::mma(o[2 * jp], pa, vb[0], vb[1]);
+      tc::mma(o[2 * jp + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+// Splits that walk a block's n_live live steps: one per split_steps, at
+// least one, at most the grid's (ops/flash_pos.py active_splits).
+__device__ __forceinline__ int active_splits(const Args& a, int n_live) {
+  return min(a.n_splits, max(1, (n_live + a.split_steps - 1) / a.split_steps));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_fwd_pos_tc_kernel(Args a) {
+  using ftc::KB;
+  using ftc::ROWS;
+  constexpr int LD = HD + 8;
+  constexpr int NH = HD / 8;  // 8-column blocks of the output per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
+  __nv_bfloat16* ring = qs + ROWS * LD;                // [2][K [KB][LD], V [KB][LD]]
+  int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
+  int* kpos_ring = kseg_ring + 2 * KB;  // [2][KB]
+  ftc::WarpFacts* wf = reinterpret_cast<ftc::WarpFacts*>(kpos_ring + 2 * KB);  // [8]
+  int* red = reinterpret_cast<int*>(wf + ftc::NT / 32);  // [4]
+  int* steps = red + 4;                                  // [n_kt]
+  int* facts = steps + (a.Skv + KB - 1) / KB;            // [n_kt][3]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tig = lane & 3;
+  const ftc::Mask m{a.Sq, a.Skv, a.causal, 0, a.window, a.qseg != nullptr,
+                    a.qseg != nullptr && a.seg_pad_zero != 0, a.qpos, a.kpos};
+  const int G = a.N / a.K, tq = a.tq;
+  const int qt = blockIdx.x, kvh = blockIdx.y;
+  const int b = blockIdx.z / a.n_splits, split = blockIdx.z % a.n_splits;
+  const int q0 = qt * tq;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  // Every split of the block lists the same live steps and takes its
+  // share of them; splits past the block's active ones have nothing.
+  ftc::PackRows rows;
+  const bool any_live = ftc::load_packed_rows(m, a.qseg, b, q0, tq, G, rows, wf);
+  const int n_live =
+      any_live ? ftc::live_steps(m, a.kseg, b, q0, tq, true, steps, red, facts) : 0;
+  const int n_act = active_splits(a, n_live);
+  if (split >= n_act) return;  // uniform over the block
+  if (a.n_act != nullptr && split == 0 && kvh == 0 && tid == 0)
+    a.n_act[static_cast<int64_t>(b) * gridDim.x + qt] = n_act;
+  const int i0 = split * n_live / n_act;
+  const int n_steps = (split + 1) * n_live / n_act - i0;
+
+  if (n_steps > 0) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+    for (int idx = tid; idx < ROWS * (HD / 8); idx += ftc::NT) {
+      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+      const int g = r / tq, s = q0 + r % tq;
+      const bool in = g < G && s < a.Sq;
+      const int64_t off =
+          in ? ((static_cast<int64_t>(b) * a.Sq + s) * a.N + kvh * G + g) * HD + c : 0;
+      tc::cp16(qs + r * LD + c, q + off, in);
+    }
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, steps[i0] * KB, ring, kseg_ring,
+                       kpos_ring);
+    tc::cp_commit();
+  }
+
+  float o[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {ftc::NEG_INF, ftc::NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    tc::cp_wait_all();
+    __syncthreads();  // step i staged; every read of the previous step done
+    if (i + 1 < n_steps)
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, steps[i0 + i + 1] * KB,
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB,
+                         kpos_ring + (st ^ 1) * KB);
+    tc::cp_commit();
+    const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
+    const __nv_bfloat16* vt = kt + KB * LD;
+    const int* ks = kseg_ring + st * KB;
+    const int* kp = kpos_ring + st * KB;
+    const int t = steps[i0 + i], k0 = t * KB;
+    const ftc::Step step = ftc::classify_pos(m, wf[warp], k0, facts + 3 * t);
+    if (step.dead) continue;  // uniform over the warp
+    attend_step<HD>(qs, kt, vt, step.full, a.scale, a.softcap, o, m_run, l_run,
+                         [&](int h, int cl) {
+                           return ftc::keep(m, rows.qi[h], rows.qseg[h], k0 + cl, ks[cl],
+                                            rows.qp[h], kp[cl]);
+                         });
+  }
+  tc::cp_wait_all();
+
+  // The rows: normalized into o (and lse) when the block's walk has one
+  // active split, else this split's partial (O unnormalized, m, l).
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = ftc::packed_row(h) / tq;
+    if (g >= G || rows.qi[h] >= a.Sq) continue;
+    const int n = kvh * G + g;
+    const int64_t row = (static_cast<int64_t>(b) * a.Sq + rows.qi[h]) * a.N + n;
+    if (n_act == 1) {
+      const float inv = 1.f / (l_run[h] == 0.f ? 1.f : l_run[h]);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        *reinterpret_cast<uint32_t*>(out + row * HD + j * 8 + 2 * tig) =
+            tc::pack_bf16(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+      }
+      // m_run / l_run are equal across the four lanes of a row.
+      if (a.lse != nullptr && tig == 0) {
+        a.lse[(static_cast<int64_t>(b) * a.N + n) * a.Sq + rows.qi[h]] =
+            l_run[h] == 0.f ? NEG_INF : m_run[h] + logf(l_run[h]);
+      }
+    } else {
+      const int64_t prow = static_cast<int64_t>(split) * a.B * a.Sq * a.N + row;
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        *reinterpret_cast<float2*>(a.o_part + prow * HD + j * 8 + 2 * tig) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      }
+      if (tig == 0) *reinterpret_cast<float2*>(a.ml_part + 2 * prow) = make_float2(m_run[h], l_run[h]);
+    }
+  }
+}
+
+// The merge of the splits' partials, in split order (deterministic): one
+// block per (query, row), a warp per head, a lane per column c * 32 + lane
+// (coalesced); each split's weight exp(m - max m) is taken once per head.
+// The heads of a (row, q tile) block whose walk had one active split were
+// written by the kernel itself.
+template <int HD>
+__global__ void __launch_bounds__(NT) flash_pos_merge_kernel(Args a) {
+  constexpr int CPL = HD >= 32 ? HD / 32 : 1;  // columns per lane
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_act = a.n_act[static_cast<int64_t>(b) * ((a.Sq + a.tq - 1) / a.tq) + s / a.tq];
+  if (n_act <= 1) return;
+  const int64_t plane = static_cast<int64_t>(a.B) * a.Sq * a.N;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+  for (int n = warp; n < a.N; n += NT / 32) {
+    const int64_t row = (static_cast<int64_t>(b) * a.Sq + s) * a.N + n;
+    float mx = NEG_INF;
+    for (int sp = 0; sp < n_act; ++sp) mx = fmaxf(mx, a.ml_part[2 * (sp * plane + row)]);
+    float l = 0.f, acc[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_act; ++sp) {
+      const int64_t pr = sp * plane + row;
+      const float w = expf(a.ml_part[2 * pr] - mx);
+      l += a.ml_part[2 * pr + 1] * w;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (c * 32 + lane < HD) acc[c] += a.o_part[pr * HD + c * 32 + lane] * w;
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (c * 32 + lane < HD)
+        out[row * HD + c * 32 + lane] = __float2bfloat16(l == 0.f ? 0.f : acc[c] / l);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<int64_t>(b) * a.N + n) * a.Sq + s] = l == 0.f ? NEG_INF : mx + logf(l);
+  }
+}
+
+// bf16 without positions: the tensor-core kernel; float32, with or without
+// positions: flash_fwd_kernel (CUDA cores), whose positions add the step
+// list (n_kt ints) to its shared memory. bf16 with positions goes through
+// launch_pos.
 template <int HD>
 cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
-  const int n_kt = (a.Skv + ftc::KB - 1) / ftc::KB;
   const bool pos = a.qpos != nullptr;
   if (bf16) {
+    if (pos) return cudaErrorInvalidValue;
     const size_t smem = sizeof(__nv_bfloat16) * (ftc::ROWS + 2 * 2 * ftc::KB) * (HD + 8) +
-                        sizeof(int) * 2 * ftc::KB +
-                        (pos ? sizeof(int) * (2 * ftc::KB + 4 + n_kt) : 0);
+                        sizeof(int) * 2 * ftc::KB;
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -515,6 +813,7 @@ cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
     dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
     flash_fwd_tc_kernel<HD><<<grid, ftc::NT, smem, stream>>>(a);
   } else {
+    const int n_kt = (a.Skv + BK - 1) / BK;
     const size_t smem = smem_bytes<HD>() + (pos ? pos_smem_f32(n_kt) : 0);
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -526,13 +825,40 @@ cudaError_t launch(const Args& a, int B, bool bf16, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, cudaStream_t stream) {
+// bf16 with positions: the split kernel. Its shared memory adds the kv
+// positions' ring, the warps' facts, and the step list with each step's
+// facts (4 n_kt ints) to the index kernel's.
+template <int HD>
+cudaError_t launch_pos(const Args& a, int B, cudaStream_t stream) {
+  const int n_kt = (a.Skv + ftc::KB - 1) / ftc::KB;
+  const size_t smem = sizeof(__nv_bfloat16) * (ftc::ROWS + 2 * 2 * ftc::KB) * (HD + 8) +
+                      sizeof(int) * (2 * 2 * ftc::KB + 4 + 4 * n_kt) +
+                      sizeof(ftc::WarpFacts) * (ftc::NT / 32);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_pos_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + a.tq - 1) / a.tq, a.K, B * a.n_splits);
+  flash_fwd_pos_tc_kernel<HD><<<grid, ftc::NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_merge(const Args& a, int B, cudaStream_t stream) {
+  dim3 grid(a.Sq, B);
+  flash_pos_merge_kernel<HD><<<grid, NT, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, H>) for the compiled head dims.
+template <typename F>
+cudaError_t by_head_dim(int H, F f) {
   switch (H) {
-    case 16: return launch<16>(a, B, bf16, stream);
-    case 32: return launch<32>(a, B, bf16, stream);
-    case 64: return launch<64>(a, B, bf16, stream);
-    case 128: return launch<128>(a, B, bf16, stream);
-    case 256: return launch<256>(a, B, bf16, stream);
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -541,7 +867,8 @@ cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, cudaStream_t str
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none;
 // lse, the segment ids and the positions may be null (qpos and kpos go
-// together). Returns cudaGetLastError() after the launch (0 on success).
+// together; bf16 with positions is flash_fwd_pos). Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                          const int* qseg, const int* kseg, const int* qpos, const int* kpos,
                          int B, int Sq, int Skv, int N, int K, int H, int causal, int q_offset,
@@ -551,5 +878,64 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
          seg_pad_zero, softcap, scale};
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_head_dim(a, B, H, dtype == 1, s));
+  const bool bf16 = dtype == 1;
+  return static_cast<int>(by_head_dim(H, [&](auto hd) {
+    return launch<decltype(hd)::value>(a, B, bf16, s);
+  }));
+}
+
+// bfloat16 with explicit positions (qpos, kpos required): the split
+// kernel, tq queries of each of the G = N / K heads of a kv head per block
+// (a power of two, tq * G <= 128), n_splits splits in the grid of
+// split_steps live key steps each. With n_splits > 1, o_part / ml_part
+// ([n_splits, B, Sq, N, H] / [.., 2] float32) and n_act ([B, ceil(Sq /
+// tq)] int32) take the partials of blocks with more than one active split,
+// and flash_pos_merge then combines them. Other arguments as flash_fwd's
+// (q_offset unused; dtype must be 1). Returns cudaGetLastError() after the
+// launch.
+extern "C" int flash_fwd_pos(const void* q, const void* k, const void* v, void* o, float* lse,
+                             const int* qseg, const int* kseg, const int* qpos,
+                             const int* kpos, float* o_part, float* ml_part, int* n_act,
+                             int tq, int n_splits, int split_steps, int B, int Sq, int Skv,
+                             int N, int K, int H, int causal, int q_offset, int window,
+                             int seg_pad_zero, float softcap, float scale, int dtype,
+                             void* stream) {
+  Args a{q, k, v, o, lse, qseg, kseg, qpos, kpos, Sq, Skv, N, K, causal, 0, window,
+         seg_pad_zero, softcap, scale, tq, n_splits, split_steps, B, o_part, ml_part, n_act};
+  (void)q_offset;
+  if (B == 0 || Sq == 0) return 0;
+  if (dtype != 1 || qpos == nullptr || kpos == nullptr || K < 1 || N % K || tq < 1 ||
+      (tq & (tq - 1)) || tq * (N / K) > ftc::ROWS || n_splits < 1 || split_steps < 1 ||
+      (n_splits > 1 && (o_part == nullptr || ml_part == nullptr || n_act == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_head_dim(H, [&](auto hd) {
+    return launch_pos<decltype(hd)::value>(a, B, s);
+  }));
+}
+
+// The split kernel's merge: out [B, Sq, N, H] bf16 (and, with a non-null
+// lse, lse [B, N, Sq] float32) of every (row, q tile) block with more than
+// one active split, from the partials flash_fwd_pos wrote; other rows are
+// left as they are. Returns cudaGetLastError() after the launch.
+extern "C" int flash_pos_merge(const float* o_part, const float* ml_part, const int* n_act,
+                               void* out, float* lse, int B, int Sq, int N, int H, int tq,
+                               int n_splits, void* stream) {
+  Args a{};
+  a.o_part = const_cast<float*>(o_part);
+  a.ml_part = const_cast<float*>(ml_part);
+  a.n_act = const_cast<int*>(n_act);
+  a.o = out;
+  a.lse = lse;
+  a.B = B;
+  a.Sq = Sq;
+  a.N = N;
+  a.tq = tq;
+  a.n_splits = n_splits;
+  if (B == 0 || Sq == 0) return 0;
+  if (tq < 1 || n_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_head_dim(H, [&](auto hd) {
+    return launch_merge<decltype(hd)::value>(a, B, s);
+  }));
 }

@@ -26,15 +26,19 @@
 //
 // Explicit positions (K3 only: qpos [B, Sq], kpos [B, Skv] in Mask): the
 // causal and window tests compare positions, not indices, and nothing
-// assumes they rise (a striped layout's do not). live_steps lists the key
-// steps a block may attend from the extremes of its q positions and of
-// each step's kv positions (and, under seg_pad_zero, the step's
-// liveness), so the ring loads only those; classify then tests each warp's
-// q extremes against the step's: dead when the warp's largest q position
-// precedes the step's smallest kv position, or, under a window, when the
-// step's largest kv position is at or below the warp's smallest q
-// position less the window; full when every pair lies inside the diagonal
-// and the window.
+// assumes they rise (a striped layout's do not). K3's bf16 positions
+// kernel packs a kv head's G query heads into one block (PackRows: product
+// row r is query q0 + r % tq of the group's head r / tq, tq * G <= ROWS),
+// and live_steps lists the key steps a block may attend from the extremes
+// of its q positions and of each step's kv positions (and, under
+// seg_pad_zero, the step's liveness), so the ring loads only those;
+// classify_pos then tests each warp's q extremes against the step's: dead
+// when the warp's largest q position precedes the step's smallest kv
+// position, or, under a window, when the step's largest kv position is at
+// or below the warp's smallest q position less the window; full when every
+// pair lies inside the diagonal and the window. A warp's 16 rows lie in
+// one 64-query tile (tq is a power of two), so the liveness contract above
+// holds for it unchanged.
 
 #pragma once
 
@@ -92,8 +96,6 @@ struct Rows {
   int qseg[2];    // segment ids of the thread's rows (0 past Sq or without segments)
   int smin, smax; // the warp's least and greatest row segment id
   bool live;      // seg_pad_zero: the warp's 64-row q tile holds a real row
-  int qp[2];      // explicit positions of the thread's rows
-  int pmin, pmax; // the warp's least and greatest q position (rows < Sq)
 };
 
 // Reads the rows' segment ids; liveness of both 64-row tiles of the block
@@ -111,20 +113,6 @@ __device__ __forceinline__ bool load_rows(const Mask& m, const int* qseg, int b,
   if (m.has_seg) {
     r.smin = __reduce_min_sync(FULL, min(r.qseg[0], r.qseg[1]));
     r.smax = __reduce_max_sync(FULL, max(r.qseg[0], r.qseg[1]));
-  }
-  if (m.qpos != nullptr) {
-    int lo = POS_MAX, hi = POS_MIN;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qi = r.r0 + grp + 8 * h;
-      r.qp[h] = qi < m.Sq ? m.qpos[static_cast<int64_t>(b) * m.Sq + qi] : 0;
-      if (qi < m.Sq) {
-        lo = min(lo, r.qp[h]);
-        hi = max(hi, r.qp[h]);
-      }
-    }
-    r.pmin = __reduce_min_sync(FULL, lo);
-    r.pmax = __reduce_max_sync(FULL, hi);
   }
   r.live = true;
   if (!m.skip_pad) return true;
@@ -170,19 +158,24 @@ __device__ __forceinline__ void load_step(const Mask& m, const __nv_bfloat16* k,
   }
 }
 
-// Explicit positions: the key steps the block at q0 (R rows) may attend,
-// in order, into `steps` (n_kt ints of shared memory; `red` 3 more), and
-// their number (every thread must call it; it returns the same to all).
-// A step is out when it is all padding under seg_pad_zero (or no row is
-// live), when its least kv position exceeds the block's greatest q
-// position, or, under a window, when its greatest kv position is at or
-// below the block's least q position less the window.
-template <int R>
-__device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b, int q0,
-                                          bool rows_live, int* steps, int* red) {
-  const int tid = threadIdx.x, lane = tid % 32;
+// Explicit positions: the key steps a block whose queries are [q0, q0 +
+// nq) may attend, in order, into `steps` (n_kt ints of shared memory;
+// `red` 3 more), and their number (every thread must call it; it returns
+// the same to all). A step is out when it is all padding under
+// seg_pad_zero (or no row is live), when its least kv position exceeds the
+// block's greatest q position, or, under a window, when its greatest kv
+// position is at or below the block's least q position less the window.
+// A warp takes eight steps at a time, a lane a key of each: one coalesced
+// pass over the row's kv positions (and segment ids), 4 bytes a key. With
+// non-null `facts` (3 n_kt ints of shared memory) it also keeps each
+// step's least and greatest kv position and its one key segment id (or
+// -1), so the walk classifies a step without reductions (classify_pos).
+__device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b, int q0, int nq,
+                                          bool rows_live, int* steps, int* red,
+                                          int* facts = nullptr) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   int lo = POS_MAX, hi = POS_MIN;
-  for (int r = tid; r < R; r += NT) {
+  for (int r = tid; r < nq; r += NT) {
     if (q0 + r < m.Sq) {
       const int p = m.qpos[static_cast<int64_t>(b) * m.Sq + q0 + r];
       lo = min(lo, p);
@@ -203,19 +196,38 @@ __device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b,
   __syncthreads();
   const int64_t qmin = red[0], qmax = red[1];
   const int n_kt = (m.Skv + KB - 1) / KB;
-  for (int t = tid; t < n_kt; t += NT) {
-    int kmin = POS_MAX, kmax = POS_MIN;
-    bool kv_live = !m.skip_pad;
-    const int64_t base = static_cast<int64_t>(b) * m.Skv;
-    for (int c = t * KB; c < min(t * KB + KB, m.Skv); ++c) {
-      const int p = m.kpos[base + c];
-      kmin = min(kmin, p);
-      kmax = max(kmax, p);
-      if (m.skip_pad && kseg[base + c] > 0) kv_live = true;
+  const int64_t krow = static_cast<int64_t>(b) * m.Skv;
+  constexpr int SPW = 8;  // steps a warp takes at once, their loads in flight together
+  for (int t0 = warp * SPW; t0 < n_kt; t0 += NT / 32 * SPW) {
+    int p[SPW], sg[SPW];
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int c = (t0 + j) * KB + lane;
+      const bool in = t0 + j < n_kt && c < m.Skv;
+      p[j] = in ? m.kpos[krow + c] : 0;
+      sg[j] = in && m.skip_pad ? kseg[krow + c] : 0;
     }
-    bool live = rows_live && kv_live;
-    if (m.causal) live = live && kmin <= qmax && (m.window <= 0 || kmax > qmin - m.window);
-    steps[t] = live;
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int t = t0 + j;
+      const bool in = t * KB + lane < m.Skv;
+      const int kmin = __reduce_min_sync(FULL, in ? p[j] : POS_MAX);
+      const int kmax = __reduce_max_sync(FULL, in ? p[j] : POS_MIN);
+      bool live = rows_live;
+      if (m.skip_pad) live = live && __any_sync(FULL, sg[j] > 0);
+      if (m.causal) live = live && kmin <= qmax && (m.window <= 0 || kmax > qmin - m.window);
+      if (lane == 0 && t < n_kt) steps[t] = live;
+      if (facts != nullptr) {
+        // Segment ids as the ring stages them: 0 past Skv.
+        const int s = in && m.has_seg ? kseg[krow + t * KB + lane] : 0;
+        const int smin = __reduce_min_sync(FULL, s), smax = __reduce_max_sync(FULL, s);
+        if (lane == 0 && t < n_kt) {
+          facts[3 * t] = kmin;
+          facts[3 * t + 1] = kmax;
+          facts[3 * t + 2] = smin == smax ? smin : -1;
+        }
+      }
+    }
   }
   __syncthreads();
   if (tid < 32) {
@@ -235,15 +247,85 @@ __device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b,
   return red[2];
 }
 
+// The rows of a GQA-packed block (K3's bf16 positions kernel): product row
+// r of the ROWS is query q0 + r % tq of the group's head r / tq, so a
+// warp's 16 rows are 16 queries of one head (tq >= 16) or the same tq
+// queries of 16 / tq heads; either way they lie in one 64-query tile. The
+// thread keeps what the mask needs of its two rows; the warp's extremes and
+// flags go to shared memory (WarpFacts), read once a step.
+struct PackRows {
+  int qi[2];    // the thread's two rows' queries (grp and grp + 8 of the warp's 16)
+  int qseg[2];  // segment ids (0 for a row that is not valid, or without segments)
+  int qp[2];    // positions (0 for a row that is not valid)
+};
+
+// A warp's facts: its least and greatest q position (valid rows) and row
+// segment id, and flags: some row valid (a real (head, query) row), every
+// row valid, its 64-query tile live (a real query; always without
+// seg_pad_zero).
+struct WarpFacts {
+  int pmin, pmax, smin, smax, flags;
+};
+constexpr int ANY_ROW = 1, ALL_ROWS = 2, TILE_LIVE = 4;
+
+// The product row (of ROWS) of the thread's row h: / tq its head in the
+// group, % tq its query in the block.
+__device__ __forceinline__ int packed_row(int h) {
+  return threadIdx.x / 32 * 16 + (threadIdx.x % 32 >> 2) + 8 * h;
+}
+
+// Reads the rows' segment ids and positions and writes the warp's facts to
+// wf[warp] (every thread must call it: one barrier). Returns whether some
+// warp of the block has a valid row in a live tile (with nothing to attend
+// otherwise, the block writes zeros).
+__device__ __forceinline__ bool load_packed_rows(const Mask& m, const int* qseg, int b, int q0,
+                                                 int tq, int G, PackRows& r, WarpFacts* wf) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t row0 = static_cast<int64_t>(b) * m.Sq;
+  int lo = POS_MAX, hi = POS_MIN;
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pr = packed_row(h);
+    r.qi[h] = q0 + pr % tq;
+    valid[h] = pr / tq < G && r.qi[h] < m.Sq;
+    r.qseg[h] = (m.has_seg && valid[h]) ? qseg[row0 + r.qi[h]] : 0;
+    r.qp[h] = valid[h] ? m.qpos[row0 + r.qi[h]] : 0;
+    if (valid[h]) {
+      lo = min(lo, r.qp[h]);
+      hi = max(hi, r.qp[h]);
+    }
+  }
+  const bool all = __all_sync(FULL, valid[0] && valid[1]);
+  const bool any = __any_sync(FULL, valid[0] || valid[1]);
+  int smin = 0, smax = 0;
+  if (m.has_seg) {
+    smin = __reduce_min_sync(FULL, min(r.qseg[0], r.qseg[1]));
+    smax = __reduce_max_sync(FULL, max(r.qseg[0], r.qseg[1]));
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  bool live = true;
+  if (m.skip_pad) {
+    const int t0 = (q0 + (warp * 16) % tq) / SUB * SUB;
+    bool own = false;
+    for (int i = lane; i < SUB; i += 32)
+      own = own || (t0 + i < m.Sq && qseg[row0 + t0 + i] > 0);
+    live = __any_sync(FULL, own);
+  }
+  if (lane == 0)
+    wf[warp] = WarpFacts{lo, hi, smin, smax,
+                         (any ? ANY_ROW : 0) | (all ? ALL_ROWS : 0) | (live ? TILE_LIVE : 0)};
+  return __syncthreads_or(live && any);
+}
+
 // What a warp does with the step at k0 whose key segment ids are ks.
 struct Step {
   bool dead;  // no pair of the warp's rows counts: skip the products
   bool full;  // every pair counts: no mask
 };
 
-// `kp`: the step's kv positions (with explicit positions).
-__device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, const int* ks,
-                                         const int* kp = nullptr) {
+__device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, const int* ks) {
   const int lane = threadIdx.x % 32;
   const int kown = ks[lane];
   bool kv_live = true, same = true;
@@ -252,21 +334,30 @@ __device__ __forceinline__ Step classify(const Mask& m, const Rows& r, int k0, c
     const int kmin = __reduce_min_sync(FULL, kown), kmax = __reduce_max_sync(FULL, kown);
     same = r.smin == r.smax && kmin == kmax && kmin == r.smin;
   }
-  bool behind, inside;  // causal: no pair attends / every pair attends
-  if (m.qpos != nullptr) {
-    const bool in = k0 + lane < m.Skv;
-    const int64_t pmin = __reduce_min_sync(FULL, in ? kp[lane] : POS_MAX);
-    const int64_t pmax = __reduce_max_sync(FULL, in ? kp[lane] : POS_MIN);
-    behind = pmin > r.pmax || (m.window > 0 && pmax <= static_cast<int64_t>(r.pmin) - m.window);
-    inside = pmax <= r.pmin && (m.window <= 0 || r.pmax - pmin < m.window);
-  } else {
-    const int qfirst = r.r0 + m.q_offset, qlast = r.r0 + 15 + m.q_offset;
-    behind = k0 > qlast || (m.window > 0 && k0 + KB - 1 <= qfirst - m.window);
-    inside = k0 + KB - 1 <= qfirst && (m.window <= 0 || qlast - k0 < m.window);
-  }
+  // causal: no pair attends / every pair attends
+  const int qfirst = r.r0 + m.q_offset, qlast = r.r0 + 15 + m.q_offset;
+  const bool behind = k0 > qlast || (m.window > 0 && k0 + KB - 1 <= qfirst - m.window);
+  const bool inside = k0 + KB - 1 <= qfirst && (m.window <= 0 || qlast - k0 < m.window);
   Step s;
   s.dead = r.r0 >= m.Sq || (m.skip_pad && !(r.live && kv_live)) || (m.causal && behind);
   s.full = !s.dead && r.r0 + 16 <= m.Sq && k0 + KB <= m.Skv && same && (!m.causal || inside);
+  return s;
+}
+
+// The same for a packed warp with explicit positions, from the warp's
+// facts and the step's (kept by live_steps: its least and greatest kv
+// position, and its one key segment id or -1), without a reduction. A
+// listed step is live under seg_pad_zero.
+__device__ __forceinline__ Step classify_pos(const Mask& m, const WarpFacts& w, int k0,
+                                             const int* f) {
+  const int64_t kmin = f[0], kmax = f[1];
+  const bool behind =
+      kmin > w.pmax || (m.window > 0 && kmax <= static_cast<int64_t>(w.pmin) - m.window);
+  const bool inside = kmax <= w.pmin && (m.window <= 0 || w.pmax - kmin < m.window);
+  const bool same = !m.has_seg || (w.smin == w.smax && f[2] == w.smin);
+  Step s;
+  s.dead = !(w.flags & ANY_ROW) || (m.skip_pad && !(w.flags & TILE_LIVE)) || (m.causal && behind);
+  s.full = !s.dead && (w.flags & ALL_ROWS) && k0 + KB <= m.Skv && same && (!m.causal || inside);
   return s;
 }
 

@@ -19,6 +19,11 @@ from orion_tpu_torch.ops.attention import (
     flash_dkv_cuda,
     flash_dq_cuda,
 )
+from orion_tpu_torch.ops.flash_pos import (
+    flash_attention_pos_split_plain,
+    flash_pos_merge_cuda,
+    flash_pos_merge_plain,
+)
 from orion_tpu_torch.ops.norms import (
     layernorm,
     rmsnorm,
@@ -70,6 +75,7 @@ KERNELS = {
     "rope_fwd": rope_triton,
     "flash_fwd": flash_attention_cuda,
     "flash_fwd_pos": flash_attention_pos_cuda,
+    "flash_fwd_pos_merge": flash_pos_merge_cuda,
     "paged_decode": paged_attention_cuda,
     "rmsnorm_bwd": rmsnorm_bwd_cuda,
     "rope_bwd": rope_bwd_triton,
@@ -107,8 +113,11 @@ __all__ = [
     "flash_attention_bwd_cuda",
     "flash_attention_cuda",
     "flash_attention_pos_cuda",
+    "flash_attention_pos_split_plain",
     "flash_dkv_cuda",
     "flash_dq_cuda",
+    "flash_pos_merge_cuda",
+    "flash_pos_merge_plain",
     "launches",
     "layernorm",
     "paged_attention",

@@ -20,7 +20,7 @@ causal + segment ids (+ seg_pad_zero tile skip) + q_offset + window +
 softcap, and K3 also explicit per-token positions (``q_positions``
 [B, Sq], ``kv_positions`` [B, Skv]: the causal and window tests compare
 positions, not indices; the gather prefill body's layout, and striped
-ones). Explicit masks raise on the card, and so do positions where a
+ones; in bf16 a split walk with a merge, ``ops/flash_pos.py``). Explicit masks raise on the card, and so do positions where a
 gradient is needed (K7's and K8's positions branches are not ported).
 """
 
@@ -32,7 +32,8 @@ from typing import Optional
 import torch
 
 from orion_tpu_torch.ops import _build
-from orion_tpu_torch.ops.common import NEG_INF, check_dtype, counted, on_cuda
+from orion_tpu_torch.ops.common import NEG_INF, check_dtype, counted, on_cuda, q_tile
+from orion_tpu_torch.ops.flash_pos import SPLIT_STEPS, flash_pos_merge_cuda, grid_splits
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -164,14 +165,17 @@ def attention_lse_plain(
     logit_softcap: Optional[float] = None,
     q_offset: int = 0,
     window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version of K3's lse output: float32 [B, N, Sq], each
     row's log-sum-exp over its attended logits, NEG_INF where the row
-    attends nothing."""
+    attends nothing. Positions as attention_plain's."""
     logits, mask = _masked_logits(
         q, k, causal=causal, mask=None, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
-        q_offset=q_offset, window=window,
+        q_offset=q_offset, window=window, q_positions=q_positions,
+        kv_positions=kv_positions,
     )
     lse = torch.logsumexp(logits, dim=-1)
     if mask is not None:
@@ -291,6 +295,38 @@ def flash_attention_cuda(
     return res
 
 
+def _flash_fwd_pos_split(q, k, v, q_positions, kv_positions, *, causal, q_segment_ids,
+                         kv_segment_ids, logit_softcap, window, seg_pad_zero, return_lse,
+                         one_split):
+    """bf16 with positions: the split kernel, then the merge where the grid
+    has more than one split (flash_pos.py says how the walk splits)."""
+    q, k, v, qseg, kseg, shape = _check_args(
+        q, k, v, q_segment_ids, kv_segment_ids, causal, window)
+    B, Sq, Skv, N, K, H = shape
+    qpos, kpos = _check_positions(q_positions, kv_positions, B, Sq, Skv)
+    tq = q_tile(N // K)
+    n_sp = 1 if one_split else grid_splits(B, Sq, Skv, N, K)
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    o_part = ml_part = n_act = None
+    if n_sp > 1:
+        o_part = torch.empty(n_sp, B, Sq, N, H, dtype=torch.float32, device=q.device)
+        ml_part = torch.empty(n_sp, B, Sq, N, 2, dtype=torch.float32, device=q.device)
+        n_act = torch.empty(B, -(-Sq // tq), dtype=torch.int32, device=q.device)
+    rc = _build.entry("flash_fwd", "flash_fwd_pos",
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(qseg), _ptr(kseg), qpos.data_ptr(), kpos.data_ptr(), _ptr(o_part),
+        _ptr(ml_part), _ptr(n_act), tq, n_sp, SPLIT_STEPS,
+        *_c_tail(shape, causal, 0, window, seg_pad_zero, logit_softcap, q.dtype, q.device),
+    )
+    _build.check(rc, "flash_fwd_pos")
+    if n_sp > 1:
+        flash_pos_merge_cuda(o_part, ml_part, n_act, out, lse, tq=tq)
+    return (out, lse) if return_lse else out
+
+
 @counted
 def flash_attention_pos_cuda(
     q: torch.Tensor,
@@ -306,20 +342,33 @@ def flash_attention_pos_cuda(
     window: Optional[int] = None,
     seg_pad_zero: bool = False,
     return_lse: bool = False,
+    _one_split: bool = False,
 ):
     """Launch K3's explicit-positions branch on CUDA tensors:
     ``q_positions`` [B, Sq] and ``kv_positions`` [B, Skv] (any order; they
     need not rise) take the place of the row indices in the causal and
-    window tests. Each block first lists its live key steps from the
-    positions' extremes, then each warp (bf16) or tile (float32) skips a
-    step whose largest q position precedes its smallest kv position, or,
-    under a window, whose smallest q position less its largest kv position
-    reaches the window. Counted apart from K3's index path."""
-    res = _flash_fwd(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-                     kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,
-                     q_offset=0, window=window, seg_pad_zero=seg_pad_zero,
-                     return_lse=return_lse, q_positions=q_positions,
-                     kv_positions=kv_positions)
+    window tests. Each block lists its live key steps from the positions'
+    extremes, then each warp (bf16) or tile (float32) skips a step whose
+    largest q position precedes its smallest kv position, or, under a
+    window, whose smallest q position less its largest kv position
+    reaches the window. bfloat16 packs each kv head's query heads into a
+    block and splits its list across blocks, with a merge
+    (``flash_pos_merge_cuda``, counted apart) where a walk has more than
+    one split; ``_one_split`` forces a single split (a check of the split
+    against the unsplit walk, never the serving path's). float32 runs one
+    block per q tile and head, unsplit. Counted apart from K3's index
+    path."""
+    if not on_cuda(q, k, v):
+        raise ValueError("K3 takes CUDA tensors; CPU tensors go to attention_plain")
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              logit_softcap=logit_softcap, window=window, seg_pad_zero=seg_pad_zero,
+              return_lse=return_lse)
+    if q.dtype == torch.bfloat16:
+        res = _flash_fwd_pos_split(q, k, v, q_positions, kv_positions, one_split=_one_split,
+                                   **kw)
+    else:
+        res = _flash_fwd(q, k, v, q_offset=0, q_positions=q_positions,
+                         kv_positions=kv_positions, **kw)
     flash_attention_pos_cuda.launches += 1
     return res
 

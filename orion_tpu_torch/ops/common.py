@@ -47,6 +47,22 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), s
 
 
+TC_ROWS = 128   # product rows of a GQA-packed tensor-core block (G heads x q tile)
+
+
+def q_tile(group: int) -> int:
+    """Queries per block of a GQA-packed tensor-core kernel (K9, and K3
+    with positions): the largest power of two whose G query heads fill at
+    most TC_ROWS product rows."""
+    if group < 1 or group > TC_ROWS:
+        raise ValueError(f"{group} query heads per kv head: the tensor-core "
+                         f"kernel packs at most {TC_ROWS}")
+    tq = 1
+    while 2 * tq * group <= TC_ROWS:
+        tq *= 2
+    return tq
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
     lies on the CPU; raises on a mix or on any other device."""

@@ -47,17 +47,18 @@ import torch
 from orion_tpu_torch.ops import _build
 from orion_tpu_torch.ops.attention import FLASH_HEAD_DIMS, attention_plain
 from orion_tpu_torch.ops.common import (
+    TC_ROWS,
     check_dtype,
     check_pools,
     counted,
     on_cuda,
+    q_tile,
     quantize_kv,
 )
 from orion_tpu_torch.ops.paged_attention import dequantize_pages
 
 SMEM_BUDGET_BYTES = 232448   # dynamic shared memory a Hopper block may use
 THREADS = 256                # threads per K9 block
-TC_ROWS = 128                # product rows of a tensor-core block (G heads x q tile)
 SPLIT_PAGES = 16             # history pages per split of the tensor-core kernel
 KEY_BLOCK = 32               # keys per step of the tensor-core kernel's walk
 
@@ -68,18 +69,6 @@ def prefill_smem_bytes(head_dim: int, page_size: int) -> int:
     logits and its scales."""
     H, psz = head_dim, page_size
     return 4 * (2 * psz * (H + 1) + psz * H + psz * (psz + 1) + 2 * psz)
-
-
-def q_tile(group: int) -> int:
-    """Queries per block of the tensor-core kernel: the largest power of
-    two whose G query heads fill at most TC_ROWS product rows."""
-    if group < 1 or group > TC_ROWS:
-        raise ValueError(f"{group} query heads per kv head: the tensor-core "
-                         f"kernel packs at most {TC_ROWS}")
-    tq = 1
-    while 2 * tq * group <= TC_ROWS:
-        tq *= 2
-    return tq
 
 
 def prefill_tc_smem_bytes(head_dim: int, quant: bool) -> int:
