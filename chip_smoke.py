@@ -63,7 +63,13 @@ exits non-zero without printing a result:
            one-split run, a shape whose blocks mostly have splits with no
            live step and a row that attends nothing (zeros, lse NEG_INF),
            and the merge against its plain version; identity positions on
-           one split bitwise K3's index path
+           one split bitwise K3's index path; K7's and K8's
+           explicit-positions branches (K7-pos, K8-pos) in both dtypes
+           against autograd of the plain attention and its lse with the same
+           positions and a nonzero lse cotangent: the striped permutation
+           at the training shapes without and with a window, two launches
+           bitwise, and a windowed ring's past block whose query rows from
+           POSB_WINDOW - 1 on attend nothing (zero, finite gradients there)
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            the same prompts on cuda with every dispatch eager
@@ -183,6 +189,19 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
+  sp_rank  one rank of llama3-8b-256k-ring's striped ring at the preset's
+           widths (32/8 heads, head_dim 128, 16384 queries a rank, sp = 16
+           ring steps of 16384 keys, batch 1, bf16): parallel.sequence's
+           _striped_ring (_block_attend, _merge_blocks) forward and
+           backward, each step's kv block sliced from a whole sequence on
+           the card in place of the exchange (one H100: the ring's
+           communication needs two cards or more), held against one
+           positions-kernel call over the whole sequence for the rank's
+           queries (out, lse, dq, dk, dv within SP_REL relative RMS); 16
+           launches each of K3-pos, K7-pos and K8-pos and K3-pos's merges;
+           then K7-pos and K8-pos against their plain version within TOL on
+           one kv-head group (4/1 heads) of two of the ring's blocks, with
+           an lse cotangent (the next rank's block leaves 1024 rows dead)
   train_faults  llama-1b-bench at full width and depth on the card, the
            checkpoint format and the training fault stack, in a temporary
            directory removed at the end (the free disk is printed first):
@@ -212,7 +231,9 @@ exits non-zero without printing a result:
            beside K4 at the same contexts, K4 again at the plain serve's
            decode batch and K10 at the speculative serve's verify batch, K4,
            K10 and their merges also by CUDA-graph replay; K5-K8, and K3
-           again with its lse as ``flash_fwd_train``: the training path's):
+           again with its lse as ``flash_fwd_train``: the training path's;
+           K7-pos and K8-pos at the striped training shapes, with their
+           device time alone, bound from the admitted pairs):
            CUDA events around 5 runs of 5 back-to-back calls after a
            warm-up, the median per call, beside its plain version, one
            PyTorch library call computing the same function where there is
@@ -247,7 +268,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
           "serve_spec", "serve_constrained", "serve_faults", "serve_graphs",
           "serve_host_tier", "serve_gather", "serve_long", "train_parity",
-          "train", "train_faults", "timing")
+          "train", "train_faults", "sp_rank", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -284,6 +305,10 @@ TOL = {
     # kernels keep f32 until the one rounding of dq/dk/dv.
     "flash_dq": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
     "flash_dkv": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
+    # K7-pos, K8-pos: as K7, K8 (check_flash_train's), the lse cotangent
+    # summed in float32 on both sides.
+    "flash_dq_pos": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
+    "flash_dkv_pos": {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)},
     # K9: as K3/K4 (f32 sums of up to 8448 terms in another order; bf16
     # probabilities rounded before P@V by the plain version only).
     "paged_prefill": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
@@ -346,6 +371,11 @@ KERNEL_META = {
                      replaces="orion_tpu/ops/pallas/flash_attention.py:412"),
     "flash_dkv": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
                       replaces="orion_tpu/ops/pallas/flash_attention.py:447"),
+    # The has_pos branches of _dq_kernel (:229) and _dkv_kernel (:274).
+    "flash_dq_pos": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
+                         replaces="orion_tpu/ops/pallas/flash_attention.py:229"),
+    "flash_dkv_pos": dict(route="cuda", source="orion_tpu_torch/csrc/flash_bwd.cu",
+                          replaces="orion_tpu/ops/pallas/flash_attention.py:274"),
     "paged_decode_int8": dict(route="cuda", source="orion_tpu_torch/csrc/paged_decode.cu",
                               replaces="orion_tpu/ops/pallas/paged_attention.py:305"),
     "paged_prefill": dict(route="cuda", source="orion_tpu_torch/csrc/paged_prefill.cu",
@@ -1678,6 +1708,88 @@ def check_k3pos_many_splits(gen):
     return max(errs)
 
 
+# K7-pos/K8-pos's dead-block row: a windowed ring's past block (queries at
+# s_loc + i, keys at j) under a window of 100, so query rows from 99 on, a
+# whole 128-row block and more, attend nothing.
+POSB_S, POSB_WINDOW = 512, 100
+
+
+def pos_grads_plain(q, k, v, do, g_lse, kw):
+    """dq, dk, dv of attention_plain's output and attention_lse_plain's lse
+    (NEG_INF, a constant, on rows that attend nothing) for the cotangents
+    ``do`` and ``g_lse``."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.attention_plain(*leaves, **kw)
+    lse = ops.attention_lse_plain(leaves[0], leaves[1], **kw)
+    return torch.autograd.grad([out, lse], leaves, [do, g_lse])
+
+
+def pos_grads_kernel(q, k, v, do, g_lse, kw):
+    """K3-pos (with lse), then K7-pos and K8-pos with the lse cotangent."""
+    from orion_tpu_torch import ops
+
+    kkw = {key: val for key, val in kw.items() if key not in ("q_positions", "kv_positions")}
+    qpos, kpos = kw["q_positions"], kw["kv_positions"]
+    out, lse = ops.flash_attention_pos_cuda(q, k, v, qpos, kpos, return_lse=True, **kkw)
+    return ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, g_lse=g_lse, q_positions=qpos,
+                                        kv_positions=kpos, **kkw)
+
+
+def check_flash_pos_train(dtype, gen):
+    """K7-pos and K8-pos against autograd of the plain attention and its
+    lse, with the same positions and a nonzero lse cotangent: the striped
+    permutation at the training shapes (check_k3pos's), causal, without and
+    with a window; the windowed ring's past block whose query rows from
+    POSB_WINDOW - 1 on attend nothing (their dq and the keys no row reaches
+    exactly zero, every gradient finite); two launches give the same bits.
+    Returns max errors by kernel."""
+    import torch
+
+    dn = str(dtype).split(".")[-1]
+    errs = {"flash_dq_pos": 0.0, "flash_dkv_pos": 0.0}
+
+    def check(q, k, v, do, g_lse, kw):
+        got = pos_grads_kernel(q, k, v, do, g_lse, kw)
+        for name, t in zip(("dq", "dk", "dv"), got):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"K7/K8-pos {dn}: non-finite {name}")
+        want = pos_grads_plain(q, k, v, do, g_lse, kw)
+        errs["flash_dq_pos"] = max(errs["flash_dq_pos"],
+                                   require_close("flash_dq_pos", dn, got[0], want[0]))
+        errs["flash_dkv_pos"] = max(errs["flash_dkv_pos"], *(
+            require_close("flash_dkv_pos", dn, a, b) for a, b in zip(got[1:], want[1:])))
+        return got
+
+    q, k, v, pkw = k3pos_striped_inputs(dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    g_lse = torch.randn(q.shape[0], q.shape[2], q.shape[1], generator=gen, device="cuda")
+    for window in (None, 256):
+        got = check(q, k, v, do, g_lse, dict(pkw, causal=True, window=window))
+        again = pos_grads_kernel(q, k, v, do, g_lse, dict(pkw, causal=True, window=window))
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+            raise AssertionError(f"K7/K8-pos {dn} window={window}: two launches differ")
+    del q, k, v, do, g_lse, got, again
+    torch.cuda.empty_cache()
+
+    q, k, v, do = t_attn_inputs(dtype, gen, B=2, S=POSB_S)
+    g_lse = torch.randn(2, T_N, POSB_S, generator=gen, device="cuda")
+    iota = torch.arange(POSB_S, device="cuda", dtype=torch.int32)
+    kw = dict(q_positions=(POSB_S + iota).expand(2, -1).contiguous(),
+              kv_positions=iota.expand(2, -1).contiguous(), causal=True, window=POSB_WINDOW)
+    dq, dk, dv = check(q, k, v, do, g_lse, kw)
+    dead = POSB_WINDOW - 1   # query rows from here on attend nothing
+    if dq[:, dead:].any() or dk[:, :POSB_S - POSB_WINDOW + 1].any() \
+            or dv[:, :POSB_S - POSB_WINDOW + 1].any():
+        raise AssertionError(f"K7/K8-pos {dn}: gradients of a masked block are not zero")
+    del q, k, v, do, g_lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return errs
+
+
 def pos_merge_inputs(gen, *, B=4, S=K9_S, N=N_HEADS, K=N_KV, H=HEAD, n_sp=8):
     """Partials of the positions kernel's merge at the gather body's widths:
     float32 O and (m, l) of n_sp splits, each (row, q tile) block with 1 to
@@ -1811,6 +1923,7 @@ def phase_kernels():
             check_nan_containment(gen)
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
+        errs[dn].update(check_flash_pos_train(dtype, gen))
         emit({"phase": "kernels", "dtype": dn, "max_abs_err": errs[dn],
               "tolerance": {k: TOL[k][dn] for k in TOL if dn in TOL[k]}})
     variants = kernel_variants(gen)
@@ -4409,6 +4522,153 @@ def phase_train(profile=False):
     return launches
 
 
+# sp_rank: one rank of llama3-8b-256k-ring's striped ring at the preset's
+# widths (its sp ring steps over S / sp queries a rank), the blocks sliced
+# from a whole sequence on the card. Held against one positions-kernel
+# call over the whole sequence for the rank's queries by relative RMS
+# error: both sides round to bf16 (the ring each block's output and
+# gradients, 16 of them summed), about 2^-8 apart on random inputs.
+SP_PRESET, SP_REL = "llama3-8b-256k-ring", 2.0 ** -5
+
+
+def rel_rms(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_sp_blocks(q, k, v, do, qpos, blocks, idx, G, gen):
+    """K7-pos and K8-pos (after K3-pos, with a nonzero lse cotangent)
+    against pos_grads_plain at the ring's shapes, within TOL: one kv-head
+    group (kv head 0 and its G query heads) of the rank's 16384 striped
+    queries over one ring step's 16384 striped keys, for the rank's own
+    block and the next rank's, whose first stripe of queries attends
+    nothing (those rows' dq must be exactly zero). The ring itself is held
+    against one whole-sequence call of the same kernels, which a fault in
+    either would pass. Returns max errors by kernel."""
+    import torch
+
+    c = q.shape[1] // len(blocks)  # queries a stripe
+    qg, dog = (t[:, :, :G].contiguous() for t in (q, do))
+    g_lse = torch.randn(1, G, q.shape[1], generator=gen, device="cuda")
+    errs = {"flash_dq_pos": 0.0, "flash_dkv_pos": 0.0}
+    for src in (idx, idx + 1):
+        kb, vb = (t[:, blocks[src], :1].contiguous() for t in (k, v))
+        kw = dict(q_positions=qpos[None], kv_positions=blocks[src][None].to(torch.int32),
+                  causal=True)
+        got = pos_grads_kernel(qg, kb, vb, dog, g_lse, kw)
+        for name, t in zip(("dq", "dk", "dv"), got):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"sp_rank block {src}: non-finite {name}")
+        if src > idx and got[0][:, :c].any():
+            raise AssertionError(f"sp_rank block {src}: dq of rows that attend nothing "
+                                 "is not zero")
+        want = pos_grads_plain(qg, kb, vb, dog, g_lse, kw)
+        errs["flash_dq_pos"] = max(errs["flash_dq_pos"],
+                                   require_close("flash_dq_pos", "bfloat16", got[0], want[0]))
+        errs["flash_dkv_pos"] = max(errs["flash_dkv_pos"], *(
+            require_close("flash_dkv_pos", "bfloat16", a, b) for a, b in zip(got[1:], want[1:])))
+        del kb, vb, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_sp_rank():
+    """One rank (sp / 2) of the striped ring at llama3-8b-256k-ring's widths
+    (32/8 heads, head_dim 128, S / sp = 16384 queries a rank over sp = 16
+    steps of 16384 keys, batch 1, bf16): the port's _striped_ring (its
+    _block_attend and _merge_blocks, the striped step order), forward and
+    backward, with each step's kv block sliced from a whole sequence held
+    on the card in place of the exchange. Held against one positions-kernel
+    call (flash_attention_with_lse) over the whole sequence for the rank's
+    queries: out, lse, dq, dk, dv. Counts the launches of the ring alone:
+    sp each of K3-pos, K7-pos and K8-pos, and K3-pos's merge where its walk
+    splits. Then holds K7-pos and K8-pos against their plain version on
+    two of the ring's blocks (check_sp_blocks)."""
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.ops.flash_pos import grid_splits
+    from orion_tpu_torch.parallel.sequence import _striped_ring, striped_positions
+
+    cfg = get_config(SP_PRESET)
+    if cfg.parallel.sequence_method != "ring_striped":
+        raise AssertionError(f"{SP_PRESET}: sequence_method {cfg.parallel.sequence_method}")
+    sp, S = cfg.parallel.sp, cfg.data.seq_len
+    N, K, H = cfg.model.n_heads, cfg.model.n_kv_heads, cfg.model.resolved_head_dim
+    s_loc, idx, dt = S // sp, sp // 2, torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v, do = rnd(1, s_loc, N, H), rnd(1, S, K, H), rnd(1, S, K, H), rnd(1, s_loc, N, H)
+    qpos = striped_positions(idx, sp, s_loc, "cuda")
+    blocks = [striped_positions(src, sp, s_loc, "cuda").long() for src in range(sp)]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    at = {"src": idx}
+
+    def rotate(k_, v_, seg):
+        # The next step's block, (idx - t) mod sp, from the whole sequence.
+        at["src"] = (at["src"] - 1) % sp
+        return leaves[1][:, blocks[at["src"]]], leaves[2][:, blocks[at["src"]]], None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    o, lse = _striped_ring(leaves[0], leaves[1][:, blocks[idx]], leaves[2][:, blocks[idx]],
+                           None, None, idx=idx, sp=sp, rotate=rotate, causal=True,
+                           logit_softcap=None)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    dq, dk, dv = torch.autograd.grad(o, leaves, do.float())
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0 - fwd_s
+    launches = ops.launches()
+    del leaves
+    peak = torch.cuda.max_memory_allocated()
+
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    t0 = time.perf_counter()
+    ro, rl = ops.flash_attention_with_lse(
+        *ref, q_positions=qpos[None], causal=True,
+        kv_positions=torch.arange(S, dtype=torch.int32, device="cuda")[None])
+    rdq, rdk, rdv = torch.autograd.grad(ro, ref, do)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    errs = {}
+    o, lse, ro, rl = o.detach(), lse.detach(), ro.detach(), rl.detach()
+    for name, a, b in (("out", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"sp_rank: non-finite {name}")
+        errs[name] = dict(rel_rms=rel_rms(a, b), max_abs_err=max_err(a, b))
+        if errs[name]["rel_rms"] > SP_REL:
+            raise AssertionError(f"sp_rank: {name} {errs[name]} against the whole call "
+                                 f"exceeds the relative RMS {SP_REL}")
+    errs["lse"] = dict(max_abs_err=require_close("flash_lse", "bfloat16", lse, rl))
+    merges = sp if grid_splits(1, s_loc, s_loc, N, K) > 1 else 0
+    want = {"flash_fwd_pos": sp, "flash_dq_pos": sp, "flash_dkv_pos": sp,
+            "flash_fwd_pos_merge": merges}
+    if any(launches[name] != n for name, n in want.items()):
+        raise AssertionError(f"sp_rank: launches {launches} (want {want})")
+    del o, lse, dq, dk, dv, ref, ro, rl, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    block_errs = check_sp_blocks(q, k, v, do, qpos, blocks, idx, N // K, gen)
+    emit({"phase": "sp_rank", "preset": SP_PRESET, "sp": sp, "rank": idx, "seq_len": S,
+          "queries_per_rank": s_loc, "heads": [N, K, H], "ring_steps": sp,
+          "ring_fwd_s": fwd_s, "ring_bwd_s": bwd_s, "whole_call_s": whole_s,
+          "peak_mem_gib": peak / 2 ** 30, "errors": errs, "tolerance_rel_rms": SP_REL,
+          "launches": launches, "block_vs_plain": {
+              "blocks": [idx, idx + 1], "heads": [N // K, 1, H], "max_abs_err": block_errs,
+              "tolerance": {name: TOL[name]["bfloat16"] for name in block_errs}}})
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return launches, block_errs
+
+
 # train_faults: llama-1b-bench at full width and depth, random weights from
 # train.seed, checkpoints in a temporary directory (at most two committed
 # plus one being written: ~8.3 GB each).
@@ -5261,6 +5521,63 @@ def k3pos_timing(gen):
     return res
 
 
+def k78pos_timing(gen):
+    """K7-pos and K8-pos in bfloat16 at the striped permutation on the
+    training shapes (check_k3pos's layout, causal): each kernel's time and
+    its device time alone, its bound from the (query, key) pairs the mask
+    admits (the pairs any implementation must compute; a permutation of
+    the positions admits the causal count, S(S+1)/2 a row and head) and the
+    bytes each reads once (q, k, v, dO, lse, delta, the positions) and
+    writes (dq; dk and dv). The plain and library times are one backward
+    computing dq, dk and dv together (autograd of attention_plain with the
+    positions; SDPA's backward with enable_gqa and the bool mask the
+    positions make)."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    dt = torch.bfloat16
+    q, k, v, kw = k3pos_striped_inputs(dt, gen)
+    qpos, kpos = kw["q_positions"], kw["kv_positions"]
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+    out, lse = ops.flash_attention_pos_cuda(q, k, v, qpos, kpos, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    mask = ops.attention_mask(T_S, T_S, causal=True, **kw)
+    pairs = int(mask.sum()) * T_N
+    io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * lse.numel() \
+        + 4 * (qpos.numel() + kpos.numel())
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain = backward_ms(ops.attention_plain(*leaves, **kw), leaves, do)
+    del leaves
+    torch.cuda.empty_cache()
+    lib = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    library = backward_ms(F.scaled_dot_product_attention(*lib, attn_mask=mask[:, None],
+                                                         enable_gqa=True),
+                          lib, do.transpose(1, 2))
+    del lib, mask
+    torch.cuda.empty_cache()
+
+    def dq():
+        return ops.flash_dq_pos_cuda(q, k, v, do, lse, delta, qpos, kpos)
+
+    def dkv():
+        return ops.flash_dkv_pos_cuda(q, k, v, do, lse, delta, qpos, kpos)
+
+    res = {
+        "flash_dq_pos": dict(ms=time_ms(dq), device_ms=graph_ms(dq), plain_ms=plain,
+                             library_ms=library, pairs_admitted=pairs,
+                             bound=bound(io + 2 * q.numel(), 6 * HEAD * pairs, BF16_FLOPS_S)),
+        "flash_dkv_pos": dict(ms=time_ms(dkv), device_ms=graph_ms(dkv), plain_ms=plain,
+                              library_ms=library, pairs_admitted=pairs,
+                              bound=bound(io + 2 * (k.numel() + v.numel()), 8 * HEAD * pairs,
+                                          BF16_FLOPS_S)),
+    }
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_timing():
     import torch
     import torch.nn.functional as F
@@ -5312,6 +5629,7 @@ def phase_timing():
     res.update(merge_timing(gen))
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
+    res.update(k78pos_timing(gen))
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
                  if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms",
@@ -5386,7 +5704,7 @@ def main(argv=None) -> int:
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
     train_launches = timing = fault_launches = constrained_launches = None
-    train_fault_launches = graph_launches = None
+    train_fault_launches = graph_launches = sp_launches = None
     host_tier_launches = gather_launches = long_launches = None
     if "build" in phases:
         phase_build()
@@ -5431,10 +5749,16 @@ def main(argv=None) -> int:
         train_launches = phase_train(args.profile)
     if "train_faults" in phases:
         train_fault_launches = phase_train_faults()
+    if "sp_rank" in phases:
+        sp_launches, sp_errs = phase_sp_rank()
+        if errs:
+            # K7-pos's and K8-pos's errors at the ring's shapes too.
+            for name, e in sp_errs.items():
+                errs["bfloat16"][name] = max(errs["bfloat16"][name], e)
     if "timing" in phases:
         timing = phase_timing()
     if (errs and launches and chunked_launches and spec_launches and parity_launches
-            and train_launches and timing):
+            and train_launches and sp_launches and timing):
         # A kernel on several paths counts its launches in each drive. K9's
         # bf16/f32 branch runs where chunked prefill or the prefix cache
         # serves a bf16/f32 pool: the float32 chunked parity drive (the
@@ -5449,7 +5773,8 @@ def main(argv=None) -> int:
                              ("serve_host_tier", host_tier_launches),
                              ("serve_gather", gather_launches),
                              ("serve_long", long_launches),
-                             ("train_faults", train_fault_launches)):
+                             ("train_faults", train_fault_launches),
+                             ("sp_rank", sp_launches)):
             if counts:
                 for name in KERNEL_META:
                     by_path[name][path] = counts[name]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K3 (the flash-attention forward) through the port's wrappers in one
-or more checkouts of the repo, in turns on one GPU: its index path at the
-serve's and the training path's shapes, and its explicit-positions branch
-at the gather prefill body's shapes, beside SDPA.
+"""Time K3 (the flash-attention forward) and its backward K7/K8 through the
+port's wrappers in one or more checkouts of the repo, in turns on one GPU:
+K3's index path at the serve's and the training path's shapes, K7 and K8
+at the training path's, and K3's explicit-positions branch at the gather
+prefill body's shapes, beside SDPA.
 
     python3 flash_timing.py                                   # this checkout
     python3 flash_timing.py --tree _scratch/parent --tree .   # two, in turns
@@ -17,6 +18,13 @@ bfloat16 rows, chip_smoke.py's inputs:
   k3_serve   flash_attention_cuda at the serve's prefill (4 x 2048 ragged,
              32 heads, 8 kv heads, head_dim 128, seg_pad_zero)
   k3_train   flash_attention_cuda with lse at the training shapes
+  k7_train   flash_dq_cuda at the training shapes (causal), from the
+             tree's own K3 output and lse
+  k8_train   flash_dkv_cuda, the same
+  k7pos_train, k8pos_train
+             flash_dq_pos_cuda and flash_dkv_pos_cuda at the training
+             shapes under chip_smoke's striped positions (causal), from the
+             tree's own K3-pos output and lse (trees that have them)
   k3pos      flash_attention_pos_cuda at the gather body's shapes (4 rows
              of 256 over 128 prefix pages of 64), merge included
   sdpa_pos   SDPA with enable_gqa and the bool mask of the same positions
@@ -26,8 +34,9 @@ bfloat16 rows, chip_smoke.py's inputs:
 branch with the grid's split count forced to n (the tree's
 ``ops.attention.grid_splits`` replaced for the row). Per row: ``ms``
 (chip_smoke's time_ms) and ``device_ms`` (chip_smoke's graph_ms), and for
-each tree after the first whether ``k3_serve``'s output is bitwise the
-first tree's. One JSON line per round, then a summary line with the
+each tree after the first whether ``k3_serve``'s output and K7's and K8's
+are bitwise the first tree's (K7-pos's and K8-pos's: the first tree that
+has them). One JSON line per round, then a summary line with the
 median, min and max over the rounds, then the card's nvidia-smi name and
 power limit.
 """
@@ -65,15 +74,33 @@ def timed(fn):
 
 
 def rows(ops, att, inputs, splits):
-    """Every row for one tree; also k3_serve's output for the bitwise check."""
-    serve, train, pos = inputs
+    """Every row for one tree; also the outputs of k3_serve, K7 and K8 (and
+    K7-pos and K8-pos) for the bitwise check."""
+    serve, train, pos, striped = inputs
     q, k, v, seg = serve
     kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
     res = {"k3_serve": timed(lambda: ops.flash_attention_cuda(q, k, v, **kw))}
-    out = ops.flash_attention_cuda(q, k, v, **kw)
-    tq, tk, tv = train
+    outs = {"k3_serve": ops.flash_attention_cuda(q, k, v, **kw)}
+    tq, tk, tv, tdo = train
     res["k3_train"] = timed(lambda: ops.flash_attention_cuda(tq, tk, tv, causal=True,
                                                              return_lse=True))
+    tout, tlse = ops.flash_attention_cuda(tq, tk, tv, causal=True, return_lse=True)
+    delta = (tdo.float() * tout.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (tq, tk, tv, tdo, tlse, delta)
+    res["k7_train"] = timed(lambda: ops.flash_dq_cuda(*bwd, causal=True))
+    res["k8_train"] = timed(lambda: ops.flash_dkv_cuda(*bwd, causal=True))
+    outs["k7_train"] = ops.flash_dq_cuda(*bwd, causal=True)
+    outs["k8_train"] = ops.flash_dkv_cuda(*bwd, causal=True)[0]
+    if hasattr(ops, "flash_dq_pos_cuda"):
+        sq, sk, sv, skw = striped
+        qpos, kpos = skw["q_positions"], skw["kv_positions"]
+        sout, slse = ops.flash_attention_pos_cuda(sq, sk, sv, qpos, kpos, return_lse=True)
+        sdelta = (tdo.float() * sout.float()).sum(-1).transpose(1, 2).contiguous()
+        pbwd = (sq, sk, sv, tdo, slse, sdelta, qpos, kpos)
+        res["k7pos_train"] = timed(lambda: ops.flash_dq_pos_cuda(*pbwd))
+        res["k8pos_train"] = timed(lambda: ops.flash_dkv_pos_cuda(*pbwd))
+        outs["k7pos_train"] = ops.flash_dq_pos_cuda(*pbwd)
+        outs["k8pos_train"] = ops.flash_dkv_pos_cuda(*pbwd)[0]
     pq, pk, pv, pkw = pos
     args = (pq, pk, pv, pkw["q_positions"], pkw["kv_positions"])
     seg_kw = dict(q_segment_ids=pkw["q_segment_ids"], kv_segment_ids=pkw["kv_segment_ids"],
@@ -88,7 +115,7 @@ def rows(ops, att, inputs, splits):
                     lambda: ops.flash_attention_pos_cuda(*args, **seg_kw))
         finally:
             att.grid_splits = grid_splits
-    return res, out
+    return res, outs
 
 
 def main(argv=None) -> int:
@@ -118,24 +145,27 @@ def main(argv=None) -> int:
     for i in range(args.rounds):
         gen.manual_seed(i)
         serve = cs.k3_inputs(torch.bfloat16, gen)
-        train = cs.t_attn_inputs(torch.bfloat16, gen)[:3]
+        train = cs.t_attn_inputs(torch.bfloat16, gen)
         pos = cs.k3pos_gather_inputs(torch.bfloat16, gen)
+        striped = cs.k3pos_striped_inputs(torch.bfloat16, gen)
         pq, pk, pv, pkw = pos
         mask = loaded[trees[-1]][0].attention_mask(pq.shape[1], pk.shape[1], causal=True,
                                                    **pkw)[:, None]
         lib = [t.transpose(1, 2) for t in (pq, pk, pv)]
-        rnd, first = {}, None
+        rnd, first = {}, {}
         for tree in trees:
             ops, att = loaded[tree]
-            r, out = rows(ops, att, (serve, train, pos), splits if tree == trees[-1] else [])
-            if first is None:
-                first = cs.bits(out)
-            else:
-                r["k3_serve_bitwise_first_tree"] = bool(torch.equal(cs.bits(out), first))
+            r, outs = rows(ops, att, (serve, train, pos, striped),
+                           splits if tree == trees[-1] else [])
+            for name, t in outs.items():
+                if name in first:
+                    r[f"{name}_bitwise_first_tree"] = bool(torch.equal(cs.bits(t), first[name]))
+                else:
+                    first[name] = cs.bits(t)
             rnd[tree] = r
         rnd["sdpa_pos"] = {"sdpa": timed(lambda: F.scaled_dot_product_attention(
             *lib, attn_mask=mask, enable_gqa=True))}
-        del serve, train, pos, pq, pk, pv, pkw, mask, lib, first
+        del serve, train, pos, striped, pq, pk, pv, pkw, mask, lib, first
         torch.cuda.empty_cache()
         print(json.dumps({"round": i, **rnd}), flush=True)
         rounds.append({t: {k: v for k, v in r.items() if isinstance(v, dict)}

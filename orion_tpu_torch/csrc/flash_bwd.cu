@@ -106,14 +106,44 @@
 //     the window, or all padding under seg_pad_zero) is skipped here too,
 //     and the recomputed logits are K3's bit for bit: exp(z - lse) never
 //     sees a logit that lse did not count.
+// Explicit positions, K7-pos and K8-pos (the has_pos branch of _dq_kernel
+// and _dkv_kernel: _block_mask and _block_run, flash_attention.py:88-140):
+// with non-null qpos [B, Sq] and kpos [B, Skv] (int32) the causal and
+// window tests compare positions, not indices, and nothing assumes they
+// rise (the ring's past blocks under a window, the striped ring's stripes).
+// The gradient of K3's positions branch, with the lse cotangent folded into
+// delta by the wrapper. Bound by operations, as K7 and K8. What the design
+// does about positions that skip no contiguous range:
+//   - K7-pos (flash_dq_tc_kernel<HD, true>, and flash_dq_kernel in f32)
+//     lists the key steps its q tile may attend with K3-pos's live_steps
+//     (the tile's q extremes against each step's kv extremes), so a dead
+//     step is neither loaded nor computed; each warp then tests its own q
+//     extremes against the step's (classify_pos: dead, or full with no
+//     mask), and the mask compares the pair's positions;
+//   - K8-pos (flash_dkv_tc_kernel<HD, true>, and flash_dkv_kernel in f32)
+//     walks the transpose, the q tiles that can reach its keys
+//     (flash_tc.cuh live_qtiles: each tile's q extremes against the keys'),
+//     computed in the kernel by one coalesced pass over the row's q
+//     positions (4 bytes a query, from L2), over the group's heads; a step
+//     needs no mask when every key precedes every query inside the window;
+//   - neither splits its walk (one block a q tile or kv tile, as the index
+//     kernels), neither takes seg_pad_zero or q_offset: the gradient path
+//     with positions runs K3-pos without the tile skip, and the pairs that
+//     count are exactly those the mask admits, the pairs K3-pos's lse
+//     summed. Sums stay in registers, each output written once by one
+//     thread: two launches give the same bits.
+//
 // In every kernel the mask goes inside the exponential, exp(keep ? z - lse
 // : NEG_INF), never exp(z - lse) * mask: a row that attends nothing carries
 // lse = NEG_INF, and exp(z - NEG_INF) would be inf (inf * 0 = NaN). Query
-// rows past Sq are masked the same way.
+// rows past Sq are masked the same way. In the striped and windowed rings
+// whole rows of a block attend nothing; their gradients are zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_tc.cuh"
 #include "tc.cuh"
@@ -142,6 +172,35 @@ struct Args {
   float softcap, scale;
 };
 
+// Args with explicit positions, after the segment ids: what the positions
+// kernels and the float32 kernels take. The bf16 index kernels keep taking
+// Args: the argument struct's size enters their register allocation, and
+// the positions added to Args raised K7's spills and its time by 17 %
+// (measured, PERF.md §6).
+struct PosArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  const int* qseg;
+  const int* kseg;
+  const int* qpos;     // [B, Sq] explicit positions, or null (K7/K8-pos)
+  const int* kpos;     // [B, Skv]
+  int Sq, Skv, N, K;
+  int causal, q_offset, window, seg_pad_zero;
+  float softcap, scale;
+
+  Args args() const {
+    return Args{q, k, v, dout, lse, delta, dq, dk, dv, qseg, kseg, Sq, Skv, N, K,
+                causal, q_offset, window, seg_pad_zero, softcap, scale};
+  }
+};
+
 // Shared memory of one tile pair; both kernels use the same carve-up.
 template <int HD>
 struct Tile {
@@ -155,8 +214,16 @@ struct Tile {
   float* delta_s; // [BQ]
   int* qseg_s;    // [BQ]
   int* kseg_s;    // [BK]
+  // Explicit positions only (pos_bytes): the tile's q and kv positions,
+  // three reduction ints, the list of live key steps (K7) or q tiles (K8)
+  // and two ints of facts per list entry.
+  int* qpos_s;    // [BQ]
+  int* kpos_s;    // [BK]
+  int* red;       // [4]
+  int* list;      // [n]
+  int* facts;     // [2 n]
 
-  __device__ explicit Tile(float* smem) {
+  __device__ explicit Tile(float* smem, int n_list = 0) {
     Qs = smem;
     dOs = Qs + BQ * (HD + 1);
     Ks = dOs + BQ * (HD + 1);
@@ -167,18 +234,24 @@ struct Tile {
     delta_s = lse_s + BQ;
     qseg_s = reinterpret_cast<int*>(delta_s + BQ);
     kseg_s = qseg_s + BQ;
+    qpos_s = kseg_s + BK;
+    kpos_s = qpos_s + BQ;
+    red = kpos_s + BK;
+    list = red + 4;
+    facts = list + n_list;
   }
 
   static constexpr size_t bytes() {
     return sizeof(float) * (2 * BQ * (HD + 1) + 2 * BK * (HD + 1) + 2 * BQ * (BK + 1) + 2 * BQ) +
            sizeof(int) * (BQ + BK);
   }
+  static constexpr size_t pos_bytes(int n_list) { return sizeof(int) * (BQ + BK + 4 + 3 * n_list); }
 };
 
 // Row-level inputs of q tile q0 of head n: lse, delta, segment ids.
 // Rows past Sq get lse = NEG_INF and are masked by in_q() below.
 template <int HD>
-__device__ __forceinline__ void load_rows(const Args& a, Tile<HD>& t, int b, int n, int q0,
+__device__ __forceinline__ void load_rows(const PosArgs& a, Tile<HD>& t, int b, int n, int q0,
                                           bool has_seg) {
   const int tid = threadIdx.x;
   if (tid < BQ) {
@@ -188,12 +261,13 @@ __device__ __forceinline__ void load_rows(const Args& a, Tile<HD>& t, int b, int
     t.lse_s[tid] = in ? a.lse[row] : NEG_INF;
     t.delta_s[tid] = in ? a.delta[row] : 0.f;
     t.qseg_s[tid] = (has_seg && in) ? a.qseg[static_cast<int64_t>(b) * a.Sq + s] : 0;
+    if (a.qpos != nullptr) t.qpos_s[tid] = in ? a.qpos[static_cast<int64_t>(b) * a.Sq + s] : 0;
   }
 }
 
 // q (pre-scaled, as K3 does) and dO rows of q tile q0, head n.
 template <int HD>
-__device__ __forceinline__ void load_q(const Args& a, Tile<HD>& t, int b, int n, int q0) {
+__device__ __forceinline__ void load_q(const PosArgs& a, Tile<HD>& t, int b, int n, int q0) {
   const float* q = static_cast<const float*>(a.q);
   const float* dout = static_cast<const float*>(a.dout);
   for (int i = threadIdx.x; i < BQ * HD; i += NT) {
@@ -211,7 +285,7 @@ __device__ __forceinline__ void load_q(const Args& a, Tile<HD>& t, int b, int n,
 
 // k and v rows of kv tile k0, kv head kvh, and their segment ids.
 template <int HD>
-__device__ __forceinline__ void load_kv(const Args& a, Tile<HD>& t, int b, int kvh, int k0,
+__device__ __forceinline__ void load_kv(const PosArgs& a, Tile<HD>& t, int b, int kvh, int k0,
                                         bool has_seg) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
@@ -219,6 +293,8 @@ __device__ __forceinline__ void load_kv(const Args& a, Tile<HD>& t, int b, int k
     const int c = k0 + threadIdx.x;
     t.kseg_s[threadIdx.x] =
         (has_seg && c < a.Skv) ? a.kseg[static_cast<int64_t>(b) * a.Skv + c] : 0;
+    if (a.kpos != nullptr)
+      t.kpos_s[threadIdx.x] = c < a.Skv ? a.kpos[static_cast<int64_t>(b) * a.Skv + c] : 0;
   }
   for (int i = threadIdx.x; i < BK * HD; i += NT) {
     const int c = i / HD, h = i % HD, s = k0 + c;
@@ -236,7 +312,7 @@ __device__ __forceinline__ void load_kv(const Args& a, Tile<HD>& t, int b, int k
 // dS (and P) of the tile pair (q0, k0) into Ss (and Ps when keep_p).
 // Thread layout as K3's score phase: rows r0..r0+3, keys cg and cg+16.
 template <int HD>
-__device__ __forceinline__ void tile_ds(const Args& a, Tile<HD>& t, int q0, int k0,
+__device__ __forceinline__ void tile_ds(const PosArgs& a, Tile<HD>& t, int q0, int k0,
                                         bool has_seg, bool keep_p) {
   const int tid = threadIdx.x;
   const int cg = tid % 16, r0 = (tid / 16) * 4;
@@ -277,7 +353,7 @@ __device__ __forceinline__ void tile_ds(const Args& a, Tile<HD>& t, int q0, int 
       }
       bool keep = c < a.Skv && qi < a.Sq;
       if (a.causal) {
-        const int d = qpos - c;
+        const int d = a.qpos != nullptr ? t.qpos_s[r] - t.kpos_s[cl] : qpos - c;
         keep = keep && d >= 0;
         if (a.window > 0) keep = keep && d < a.window;
       }
@@ -293,10 +369,10 @@ __device__ __forceinline__ void tile_ds(const Args& a, Tile<HD>& t, int q0, int 
 
 // K7: one block per (q tile, q head, batch), looping over kv tiles.
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
+__global__ void __launch_bounds__(NT) flash_dq_kernel(PosArgs a) {
   constexpr int HC = HD / 16;  // dq columns per thread
   extern __shared__ float smem[];
-  Tile<HD> t(smem);
+  Tile<HD> t(smem, (a.Skv + BK - 1) / BK);
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int n = blockIdx.y;
@@ -322,6 +398,13 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
     const int cmin = q0 + a.q_offset - a.window + 1;
     kt_begin = cmin > 0 ? cmin / BK : 0;
   }
+  int n_iter = max(kt_end - kt_begin, 0);
+  const bool has_pos = a.qpos != nullptr;
+  if (has_pos) {
+    // The tile's live key steps from the positions, as K3's (flash_tc.cuh).
+    const ftc::Mask m{a.Sq, a.Skv, a.causal, 0, a.window, has_seg, false, a.qpos, a.kpos};
+    n_iter = ftc::live_steps(m, a.kseg, b, q0, BQ, true, t.list, t.red);
+  }
 
   float acc[4][HC];
 #pragma unroll
@@ -329,8 +412,8 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (has_pos ? t.list[it] : kt_begin + it) * BK;
     __syncthreads();  // the previous tile's reads of Ks/Vs/Ss/kseg_s are done
     load_kv<HD>(a, t, b, kvh, k0, has_seg);
     const int kv_live = __syncthreads_or(tid < BK && t.kseg_s[tid] > 0);
@@ -366,10 +449,10 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
 // group's query heads and the q tiles, on the CUDA cores (see the note at
 // the top of the file).
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
+__global__ void __launch_bounds__(NT) flash_dkv_kernel(PosArgs a) {
   constexpr int HC = HD / 16;  // dk/dv columns per thread
   extern __shared__ float smem[];
-  Tile<HD> t(smem);
+  Tile<HD> t(smem, (a.Sq + BQ - 1) / BQ);
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BK;
   const int kvh = blockIdx.y;
@@ -397,6 +480,15 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
     }
   }
   if (skip_pad && !kv_live) qt_end = qt_begin;  // an all-padding kv tile
+  int n_it = max(qt_end - qt_begin, 0);
+  const bool has_pos = a.qpos != nullptr;
+  if (has_pos) {
+    // The q tiles that can reach this kv tile, from the positions
+    // (flash_tc.cuh live_qtiles).
+    const ftc::Mask m{a.Sq, a.Skv, a.causal, 0, a.window, has_seg, false, a.qpos, a.kpos};
+    int kmin, kmax;
+    n_it = ftc::live_qtiles(m, b, k0, BK, BQ, t.list, t.red, t.facts, kmin, kmax);
+  }
 
   float dk[2][HC], dv[2][HC];
 #pragma unroll
@@ -406,8 +498,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
 
   for (int g = 0; g < G; ++g) {
     const int n = kvh * G + g;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (has_pos ? t.list[it] : qt_begin + it) * BQ;
       __syncthreads();  // the previous tile's reads of Qs/dOs/Ps/Ss/row data are done
       load_rows<HD>(a, t, b, n, q0, has_seg);
       const int q_live = __syncthreads_or(tid < BQ && t.qseg_s[tid] > 0);
@@ -483,7 +575,7 @@ struct Smem {
   int* qseg_;             // [ST][TQ]
 
   static constexpr int ST = stages<HD>();
-  static constexpr size_t bytes() {
+  __host__ __device__ static constexpr size_t bytes() {
     return sizeof(__nv_bfloat16) * (2 * TK * LD + 2 * ST * TQ * LD + 2 * TK * LDP) +
            sizeof(float) * 2 * ST * TQ + sizeof(int) * ST * TQ;
   }
@@ -507,10 +599,12 @@ struct Smem {
 };
 
 // Asynchronous copies of q tile q0 of head n (q, dO, lse, delta, segment
-// ids) into stage st; rows past Sq are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_q_async(const Args& a, Smem<HD>& sm, int st, int b, int n,
-                                             int q0, bool has_seg) {
+// ids and, into `qpos` when not null, positions) into stage st; rows past
+// Sq are zero-filled.
+template <int HD, typename A>
+__device__ __forceinline__ void load_q_async(const A& a, Smem<HD>& sm, int st, int b, int n,
+                                             int q0, bool has_seg, const int* qpos_src = nullptr,
+                                             int* qpos = nullptr) {
   constexpr int CH = HD / 8;  // 16-byte chunks per row
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
@@ -534,12 +628,19 @@ __device__ __forceinline__ void load_q_async(const Args& a, Smem<HD>& sm, int st
                             : static_cast<const void*>(a.lse);
       tc::cp4(sm.qseg(st) + r, src, sin);
     }
+  } else if (qpos != nullptr && tid < 4 * TQ) {
+    const int r = tid - 3 * TQ, s = q0 + r;
+    const bool in = s < a.Sq;
+    const void* src = in ? static_cast<const void*>(qpos_src + static_cast<int64_t>(b) * a.Sq + s)
+                         : static_cast<const void*>(qpos_src);
+    tc::cp4(qpos + r, src, in);
   }
 }
 
 // Under seg_pad_zero K3 skips a q tile whose rows are all padding: so does
 // K8. Uniform over the block (a barrier).
-__device__ __forceinline__ bool q_live(const Args& a, int b, int qt, bool skip_pad) {
+template <typename A>
+__device__ __forceinline__ bool q_live(const A& a, int b, int qt, bool skip_pad) {
   if (!skip_pad) return true;
   const int tid = threadIdx.x, s = qt * TQ + tid;
   const bool p = tid < TQ && s < a.Sq && a.qseg[static_cast<int64_t>(b) * a.Sq + s] > 0;
@@ -547,7 +648,8 @@ __device__ __forceinline__ bool q_live(const Args& a, int b, int qt, bool skip_p
 }
 
 // The next live step after (g, qt); g == G when none is left.
-__device__ __forceinline__ void advance(const Args& a, int b, int& g, int& qt, int qt_begin,
+template <typename A>
+__device__ __forceinline__ void advance(const A& a, int b, int& g, int& qt, int qt_begin,
                                         int qt_end, int G, bool skip_pad) {
   do {
     if (++qt >= qt_end) {
@@ -557,13 +659,30 @@ __device__ __forceinline__ void advance(const Args& a, int b, int& g, int& qt, i
   } while (g < G && !q_live(a, b, qt, skip_pad));
 }
 
+// Explicit positions (POS, K8-pos): the block lists the q tiles that can
+// reach its keys (flash_tc.cuh live_qtiles) and walks them over the group's
+// heads; the mask compares the pair's positions, and a step needs none when
+// every key precedes every query within the window (from the keys' and the
+// tile's extremes). Its shared memory adds, after Smem, the stages' q
+// positions [ST][TQ], four reduction ints, the tile list [n_qt] and each
+// tile's q extremes [n_qt][2] (pos_bytes).
 template <int HD>
-__global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args a) {
+constexpr size_t pos_bytes(int n_qt) {
+  return sizeof(int) * (Smem<HD>::ST * TQ + 4 + 3 * n_qt);
+}
+
+template <int HD, bool POS>
+__global__ void __launch_bounds__(NT, min_blocks<HD>())
+    flash_dkv_tc_kernel(std::conditional_t<POS, PosArgs, Args> a) {
   using S = Smem<HD>;
   constexpr int LD = S::LD;
   constexpr int NB = HD / 16;  // 8-column blocks of dk/dv per warp (half of H)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S sm(smem_raw);
+  int* qpos_st = reinterpret_cast<int*>(smem_raw + S::bytes());  // [ST][TQ] (POS)
+  int* red = qpos_st + S::ST * TQ;                               // [4]
+  int* tiles = red + 4;                                          // [n_qt]
+  int* qfacts = tiles + (a.Sq + TQ - 1) / TQ;                    // [n_qt][2]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = lane >> 2, tig = lane & 3;
   const int k0 = blockIdx.x * TK;
@@ -587,13 +706,12 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
   // Segment ids of this thread's two kv rows in phase 1, and which of K3's
   // 32-key sub-tiles hold a live (non-padding) key.
   const int wr = warp & 3;  // kv rows wr*16 .. wr*16+15 in both phases
-  int kseg_r[2] = {0, 0};
-  if (has_seg) {
+  int kseg_r[2] = {0, 0}, kpos_r[2] = {0, 0};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = k0 + wr * 16 + grp + 8 * h;
-      kseg_r[h] = c < a.Skv ? a.kseg[static_cast<int64_t>(b) * a.Skv + c] : 0;
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int c = k0 + wr * 16 + grp + 8 * h;
+    if (has_seg) kseg_r[h] = c < a.Skv ? a.kseg[static_cast<int64_t>(b) * a.Skv + c] : 0;
+    if constexpr (POS) kpos_r[h] = c < a.Skv ? a.kpos[static_cast<int64_t>(b) * a.Skv + c] : 0;
   }
   int ks_own = 0;
   if (has_seg && tid < TK && k0 + tid < a.Skv)
@@ -615,11 +733,23 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
   }
   if (skip_pad && !(live0 || live1)) qt_end = qt_begin;  // an all-padding kv tile
 
-  // Steps run over (g, qt), qt fastest, skipping what K3 skipped.
-  int g = 0, qt = qt_begin;
-  if (qt_begin >= qt_end) g = G;
-  else if (!q_live(a, b, qt, skip_pad)) advance(a, b, g, qt, qt_begin, qt_end, G, skip_pad);
-  if (g < G) load_q_async<HD>(a, sm, 0, b, kvh * G + g, qt * TQ, has_seg);
+  // Steps run over (g, qt), qt fastest, skipping what K3 skipped; with
+  // positions over (g, i), qt = tiles[i].
+  int g = 0, qt = qt_begin, li = 0, n_live = 0, kmin = 0, kmax = 0;
+  const int* qpos_src = nullptr;
+  if constexpr (POS) {
+    qpos_src = a.qpos;
+    const ftc::Mask m{a.Sq, a.Skv, a.causal, 0, a.window, has_seg, false, a.qpos, a.kpos};
+    n_live = ftc::live_qtiles(m, b, k0, TK, TQ, tiles, red, qfacts, kmin, kmax);
+    if (n_live == 0) g = G;
+    else qt = tiles[0];
+  } else {
+    if (qt_begin >= qt_end) g = G;
+    else if (!q_live(a, b, qt, skip_pad)) advance(a, b, g, qt, qt_begin, qt_end, G, skip_pad);
+  }
+  if (g < G)
+    load_q_async<HD>(a, sm, 0, b, kvh * G + g, qt * TQ, has_seg, qpos_src,
+                     POS ? qpos_st : nullptr);
   tc::cp_commit();
 
   float dk[NB][4], dv[NB][4];
@@ -630,11 +760,21 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
 
   int st = 0;
   while (g < G) {
-    int ng = g, nqt = qt;
-    advance(a, b, ng, nqt, qt_begin, qt_end, G, skip_pad);
+    int ng = g, nqt = qt, nli = li;
+    if constexpr (POS) {
+      if (++nli >= n_live) {
+        nli = 0;
+        ++ng;
+      }
+      nqt = tiles[nli];
+    } else {
+      advance(a, b, ng, nqt, qt_begin, qt_end, G, skip_pad);
+    }
     tc::cp_wait_all();
     __syncthreads();  // stage st landed; the previous step's reads are done
-    if (S::ST == 2 && ng < G) load_q_async<HD>(a, sm, st ^ 1, b, kvh * G + ng, nqt * TQ, has_seg);
+    if (S::ST == 2 && ng < G)
+      load_q_async<HD>(a, sm, st ^ 1, b, kvh * G + ng, nqt * TQ, has_seg, qpos_src,
+                       POS ? qpos_st + (st ^ 1) * TQ : nullptr);
     tc::cp_commit();
     const int q0 = qt * TQ;
 
@@ -674,10 +814,17 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
         }
       // Whether every pair of the tile is kept (no mask to apply): no
       // segments, in range, and (causal) wholly inside the diagonal and the
-      // window.
-      const bool full = !has_seg && k0 + TK <= a.Skv && q0 + TQ <= a.Sq &&
-                        (!a.causal || (q0 + a.q_offset >= k0 + TK - 1 &&
-                                       (a.window <= 0 || q0 + TQ - 1 + a.q_offset - k0 < a.window)));
+      // window (with positions: every key at or before every query, the
+      // greatest distance inside the window).
+      bool inside;
+      if constexpr (POS) {
+        const int64_t qmin = qfacts[2 * qt], qmax = qfacts[2 * qt + 1];
+        inside = kmax <= qmin && (a.window <= 0 || qmax - kmin < a.window);
+      } else {
+        inside = q0 + a.q_offset >= k0 + TK - 1 &&
+                 (a.window <= 0 || q0 + TQ - 1 + a.q_offset - k0 < a.window);
+      }
+      const bool full = !has_seg && k0 + TK <= a.Skv && q0 + TQ <= a.Sq && (!a.causal || inside);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -701,7 +848,7 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
             if (!full) {
               keep = sub_live && c < a.Skv && qi < a.Sq;
               if (a.causal) {
-                const int d = qi + a.q_offset - c;
+                const int d = POS ? qpos_st[st * TQ + lc] - kpos_r[h] : qi + a.q_offset - c;
                 keep = keep && d >= 0;
                 if (a.window > 0) keep = keep && d < a.window;
               }
@@ -752,11 +899,13 @@ __global__ void __launch_bounds__(NT, min_blocks<HD>()) flash_dkv_tc_kernel(Args
     }
     if (S::ST == 1) {  // one buffer: the next tile loads once this one is read
       __syncthreads();
-      if (ng < G) load_q_async<HD>(a, sm, 0, b, kvh * G + ng, nqt * TQ, has_seg);
+      if (ng < G) load_q_async<HD>(a, sm, 0, b, kvh * G + ng, nqt * TQ, has_seg, qpos_src,
+                                   POS ? qpos_st : nullptr);
       tc::cp_commit();
     }
     g = ng;
     qt = nqt;
+    li = nli;
     st = (st + 1) % S::ST;
   }
   tc::cp_wait_all();
@@ -797,8 +946,60 @@ constexpr size_t smem_bytes() {
   return sizeof(__nv_bfloat16) * (2 * ROWS + 2 * 2 * KB) * (HD + 8) + sizeof(int) * 2 * KB;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_kernel(Args a) {
+// Explicit positions (K7-pos) add the keys' positions ring, the warps'
+// facts, and the step list (one int a key step: at 262144 keys the list
+// takes 32 KB, so the block still fits beside Q, dO and the ring).
+constexpr size_t pos_bytes(int n_kt) {
+  return sizeof(int) * (2 * KB + 4 + n_kt) + sizeof(ftc::WarpFacts) * (ftc::NT / 32);
+}
+
+// The facts classify_pos reads for a staged step (its least and greatest
+// kv position and its one key segment id, or -1), as live_steps keeps
+// them, from the ring by the warp: kp and ks hold the step's KB keys (ks 0
+// past Skv).
+__device__ __forceinline__ void step_facts(const ftc::Mask& m, int k0, const int* kp,
+                                           const int* ks, int (&f)[3]) {
+  const int lane = threadIdx.x % 32;
+  const bool in = k0 + lane < m.Skv;
+  f[0] = __reduce_min_sync(ftc::FULL, in ? kp[lane] : ftc::POS_MAX);
+  f[1] = __reduce_max_sync(ftc::FULL, in ? kp[lane] : ftc::POS_MIN);
+  const int sg = m.has_seg ? ks[lane] : 0;
+  const int smin = __reduce_min_sync(ftc::FULL, sg), smax = __reduce_max_sync(ftc::FULL, sg);
+  f[2] = smin == smax ? smin : -1;
+}
+
+// The mask of the index path, and of the positions path (which takes
+// neither q_offset nor seg_pad_zero).
+__device__ __forceinline__ ftc::Mask mask_of(const Args& a) {
+  return ftc::Mask{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
+                   a.qseg != nullptr && a.seg_pad_zero != 0};
+}
+
+__device__ __forceinline__ ftc::Mask mask_of(const PosArgs& a) {
+  return ftc::Mask{a.Sq, a.Skv, a.causal, 0, a.window, a.qseg != nullptr, false, a.qpos, a.kpos};
+}
+
+// The query of the thread's row h (grp and grp + 8 of the warp's 16).
+__device__ __forceinline__ int query(const ftc::Rows& r, int grp, int h) {
+  return r.r0 + grp + 8 * h;
+}
+
+__device__ __forceinline__ int query(const ftc::PackRows& r, int, int h) { return r.qi[h]; }
+
+// POS (K7-pos) is the same block with explicit positions. The block lists
+// the key steps its 128 queries may attend (flash_tc.cuh live_steps,
+// K3-pos's list) and walks those; each warp classifies a step from its own
+// q extremes and the step's (classify_pos, the rows as PackRows of one
+// head), and the mask compares the pair's positions. The step's facts come
+// from warp reductions over the staged keys (step_facts): kept in shared
+// memory as K3-pos keeps them, a long row's (262144 keys) would take 128 KB
+// beside Q, dO and the ring. The index path takes Args, not PosArgs (see
+// PosArgs), and compiles to the same SASS as when it was a kernel of its
+// own; a step's first key is written out at each use because a lambda for
+// it moved ptxas's schedule of that path (1.5 % slower, PERF.md §6).
+template <int HD, bool POS>
+__global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>())
+    flash_dq_tc_kernel(std::conditional_t<POS, PosArgs, Args> a) {
   constexpr int LD = HD + 8;
   constexpr int NH = HD / 8;  // 8-column blocks of dq per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -806,29 +1007,39 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
   __nv_bfloat16* dos = qs + ROWS * LD;                              // [ROWS][LD]
   __nv_bfloat16* ring = dos + ROWS * LD;             // [2][K [KB][LD], V [KB][LD]]
   int* kseg_ring = reinterpret_cast<int*>(ring + 2 * 2 * KB * LD);  // [2][KB]
+  int* kpos_ring = kseg_ring + 2 * KB;                              // [2][KB] (POS)
+  ftc::WarpFacts* wf = reinterpret_cast<ftc::WarpFacts*>(kpos_ring + 2 * KB);  // [8]
+  int* red = reinterpret_cast<int*>(wf + ftc::NT / 32);             // [4]
+  int* steps = red + 4;                                             // [n_kt]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = lane >> 2, tig = lane & 3;
-  const ftc::Mask m{a.Sq, a.Skv, a.causal, a.q_offset, a.window, a.qseg != nullptr,
-                    a.qseg != nullptr && a.seg_pad_zero != 0};
+  const ftc::Mask m = mask_of(a);
   const int n = blockIdx.x, b = blockIdx.y;
   const int q0 = ftc::q_tile<false>(m) * ROWS;
   const int kvh = n / (a.N / a.K);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
 
-  ftc::Rows rows;
-  const bool any_live = ftc::load_rows(m, a.qseg, b, q0, rows);
-  int kt_begin, kt_end;
-  ftc::step_range(m, q0, kt_begin, kt_end);
-  if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
-  const int n_steps = kt_end - kt_begin;
+  // The key steps: [kt_begin, kt_begin + n_steps), or POS's list.
+  std::conditional_t<POS, ftc::PackRows, ftc::Rows> rows;
+  int kt_begin = 0, n_steps;
+  if constexpr (POS) {
+    const bool any = ftc::load_packed_rows(m, a.qseg, b, q0, ROWS, 1, rows, wf);
+    n_steps = any ? ftc::live_steps(m, a.kseg, b, q0, ROWS, true, steps, red) : 0;
+  } else {
+    const bool any_live = ftc::load_rows(m, a.qseg, b, q0, rows);
+    int kt_end;
+    ftc::step_range(m, q0, kt_begin, kt_end);
+    if (!any_live) kt_end = kt_begin;  // every row padding: zeros out
+    n_steps = kt_end - kt_begin;
+  }
 
   // The rows' lse and delta stay in registers; rows past Sq get lse =
   // NEG_INF and are masked.
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int qi = rows.r0 + grp + 8 * h;
+    const int qi = query(rows, grp, h);
     const int64_t row = (static_cast<int64_t>(b) * a.N + n) * a.Sq + qi;
     lse_r[h] = qi < a.Sq ? a.lse[row] : NEG_INF;
     delta_r[h] = qi < a.Sq ? a.delta[row] : 0.f;
@@ -844,7 +1055,8 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
       tc::cp16(qs + r * LD + c, q + off, in);
       tc::cp16(dos + r * LD + c, dout + off, in);
     }
-    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, kt_begin * KB, ring, kseg_ring);
+    ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (POS ? steps[0] : kt_begin) * KB, ring,
+                       kseg_ring, POS ? kpos_ring : nullptr);
     tc::cp_commit();
   }
 
@@ -859,14 +1071,24 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
     tc::cp_wait_all();
     __syncthreads();  // step i staged; every read of the previous step done
     if (i + 1 < n_steps)
-      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K, (kt_begin + i + 1) * KB,
-                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB);
+      ftc::load_step<HD>(m, k, v, a.kseg, b, kvh, a.K,
+                         (POS ? steps[i + 1] : kt_begin + i + 1) * KB,
+                         ring + (st ^ 1) * 2 * KB * LD, kseg_ring + (st ^ 1) * KB,
+                         POS ? kpos_ring + (st ^ 1) * KB : nullptr);
     tc::cp_commit();
     const __nv_bfloat16* kt = ring + st * 2 * KB * LD;
     const __nv_bfloat16* vt = kt + KB * LD;
     const int* ks = kseg_ring + st * KB;
-    const int k0 = (kt_begin + i) * KB;
-    const ftc::Step step = ftc::classify(m, rows, k0, ks);
+    const int* kp = kpos_ring + st * KB;
+    const int k0 = (POS ? steps[i] : kt_begin + i) * KB;
+    ftc::Step step;
+    if constexpr (POS) {
+      int f[3];
+      step_facts(m, k0, kp, ks, f);
+      step = ftc::classify_pos(m, wf[warp], k0, f);
+    } else {
+      step = ftc::classify(m, rows, k0, ks);
+    }
     if (step.dead) continue;  // uniform over the warp
 
     // S = Q . K^T and dP = dO . V^T for the warp's 16 rows x 32 keys.
@@ -908,7 +1130,10 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
         bool kept = true;
         if (!step.full) {
           const int cl = j * 8 + 2 * tig + (e4 & 1);
-          kept = ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl]);
+          if constexpr (POS)
+            kept = ftc::keep(m, rows.qi[h], rows.qseg[h], k0 + cl, ks[cl], rows.qp[h], kp[cl]);
+          else
+            kept = ftc::keep(m, rows.r0 + grp + 8 * h, rows.qseg[h], k0 + cl, ks[cl]);
         }
         const float p = tc::exp_(kept ? z - lse_r[h] : NEG_INF);
         const float dz = p * (dp[j][e4] - delta_r[h]);
@@ -940,7 +1165,7 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
   __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(a.dq);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int qi = rows.r0 + grp + 8 * h;
+    const int qi = query(rows, grp, h);
     if (qi >= a.Sq) continue;
     const int64_t row = (static_cast<int64_t>(b) * a.Sq + qi) * a.N + n;
 #pragma unroll
@@ -953,42 +1178,50 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>()) flash_dq_tc_ke
 
 }  // namespace tcdq
 
-// bf16: the tensor-core kernels; float32 keeps the CUDA-core ones.
-template <int HD>
-cudaError_t launch(const Args& a, int B, bool bf16, bool dq, cudaStream_t stream) {
-  constexpr size_t smem = Tile<HD>::bytes();
-  cudaError_t err;
-  if (dq && bf16) {
-    constexpr size_t tsm = tcdq::smem_bytes<HD>();
-    err = cudaFuncSetAttribute(tcdq::flash_dq_tc_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tsm));
-    if (err != cudaSuccess) return err;
-    dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
-    tcdq::flash_dq_tc_kernel<HD><<<grid, ftc::NT, tsm, stream>>>(a);
-  } else if (dq) {
-    err = cudaFuncSetAttribute(flash_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
-    flash_dq_kernel<HD><<<grid, NT, smem, stream>>>(a);
-  } else if (bf16) {
-    constexpr size_t tsm = tcdkv::Smem<HD>::bytes();
-    err = cudaFuncSetAttribute(tcdkv::flash_dkv_tc_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tsm));
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Skv + tcdkv::TK - 1) / tcdkv::TK, a.K, B);
-    tcdkv::flash_dkv_tc_kernel<HD><<<grid, NT, tsm, stream>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(flash_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Skv + BK - 1) / BK, a.K, B);
-    flash_dkv_kernel<HD><<<grid, NT, smem, stream>>>(a);
-  }
+
+template <typename A>
+cudaError_t launch_with(void (*kernel)(A), dim3 grid, int threads, size_t smem,
+                        cudaStream_t stream, const A& a) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, bool dq, cudaStream_t stream) {
+// bf16: the tensor-core kernels (the positions branches instantiations
+// of their templates); float32 keeps the CUDA-core ones, positions a
+// run-time branch with their list in shared memory.
+template <int HD>
+cudaError_t launch(const PosArgs& a, int B, bool bf16, bool dq, cudaStream_t stream) {
+  const bool pos = a.qpos != nullptr;
+  const int n_kt = (a.Skv + BK - 1) / BK, n_qt = (a.Sq + BQ - 1) / BQ;
+  if (dq && bf16) {
+    const dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
+    const size_t tsm = tcdq::smem_bytes<HD>();
+    return pos ? launch_with(tcdq::flash_dq_tc_kernel<HD, true>, grid, ftc::NT,
+                             tsm + tcdq::pos_bytes(n_kt), stream, a)
+               : launch_with(tcdq::flash_dq_tc_kernel<HD, false>, grid, ftc::NT, tsm, stream,
+                             a.args());
+  }
+  if (dq) {
+    const size_t smem = Tile<HD>::bytes() + (pos ? Tile<HD>::pos_bytes(n_kt) : 0);
+    return launch_with(flash_dq_kernel<HD>, dim3(n_qt, a.N, B), NT, smem, stream, a);
+  }
+  if (bf16) {
+    const dim3 grid((a.Skv + tcdkv::TK - 1) / tcdkv::TK, a.K, B);
+    const size_t tsm = tcdkv::Smem<HD>::bytes();
+    const int n_qt_tc = (a.Sq + tcdkv::TQ - 1) / tcdkv::TQ;
+    return pos ? launch_with(tcdkv::flash_dkv_tc_kernel<HD, true>, grid, NT,
+                             tsm + tcdkv::pos_bytes<HD>(n_qt_tc), stream, a)
+               : launch_with(tcdkv::flash_dkv_tc_kernel<HD, false>, grid, NT, tsm, stream,
+                             a.args());
+  }
+  const size_t smem = Tile<HD>::bytes() + (pos ? Tile<HD>::pos_bytes(n_qt) : 0);
+  return launch_with(flash_dkv_kernel<HD>, dim3(n_kt, a.K, B), NT, smem, stream, a);
+}
+
+cudaError_t by_head_dim(const PosArgs& a, int B, int H, bool bf16, bool dq, cudaStream_t stream) {
   switch (H) {
     case 16: return launch<16>(a, B, bf16, dq, stream);
     case 32: return launch<32>(a, B, bf16, dq, stream);
@@ -1000,32 +1233,44 @@ cudaError_t by_head_dim(const Args& a, int B, int H, bool bf16, bool dq, cudaStr
 }
 
 // An empty kv (K7) or q (K8) range still launches and writes zeros.
-int run(const Args& a, int B, int H, int dtype, bool dq, void* stream) {
+int run(const PosArgs& a, int B, int H, int dtype, bool dq, void* stream) {
   if (B == 0 || (dq ? a.Sq : a.Skv) == 0) return 0;
   return static_cast<int>(by_head_dim(a, B, H, dtype == 1, dq, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
+// Positions (qpos and kpos together, or both null) refuse q_offset and
+// seg_pad_zero: K7/K8-pos run without the tile skip.
+int check_pos(const PosArgs& a) {
+  if ((a.qpos == nullptr) != (a.kpos == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.qpos != nullptr && (a.q_offset != 0 || a.seg_pad_zero != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// Segment pointers may be null. Return cudaGetLastError() after the launch.
+// Segment and position pointers may be null. Return cudaGetLastError()
+// after the launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, const int* qseg,
-                        const int* kseg, int B, int Sq, int Skv, int N, int K, int H,
-                        int causal, int q_offset, int window, int seg_pad_zero,
-                        float softcap, float scale, int dtype, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, qseg, kseg, Sq, Skv, N, K,
-         causal, q_offset, window, seg_pad_zero, softcap, scale};
+                        const int* kseg, const int* qpos, const int* kpos, int B, int Sq,
+                        int Skv, int N, int K, int H, int causal, int q_offset, int window,
+                        int seg_pad_zero, float softcap, float scale, int dtype, void* stream) {
+  const PosArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, qseg, kseg, qpos, kpos,
+                  Sq, Skv, N, K, causal, q_offset, window, seg_pad_zero, softcap, scale};
+  if (const int rc = check_pos(a)) return rc;
   return run(a, B, H, dtype, true, stream);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dk, void* dv,
-                         const int* qseg, const int* kseg, int B, int Sq, int Skv, int N,
-                         int K, int H, int causal, int q_offset, int window,
-                         int seg_pad_zero, float softcap, float scale, int dtype,
+                         const int* qseg, const int* kseg, const int* qpos, const int* kpos,
+                         int B, int Sq, int Skv, int N, int K, int H, int causal, int q_offset,
+                         int window, int seg_pad_zero, float softcap, float scale, int dtype,
                          void* stream) {
-  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, qseg, kseg, Sq, Skv, N, K, causal,
-         q_offset, window, seg_pad_zero, softcap, scale};
+  const PosArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, qseg, kseg, qpos, kpos,
+                  Sq, Skv, N, K, causal, q_offset, window, seg_pad_zero, softcap, scale};
+  if (const int rc = check_pos(a)) return rc;
   return run(a, B, H, dtype, false, stream);
 }

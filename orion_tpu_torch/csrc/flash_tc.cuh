@@ -38,7 +38,10 @@
 // or below the warp's smallest q position less the window; full when every
 // pair lies inside the diagonal and the window. A warp's 16 rows lie in
 // one 64-query tile (tq is a power of two), so the liveness contract above
-// holds for it unchanged.
+// holds for it unchanged. K7's positions branch walks the same list per
+// block of 128 rows of one head (PackRows with G = 1), classify_pos per
+// warp. K8's walks the transpose (live_qtiles): the q tiles that can reach
+// a block's keys, from each tile's q extremes against the keys'.
 
 #pragma once
 
@@ -239,6 +242,83 @@ __device__ __forceinline__ int live_steps(const Mask& m, const int* kseg, int b,
       const bool f = t < n_kt && steps[t] != 0;
       const unsigned bal = __ballot_sync(FULL, f);
       if (f) steps[count + __popc(bal & ((1u << lane) - 1u))] = t;
+      count += __popc(bal);
+    }
+    if (lane == 0) red[2] = count;
+  }
+  __syncthreads();
+  return red[2];
+}
+
+// Explicit positions, the transpose of live_steps (K8): the q tiles of tq
+// queries that may reach the keys [k0, k0 + nk) of row b, in order, into
+// `tiles` (n_qt ints of shared memory; `red` 3 more), and their number
+// (every thread must call it; it returns the same to all). A tile is out
+// when it holds no query, or (causal) when its greatest q position precedes
+// the keys' least kv position, or, under a window, when the keys' greatest
+// kv position is at or below its least q position less the window. A warp
+// takes a tile at a time, each lane tq / 32 of its queries: one coalesced
+// pass over the row's q positions. `facts` (2 n_qt ints) keeps each tile's
+// least and greatest q position, by tile; kmin / kmax return the keys'.
+__device__ __forceinline__ int live_qtiles(const Mask& m, int b, int k0, int nk, int tq,
+                                           int* tiles, int* red, int* facts, int& kmin,
+                                           int& kmax) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int lo = POS_MAX, hi = POS_MIN;
+  for (int r = tid; r < nk; r += NT) {
+    if (k0 + r < m.Skv) {
+      const int p = m.kpos[static_cast<int64_t>(b) * m.Skv + k0 + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  if (tid == 0) {
+    red[0] = POS_MAX;
+    red[1] = POS_MIN;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    atomicMin(red, lo);
+    atomicMax(red + 1, hi);
+  }
+  __syncthreads();
+  kmin = red[0];
+  kmax = red[1];
+  const int n_qt = (m.Sq + tq - 1) / tq;
+  const int64_t qrow = static_cast<int64_t>(b) * m.Sq;
+  for (int t = warp; t < n_qt; t += NT / 32) {
+    int qlo = POS_MAX, qhi = POS_MIN;
+    for (int i = lane; i < tq; i += 32) {
+      const int s = t * tq + i;
+      if (s < m.Sq) {
+        const int p = m.qpos[qrow + s];
+        qlo = min(qlo, p);
+        qhi = max(qhi, p);
+      }
+    }
+    qlo = __reduce_min_sync(FULL, qlo);
+    qhi = __reduce_max_sync(FULL, qhi);
+    bool live = qlo <= qhi && kmin <= kmax;  // a query and a key
+    if (m.causal)
+      live = live && qhi >= kmin &&
+             (m.window <= 0 || static_cast<int64_t>(kmax) > static_cast<int64_t>(qlo) - m.window);
+    if (lane == 0) {
+      tiles[t] = live;
+      facts[2 * t] = qlo;
+      facts[2 * t + 1] = qhi;
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {
+    // In-place compaction by one warp, as in live_steps.
+    int count = 0;
+    for (int base = 0; base < n_qt; base += 32) {
+      const int t = base + lane;
+      const bool f = t < n_qt && tiles[t] != 0;
+      const unsigned bal = __ballot_sync(FULL, f);
+      if (f) tiles[count + __popc(bal & ((1u << lane) - 1u))] = t;
       count += __popc(bal);
     }
     if (lane == 0) red[2] = count;

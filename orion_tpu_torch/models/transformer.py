@@ -11,6 +11,14 @@ Gemma-2 (post-norms, (1 + w) norms, GeGLU, embedding scale, query scale,
 local/global windows, logit softcaps) families. Mixture-of-experts layers
 are not ported yet and raise.
 
+Sequence parallelism: with ``cfg.sequence_axis`` set and a ``mesh`` whose
+axis of that name is above 1, the training path (``_hidden_states``,
+``loss_fn``) takes this process's contiguous shard of the sequence, and
+attention runs as ``parallel.sequence_attention`` (``cfg.sequence_method``)
+with the segment ids, softcap and each layer's window; the positions the
+caller passes are the shard's global ones. ``loss_fn`` then returns this
+shard's share of the global token mean (the count summed over the axis).
+
 Weights are cast to the activation dtype at use, as the JAX package does;
 when they are stored in that dtype already (the serving case) the cast is
 free.
@@ -25,7 +33,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from orion_tpu_torch import ops
+from orion_tpu_torch.comm.collectives import all_reduce
 from orion_tpu_torch.config import ModelConfig
+from orion_tpu_torch.parallel.sequence import sequence_attention
+from orion_tpu_torch.runtime.mesh import axis_size
 
 Params = dict[str, Any]
 
@@ -157,6 +168,11 @@ def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig) -> torch.Tensor:
     return _mlp_block(h, bp["mlp"], cfg)
 
 
+def _sp_active(cfg: ModelConfig, mesh) -> bool:
+    return (cfg.sequence_axis is not None and mesh is not None
+            and axis_size(mesh, cfg.sequence_axis) > 1)
+
+
 def _block(
     x: torch.Tensor,
     bp: Params,
@@ -164,15 +180,23 @@ def _block(
     positions: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
     window: Optional[int],
+    mesh=None,
 ) -> torch.Tensor:
     h = _norm(x, bp["attn_norm"], cfg)
     q, k, v = qkv_proj(h, bp["attn"], cfg, positions)
-    out = ops.attention(
-        q, k, v, causal=True,
-        q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
-        seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
-        window=window,
-    )
+    if _sp_active(cfg, mesh):
+        out = sequence_attention(
+            q, k, v, mesh, method=cfg.sequence_method, axis=cfg.sequence_axis,
+            causal=True, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            logit_softcap=cfg.attn_logit_softcap, window=window,
+        )
+    else:
+        out = ops.attention(
+            q, k, v, causal=True,
+            q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
+            window=window,
+        )
     a = out_proj(out, bp["attn"], cfg)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
@@ -209,9 +233,12 @@ def _hidden_states(
     *,
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The block-stack output [B, S, D] before final norm / LM head, and
     the MoE aux loss (zero: dense only). Differentiable; the training path.
+    Under sequence parallelism (``mesh``, see the module note) ``tokens``
+    is this process's shard and ``positions`` its global positions.
 
     ``remat="full"`` recomputes each block in the backward: every block
     runs under ``torch.utils.checkpoint`` (non-reentrant), which saves only
@@ -231,10 +258,10 @@ def _hidden_states(
     for layer, bp in enumerate(params["blocks"]):
         window = cfg.layer_window(layer)
         if cfg.remat == "full":
-            x = checkpoint(_block, x, bp, cfg, positions, segment_ids, window,
+            x = checkpoint(_block, x, bp, cfg, positions, segment_ids, window, mesh,
                            use_reentrant=False)
         else:
-            x = _block(x, bp, cfg, positions, segment_ids, window)
+            x = _block(x, bp, cfg, positions, segment_ids, window, mesh)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -246,7 +273,7 @@ def _gather_target(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(
-    params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig
+    params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, mesh=None
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy + weighted MoE aux loss.
 
@@ -256,6 +283,12 @@ def loss_fn(
     LM head and log-sum-exp run per sequence chunk under checkpointing, so
     the backward recomputes one chunk's [B, chunk, V] logits at a time
     instead of keeping the full [B, S, V] float32 logits alive.
+
+    Under sequence parallelism (``mesh``) the batch is this process's
+    sequence shard and the loss this shard's share of the global token
+    mean: its masked sum over the count summed across the axis. The shares
+    sum to the global loss; their gradients, summed across the axis, to
+    its gradient.
     """
     targets = batch["targets"]
     mask = batch.get("loss_mask")
@@ -265,15 +298,21 @@ def loss_fn(
         raise ValueError(f"model.loss_chunk={chunk} must divide seq_len={S}")
     x, moe_aux = _hidden_states(
         params, batch["inputs"], cfg, positions=batch.get("positions"),
-        segment_ids=batch.get("segment_ids"),
+        segment_ids=batch.get("segment_ids"), mesh=mesh,
     )
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     mask = mask.float()
+    sp_group = mesh.get_group(cfg.sequence_axis) if _sp_active(cfg, mesh) else None
+
+    def count(m):
+        total = m.sum()
+        return total if sp_group is None else all_reduce(total.detach(), sp_group)
+
     if not chunk or S == chunk:
         logp = torch.log_softmax(unembed(params, x, cfg), dim=-1)
         nll = -_gather_target(logp, targets)
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(count(mask), min=1.0)
         ce = (nll * mask).sum() / denom
     else:
         def ce_chunk(xc, tc, mc):
@@ -289,7 +328,7 @@ def loss_fn(
             nll_total = nll_total + checkpoint(
                 ce_chunk, x[:, sl], targets[:, sl], mask[:, sl], use_reentrant=False)
             mask_total = mask_total + mask[:, sl].sum()
-        denom = torch.clamp(mask_total, min=1.0)
+        denom = torch.clamp(count(mask_total), min=1.0)
         ce = nll_total / denom
     loss = ce + cfg.router_aux_loss_weight * moe_aux
     return loss, {"ce_loss": ce, "moe_aux": moe_aux, "tokens": denom}

@@ -16,8 +16,11 @@ from orion_tpu_torch.ops.attention import (
     flash_attention_bwd_cuda,
     flash_attention_cuda,
     flash_attention_pos_cuda,
+    flash_attention_with_lse,
     flash_dkv_cuda,
+    flash_dkv_pos_cuda,
     flash_dq_cuda,
+    flash_dq_pos_cuda,
 )
 from orion_tpu_torch.ops.flash_pos import (
     flash_attention_pos_split_plain,
@@ -81,6 +84,8 @@ KERNELS = {
     "rope_bwd": rope_bwd_triton,
     "flash_dq": flash_dq_cuda,
     "flash_dkv": flash_dkv_cuda,
+    "flash_dq_pos": flash_dq_pos_cuda,
+    "flash_dkv_pos": flash_dkv_pos_cuda,
     "paged_decode_int8": paged_attention_int8_cuda,
     "paged_prefill": paged_flash_prefill_cuda,
     "paged_prefill_int8": paged_flash_prefill_int8_cuda,
@@ -114,8 +119,11 @@ __all__ = [
     "flash_attention_cuda",
     "flash_attention_pos_cuda",
     "flash_attention_pos_split_plain",
+    "flash_attention_with_lse",
     "flash_dkv_cuda",
+    "flash_dkv_pos_cuda",
     "flash_dq_cuda",
+    "flash_dq_pos_cuda",
     "flash_pos_merge_cuda",
     "flash_pos_merge_plain",
     "launches",

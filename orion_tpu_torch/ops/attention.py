@@ -17,11 +17,17 @@ source notes say what bounds them and how the design answers. The
 wrappers keep the JAX package's [B, S, N, H] layout: the kernels read and
 write it directly, so no transpose or padding copy is made. They cover
 causal + segment ids (+ seg_pad_zero tile skip) + q_offset + window +
-softcap, and K3 also explicit per-token positions (``q_positions``
-[B, Sq], ``kv_positions`` [B, Skv]: the causal and window tests compare
-positions, not indices; the gather prefill body's layout, and striped
-ones; in bf16 a split walk with a merge, ``ops/flash_pos.py``). Explicit masks raise on the card, and so do positions where a
-gradient is needed (K7's and K8's positions branches are not ported).
+softcap, and explicit per-token positions (``q_positions`` [B, Sq],
+``kv_positions`` [B, Skv]: the causal and window tests compare
+positions, not indices; the gather prefill body's layout, and the ring
+and striped layouts of sequence parallelism): K3's branch (in bf16 a
+split walk with a merge, ``ops/flash_pos.py``) and K7's and K8's
+(``flash_dq_pos_cuda``, ``flash_dkv_pos_cuda``, counted apart; they take
+no seg_pad_zero, so the gradient path with positions runs K3 without it
+too: real rows are the same). ``flash_attention_with_lse`` is the
+counterpart of the JAX package's: (out, lse), differentiable in both,
+the lse cotangent folded into K7's and K8's delta; sequence parallelism
+merges its blocks through it. Explicit masks raise on the card.
 """
 
 from __future__ import annotations
@@ -389,6 +395,40 @@ def _bwd_operands(q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal
             kseg, shape)
 
 
+def _flash_bwd(symbol, outs, q, k, v, do, lse, delta, *, causal, q_segment_ids,
+               kv_segment_ids, logit_softcap, q_offset, window, seg_pad_zero,
+               q_positions=None, kv_positions=None):
+    """One K7 (``flash_dq``) or K8 (``flash_dkv``) launch writing ``outs``
+    (dq, or dk and dv), with or without positions."""
+    if not on_cuda(q, k, v, do, lse, delta):
+        raise ValueError("K7 and K8 take CUDA tensors; CPU tensors go to autograd of "
+                         "attention_plain")
+    q, k, v, do, lse, delta, qseg, kseg, shape = _bwd_operands(
+        q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal, window)
+    B, Sq, Skv = shape[:3]
+    qpos, kpos = _check_positions(q_positions, kv_positions, B, Sq, Skv)
+    if qpos is not None and (seg_pad_zero or q_offset):
+        raise ValueError("K7/K8 with positions take neither seg_pad_zero nor q_offset")
+    res = outs(q, k)
+    rc = _build.entry("flash_bwd", symbol, [ctypes.c_void_p] * (10 + len(res)) + _TAIL_TYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(t.data_ptr() for t in res), _ptr(qseg), _ptr(kseg),
+        _ptr(qpos), _ptr(kpos),
+        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
+                 q.dtype, q.device),
+    )
+    _build.check(rc, symbol)
+    return res
+
+
+def _dq_out(q, k):
+    return (torch.empty_like(q),)
+
+
+def _dkv_out(q, k):
+    return torch.empty_like(k), torch.empty_like(k)
+
+
 @counted
 def flash_dq_cuda(
     q, k, v, do, lse, delta, *, causal=True, q_segment_ids=None,
@@ -398,16 +438,10 @@ def flash_dq_cuda(
     """Launch K7 on CUDA tensors: dq [B, Sq, N, H] from q, k, v, the
     output cotangent dO, K3's lse and delta = rowsum(dO * O) (both float32
     [B, N, Sq]). Mask arguments as flash_attention_cuda's."""
-    q, k, v, do, lse, delta, qseg, kseg, shape = _bwd_operands(
-        q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal, window)
-    dq = torch.empty_like(q)
-    rc = _build.entry("flash_bwd", "flash_dq", [ctypes.c_void_p] * 9 + _TAIL_TYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), _ptr(qseg), _ptr(kseg),
-        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
-                 q.dtype, q.device),
-    )
-    _build.check(rc, "flash_dq")
+    (dq,) = _flash_bwd("flash_dq", _dq_out, q, k, v, do, lse, delta, causal=causal,
+                       q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                       logit_softcap=logit_softcap, q_offset=q_offset, window=window,
+                       seg_pad_zero=seg_pad_zero)
     flash_dq_cuda.launches += 1
     return dq
 
@@ -420,55 +454,155 @@ def flash_dkv_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K8 on CUDA tensors: (dk, dv) [B, Skv, K, H], each summed
     over the N/K query heads of its group. Arguments as flash_dq_cuda's."""
-    q, k, v, do, lse, delta, qseg, kseg, shape = _bwd_operands(
-        q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids, causal, window)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _build.entry("flash_bwd", "flash_dkv", [ctypes.c_void_p] * 10 + _TAIL_TYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(qseg), _ptr(kseg),
-        *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
-                 q.dtype, q.device),
-    )
-    _build.check(rc, "flash_dkv")
+    dk, dv = _flash_bwd("flash_dkv", _dkv_out, q, k, v, do, lse, delta, causal=causal,
+                        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                        logit_softcap=logit_softcap, q_offset=q_offset, window=window,
+                        seg_pad_zero=seg_pad_zero)
     flash_dkv_cuda.launches += 1
     return dk, dv
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, g_lse=None, **mask_kw):
+@counted
+def flash_dq_pos_cuda(
+    q, k, v, do, lse, delta, q_positions, kv_positions, *, causal=True,
+    q_segment_ids=None, kv_segment_ids=None, logit_softcap=None, window=None,
+) -> torch.Tensor:
+    """Launch K7's explicit-positions branch on CUDA tensors: dq as
+    flash_dq_cuda's, the causal and window tests comparing ``q_positions``
+    [B, Sq] and ``kv_positions`` [B, Skv] (any order). Each block walks
+    the key steps its queries may attend (the list K3's positions branch
+    builds from the positions' extremes), each warp skipping a step none of
+    its pairs attend. No seg_pad_zero, no q_offset. Counted apart from
+    K7's index path."""
+    (dq,) = _flash_bwd("flash_dq", _dq_out, q, k, v, do, lse, delta, causal=causal,
+                       q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                       logit_softcap=logit_softcap, q_offset=0, window=window,
+                       seg_pad_zero=False, q_positions=q_positions,
+                       kv_positions=kv_positions)
+    flash_dq_pos_cuda.launches += 1
+    return dq
+
+
+@counted
+def flash_dkv_pos_cuda(
+    q, k, v, do, lse, delta, q_positions, kv_positions, *, causal=True,
+    q_segment_ids=None, kv_segment_ids=None, logit_softcap=None, window=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K8's explicit-positions branch on CUDA tensors: (dk, dv) as
+    flash_dkv_cuda's, positions as flash_dq_pos_cuda's. Each block (a kv
+    tile of one kv head) lists the q tiles that can reach it from the
+    positions' extremes and walks those over the group's heads. Counted
+    apart from K8's index path."""
+    dk, dv = _flash_bwd("flash_dkv", _dkv_out, q, k, v, do, lse, delta, causal=causal,
+                        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                        logit_softcap=logit_softcap, q_offset=0, window=window,
+                        seg_pad_zero=False, q_positions=q_positions,
+                        kv_positions=kv_positions)
+    flash_dkv_pos_cuda.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, g_lse=None, q_positions=None,
+                             kv_positions=None, **mask_kw):
     """(dq, dk, dv) of K3 for the output cotangent ``do``: delta =
     rowsum(dO * O) in float32 from O as the forward stored it (in its
     dtype), as ``_bwd_call`` does outside its kernels; an lse cotangent
     ``g_lse`` [B, N, Sq] folds into delta (d lse / d z = P, so it enters
-    dZ = P * (dP - delta) as -g_lse). Then K7 and K8."""
+    dZ = P * (dP - delta) as -g_lse). Then K7 and K8, or with positions
+    their positions branches (``mask_kw`` then without q_offset and
+    seg_pad_zero)."""
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)   # [B, N, Sq]
     if g_lse is not None:
         delta = delta - g_lse
     delta = delta.contiguous()
+    if q_positions is not None:
+        dq = flash_dq_pos_cuda(q, k, v, do, lse, delta, q_positions, kv_positions, **mask_kw)
+        dk, dv = flash_dkv_pos_cuda(q, k, v, do, lse, delta, q_positions, kv_positions,
+                                    **mask_kw)
+        return dq, dk, dv
     dq = flash_dq_cuda(q, k, v, do, lse, delta, **mask_kw)
     dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, **mask_kw)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K3 (with lse) forward, K7 + K8 backward. The forward saves q, k, v,
-    the segment ids, the output and lse, as ``_flash_fwd`` does."""
+    """K3 (with lse) forward, K7 + K8 backward; with positions, their
+    positions branches. Returns (out, lse), differentiable in both: an lse
+    cotangent folds into delta. The forward saves q, k, v, the segment ids,
+    the positions, the output and lse, as ``_flash_lse_fwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, mask_kw):
-        out, lse = flash_attention_cuda(
-            q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            return_lse=True, **mask_kw)
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+                mask_kw):
+        seg = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+        if q_positions is not None:
+            out, lse = flash_attention_pos_cuda(q, k, v, q_positions, kv_positions,
+                                                return_lse=True, **seg, **mask_kw)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **seg, **mask_kw)
         ctx.mask_kw = mask_kw
-        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, out, lse)
-        return out
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, q_positions,
+                              kv_positions, out, lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
+    def backward(ctx, do, g_lse):
+        q, k, v, qseg, kseg, qpos, kpos, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, lse, do, q_segment_ids=qseg, kv_segment_ids=kseg,
-            **ctx.mask_kw)
-        return dq, dk, dv, None, None, None
+            q, k, v, out, lse, do, g_lse=g_lse, q_segment_ids=qseg, kv_segment_ids=kseg,
+            q_positions=qpos, kv_positions=kpos, **ctx.mask_kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _kernel_mask_kw(causal, logit_softcap, q_offset, window, seg_pad_zero, positions):
+    """The kernels' mask arguments; with positions no q_offset and, under a
+    gradient, no seg_pad_zero (K7/K8's positions branches take none)."""
+    kw = dict(causal=causal, logit_softcap=logit_softcap, window=window)
+    if positions:
+        if q_offset:
+            raise ValueError("q_offset does not combine with explicit positions")
+    else:
+        kw.update(q_offset=q_offset, seg_pad_zero=seg_pad_zero)
+    return kw
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_softcap: Optional[float] = None,
+    q_offset: int = 0,
+    window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention returning ``(out, lse)``, the blockwise unit of ring
+    attention (``parallel/sequence.py`` merges partial outputs through
+    their lse). out [B, Sq, N, H] in q's dtype; lse float32 [B, N, Sq],
+    -inf on rows that attend nothing (the kernels' NEG_INF stand-in turned
+    into the -inf the merge keys off, as the JAX package's wrapper does).
+    Differentiable in both outputs. CUDA tensors run K3 and, for the
+    gradient, K7 and K8 (their positions branches with positions); CPU
+    tensors the plain versions under autograd."""
+    if on_cuda(q, k, v):
+        kw = _kernel_mask_kw(causal, logit_softcap, q_offset, window, False,
+                             q_positions is not None)
+        out, lse = _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
+                                         q_positions, kv_positions, kw)
+    else:
+        kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                  logit_softcap=logit_softcap, q_offset=q_offset, window=window,
+                  q_positions=q_positions, kv_positions=kv_positions)
+        out = attention_plain(q, k, v, **kw)
+        lse = attention_lse_plain(q, k, **kw)
+    return out, torch.where(lse <= NEG_INF / 2, -torch.inf, lse)
 
 
 def attention(
@@ -491,10 +625,10 @@ def attention(
 
     CUDA tensors go to K3, which takes no explicit ``mask`` (express it
     through causal / segment ids / window / positions), and through K7/K8
-    when a gradient is needed (not with positions); CPU tensors to the
-    plain version. ``seg_pad_zero`` declares segment id 0 as padding so
-    the kernels may skip all-padding tiles; the plain version has no
-    tiles and ignores it.
+    when a gradient is needed; CPU tensors to the plain version.
+    ``seg_pad_zero`` declares segment id 0 as padding so the kernels may
+    skip all-padding tiles (not with positions under a gradient); the
+    plain version has no tiles and ignores it.
     """
     if on_cuda(q, k, v):
         if mask is not None:
@@ -502,24 +636,18 @@ def attention(
                 "explicit `mask` is only taken by the plain version; express "
                 "the mask through causal/segment ids/window for the kernel"
             )
-        mask_kw = dict(causal=causal, logit_softcap=logit_softcap,
-                       q_offset=q_offset, window=window, seg_pad_zero=seg_pad_zero)
+        pos = q_positions is not None
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            if q_positions is not None:
-                raise NotImplementedError(
-                    "not ported to orion_tpu_torch yet: the gradient of attention "
-                    "with explicit positions (K7's and K8's positions branches)")
+            kw = _kernel_mask_kw(causal, logit_softcap, q_offset, window, seg_pad_zero, pos)
             return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
-                                         mask_kw)
-        if q_positions is not None:
-            del mask_kw["q_offset"]
-            return flash_attention_pos_cuda(
-                q, k, v, q_positions, kv_positions, q_segment_ids=q_segment_ids,
-                kv_segment_ids=kv_segment_ids, **mask_kw)
-        return flash_attention_cuda(
-            q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            **mask_kw)
+                                         q_positions, kv_positions, kw)[0]
+        kw = _kernel_mask_kw(causal, logit_softcap, q_offset, window, seg_pad_zero, False)
+        seg = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+        if pos:
+            del kw["q_offset"]
+            return flash_attention_pos_cuda(q, k, v, q_positions, kv_positions, **seg, **kw)
+        return flash_attention_cuda(q, k, v, **seg, **kw)
     return attention_plain(
         q, k, v, causal=causal, mask=mask, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, logit_softcap=logit_softcap,

@@ -5,6 +5,8 @@ Usage:
     python -m orion_tpu_torch.train --preset tiny-llama --device cpu train.num_steps=5
     python -m orion_tpu_torch.train --preset tiny-llama --device cpu \
         checkpoint.directory=/tmp/c train.num_steps=6 --max-restarts 2
+    torchrun --nproc_per_node=4 -m orion_tpu_torch.train --preset tiny-llama \
+        parallel.sp=4 parallel.sequence_method=ring_striped
 
 Weights are a seeded random init in ``model.param_dtype`` (``--seed``,
 default ``train.seed``), or the newest intact checkpoint in
@@ -15,7 +17,9 @@ arguments override the preset. ``--max-restarts N`` runs the fit under a
 supervisor that rebuilds the trainer after a failure and resumes from the
 newest checkpoint, up to N times. Prints a step line every
 ``train.log_interval`` steps and at the end ``done: N steps, final loss
-..., mean MFU ...``.
+..., mean MFU ...``. With ``parallel.sp=N`` it runs as one process per
+sequence-parallel rank under ``torchrun --nproc_per_node=N`` (one GPU
+each; ``--device cpu`` joins the ranks over gloo); rank 0 prints.
 """
 
 from __future__ import annotations
@@ -90,11 +94,17 @@ def main(argv: list[str] | None = None) -> int:
         )
     else:
         history = Trainer(cfg, device=args.device).fit()
-    if history:
+    from orion_tpu_torch.runtime.distributed import process_index
+
+    if history and process_index() == 0:
         last = history[-1]
         mfu = sum(h.mfu for h in history) / len(history)
         mfu_s = "n/a (no peak rate for the CPU)" if math.isnan(mfu) else f"{mfu * 100:.2f}%"
         print(f"done: {last.step} steps, final loss {last.loss:.4f}, mean MFU {mfu_s}")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,5 +1,5 @@
-"""The training step loop on one GPU, with checkpoints and the
-training-side fault stack.
+"""The training step loop on one GPU, or over a sequence-parallel mesh of
+GPUs, with checkpoints and the training-side fault stack.
 
 Counterpart of ``orion_tpu/train/trainer.py`` (``Trainer.fit`` ->
 ``make_train_step`` -> ``models.transformer.loss_fn``) for a single
@@ -23,12 +23,30 @@ and a ``FaultInjector``'s "dispatch", "nan" and "partial_write" kinds.
 Supervisor restarts are ``runtime.fault.run_with_restarts`` around a
 fresh Trainer (``python -m orion_tpu_torch.train --max-restarts N``).
 
+Sequence parallelism (``parallel.sp`` > 1, as the JAX trainer routes it,
+``orion_tpu/train/trainer.py:672-711``): one process per rank of the
+``sp`` axis (``torchrun --nproc_per_node=<sp>``, or
+``runtime.coordinator_address`` / ``num_processes`` / ``process_id``),
+joined by ``runtime.distributed.initialize`` (NCCL on the card, gloo on
+the CPU) into a ``runtime.mesh`` mesh. Every rank reads the same global
+batch and keeps its contiguous sequence slice of the inputs, targets,
+loss mask, segment ids and positions (global positions where the batch
+has none); attention runs as ``parallel.sequence_attention`` with
+``parallel.sequence_method``; the loss is the global token mean (each
+rank backpropagates its share, ``models.transformer.loss_fn``); the
+gradients are summed over ``sp`` before clipping and AdamW, so every
+rank applies the same update and the parameters stay identical. Logs
+and the metrics file come from rank 0.
+
 Not ported yet, and rejected at construction (``_check_supported``):
 ZeRO-1 and quantized gradient collectives, evaluation, profiling windows,
-tracing/flight recorder/Prometheus export, every parallel axis > 1 and
-more than one process (``runtime.num_processes``), MoE, weight
-quantization, checkify, debug asserts, ``runtime.debug_nans`` and
-``runtime.deterministic``, and remat policies other than none/full.
+tracing/flight recorder/Prometheus export, every parallel axis other than
+sp above 1 (``runtime.mesh.check_axes`` names the mode), more processes
+than one per sequence-parallel rank, checkpoints, the anomaly guard and
+fault injection at sp > 1 (the multi-process checkpoint save comes with
+the DDP/FSDP slice), MoE, weight quantization, checkify, debug asserts,
+``runtime.debug_nans`` and ``runtime.deterministic``, and remat policies
+other than none/full.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -40,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -47,6 +66,7 @@ import torch
 
 from orion_tpu_torch import metrics as metrics_lib
 from orion_tpu_torch.ckpt import CheckpointManager
+from orion_tpu_torch.comm.collectives import all_reduce
 from orion_tpu_torch.config import Config, ModelConfig
 from orion_tpu_torch.data import make_loader
 from orion_tpu_torch.infer.engine import resolve_device
@@ -60,6 +80,8 @@ from orion_tpu_torch.models.convert import (
     unstack_layers,
 )
 from orion_tpu_torch.models.transformer import loss_fn, torch_dtype
+from orion_tpu_torch.runtime.distributed import initialize, process_index
+from orion_tpu_torch.runtime.mesh import build_mesh, check_axes
 from orion_tpu_torch.runtime.fault import (
     TRAIN_KINDS,
     InjectedFault,
@@ -97,6 +119,7 @@ _FIRED_FAULTS: set = set()
 
 def _check_supported(cfg: Config) -> None:
     m, t, r = cfg.model, cfg.train, cfg.runtime
+    sp = cfg.parallel.sp
     remat = t.remat if t.remat != "inherit" else m.remat
     unsupported = {
         "train.zero1": t.zero1,
@@ -110,13 +133,16 @@ def _check_supported(cfg: Config) -> None:
         ),
         f"remat={remat!r} (none|full are ported)": remat not in ("none", "full"),
         "remat_offload": t.remat_offload or m.remat_offload,
-        "parallel axes > 1": cfg.parallel.num_devices > 1,
         "model.n_experts > 0 (MoE)": m.is_moe,
         "model.weight_quant": m.weight_quant is not None,
         "runtime.checkify": r.checkify,
         "runtime.debug_nans": r.debug_nans,
         "runtime.deterministic": r.deterministic,
-        "runtime.num_processes > 1 (multi-process training)": r.num_processes > 1,
+        "runtime.num_processes > 1 other than one a sequence-parallel rank": (
+            r.num_processes > 1 and r.num_processes != sp),
+        "checkpoint.directory with parallel.sp > 1": sp > 1 and bool(cfg.checkpoint.directory),
+        "train.anomaly_guard / inject_fault_at_step with parallel.sp > 1": sp > 1 and (
+            t.anomaly_guard or t.inject_fault_at_step is not None),
         "model.debug_asserts": m.debug_asserts,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -124,12 +150,44 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
         )
+    check_axes(cfg.parallel)
 
 
-def _check_injector(injector) -> None:
-    """Refuse a fault schedule holding kinds training does not consume."""
+def sequence_parallel_config(cfg: Config) -> Config:
+    """At ``parallel.sp`` > 1, validate as the JAX trainer does (the
+    sequence length divisible by sp; Ulysses' head counts, with its warning
+    where grouped kv heads replicate) and route attention through the
+    ``sp`` axis (``model.sequence_axis`` / ``sequence_method``)."""
+    p = cfg.parallel
+    if p.sp <= 1:
+        return cfg
+    if cfg.data.seq_len % p.sp:
+        raise ValueError(f"data.seq_len={cfg.data.seq_len} must be divisible by "
+                         f"parallel.sp={p.sp}")
+    if p.sequence_method == "ulysses":
+        sp_tp = p.sp * p.tp
+        if cfg.model.n_heads % sp_tp:
+            raise ValueError(f"ulysses needs model.n_heads={cfg.model.n_heads} "
+                             f"divisible by sp*tp={sp_tp}")
+        kv = cfg.model.n_kv_heads
+        if kv < sp_tp and sp_tp % kv == 0:
+            log.warning(
+                "ulysses with GQA (kv_heads=%d < sp*tp=%d) replicates KV heads: %dx "
+                "KV all_to_all volume. parallel.sequence_method='ring' (or "
+                "'ring_striped') avoids the inflation for this config.",
+                kv, sp_tp, sp_tp // kv)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sequence_axis="sp", sequence_method=p.sequence_method))
+
+
+def _check_injector(injector, sp: int = 1) -> None:
+    """Refuse a fault schedule holding kinds training does not consume, and
+    any schedule at sp > 1."""
     if injector is None:
         return
+    if sp > 1:
+        raise NotImplementedError(
+            "not ported to orion_tpu_torch yet: fault injection with parallel.sp > 1")
     bad = sorted({s.kind for s in injector.specs if s.kind not in TRAIN_KINDS})
     if bad:
         raise NotImplementedError(
@@ -209,6 +267,7 @@ def loss_and_grads(
     accum: int = 1,
     grad_dtype: Optional[str] = None,
     poison: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], Any]:
     """(loss, aux, grads) of ``loss_fn``; ``grads`` is a tree like
     ``params``. With ``accum`` > 1 the batch leaves are [accum, b, S]
@@ -217,7 +276,10 @@ def loss_and_grads(
     are taken with respect to a copy of the parameters in that dtype.
     ``poison`` multiplies the loss by NaN inside the differentiated
     function, so NaNs flow through the real backward into every gradient
-    (the fault injector's "nan" kind)."""
+    (the fault injector's "nan" kind). Under sequence parallelism
+    (``mesh``) ``batch`` is this rank's sequence slice; the loss, its aux
+    terms and the gradients come back summed over ``sp`` (the global
+    values, the same on every rank)."""
 
     def value_and_grad(mb):
         leaves = [
@@ -225,7 +287,7 @@ def loss_and_grads(
             .requires_grad_(True)
             for p in tree_leaves(params)
         ]
-        loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg)
+        loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg, mesh)
         if poison:
             loss = loss * torch.tensor(float("nan"), dtype=loss.dtype, device=loss.device)
         grads = torch.autograd.grad(loss, leaves)
@@ -233,7 +295,7 @@ def loss_and_grads(
 
     if accum == 1:
         loss, aux, grads = value_and_grad(batch)
-        return loss, aux, tree_unflatten(params, grads)
+        return _sum_over_sp(loss, aux, grads, mcfg, mesh, params)
     acc = [torch.zeros_like(p) for p in tree_leaves(params)]
     loss_sum = aux_sum = None
     for i in range(accum):
@@ -248,11 +310,31 @@ def loss_and_grads(
         a.mul_(inv)
     # Means over microbatches, except token counts, which accumulate.
     aux = {k: v if k == "tokens" else v * inv for k, v in aux_sum.items()}
-    return loss_sum * inv, aux, tree_unflatten(params, acc)
+    return _sum_over_sp(loss_sum * inv, aux, acc, mcfg, mesh, params)
+
+
+def _sum_over_sp(loss, aux, grads, mcfg: ModelConfig, mesh, params):
+    """(loss, aux, grads as a tree): each rank's shares summed over the
+    ``sp`` axis when sequence parallelism is on (token counts are global
+    already), as they are otherwise. The gradients travel as one flat
+    buffer per dtype."""
+    if mesh is None or mcfg.sequence_axis is None:
+        return loss, aux, tree_unflatten(params, grads)
+    group = mesh.get_group(mcfg.sequence_axis)
+    with torch.no_grad():
+        for dtype in sorted({g.dtype for g in grads}, key=str):
+            idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+            flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), group)
+            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                grads[i] = part.view_as(grads[i])
+        scalars = all_reduce(torch.stack([loss.float(), aux["ce_loss"].float(),
+                                          aux["moe_aux"].float()]), group)
+    aux = dict(aux, ce_loss=scalars[1], moe_aux=scalars[2])
+    return scalars[0], aux, tree_unflatten(params, grads)
 
 
 def make_train_step(
-    cfg: Config, schedule: Callable[[int], float], poison: bool = False
+    cfg: Config, schedule: Callable[[int], float], poison: bool = False, mesh=None
 ) -> Callable[..., tuple[TrainState, dict]]:
     """The per-step function: forward + backward (+ accumulation), clip
     and AdamW/SGD update in place. Returns (state, step metrics as host
@@ -267,14 +349,15 @@ def make_train_step(
     metrics carry ``anomaly``/``nonfinite``/``spike`` flags. A clean
     guarded step runs the same operations as an unguarded one.
     ``poison=True`` builds the fault injector's "nan" variant
-    (``loss_and_grads(poison=True)``).
+    (``loss_and_grads(poison=True)``). ``mesh`` is the sequence-parallel
+    mesh (the batch then this rank's slice).
     """
     accum, gdt = cfg.train.grad_accum, cfg.train.grad_dtype
 
     def grads_of(state: TrainState, batch: dict):
         lr = schedule(state["opt"]["count"])
         loss, aux, grads = loss_and_grads(state["params"], batch, cfg.model, accum, gdt,
-                                          poison=poison)
+                                          poison=poison, mesh=mesh)
         return lr, loss, aux, grads
 
     def fetch(*scalars: torch.Tensor) -> list[float]:
@@ -334,7 +417,8 @@ class Trainer:
             cfg = dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, remat=cfg.train.remat))
         _check_supported(cfg)
-        _check_injector(fault_injector)
+        _check_injector(fault_injector, cfg.parallel.sp)
+        cfg = sequence_parallel_config(cfg)
         accum = max(cfg.train.grad_accum, 1)
         if cfg.data.batch_size % accum:
             raise ValueError(
@@ -343,11 +427,22 @@ class Trainer:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        # The sequence-parallel mesh (None at sp = 1) and this rank on it.
+        self.mesh, self.sp_rank = None, 0
+        if cfg.parallel.sp > 1:
+            initialize(cfg.runtime, self.device)
+            if self.device.type == "cuda" and self.device.index is None:
+                local = int(os.environ.get("LOCAL_RANK",
+                                           process_index() % torch.cuda.device_count()))
+                self.device = torch.device("cuda", local)
+                torch.cuda.set_device(self.device)
+            self.mesh = build_mesh(cfg.parallel, self.device)
+            self.sp_rank = self.mesh.get_local_rank("sp")
         self.fault_injector = fault_injector
         self._params = params
         self.loader = make_loader(cfg.data, cfg.model.vocab_size)
         self._schedule = make_schedule(cfg.optimizer, cfg.train.num_steps)
-        self.train_step = make_train_step(cfg, self._schedule)
+        self.train_step = make_train_step(cfg, self._schedule, mesh=self.mesh)
         self._poison_step = None
         self.ckpt: Optional[CheckpointManager] = None
         if cfg.checkpoint.directory:
@@ -365,12 +460,13 @@ class Trainer:
         self.tokens_per_step = cfg.data.batch_size * cfg.data.seq_len
         peak = cfg.train.peak_flops_per_device or metrics_lib.peak_flops_per_device(
             self.device)
+        lead = self.sp_rank == 0   # logs and the metrics file come from rank 0
         self.metrics = metrics_lib.MetricsLogger(
             flops_per_token=cfg.model.flops_per_token(cfg.data.seq_len),
-            num_devices=1,
+            num_devices=cfg.parallel.sp,
             peak_flops=peak,
-            jsonl_path=cfg.train.metrics_jsonl,
-            log_interval=cfg.train.log_interval,
+            jsonl_path=cfg.train.metrics_jsonl if lead else None,
+            log_interval=cfg.train.log_interval if lead else 2 ** 62,
         )
 
     # -- state ------------------------------------------------------------
@@ -441,7 +537,8 @@ class Trainer:
     def _poison_variant(self):
         """The FaultInjector "nan" step, built on first use."""
         if self._poison_step is None:
-            self._poison_step = make_train_step(self.cfg, self._schedule, poison=True)
+            self._poison_step = make_train_step(self.cfg, self._schedule, poison=True,
+                                                mesh=self.mesh)
         return self._poison_step
 
     def _rollback(self, failed_step: int) -> tuple[TrainState, int]:
@@ -505,8 +602,19 @@ class Trainer:
 
     def global_batch(self, step: int) -> dict[str, torch.Tensor]:
         """The step's batch on the device, with the grad_accum microbatch
-        axis leading when accumulating: [A, b, S]."""
+        axis leading when accumulating: [A, b, S]. Under sequence
+        parallelism, this rank's contiguous slice of the sequence axis of
+        every leaf (targets shifted before slicing), with the slice's
+        global positions where the batch has none."""
         host = dict(self.loader.batch_at(step))
+        sp = self.cfg.parallel.sp
+        if sp > 1:
+            S = host["inputs"].shape[-1]
+            if "positions" not in host:
+                host["positions"] = np.broadcast_to(
+                    np.arange(S, dtype=np.int32), host["inputs"].shape)
+            lo, hi = self.sp_rank * S // sp, (self.sp_rank + 1) * S // sp
+            host = {k: v[..., lo:hi] for k, v in host.items()}
         accum = self.cfg.train.grad_accum
         if accum > 1:
             host = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
