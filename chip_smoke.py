@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,train_faults
     python3 chip_smoke.py --phases device,build,serve_graphs
     python3 chip_smoke.py --phases device,build,kernels,serve_host_tier,serve_long,serve_gather
+    python3 chip_smoke.py --phases device,build,serve,serve_obs,train,train_obs
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -95,6 +96,25 @@ exits non-zero without printing a result:
            weights on the card, 16 greedy requests of 100-2000 prompt tokens
            and 64 new tokens; every request finishes, tokens are in the vocab,
            prefill logits are finite, and every kernel launched in the serve
+  serve_obs  the serve with the obs layer (``orion_tpu_torch/obs``), on the
+           serve's weights: llama3-8b-infer at full width and depth, the
+           serve's 16 requests in three waves (the first captures the graphs),
+           CUDA graphs on, untraced and then with inference.trace,
+           trace_path, flight_dir, metrics_jsonl and metrics_prom under
+           chiprun_out/serve_obs/. The traced streams equal the untraced
+           ones, with the same launches and graph captures and replays;
+           the Chrome trace parses with no event dropped, each path's
+           dispatch/<path> spans equal the executor's runs of that path,
+           the step spans the steps, and each request has one first_token
+           and one completed outcome instant; every metrics row and the
+           Prometheus file carry the hbm gauges, 0 < bytes_in_use <=
+           bytes_limit. Then 4 of the requests with the NaN guard, clean
+           and then traced with a flight recorder and a NaN injected at
+           step 2: exactly one nan_quarantine dump carrying the
+           injected_fault event, the other 3 streams the clean run's.
+           Prints the later waves' decode tokens/s and median host share
+           of a decode-only step, untraced and traced, on a line of its
+           own (recorded, not gated)
   serve_chunked  llama3-8b-infer at full width and depth with int8 KV, the
            prefix cache and chunked prefill (the serve's weights): two
            waves of 8 greedy requests sharing a 1024-token system prompt,
@@ -189,6 +209,15 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
+  train_obs  llama-1b-bench at full width and depth, 4 steps through
+           Trainer.fit with train.trace, flight_dir, metrics_prom and
+           profile_steps=(2,3) under chiprun_out/train_obs/: 4 data,
+           dispatch and train_step spans, no flight dump, the Prometheus
+           file with the train loss and 0 < hbm bytes_in_use <=
+           bytes_limit, and the profiler's Chrome trace holding only the
+           train#2 range, with K3, K7 and K8 launched inside it. Prints the
+           traced step times beside the train phase's median (untraced) on
+           a line of its own
   sp_rank  one rank of llama3-8b-256k-ring's striped ring at the preset's
            widths (32/8 heads, head_dim 128, 16384 queries a rank, sp = 16
            ring steps of 16384 keys, batch 1, bf16): parallel.sequence's
@@ -265,10 +294,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "serve", "serve_chunked",
+PHASES = ("device", "build", "kernels", "parity", "serve", "serve_obs", "serve_chunked",
           "serve_spec", "serve_constrained", "serve_faults", "serve_graphs",
           "serve_host_tier", "serve_gather", "serve_long", "train_parity",
-          "train", "train_faults", "sp_rank", "timing")
+          "train", "train_obs", "train_faults", "sp_rank", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -4337,6 +4366,330 @@ def phase_serve_gather(params=None):
     return g["launches"]
 
 
+# serve_obs: the serve with the obs layer (orion_tpu_torch/obs) off and on,
+# its sinks under chiprun_out/serve_obs/; then a NaN quarantine's flight
+# dump. train_obs: the train with tracing, the flight recorder, the
+# Prometheus file and a torch.profiler window.
+OBS_NEW = 64
+OBS_WAVES = 3          # the first captures the graphs; the others are timed
+OBS_NAN_REQUESTS = 4
+OBS_NAN_STEP = 2
+OBS_SPAN_PATHS = ("prefill", "decode")
+TRAIN_OBS_STEPS = 4
+TRAIN_OBS_PROFILE = (2, 3)
+TRAIN_OBS_PHASES = ("data", "dispatch", "train_step")
+# K3, K7 and K8 by kernel name (the bf16 kernels and the f32 ones).
+TRAIN_OBS_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+                     "flash_dq": ("flash_dq_tc_kernel", "flash_dq_kernel"),
+                     "flash_dkv": ("flash_dkv_tc_kernel", "flash_dkv_kernel")}
+
+
+def obs_prompts(V):
+    """The serve phase's 16 prompts (numpy seed 0, 100-2000 tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = np.linspace(100, 2000, 16).astype(int)
+    return [rng.integers(0, V, size=n).tolist() for n in lens]
+
+
+def obs_wave(eng, prompts, n_new):
+    """Submit ``prompts`` together and drain the engine: (the requests, the
+    drained timing, decode tokens/s over the decode dispatch spans, the
+    median host share of a step that only decoded: 1 - its decode span
+    over its wall)."""
+    import torch
+
+    reqs = [eng.submit_request(p, n_new) for p in prompts]
+    shares = []
+    while eng.has_work():
+        d0, p0 = eng.timing["decode_s"], eng.timing["prefill_s"]
+        t0 = time.perf_counter()
+        eng.step()
+        wall = time.perf_counter() - t0
+        dec = eng.timing["decode_s"] - d0
+        if dec > 0 and eng.timing["prefill_s"] == p0:
+            shares.append(1 - dec / wall)
+    torch.cuda.synchronize()
+    tm = eng.reset_timing()
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    return reqs, tm, decode_tokens / tm["decode_s"], statistics.median(shares)
+
+
+def obs_serve(params, overrides, prompts, n_new, waves, injector=None):
+    """A llama3-8b-infer engine (CUDA graphs) with ``overrides`` through
+    ``waves`` waves of ``prompts``, then closed: each wave's (requests,
+    timing, decode tok/s, host share), the launches, the executor's
+    numbers and the engine's registry sections."""
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(get_config("llama3-8b-infer", overrides), params, device="cuda",
+                          fault_injector=injector)
+    ops.reset_launches()
+    out = [obs_wave(eng, prompts, n_new) for _ in range(waves)]
+    launches = ops.launches()
+    ex = eng._executor
+    res = {"waves": out, "launches": launches, "runs": dict(ex.runs),
+           "graphs": graph_stats(eng), "sections": eng.registry.sections(),
+           "tracer": eng.tracer.metrics() if eng.tracer.enabled else None}
+    faults = [{k: w[1][k] for k in ("dispatch_faults", "failed_steps", "pool_faults")}
+              for w in out]
+    if injector is None and any(any(f.values()) for f in faults):
+        # reset_timing drained the counters require_no_faults reads.
+        raise AssertionError(f"serve_obs: faults contained {faults}")
+    eng.close()
+    del eng
+    free_engine()
+    torch.cuda.synchronize()
+    return res
+
+
+def streams(reqs):
+    return [(r.outcome, list(r.generated)) for r in reqs]
+
+
+def check_serve_trace(d, res):
+    """The traced serve's artifacts: the Chrome trace parses with nothing
+    dropped, one dispatch/<path> span per executor run of the path, one
+    step span per step, one first_token and one completed outcome per
+    request; every metrics row and the Prometheus file carry the hbm
+    gauges with 0 < bytes_in_use <= bytes_limit."""
+    with open(os.path.join(d, "trace.json")) as f:
+        doc = json.load(f)
+    bad = []
+    if doc["metadata"]["dropped_events"]:
+        bad.append(f"{doc['metadata']['dropped_events']} events dropped")
+    evs = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    spans = {}
+    for e in evs:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    dispatch = {k[len("dispatch/"):]: n for k, n in spans.items() if k.startswith("dispatch/")}
+    if dispatch != res["runs"] or set(dispatch) != set(OBS_SPAN_PATHS):
+        bad.append(f"dispatch spans {dispatch}, executor runs {res['runs']}")
+    steps = sum(w[1]["steps"] for w in res["waves"])
+    if spans.get("step") != steps:
+        bad.append(f"{spans.get('step')} step spans, {steps} steps")
+    rids = [r.rid for w in res["waves"] for r in w[0]]
+    for name in ("first_token", "outcome"):
+        got = sorted(e["args"]["rid"] for e in evs if e["ph"] == "i" and e["name"] == name)
+        if got != sorted(rids):
+            bad.append(f"{name} instants for rids {got}")
+    if any(e["args"]["outcome"] != "completed" for e in evs if e["name"] == "outcome"):
+        bad.append("an outcome other than completed")
+    with open(os.path.join(d, "m.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    with open(os.path.join(d, "m.prom")) as f:
+        prom = dict(line.rsplit(" ", 1) for line in f.read().splitlines())
+    gauges = [(r["hbm.bytes_in_use"], r["hbm.bytes_limit"]) for r in rows]
+    gauges.append((float(prom["orion_hbm_bytes_in_use"]), float(prom["orion_hbm_bytes_limit"])))
+    if len(rows) != len(res["waves"]) + 1 or not all(0 < u <= lim for u, lim in gauges):
+        bad.append(f"{len(rows)} metrics rows, hbm gauges {gauges}")
+    if bad:
+        raise AssertionError(f"serve_obs trace: {bad}")
+    return {"events": len(evs), "spans": spans, "metrics_rows": len(rows),
+            "hbm_gib": [u / 2 ** 30 for u, _ in gauges], "bytes_limit": gauges[0][1]}
+
+
+def phase_serve_obs(params=None):
+    """llama3-8b-infer at full width and depth with the serve's weights and
+    16 requests, CUDA graphs on: untraced, then with inference.trace,
+    trace_path, flight_dir, metrics_jsonl and metrics_prom under
+    chiprun_out/serve_obs/, each engine through OBS_WAVES waves of the 16
+    requests (the first captures the graphs; the later waves' decode
+    tokens/s and host shares are printed). The traced streams equal the untraced
+    ones, both run the same launches and graphs, and the artifacts hold
+    (check_serve_trace). Then a NaN drive: 4 of the requests with the NaN
+    guard, untraced, then traced with a flight recorder and a NaN injected
+    at step OBS_NAN_STEP: one quarantine dump carrying the injected_fault
+    event, the other 3 streams equal the clean run's. On the serve phase's
+    ``params`` when given, else on the same seeded weights."""
+    import glob
+    import shutil
+
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
+
+    mcfg = get_config("llama3-8b-infer").model
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(mcfg, gen, device="cuda", dtype="bfloat16")
+    prompts = obs_prompts(mcfg.vocab_size)
+    d = os.path.join(OUT_DIR, "serve_obs")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    sinks = ["inference.trace=true", f"inference.trace_path={d}/trace.json",
+             f"inference.flight_dir={d}/flight", f"inference.metrics_jsonl={d}/m.jsonl",
+             f"inference.metrics_prom={d}/m.prom"]
+    t0 = time.perf_counter()
+    plain = obs_serve(params, [], prompts, OBS_NEW, OBS_WAVES)
+    traced = obs_serve(params, sinks, prompts, OBS_NEW, OBS_WAVES)
+    serve_s = time.perf_counter() - t0
+    bad = []
+    if [streams(w[0]) for w in traced["waves"]] != [streams(w[0]) for w in plain["waves"]]:
+        bad.append("traced streams differ from the untraced ones")
+    if any(o != "completed" or len(g) != OBS_NEW for w in plain["waves"] for o, g in streams(w[0])):
+        bad.append("an untraced request did not complete its tokens")
+    if traced["launches"] != plain["launches"]:
+        bad.append(f"launches {traced['launches']} != untraced {plain['launches']}")
+    gkeys = ("captures", "replays")
+    if [traced["graphs"][k] for k in gkeys] != [plain["graphs"][k] for k in gkeys]:
+        bad.append(f"graphs {traced['graphs']} != untraced {plain['graphs']}")
+    if plain["tracer"] is not None or "trace" in plain["sections"]:
+        bad.append("the untraced engine holds a tracer")
+    if bad:
+        raise AssertionError(f"serve_obs: {bad}")
+    arts = check_serve_trace(d, traced)
+
+    # The NaN drive: clean, then traced with the flight recorder.
+    nd = os.path.join(d, "nan")
+    guard = ["inference.nan_guard=true"]
+    t1 = time.perf_counter()
+    clean = obs_serve(params, guard, prompts[:OBS_NAN_REQUESTS], OBS_NEW, 1)
+    inj = FaultInjector([FaultSpec("nan", OBS_NAN_STEP)])
+    hurt = obs_serve(params, guard + ["inference.trace=true", f"inference.flight_dir={nd}"],
+                     prompts[:OBS_NAN_REQUESTS], OBS_NEW, 1, injector=inj)
+    nan_s = time.perf_counter() - t1
+    want, got = streams(clean["waves"][0][0]), streams(hurt["waves"][0][0])
+    victims = [i for i, (o, _) in enumerate(got) if o == "error:nan"]
+    dumps = glob.glob(os.path.join(nd, "flight_*.json"))
+    doc = {}
+    if len(dumps) == 1:
+        with open(dumps[0]) as f:
+            doc = json.load(f)
+    kinds = [e["kind"] for e in doc.get("events", [])]
+    if (inj.fired != [("nan", OBS_NAN_STEP, None)] or len(victims) != 1
+            or [g for i, g in enumerate(got) if i not in victims]
+            != [w for i, w in enumerate(want) if i not in victims]
+            or any(o != "completed" for o, _ in want)
+            or len(dumps) != 1 or doc.get("reason") != "nan_quarantine"
+            or "injected_fault" not in kinds):
+        raise AssertionError(f"serve_obs NaN drive: fired {inj.fired}, victims {victims}, "
+                             f"dumps {dumps}, event kinds {kinds}")
+    emit({"phase": "serve_obs", "preset": "llama3-8b-infer", "requests": len(prompts),
+          "waves": OBS_WAVES, "new_tokens_each": OBS_NEW, "serve_s": serve_s, "nan_drive_s": nan_s,
+          "trace": arts, "runs": traced["runs"], "graphs": traced["graphs"],
+          "tracer": traced["tracer"], "sections": traced["sections"],
+          "nan_drive": {"victim": victims[0], "dump": os.path.relpath(dumps[0], HERE),
+                        "event_kinds": sorted(set(kinds)), "spans": len(doc["spans"])},
+          "launches": traced["launches"]})
+    timed = {name: res["waves"][1:] for name, res in (("untraced", plain), ("traced", traced))}
+    emit({"phase": "serve_obs_overhead", "preset": "llama3-8b-infer",
+          "waves_timed": OBS_WAVES - 1,
+          **{f"decode_tok_s_{k}": [w[2] for w in ws] for k, ws in timed.items()},
+          **{f"decode_host_share_{k}": [w[3] for w in ws] for k, ws in timed.items()},
+          "nvidia_smi": smi_line()})
+    return traced["launches"]
+
+
+def profiled_kernels(path, step):
+    """Kernels in a torch.profiler Chrome trace launched inside the
+    ``train#<step>`` range: the host calls whose launch falls inside the
+    range, matched to device kernels by correlation id. Returns (the range
+    names present, kernel name -> count)."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    steps = sorted({e["name"] for e in evs if e.get("name", "").startswith("train#")})
+    rng = [e for e in evs if e.get("name") == f"train#{step}" and e.get("ph") == "X"
+           and e.get("cat") != "gpu_user_annotation"]
+    if len(rng) != 1:
+        raise AssertionError(f"train_obs: {len(rng)} host ranges train#{step} in {path}")
+    lo, hi = rng[0]["ts"], rng[0]["ts"] + rng[0]["dur"]
+    launched = {e["args"]["correlation"] for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {}) and lo <= e["ts"] <= hi}
+    count = {}
+    for e in evs:
+        if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched:
+            count[e["name"]] = count.get(e["name"], 0) + 1
+    return steps, count
+
+
+def phase_train_obs(untraced_step_s=None):
+    """llama-1b-bench at full width and depth, TRAIN_OBS_STEPS steps through
+    Trainer.fit with train.trace, flight_dir, metrics_prom and
+    profile_steps=TRAIN_OBS_PROFILE under chiprun_out/train_obs/: the trace
+    holds one data, dispatch and train_step span a step, the flight
+    recorder wrote nothing, the Prometheus file holds the train and hbm
+    gauges, and the profiler's trace lists K3, K7 and K8 launched inside
+    the train#2 range (and no other step's range). Prints the step time
+    traced beside the train phase's (untraced)."""
+    import glob
+    import math
+    import shutil
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    d = os.path.join(OUT_DIR, "train_obs")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    first, last = TRAIN_OBS_PROFILE
+    cfg = get_config("llama-1b-bench", [
+        f"train.num_steps={TRAIN_OBS_STEPS}", "train.log_interval=1", "train.trace=true",
+        f"train.trace_path={d}/trace.json", f"train.flight_dir={d}/flight",
+        f"train.metrics_prom={d}/m.prom", f"train.profile_steps=({first},{last})",
+        f"train.profile_dir={d}/prof"])
+    tr = Trainer(cfg, device="cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.fit()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    losses = [m.loss for m in hist]
+    with open(os.path.join(d, "trace.json")) as f:
+        doc = json.load(f)
+    names = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+    counts = {p: names.count(p) for p in TRAIN_OBS_PHASES}
+    with open(os.path.join(d, "m.prom")) as f:
+        prom = dict(line.rsplit(" ", 1) for line in f.read().splitlines())
+    [prof] = glob.glob(os.path.join(d, "prof", "*.json"))
+    ranges, kernels = profiled_kernels(prof, first)
+    by_kernel = {k: sum(n for name, n in kernels.items() if any(p in name for p in pats))
+                 for k, pats in TRAIN_OBS_KERNELS.items()}
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    if counts != {p: TRAIN_OBS_STEPS for p in TRAIN_OBS_PHASES}:
+        bad.append(f"phase spans {counts}")
+    if doc["metadata"]["dropped_events"] or glob.glob(os.path.join(d, "flight", "*")):
+        bad.append("dropped events or a flight dump")
+    use, lim = float(prom["orion_hbm_bytes_in_use"]), float(prom["orion_hbm_bytes_limit"])
+    if not (0 < use <= lim and "orion_train_loss" in prom):
+        bad.append(f"prom hbm {use} / {lim}, train_loss {prom.get('orion_train_loss')}")
+    if ranges != [f"train#{s}" for s in range(first, last)] or not all(by_kernel.values()):
+        bad.append(f"profiled ranges {ranges}, kernels in train#{first} {by_kernel}")
+    if bad:
+        raise AssertionError(f"train_obs: {bad}")
+    step_times = [m.step_time_s for m in hist]
+    emit({"phase": "train_obs", "preset": "llama-1b-bench", "steps": len(hist),
+          "losses": losses, "wall_s": wall, "phase_spans": counts,
+          "trace_events": len(doc["traceEvents"]) - 1, "profiled_ranges": ranges,
+          f"kernels_in_train#{first}": by_kernel,
+          "profile_trace_mib": os.path.getsize(prof) / 2 ** 20,
+          "prom_hbm_gib": use / 2 ** 30, "launches": launches})
+    # Steps after the first (the fit's cold step) outside the profiled window.
+    clean = [t for i, t in enumerate(step_times) if i and not first <= i < last]
+    emit({"phase": "train_obs_overhead", "preset": "llama-1b-bench",
+          "step_times_s_traced": step_times, "step_s_traced_unprofiled": clean,
+          "step_s_median_traced_unprofiled": statistics.median(clean),
+          "step_s_median_untraced": untraced_step_s, "nvidia_smi": smi_line()})
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_serve_long():
     """Long context at Mistral-7B, full width and depth: two 8064-token
     requests at once over a 96-page pool (page rolling, residency
@@ -4519,7 +4872,7 @@ def phase_train(profile=False):
         profile_train(tr, tr.state)
     del tr
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_s
 
 
 # sp_rank: one rank of llama3-8b-256k-ring's striped ring at the preset's
@@ -5716,6 +6069,8 @@ def main(argv=None) -> int:
     if "serve" in phases:
         launches, serve_params = phase_serve(args.profile)
         free_engine()
+    if "serve_obs" in phases:
+        phase_serve_obs(serve_params)
     if "serve_chunked" in phases:
         chunked_launches = phase_serve_chunked(args.profile, serve_params)
         free_engine()
@@ -5745,8 +6100,11 @@ def main(argv=None) -> int:
         free_engine()
     if "train_parity" in phases:
         phase_train_parity()
+    train_step_s = None
     if "train" in phases:
-        train_launches = phase_train(args.profile)
+        train_launches, train_step_s = phase_train(args.profile)
+    if "train_obs" in phases:
+        phase_train_obs(train_step_s)
     if "train_faults" in phases:
         train_fault_launches = phase_train_faults()
     if "sp_rank" in phases:

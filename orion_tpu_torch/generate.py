@@ -21,6 +21,15 @@ Dotted ``key=value`` arguments override the preset (sampling:
 ``--regex PATTERN`` or ``--json-schema FILE`` constrains every request's
 output to the grammar (byte-level patterns over the byte tokenizer, token
 id == byte value); either sets ``inference.constrained=true``.
+
+``--trace PATH`` records the serve's spans and lifecycle events and
+exports them as a Chrome trace (Perfetto; ``python tools/obs_report.py
+PATH`` renders it in the terminal); ``--flight-dir DIR`` writes
+flight-recorder postmortems there on a degradation (failed steps, a NaN
+quarantine, a watchdog stall, speculation switching itself off). Sugar for
+``inference.trace=true inference.trace_path=PATH`` and
+``inference.flight_dir=DIR``; ``inference.metrics_jsonl`` and
+``inference.metrics_prom`` export the metrics registry.
 """
 
 from __future__ import annotations
@@ -52,9 +61,24 @@ def main(argv: list[str] | None = None) -> int:
                         help="grammar-constrained decoding from a JSON Schema "
                              "file, compiled to a regex and then to the same "
                              "token-level FSM (mutually exclusive with --regex)")
+    parser.add_argument("--trace", metavar="PATH", default=None,
+                        help="export a Chrome trace-event JSON of the serve to PATH "
+                             "(lifecycle instants and per-dispatch spans; load in "
+                             "Perfetto); sugar for inference.trace=true + "
+                             "inference.trace_path=PATH")
+    parser.add_argument("--flight-dir", metavar="DIR", default=None,
+                        help="flight-recorder postmortems: on a degradation trigger "
+                             "(step faults, NaN quarantine, watchdog stall, "
+                             "speculation switched off) write the fault-adjacent "
+                             "span window to DIR; sugar for inference.flight_dir=DIR "
+                             "(render with tools/obs_report.py)")
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
     overrides = list(args.overrides)
+    if args.trace is not None:
+        overrides += ["inference.trace=true", f"inference.trace_path={args.trace}"]
+    if args.flight_dir is not None:
+        overrides.append(f"inference.flight_dir={args.flight_dir}")
     constraint = _constraint(args)
     if constraint is not None:
         overrides.append("inference.constrained=true")
@@ -88,6 +112,15 @@ def main(argv: list[str] | None = None) -> int:
                 break
             engine.step()
     engine.close()
+    if args.trace:
+        # Exported again, so the message counts this run's events (a stale
+        # file from an earlier serve must not pass for this one's).
+        try:
+            n = engine.export_trace(args.trace)
+            print(f"trace written to {args.trace}: {n} events (open in Perfetto, "
+                  f"or run tools/obs_report.py {args.trace})")
+        except OSError as e:
+            print(f"trace export to {args.trace} failed: {e}", file=sys.stderr)
     for req in reqs:
         print(json.dumps({"rid": req.rid, "outcome": req.outcome,
                           "prompt": req.prompt, "generated": req.generated}))

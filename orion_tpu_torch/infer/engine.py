@@ -104,10 +104,22 @@ all resident does not draft. With inference.paged_prefill=false rows that
 resume over cached pages run the gather body (K3 with explicit
 positions) in place of K9.
 
-Not ported yet (each raises at construction when configured):
-int8 weights, MoE, the tracer and flight recorder (``trace``,
-``trace_path``, ``flight_dir``) and the metrics sinks (``metrics_jsonl``,
-``metrics_prom``). Live migration
+Observability (``orion_tpu_torch/obs``, the JAX engine's wiring): a
+metrics registry always (sections engine, robust, pool, hbm and, with their
+features, prefix, spec and constrain; lazy reads of live state); with
+inference.trace, ``trace_path`` or ``flight_dir`` a span ring recording one
+``dispatch/<path>`` span per dispatch (the host span of ``Executor.run``,
+capture or replay included, never an annotation inside a capture), one
+``step`` span per step and the lifecycle instants (submit, admit,
+first_token, outcome, page_out, page_in, preempt_to_host); with
+``flight_dir`` postmortem dumps at the fault sites (failed steps,
+max_step_faults, watchdog stalls, speculation switching off, quarantines);
+``metrics_jsonl``/``metrics_prom`` rows at every ``reset_timing`` and at
+``close``, which also exports the Chrome trace. With all of it off the
+tracer is ``NULL_TRACER``: no tag is built and no span object made.
+
+Not ported yet (each raises at construction when configured): int8
+weights and MoE. Live migration
 (the JAX engine's ``export_migration_state``) is not ported either; when it
 is, its state carries each request's ``constraint`` as the JAX engine's
 does.
@@ -166,6 +178,7 @@ from orion_tpu_torch.metrics import (
 )
 from orion_tpu_torch.models.convert import to_device
 from orion_tpu_torch.models.transformer import torch_dtype
+from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
 from orion_tpu_torch.runtime.fault import (
@@ -196,12 +209,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.weight_quant": m.weight_quant is not None,
         "model.n_experts > 0 (MoE)": m.is_moe,
-        "inference.trace / trace_path / flight_dir": (
-            i.trace or i.trace_path is not None or i.flight_dir is not None
-        ),
-        "inference.metrics_jsonl / metrics_prom": (
-            i.metrics_jsonl is not None or i.metrics_prom is not None
-        ),
     }
     # The knobs that only shape the XLA-fallback leg, which the port does
     # not have (a failing kernel raises): their defaults only.
@@ -375,6 +382,21 @@ class InferenceEngine:
                     "serving watchdog: step stalled for %.1fs", elapsed),
             ).start()
 
+        # -- Observability (orion_tpu_torch/obs) ---------------------------
+        # The registry always (lazy reads of live state); the tracer and
+        # the flight recorder only when asked for, so the untraced host path
+        # is the plain one.
+        self.registry = MetricsRegistry()
+        self._register_metrics()
+        self._tracer, self._flight = init_obs(
+            trace=self.icfg.trace, trace_ring=self.icfg.trace_ring,
+            flight_dir=self.icfg.flight_dir, trace_path=self.icfg.trace_path,
+            snapshot=self.registry.snapshot, injector=self._injector, device=self.device,
+        )
+        self._register_trace_metrics()
+        self._ttft_seen: set[int] = set()   # rids with a first_token instant
+        self._closed = False
+
     def _init_host_tier(self) -> None:
         """inference.host_tier_bytes > 0: the HostPagePool (capacity in
         whole pages over every cache tensor) and the break-even threshold
@@ -409,6 +431,116 @@ class InferenceEngine:
                 pb, self.psz, icfg.host_tier_h2d_gbps,
                 icfg.host_tier_restore_overhead_s, icfg.host_tier_prefill_tok_s)
             self._host_min_tokens = float(auto) if auto is not None else float("inf")
+
+    # -- observability (orion_tpu_torch/obs) ------------------------------
+
+    def _register_metrics(self) -> None:
+        """The engine's live state in the registry: the window counters
+        (the objects reset_timing drains, read lazily, so the registry
+        reports the current window) and the gauges: pool and prefix-tree
+        occupancy, device memory."""
+        reg = self.registry
+        reg.register("engine", lambda: {
+            **self.timing,
+            "decode_window": self.decode_window,
+            "step_no": self.step_no,
+            "waiting": len(self.waiting),
+            "active": sum(1 for r in self.slots if r is not None and not r.done),
+            "preemptions": self.preemptions,
+        })
+        reg.register("robust", lambda: self.robust.as_timing())
+        if self.icfg.prefix_cache:
+            reg.register("prefix", lambda: self.prefix_stats.as_timing())
+        if self.icfg.speculative:
+            reg.register("spec", lambda: self.spec_stats.as_timing())
+        if self.icfg.constrained:
+            reg.register("constrain", lambda: self.constraint_stats.as_timing())
+        reg.register("pool", self._pool_metrics)
+        reg.register("hbm", lambda: live_hbm_metrics(self.device))
+
+    def _register_trace_metrics(self) -> None:
+        """The ring's gauges ("trace": events, capacity, dropped), only when
+        tracing is on, so the untraced snapshot's keys are the plain ones. A
+        nonzero ``dropped`` means an export is a truncated timeline."""
+        if self._tracer.enabled:
+            self.registry.register("trace", self._tracer.metrics)
+
+    @staticmethod
+    def _trace_ctx(req: Request) -> dict:
+        """Correlation tags of a lifecycle instant: ``tid`` (a router's
+        trace id, else the rid) and, on a failover re-placement,
+        ``retried=attempt``."""
+        tid = req.trace_id if req.trace_id is not None else req.rid
+        if req.attempt:
+            return {"tid": tid, "retried": req.attempt}
+        return {"tid": tid}
+
+    def _trace_step(self, m0: float, decoded: bool) -> None:
+        """The step's lifecycle instants, swept at its end where every
+        token-emitting path has run: first_token once per request (the
+        wait queue included: a request preempted in the step that gave its
+        first token sits there), outcome once at the end; then the step
+        span from ``m0``."""
+        tr = self._tracer
+        for r in itertools.chain(self.slots, self.waiting, self._just_finished):
+            if r is not None and r.generated and r.rid not in self._ttft_seen:
+                self._ttft_seen.add(r.rid)
+                tr.instant("first_token", rid=r.rid, step=self.step_no, **self._trace_ctx(r))
+        for r in self._just_finished:
+            self._ttft_seen.discard(r.rid)
+            tr.instant("outcome", rid=r.rid, outcome=r.outcome, tokens=len(r.generated),
+                       step=self.step_no, **self._trace_ctx(r))
+        tr.record_span("step", m0, time.monotonic(), step=self.step_no, decoded=bool(decoded))
+
+    def _pool_metrics(self) -> dict:
+        """Page-pool and radix-tree occupancy gauges (``occupancy`` over the
+        usable pool: page 0 is the scratch page; cached pages are
+        reclaimable but occupied), and the host tier's and, with long
+        context, the requests' host residency."""
+        n = self.icfg.num_pages
+        usable = max(n - 1, 1)
+        free = self.alloc.free_pages
+        out = {"num_pages": n, "free_pages": free, "occupancy": (usable - free) / usable}
+        if self._pcache is not None:
+            out["cached_pages"] = self._pcache.total_pages
+            out["evictable_pages"] = self._pcache.evictable_pages()
+        hp = self._host_pool
+        if hp is not None:
+            out["host_capacity"] = hp.capacity
+            out["host_free_slots"] = hp.free_slots
+            if self._pcache is not None:
+                out["host_pages"] = self._pcache.host_pages
+            out["host_occupancy"] = (hp.capacity - hp.free_slots) / hp.capacity
+            if self._long:
+                # Host slots held by live requests (not tree markers).
+                held = sum(len(r.host_pages)
+                           for r in itertools.chain(self.slots, self.waiting) if r is not None)
+                out["request_host_pages"] = held
+                out["residency_occupancy"] = held / hp.capacity
+        return out
+
+    def _flight_dump(self, reason: str, **context) -> None:
+        """A flight-recorder postmortem (a no-op without
+        inference.flight_dir); best-effort: a failed write is logged and
+        the engine goes on (``FlightRecorder.try_dump``)."""
+        if self._flight is not None:
+            self._flight.try_dump(reason, step=self.step_no, **context)
+
+    def _flight_note(self, kind: str, **fields) -> None:
+        """One event in the postmortem ring (a no-op without
+        inference.flight_dir)."""
+        if self._flight is not None:
+            self._flight.note(kind, step=self.step_no, **fields)
+
+    def export_trace(self, path: str) -> int:
+        """Export the span ring as Chrome trace-event JSON; returns the
+        events written (0 with tracing off)."""
+        return self._tracer.export_chrome(path)
+
+    @property
+    def tracer(self):
+        """The engine's span tracer (``NULL_TRACER`` with obs off)."""
+        return self._tracer
 
     @staticmethod
     def _zero_timing() -> dict:
@@ -537,10 +669,15 @@ class InferenceEngine:
         top_p: Optional[float] = None,
         deadline_s: Optional[float] = None,
         priority: int = 0,
+        trace_id: Optional[int] = None,
+        attempt: int = 0,
         constraint: Optional[Any] = None,
     ) -> Request:
         """submit() returning the live Request (``.generated`` grows as
-        tokens are accepted; the typed ``.outcome`` is set at the end)."""
+        tokens are accepted; the typed ``.outcome`` is set at the end).
+        ``trace_id`` / ``attempt`` are a router's trace context (its request
+        id and failover attempt), which the lifecycle instants tag; a bare
+        engine's caller leaves them (``tid`` is then the rid)."""
         if not len(prompt):
             raise ValueError("empty prompt")
         if temperature is not None and temperature < 0.0:
@@ -597,8 +734,15 @@ class InferenceEngine:
             max_new_tokens=max_new, temperature=temperature, top_k=top_k,
             top_p=top_p, priority=int(priority),
             deadline=time.monotonic() + deadline_s if deadline_s is not None else None,
-            t_submit=time.perf_counter(), constraint=cstate,
+            t_submit=time.perf_counter(), trace_id=trace_id, attempt=int(attempt),
+            constraint=cstate,
         )
+        if self._tracer.enabled:
+            self._tracer.instant(
+                "submit", rid=req.rid, priority=req.priority, prompt_tokens=len(req.prompt),
+                max_new_tokens=req.max_new_tokens, deadline_s=deadline_s,
+                **self._trace_ctx(req),
+            )
         if shed_kind is not None:
             self._shed(req, f"context needs up to {needed} KV pages, pool has "
                             f"{usable} and the lazy working set does not fit",
@@ -697,6 +841,7 @@ class InferenceEngine:
         inference.max_step_faults consecutive failed steps the fault is
         not transient and is re-raised."""
         t0 = time.perf_counter()
+        m0 = time.monotonic() if self._tracer.enabled else 0.0
         if self._watchdog is not None and self._watchdog.armed:
             # Refreshed at step START, so idle time between steps never
             # reads as a stall; arming stays with the step-end heartbeat.
@@ -723,7 +868,11 @@ class InferenceEngine:
             self._consec_failed += 1
             log.error("engine step %d failed (%s); continuing (%d/%d consecutive)",
                       self.step_no, e, self._consec_failed, self.icfg.max_step_faults)
+            self._flight_note("failed_step", consecutive=self._consec_failed,
+                              error=f"{type(e).__name__}: {e}")
             if self._consec_failed >= self.icfg.max_step_faults:
+                self._flight_dump("max_step_faults", consecutive=self._consec_failed,
+                                  error=str(e))
                 raise
         total = time.perf_counter() - t0
         tm = self.timing
@@ -753,7 +902,10 @@ class InferenceEngine:
             if self._watchdog.stalled:
                 # The watchdog fired during this step: counted, not fatal.
                 self.robust.stalled_steps += 1
+                self._flight_dump("watchdog_stall", step_wall_s=total)
             self._watchdog.heartbeat()
+        if self._tracer.enabled:
+            self._trace_step(m0, decoded)
         self.step_no += 1
         done, self._just_finished = self._just_finished, []
         return done
@@ -855,12 +1007,21 @@ class InferenceEngine:
                  share, self.decode_window)
 
     @contextlib.contextmanager
-    def _device_span(self, span: str = "_dev_span", *keys: str):
-        """Time a dispatch through its host fetch into the step's ``span``
-        (and ``timing[k]`` for each of ``keys``); a dispatch that raises
-        credits nothing (the JAX engine's ``_device_span``)."""
+    def _device_span(self, path: str, span: str = "_dev_span", *keys: str):
+        """Time the ``path`` dispatch through its host fetch into the step's
+        ``span`` (and ``timing[k]`` for each of ``keys``), and record a
+        ``dispatch/<path>`` tracer span over the same window, tagged with
+        the step and, when tracing, the trace ids of the live slots. A
+        dispatch that raises credits nothing, while its tracer span still
+        records (the JAX engine's ``_device_span``)."""
+        tags = {"step": self.step_no}
+        if self._tracer.enabled:
+            # Built only when tracing: the untraced host path is unchanged.
+            tags["tids"] = [r.trace_id if r.trace_id is not None else r.rid
+                            for r in self.slots if r is not None and not r.done]
         t0 = time.perf_counter()
-        yield
+        with self._tracer.span("dispatch/" + path, **tags):
+            yield
         dt = time.perf_counter() - t0
         setattr(self, span, getattr(self, span) + dt)
         for k in keys:
@@ -897,6 +1058,19 @@ class InferenceEngine:
             self.constraint_stats = ConstraintStats()
         out.update(self.robust.as_timing())
         self.robust = RobustnessStats()
+        if self.icfg.metrics_jsonl or self.icfg.metrics_prom:
+            # The exporters ride the drain point: one JSONL row and one
+            # Prometheus rewrite a window, the drained counters beside the
+            # live gauges.
+            row = {f"serve.{k}": v for k, v in out.items()}
+            row.update(self.registry.snapshot(sections=("pool", "hbm")))
+            try:
+                if self.icfg.metrics_jsonl:
+                    self.registry.export_jsonl(self.icfg.metrics_jsonl, snapshot=row)
+                if self.icfg.metrics_prom:
+                    self.registry.export_prometheus(self.icfg.metrics_prom, snapshot=row)
+            except OSError as e:
+                log.error("metrics export failed: %s", e)
         return out
 
     def drain(self) -> list[Request]:
@@ -923,8 +1097,18 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Stop admission for good (a later submit is a typed shed) and the
-        watchdog's thread. Idempotent."""
+        watchdog's thread; flush the metrics exporters (a final drain) and
+        export the Chrome trace to inference.trace_path. Idempotent: the
+        flush and export run once, so a second close appends no all-zero
+        row."""
         self.draining = True
+        if not self._closed:
+            self._closed = True
+            if self.icfg.metrics_jsonl or self.icfg.metrics_prom:
+                # A short-lived serve (the CLI, which never drains itself)
+                # still flushes its tail window.
+                self.reset_timing()
+            export_chrome_safe(self._tracer, self.icfg.trace_path)
         if self._watchdog is not None:
             self._watchdog.stop()
 
@@ -998,6 +1182,7 @@ class InferenceEngine:
             self.spec_stats.disabled_reason = (
                 f"auto-disabled after {self._spec_faults} verify dispatch faults")
             log.error("speculative decoding %s", self.spec_stats.disabled_reason)
+            self._flight_dump("spec_auto_disable", spec_faults=self._spec_faults)
 
     def _maybe_inject_nan(self) -> None:
         """FaultSpec kind="nan": poison the victim's newest attended PRIVATE
@@ -1045,6 +1230,7 @@ class InferenceEngine:
         self.robust.quarantined += 1
         self._teardown_slot(req, 0)   # n_cached=0: donate nothing
         self._just_finished.append(req)
+        self._flight_dump(f"{reason}_quarantine", rid=req.rid)
 
     def _quarantine_failed(self, reqs: list[Request], ok: Optional[np.ndarray]) -> list[Request]:
         """Quarantine the slots whose guard flag is False; the rest."""
@@ -1198,7 +1384,8 @@ class InferenceEngine:
             hp.store(hids, blocks)
 
         try:
-            with self._device_span("_spill_span"):
+            with self._device_span("spill", "_spill_span"), \
+                    self._tracer.annotation("orion/spill"):
                 self._executor.contain("spill", copy)
         except DispatchFault as e:
             hp.free(hids)
@@ -1240,7 +1427,8 @@ class InferenceEngine:
             hp.free(hids)
             raise
         try:
-            with self._device_span("_restore_span"):
+            with self._device_span("restore", "_restore_span"), \
+                    self._tracer.annotation("orion/restore"):
                 self._executor.contain("restore", self._scatter_from_host, hids, fresh)
         except DispatchFault:
             self.alloc.free(fresh)
@@ -1372,6 +1560,9 @@ class InferenceEngine:
         self.page_table[req.slot, victims] = 0
         self.alloc.free(pages)
         self.prefix_stats.request_paged_out += len(pages)
+        if self._tracer.enabled:
+            self._tracer.instant("page_out", rid=req.rid, pages=len(pages), step=self.step_no,
+                                 **self._trace_ctx(req))
 
     def _page_in_request(self, req: Request) -> None:
         """Restore a live request's host-resident pages into fresh pool
@@ -1386,7 +1577,8 @@ class InferenceEngine:
         hids = [req.host_pages[j] for j in due]
         fresh = self._alloc_pages(len(hids))
         try:
-            with self._device_span("_pagein_span"):
+            with self._device_span("page_in", "_pagein_span"), \
+                    self._tracer.annotation("orion/page_in"):
                 self._executor.contain("page_in", self._scatter_from_host, hids, fresh)
         except DispatchFault:
             self.alloc.free(fresh)
@@ -1397,6 +1589,9 @@ class InferenceEngine:
         self._host_pool.free(hids)
         self.page_table[req.slot, due] = fresh
         self.prefix_stats.request_paged_in += len(hids)
+        if self._tracer.enabled:
+            self._tracer.instant("page_in", rid=req.rid, pages=len(hids), step=self.step_no,
+                                 **self._trace_ctx(req))
 
     def _provision_chunk_pages(self, req: Request, k: int) -> None:
         """Lazy pages for the next chunk (the over-pool admission path
@@ -1439,6 +1634,9 @@ class InferenceEngine:
         self.seq_lens[slot] = 0
         self.last_token[slot] = 0
         self.waiting.appendleft(req)
+        if self._tracer.enabled:
+            self._tracer.instant("preempt_to_host", rid=req.rid, pages=len(live), cursor=cursor,
+                                 step=self.step_no, **self._trace_ctx(req))
         return True
 
     def _readmit_host(self, req: Request, slot: int, reserved: int) -> Optional[int]:
@@ -1475,6 +1673,9 @@ class InferenceEngine:
         req.prefill_done = req.host_cursor
         req.prefill_pending = req.host_cursor < len(req.context)
         req.host_cursor = 0
+        if self._tracer.enabled:
+            self._tracer.instant("admit", rid=req.rid, slot=slot, step=self.step_no,
+                                 priority=req.priority, host_restored=n, **self._trace_ctx(req))
         return need - n
 
     def _match_prefix(self, context: list[int]):
@@ -1634,6 +1835,11 @@ class InferenceEngine:
                 self.waiting.appendleft(req)
                 break
             self.slots[slot] = req
+            if self._tracer.enabled:
+                self._tracer.instant(
+                    "admit", rid=req.rid, slot=slot, step=self.step_no, priority=req.priority,
+                    cached_tokens=len(context) - 1 if full else n_match * psz,
+                    **self._trace_ctx(req))
             self._set_sampling(req)
             # The lazy branch admitted with no pages (they come per chunk).
             self.page_table[slot, :len(req.pages)] = [0 if p is None else p for p in req.pages]
@@ -1713,7 +1919,7 @@ class InferenceEngine:
             return self._sample(logits, reqs)   # the one host fetch
 
         try:
-            with self._device_span("_prefill_span", "prefill_s"):
+            with self._device_span("prefill", "_prefill_span", "prefill_s"):
                 firsts = self._executor.run("prefill", run)
         except DispatchFault:
             # Unwind the burst's admissions: pages released with nothing
@@ -2234,7 +2440,7 @@ class InferenceEngine:
                 "verify", self._verify_program, inputs,
                 dict(nan_guard=self._guard, **samp_static)))
 
-        with self._device_span("_dev_span", "decode_s", "verify_s"):
+        with self._device_span("verify", "_dev_span", "decode_s", "verify_s"):
             acc, alt, ok = self._executor.run("verify", run)
         tm = self.timing
         tm["verify_steps"] += 1
@@ -2359,7 +2565,7 @@ class InferenceEngine:
                 moves += len(off)
         if moves:
             dev = self.device
-            with self._device_span():
+            with self._device_span("compact"), self._tracer.annotation("orion/compact"):
                 self._executor.contain(
                     "compact", compact_draft_kv,
                     self.cache, torch.from_numpy(self.page_table).to(dev),
@@ -2409,7 +2615,7 @@ class InferenceEngine:
                 return rows, None
             return rows[:-1], rows[-1].astype(bool)
 
-        with self._device_span("_dev_span", "decode_s"):
+        with self._device_span("decode", "_dev_span", "decode_s"):
             tokens, ok = self._executor.run("decode", run)
         self.timing["decode_slot_steps"] += W * len(active)
         # A poisoned slot's whole window is suspect: quarantined, its
@@ -2509,11 +2715,17 @@ class InferenceEngine:
         static = dict(nan_guard=self._guard, **samp_static)
         if self._guard:
             inputs["active"] = self._live_mask(dec)
-        with self._device_span("_mixed_span", "mixed_s"):
+        if drafts is not None:
+            vtok, vlens, tree, vmask = self._verify_rows(dec, drafts)
+            inputs.update(tokens=vtok, lens=vlens, legal_mask=vmask, **tree)
+        else:
+            inputs["tokens"] = self.last_token
+            # No live decode row: draw nothing from the engine's stream, so
+            # a sampled lone request is the same chunked and unchunked.
+            static["draw"] = bool(dec)
+        with self._device_span("mixed" if drafts is None else "mixed_verify",
+                               "_mixed_span", "mixed_s"):
             if drafts is not None:
-                vtok, vlens, tree, vmask = self._verify_rows(dec, drafts)
-                inputs.update(tokens=vtok, lens=vlens, legal_mask=vmask, **tree)
-
                 def run():
                     packed, p_logits = self._executor.launch(
                         "mixed_verify", self._mixed_verify_program, inputs, static)
@@ -2523,11 +2735,6 @@ class InferenceEngine:
                 tm["verify_steps"] += 1
                 tm["mixed_verify_steps"] += 1
             else:
-                inputs["tokens"] = self.last_token
-                # No live decode row: draw nothing from the engine's stream, so
-                # a sampled lone request is the same chunked and unchunked.
-                static["draw"] = bool(dec)
-
                 def run():
                     toks, p_logits = self._executor.launch("mixed", self._mixed_program,
                                                            inputs, static)

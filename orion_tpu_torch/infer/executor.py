@@ -7,9 +7,13 @@ must never give way to its plain version. The envelope runs, in order,
 the ``stall`` injection point, the ``dispatch`` injection point (raising
 ``InjectedFault`` BEFORE the call, so pool and page state stay
 untouched) and the call. Any exception becomes ``DispatchFault(path)``,
-after ``robust.dispatch_faults`` is counted and, for the verify paths, the
-engine's speculation-fault ladder is told. The engine then fails the step,
-not the process (``InferenceEngine.step``).
+after ``robust.dispatch_faults`` is counted, the fault is noted in the
+flight recorder's ring (with one) and, for the verify paths, the engine's
+speculation-fault ladder is told. The engine then fails the step, not the
+process (``InferenceEngine.step``). ``runs`` counts the envelope's calls by
+path, one each ``dispatch/<path>`` span of the engine's tracer; with
+tracing on a ``run`` call sits inside a profiler range ``orion/<path>``,
+opened on the host before any capture begins.
 
 The call handed to ``run`` includes the step's one host fetch, so an
 error the device reports at execution surfaces inside the envelope
@@ -49,6 +53,7 @@ from __future__ import annotations
 import gc
 import logging
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -98,6 +103,7 @@ class DispatchExecutor:
         self._bound = None          # (params, cache pointers) the graphs hold
         self.captures = 0
         self.replays = 0
+        self.runs: Counter = Counter()   # envelope calls by dispatch path
         self.capture_s = 0.0
         self.pool_bytes = 0         # device memory reserved by the captures
 
@@ -106,6 +112,7 @@ class DispatchExecutor:
         fetch, at the injection points of ``path``; raises DispatchFault
         when it fails."""
         eng = self.eng
+        self.runs[path] += 1
         inj = eng._injector
         if inj is not None:
             st = inj.take("stall", eng.step_no, path)
@@ -116,13 +123,18 @@ class DispatchExecutor:
         try:
             if inj is not None and inj.take("dispatch", eng.step_no, path) is not None:
                 raise InjectedFault(f"injected {path} dispatch fault (step {eng.step_no})")
-            return fn(*args, **kwargs)
+            # Names the dispatch in a torch.profiler capture (the tracer's
+            # ring span is the engine's _device_span).
+            with eng._tracer.annotation("orion/" + path):
+                return fn(*args, **kwargs)
         except Exception as e:
             raise self._fault(path, e) from e
 
     def contain(self, path: str, fn: Callable[..., Any], *args, **kwargs):
         """The envelope without injection points (the tree-speculation KV
-        compaction, which the JAX engine runs outside the injector too)."""
+        compaction, which the JAX engine runs outside the injector too; and
+        the host tier's copies)."""
+        self.runs[path] += 1
         try:
             return fn(*args, **kwargs)
         except Exception as e:
@@ -135,6 +147,7 @@ class DispatchExecutor:
         eng.robust.dispatch_faults += 1
         log.error("%s dispatch failed (step %d): %s: %s", path, eng.step_no,
                   type(e).__name__, e)
+        eng._flight_note("dispatch_fault", path=path, error=f"{type(e).__name__}: {e}")
         if path in VERIFY_PATHS:
             eng._note_spec_fault(e)
         return DispatchFault(path, f"{type(e).__name__}: {e}")

@@ -5,8 +5,8 @@ Counterpart of ``orion_tpu/infer/scheduler.py`` for the engine core with
 the prefix-cache and chunked-prefill state, the long-context host paging
 state, request priorities and deadlines, the typed outcomes, the grammar
 constraint's walk, and ``AdmissionQueue`` (which request an over-limit
-submit sheds; the step-boundary deadline sweep of the queue). The
-router's trace context is not ported.
+submit sheds; the step-boundary deadline sweep of the queue), and the
+trace context a router stamps on a request (``trace_id``, ``attempt``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,13 @@ class Request:
     # "error:<kind>" ("error:nan": the NaN quarantine). Every submitted
     # request surfaces from step() with an outcome.
     outcome: str = ""
+    # Trace context: the fleet-level correlation id a router stamps at
+    # submit and carries through every engine attempt (engine rids are per
+    # replica), so lifecycle instants tag ``tid`` (trace_id, else the rid
+    # on a bare engine); ``attempt`` is the failover attempt (0 = the first
+    # placement), tagged ``retried`` on a retried request's instants.
+    trace_id: Optional[int] = None
+    attempt: int = 0
     # Host clock (time.perf_counter) at submit and at the first token.
     t_submit: float = 0.0
     t_first: Optional[float] = None

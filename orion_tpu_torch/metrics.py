@@ -5,8 +5,9 @@ serving.
 The parts of ``orion_tpu/metrics.py`` that the step loop uses:
 ``StepMetrics``, ``MetricsLogger`` (console line, optional JSONL, history)
 and ``Stopwatch``; and the serving engine's ``PrefixCacheStats``,
-``SpecDecodeStats``, ``ConstraintStats`` and ``RobustnessStats``; and the
-trainer's ``TrainRobustnessStats``. MFU = model FLOPs per token
+``SpecDecodeStats``, ``ConstraintStats`` and ``RobustnessStats``; the
+trainer's ``TrainRobustnessStats``; and ``LatencyStats``, the percentile
+collector the SLO monitor (``obs/slo.py``) reads. MFU = model FLOPs per token
 (``ModelConfig.flops_per_token``: 6 N plus the attention term) x tokens /
 (step time x devices x the card's peak bf16 rate), the rate from
 ``peak_flops_per_device``.
@@ -427,6 +428,37 @@ class TrainRobustnessStats:
             "corrupt_checkpoints": self.corrupt_checkpoints,
             "restarts": self.restarts,
             "last_fault_reason": self.last_fault_reason or "",
+        }
+
+
+@dataclass
+class LatencyStats:
+    """Latency collector: record per-event wall times (TTFT, inter-token
+    gaps), report nearest-rank percentiles (``orion_tpu/metrics.py``'s
+    ``LatencyStats``, the same ranks and ``summary()`` keys)."""
+
+    samples: list[float] = field(default_factory=list)
+
+    def record(self, seconds: float) -> None:
+        self.samples.append(float(seconds))
+
+    def percentile(self, p: float) -> float:
+        """Nearest-rank percentile (p in [0, 100]); 0.0 when empty."""
+        if not self.samples:
+            return 0.0
+        s = sorted(self.samples)
+        rank = max(math.ceil(p / 100.0 * len(s)) - 1, 0)
+        return s[min(rank, len(s) - 1)]
+
+    def summary(self) -> dict[str, float]:
+        n = len(self.samples)
+        return {
+            "count": n,
+            "mean": sum(self.samples) / n if n else 0.0,
+            "p50": self.percentile(50),
+            "p95": self.percentile(95),
+            "p99": self.percentile(99),
+            "max": max(self.samples) if n else 0.0,
         }
 
 

@@ -38,9 +38,20 @@ gradients are summed over ``sp`` before clipping and AdamW, so every
 rank applies the same update and the parameters stay identical. Logs
 and the metrics file come from rank 0.
 
+Observability (``orion_tpu_torch/obs``, the JAX trainer's wiring): a
+metrics registry (sections robust, train: the newest step's metrics, and
+hbm); with ``train.trace``, ``trace_path`` or ``flight_dir`` the spans
+``data``, ``dispatch`` (inside a ``train#<step>`` profiler range),
+``guard``, ``ckpt`` and ``train_step`` per step, exported as a Chrome trace
+to ``trace_path`` when ``fit`` ends; with ``flight_dir`` a postmortem at an
+anomaly rollback; ``metrics_prom`` every ``log_interval`` steps and at the
+end; ``profile_steps=(a, b)`` a ``torch.profiler`` capture of steps a to
+b - 1 (CPU activity, and CUDA activity on the card), its Chrome trace
+written under ``profile_dir``. At ``parallel.sp`` > 1 these act on rank 0
+only.
+
 Not ported yet, and rejected at construction (``_check_supported``):
-ZeRO-1 and quantized gradient collectives, evaluation, profiling windows,
-tracing/flight recorder/Prometheus export, every parallel axis other than
+ZeRO-1 and quantized gradient collectives, evaluation, every parallel axis other than
 sp above 1 (``runtime.mesh.check_axes`` names the mode), more processes
 than one per sequence-parallel rank, checkpoints, the anomaly guard and
 fault injection at sp > 1 (the multi-process checkpoint save comes with
@@ -59,6 +70,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -80,6 +92,7 @@ from orion_tpu_torch.models.convert import (
     unstack_layers,
 )
 from orion_tpu_torch.models.transformer import loss_fn, torch_dtype
+from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
 from orion_tpu_torch.runtime.distributed import initialize, process_index
 from orion_tpu_torch.runtime.mesh import build_mesh, check_axes
 from orion_tpu_torch.runtime.fault import (
@@ -126,11 +139,6 @@ def _check_supported(cfg: Config) -> None:
         "train.zero1_quantize": t.zero1_quantize is not None,
         "train.grad_quant_bits": t.grad_quant_bits is not None,
         "train.eval_interval": t.eval_interval is not None,
-        "train.profile_steps": t.profile_steps is not None,
-        "train.trace / trace_path / flight_dir / metrics_prom": (
-            t.trace or t.trace_path is not None or t.flight_dir is not None
-            or t.metrics_prom is not None
-        ),
         f"remat={remat!r} (none|full are ported)": remat not in ("none", "full"),
         "remat_offload": t.remat_offload or m.remat_offload,
         "model.n_experts > 0 (MoE)": m.is_moe,
@@ -468,6 +476,63 @@ class Trainer:
             jsonl_path=cfg.train.metrics_jsonl if lead else None,
             log_interval=cfg.train.log_interval if lead else 2 ** 62,
         )
+        # -- Observability (orion_tpu_torch/obs) ---------------------------
+        # The registry always (lazy reads); the tracer and the flight
+        # recorder only when asked for, and only on rank 0, like the logs.
+        self._lead = lead
+        self.registry = MetricsRegistry()
+        self.registry.register("robust", lambda: self.robustness.as_timing())
+        self.registry.register("train", self._last_step_metrics)
+        self.registry.register("hbm", lambda: live_hbm_metrics(self.device))
+        t = cfg.train
+        self._tracer, self._flight = init_obs(
+            trace=t.trace and lead, trace_ring=t.trace_ring,
+            flight_dir=t.flight_dir if lead else None,
+            trace_path=t.trace_path if lead else None,
+            snapshot=self.registry.snapshot, injector=fault_injector, device=self.device,
+        )
+
+    def _last_step_metrics(self) -> dict:
+        """Registry provider: the newest step's metrics (the row the JSONL
+        sink writes), or {} before the first step."""
+        h = self.metrics.history
+        return h[-1].to_dict() if h else {}
+
+    def _flight_dump(self, reason: str, **context) -> None:
+        """A flight-recorder postmortem (a no-op without train.flight_dir);
+        best-effort, as the engine's (``FlightRecorder.try_dump``)."""
+        if self._flight is not None:
+            self._flight.try_dump(reason, **context)
+
+    def _export_prom(self) -> None:
+        """The registry as a Prometheus textfile (train.metrics_prom, rank 0);
+        a write failure is logged, never raised."""
+        if self.cfg.train.metrics_prom and self._lead:
+            try:
+                self.registry.export_prometheus(self.cfg.train.metrics_prom)
+            except OSError as e:
+                log.error("metrics_prom export failed: %s", e)
+
+    def _start_profile(self):
+        """A ``torch.profiler`` capture for the train.profile_steps window:
+        CPU activity, and CUDA activity on the card."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop the capture and write its Chrome trace under
+        train.profile_dir."""
+        prof.stop()
+        first, last = self.cfg.train.profile_steps
+        os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.train.profile_dir, f"train_{first}_{last}.trace.json")
+        prof.export_chrome_trace(path)
+        log.info("train.profile_steps: profiler trace of steps %d-%d -> %s",
+                 first, last - 1, path)
 
     # -- state ------------------------------------------------------------
 
@@ -534,6 +599,28 @@ class Trainer:
             return np.float32(np.inf)
         return np.float32(factor * self._gnorm_ema)
 
+    def _guard_update(self, step: int, m: dict) -> None:
+        """The anomaly guard's host bookkeeping after a guarded step: an
+        anomalous step's counters and run length, or a clean step's
+        gradient-norm EMA."""
+        stats, t = self.robustness, self.cfg.train
+        if m["anomaly"] > 0:
+            stats.anomalous_steps += 1
+            stats.nonfinite_steps += int(m["nonfinite"] > 0)
+            stats.spike_steps += int(m["spike"] > 0)
+            self._anomaly_run += 1
+            log.warning(
+                "anomalous step %d skipped (%s; grad_norm %.3g; run %d/%d)",
+                step, "non-finite" if m["nonfinite"] > 0 else "norm spike",
+                m["grad_norm"], self._anomaly_run, t.anomaly_limit,
+            )
+        else:
+            self._anomaly_run = 0
+            beta = t.anomaly_ema_beta
+            g = m["grad_norm"]
+            self._gnorm_ema = (g if self._gnorm_ema is None
+                               else beta * self._gnorm_ema + (1 - beta) * g)
+
     def _poison_variant(self):
         """The FaultInjector "nan" step, built on first use."""
         if self._poison_step is None:
@@ -553,6 +640,10 @@ class Trainer:
             f"anomaly_rollback: {self._anomaly_run} consecutive anomalous "
             f"steps ending at step {failed_step}"
         )
+        # The postmortem before the restore moves the loader and EMA state:
+        # the dump holds the poisoned window as the rollback saw it.
+        self._flight_dump("anomaly_rollback", failed_step=failed_step,
+                          anomaly_run=self._anomaly_run)
         if self.ckpt is None:
             raise RollbackFailed(
                 f"{self._anomaly_run} consecutive anomalous steps at step "
@@ -653,6 +744,9 @@ class Trainer:
             state, _ = self.restore_or_init()
         guard = cfg.train.anomaly_guard
         injector = self.fault_injector
+        profile = cfg.train.profile_steps if self._lead else None
+        prof = None                 # the live profile_steps capture
+        tracer = self._tracer
         watch = metrics_lib.Stopwatch()
         # After an auto-rollback the replayed trajectory differs from the
         # one the existing checkpoints captured; overwrite them up to the
@@ -677,39 +771,33 @@ class Trainer:
                             raise FaultInjected(f"injected fault at step {step}")
                     if injector is not None and injector.take("dispatch", step, "train"):
                         raise InjectedFault(f"injected train dispatch fault at step {step}")
-                    batch = self.global_batch(step)
+                    if profile and step == profile[0]:
+                        prof = self._start_profile()
+                    s0 = time.monotonic() if tracer.enabled else 0.0
+                    with tracer.span("data", step=step):
+                        batch = self.global_batch(step)
                     step_fn = self.train_step
                     if injector is not None and injector.take("nan", step, "train") is not None:
                         log.warning("fault injection: NaN-poisoned train step %d", step)
                         step_fn = self._poison_variant()
                     mid_step = True
-                    if guard:
-                        state, m = step_fn(state, batch, self._spike_limit())
-                    else:
-                        state, m = step_fn(state, batch)
+                    # The train#<step> range marks the step in a profiler
+                    # capture over the same window; the dispatch span covers
+                    # the step through its metric fetch.
+                    with tracer.step_annotation("train", step), tracer.span("dispatch", step=step):
+                        if guard:
+                            state, m = step_fn(state, batch, self._spike_limit())
+                        else:
+                            state, m = step_fn(state, batch)
                     mid_step = False
                     dt = watch.lap(sync_on=self.device)
                     watchdog.heartbeat()
                     extras = {"ce_loss": m["ce_loss"], "moe_aux": m["moe_aux"]}
                     anomalous = bool(guard and m["anomaly"] > 0)
                     if guard:
-                        extras["anomaly"] = m["anomaly"]
-                        if anomalous:
-                            stats.anomalous_steps += 1
-                            stats.nonfinite_steps += int(m["nonfinite"] > 0)
-                            stats.spike_steps += int(m["spike"] > 0)
-                            self._anomaly_run += 1
-                            log.warning(
-                                "anomalous step %d skipped (%s; grad_norm %.3g; run %d/%d)",
-                                step, "non-finite" if m["nonfinite"] > 0 else "norm spike",
-                                m["grad_norm"], self._anomaly_run, cfg.train.anomaly_limit,
-                            )
-                        else:
-                            self._anomaly_run = 0
-                            beta = cfg.train.anomaly_ema_beta
-                            g = m["grad_norm"]
-                            self._gnorm_ema = (g if self._gnorm_ema is None
-                                               else beta * self._gnorm_ema + (1 - beta) * g)
+                        with tracer.span("guard", step=step):
+                            extras["anomaly"] = m["anomaly"]
+                            self._guard_update(step, m)
                     if stats.restarts or stats.rollbacks or stats.anomalous_steps:
                         extras.update(stats.as_extras())
                     self.metrics.record(
@@ -721,13 +809,31 @@ class Trainer:
                         learning_rate=m["lr"],
                         **extras,
                     )
+                    if prof is not None and step + 1 >= profile[1]:
+                        self._stop_profile(prof)
+                        prof = None
+                        watch.lap()   # the trace's export out of the next step's time
+                    if (step + 1) % max(cfg.train.log_interval, 1) == 0:
+                        self._export_prom()
                     if anomalous and self._anomaly_run >= cfg.train.anomaly_limit:
+                        if tracer.enabled:
+                            # The anomalous step's span closes before the
+                            # rollback's `continue`: the step a postmortem
+                            # inspects is no hole in the timeline.
+                            tracer.record_span("train_step", s0, time.monotonic(), step=step,
+                                               anomalous=True)
                         state, step = self._rollback(step)
                         overwrite_until = self._overwrite_from()
                         watch.lap()   # rollback time out of the next step's MFU
                         continue
                     if self.ckpt is not None:
-                        self._save(step + 1, state, overwrite=step + 1 <= overwrite_until)
+                        # Async saves enqueue here (the host snapshot), sync
+                        # saves block: either cost lands in this span.
+                        with tracer.span("ckpt", step=step):
+                            self._save(step + 1, state, overwrite=step + 1 <= overwrite_until)
+                    if tracer.enabled:
+                        tracer.record_span("train_step", s0, time.monotonic(), step=step,
+                                           anomalous=anomalous)
                     if preempt.preempted:
                         # Step boundary: the state is consistent. Persist and
                         # stop cleanly; a supervisor restart resumes
@@ -764,6 +870,10 @@ class Trainer:
                 self.ckpt.wait()
             raise
         finally:
+            if prof is not None:
+                self._stop_profile(prof)
             if self.ckpt is not None:
                 self.ckpt.wait()
             self.metrics.close()
+            export_chrome_safe(tracer, cfg.train.trace_path)
+            self._export_prom()

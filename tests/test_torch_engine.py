@@ -131,11 +131,7 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "model.weight_quant=int8",
-    "inference.trace=true", "inference.trace_path=/nonexistent/trace.json",
-    "inference.flight_dir=/nonexistent/flight",
-    "inference.metrics_jsonl=/nonexistent/m.jsonl",
-    "inference.metrics_prom=/nonexistent/m.prom", "inference.dispatch_retries=2",
+    "model.weight_quant=int8", "inference.dispatch_retries=2",
     "inference.dispatch_retry_backoff_s=0.5",
 ])
 def test_unported_features_raise(override):

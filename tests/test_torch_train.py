@@ -287,9 +287,9 @@ def test_ported_fault_knobs_build_a_trainer(override, tmp_path):
 
 @pytest.mark.parametrize("override", [
     "train.zero1=true", "train.grad_quant_bits=8", "train.eval_interval=5",
-    "train.profile_steps=(1,2)", "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
+    "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
     "model.remat=names", "train.remat=names", "model.n_experts=4",
-    "model.weight_quant=int8", "runtime.checkify=true", "train.trace=true",
+    "model.weight_quant=int8", "runtime.checkify=true",
     "runtime.debug_nans=true", "runtime.deterministic=true",
     "runtime.num_processes=2;runtime.coordinator_address=localhost:1234",
 ])
