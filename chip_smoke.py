@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,build,serve_graphs
     python3 chip_smoke.py --phases device,build,kernels,serve_host_tier,serve_long,serve_gather
     python3 chip_smoke.py --phases device,build,serve,serve_obs,train,train_obs
+    python3 chip_smoke.py --phases device,build,serve,serve_int8w,serve_moe,train_moe
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -192,6 +193,16 @@ exits non-zero without printing a result:
            (K3 with positions and its merge, no K9); each warm row's first logits within
            GATHER_LOGIT_REL (relative RMS) of the paged_prefill=true
            engine's; tiny-llama float32: both settings' streams equal
+  serve_int8w  llama3-8b-infer at full width and depth with
+           model.weight_quant=int8: the serve's weights moved to the host
+           and quantized onto the card one weight at a time by the engine;
+           one layer's seven matmul weights' q and s made on the card equal
+           quantize_weight on the CPU byte for byte; the serve's 16
+           requests captured and eager (streams equal); a bf16 engine over
+           the dequantized weights gives the same streams and first-token
+           logits bit for bit; first-token logits within INT8W_REL
+           (relative RMS) of the bf16 serve's. Prints weight bytes, peak
+           memory, TTFT and decode tokens/s beside the bf16 serve's
   serve_long  Mistral-7B (mistral-7b-fsdp, parallel.fsdp=1: window 4096 on
            all 32 layers) at full width and depth, seeded bf16 weights after
            the Llama weights are freed: two 8064-token prompts at once over
@@ -199,6 +210,18 @@ exits non-zero without printing a result:
            pages; page rolling, demotion, page-ins and a preemption to the
            host fire, peak device pages stay inside the pool, and the
            streams equal the long_context=false run's over 300 pages
+  serve_moe  first tiny-mixtral (float32; plain, and chain speculation
+           whose W = 5 verify rows drop assignments) and tiny-llama with
+           int8 weights: greedy streams on cuda equal to cpu's; then
+           Mixtral (mixtral-8x7b-ep at parallel.fsdp=1, ep=1) at full width
+           with 16 of its 32 layers (MOE_OVERRIDES), seeded bf16 weights on
+           the card, sorted dispatch: the serve's 16 requests eager and
+           captured (streams equal), each layer's expert load and dropped
+           assignments in the prefill (padding included), the einsum
+           dispatch's first-token logits against the sorted one's over 4 of
+           the prompts (within MOE_DISPATCH_REL), then 8 of the prompts
+           twice under chunked prefill and the prefix cache (K9 launches,
+           the repeat hits)
   train_parity  tiny-llama float32, packed batches: the first step's loss
            and every gradient, then 3 optimizer steps, on cuda (kernels)
            and on cpu (plain versions) from the same seeded weights and
@@ -209,6 +232,10 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
+  train_moe  Mixtral's width at 2 layers (MOE_TRAIN_OVERRIDES: batch 1 x
+           2048, remat=full, bf16 compute, float32 masters), a warm-up step
+           and 4 steps through Trainer.fit: finite, falling loss, moe_aux
+           logged every step, K1-K3 and K5-K8 launched
   train_obs  llama-1b-bench at full width and depth, 4 steps through
            Trainer.fit with train.trace, flight_dir, metrics_prom and
            profile_steps=(2,3) under chiprun_out/train_obs/: 4 data,
@@ -294,10 +321,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "serve", "serve_obs", "serve_chunked",
-          "serve_spec", "serve_constrained", "serve_faults", "serve_graphs",
-          "serve_host_tier", "serve_gather", "serve_long", "train_parity",
-          "train", "train_obs", "train_faults", "sp_rank", "timing")
+PHASES = ("device", "build", "kernels", "parity", "serve_moe", "train_moe", "serve",
+          "serve_obs", "serve_chunked", "serve_spec", "serve_constrained", "serve_faults",
+          "serve_graphs", "serve_host_tier", "serve_gather", "serve_int8w", "serve_long",
+          "train_parity", "train", "train_obs", "train_faults", "sp_rank", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -2590,6 +2617,7 @@ def phase_serve(profile=False):
     from orion_tpu_torch.config import get_config
     from orion_tpu_torch.infer import InferenceEngine
     from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.quantize import weight_bytes
 
     cfg = get_config("llama3-8b-infer")
     V = cfg.model.vocab_size
@@ -2618,6 +2646,7 @@ def phase_serve(profile=False):
     eng.generate([rng.integers(0, V, size=100).tolist()], 2)
     eng.timing = {k: 0 for k in eng.timing}
     finite.clear()
+    first = capture_first_logits(eng)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2643,7 +2672,7 @@ def phase_serve(profile=False):
     tm = eng.timing
     ttft = sorted(r.t_first - r.t_submit for r in reqs)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
-    emit({
+    line = {
         "phase": "serve", "preset": "llama3-8b-infer", "requests": len(reqs),
         "prompt_tokens": int(lens.sum()), "new_tokens_each": 64,
         "setup_s": setup_s, "wall_s": wall,
@@ -2655,10 +2684,16 @@ def phase_serve(profile=False):
         "decode_slot_steps": tm["decode_slot_steps"], "steps": tm["steps"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": launches, "graphs": graph_stats(eng),
-    })
+    }
+    emit(line)
     if profile:
         profile_serve(eng, prompts)
-    return launches, eng.params   # serve_chunked reuses the weights
+    # serve_chunked and the later serves reuse the weights; serve_int8w
+    # holds its first-token logits against these.
+    bf16 = {k: line[k] for k in ("ttft_s_median", "prefill_tok_s", "decode_tok_s",
+                                 "peak_mem_gib")}
+    bf16["weight_bytes"] = weight_bytes(eng.params)
+    return launches, eng.params, (reqs, first, bf16)
 
 
 def free_engine():
@@ -2713,7 +2748,8 @@ def serve_wave(eng, prompts, n_new, on_step=None):
         "prefill_tokens": tm["prefill_tokens"],
         "prefill_tok_s": tm["prefill_tokens"] / busy_prefill if busy_prefill else None,
         "decode_tokens": decode_tokens,
-        "decode_tok_s": decode_tokens / (tm["decode_s"] + tm["mixed_s"]),
+        "decode_tok_s": (decode_tokens / (tm["decode_s"] + tm["mixed_s"])
+                         if decode_tokens else None),
         "prefill_s": tm["prefill_s"], "mixed_s": tm["mixed_s"], "decode_s": tm["decode_s"],
         **{k: tm[k] for k in ("mixed_steps", "prefill_chunks", "chunk_tokens",
                               "chunk_pad_tokens", "steps", "verify_steps",
@@ -4769,6 +4805,415 @@ def phase_serve_long():
     return res["launches"]
 
 
+# serve_moe: Mixtral (mixtral-8x7b-ep at parallel.fsdp=1, ep=1) at full
+# width, 16 of its 32 layers: 32 layers hold 46.7e9 parameters (93 GB in
+# bf16), more than the card's 80 GB, and weight_quant leaves the expert
+# banks unquantized, as in the JAX package. The pool holds the serve's 16
+# requests (at most 2064 tokens each, 33 pages of 64) with room to spare.
+MOE_PRESET = "mixtral-8x7b-ep"
+MOE_OVERRIDES = ["parallel.fsdp=1", "parallel.ep=1", "model.n_layers=16",
+                 "model.moe_dispatch=sorted", "inference.max_seq_len=4096",
+                 "inference.num_pages=1024"]
+MOE_CHUNKED = ["inference.chunked_prefill=true", "inference.prefix_cache=true"]
+# The einsum dispatch's first-token logits against the sorted dispatch's
+# over the same weights and the same burst: both compute the same buckets
+# and the same expert products and differ only in how the gate-weighted
+# sum rounds (bf16 activations, 2^-8 relative), which 16 random layers may
+# amplify; relative RMS over the rows' logits.
+MOE_DISPATCH_REL = 2.0 ** -5
+# train_moe: the same width at 2 layers, batch 1 x 2048, remat=full, bf16
+# compute, float32 master weights and moments.
+MOE_TRAIN_OVERRIDES = ["parallel.fsdp=1", "parallel.ep=1", "model.n_layers=2",
+                       "data.batch_size=1", "data.seq_len=2048", "train.num_steps=4",
+                       "train.log_interval=1", "optimizer.warmup_steps=1"]
+# serve_int8w: llama3-8b-infer with int8 matmul weights. First-token
+# logits against the bf16 engine's (the serve phase's) by relative RMS:
+# per-channel int8 weights carry about 0.9 % of a weight's RMS as error
+# (a step of a column's max / 127, about 4 sigma / 127, uniform), and 32
+# layers of random weights amplify it: 0.166 on an H100 80GB HBM3 at
+# 700 W (PERF.md). The gate catches a wrong scale or layout (unrelated logits sit
+# near 1.4); the exact check is the one below.
+INT8W_REL = 2.0 ** -2
+# ... and, exactly: a bf16 engine serving the dequantized weights
+# (load_weight's own product, once) gives the int8 engine's first-token
+# logits bit for bit and its streams: the same bf16 operands reach the
+# same products.
+# The weights whose card-made q / s are held against the CPU's: one
+# layer's attention and MLP matmuls.
+INT8W_CHECKED = [(7, "attn", n) for n in ("wq", "wk", "wv", "wo")] + [
+    (7, "mlp", n) for n in ("w_in", "w_gate", "w_out")]
+
+
+def capture_first_logits(eng):
+    """Wrap ``eng._sample`` to keep each prefill row's logits (float32, on
+    the host) by request id: the engine's first-token logits."""
+    sample = eng._sample
+    got = {}
+
+    def keep(logits, reqs):
+        rows = logits[: len(reqs)].float().cpu()
+        for i, r in enumerate(reqs):
+            got[r.rid] = rows[i]
+        return sample(logits, reqs)
+
+    eng._sample = keep
+    return got
+
+
+def logits_rel(reqs_a, got_a, reqs_b, got_b) -> float:
+    """The relative RMS of two engines' first-token logits over the same
+    prompts (request order)."""
+    import torch
+
+    a = torch.stack([got_a[r.rid] for r in reqs_a])
+    b = torch.stack([got_b[r.rid] for r in reqs_b])
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite first-token logits")
+    return rel_rms(a, b)
+
+
+def moe_load_recorder(E):
+    """Wrap ``models.moe.route_indices``: for every call outside a graph
+    capture with more than one token a row (prefill and chunk rows), the
+    kept assignments per expert [E] and the dropped count, as device
+    tensors (no host sync). Returns (records, restore)."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch.models import moe
+
+    route = moe.route_indices
+    records = []
+
+    def recording(x, router_w, cfg):
+        out = route(x, router_w, cfg)
+        if x.shape[1] > 1 and not torch.cuda.is_current_stream_capturing():
+            idx, keep = out[0], out[3]
+            kept = (F.one_hot(idx, E) * keep[..., None]).sum(dim=(0, 1, 2))
+            records.append((kept, (~keep).sum()))
+        return out
+
+    moe.route_indices = recording
+
+    def restore():
+        moe.route_indices = route
+
+    return records, restore
+
+
+def moe_parity():
+    """tiny-mixtral at float32 on cuda against cpu, and tiny-llama with
+    int8 weights: the same seeded weights and prompts, greedy streams
+    equal. Chain speculation (W = 5 verify rows: capacity 3 of 4 experts
+    drops assignments) and the plain serve."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params
+
+    prompts = [[5, 3, 9], [250, 17, 4, 8, 100, 42], [7, 8, 9] * 4, [1, 2],
+               [99, 98, 97, 96], [11, 13, 17, 19, 23] * 3]
+    out = {}
+    for name, preset, ov in (
+            ("tiny_mixtral", "tiny-mixtral", []),
+            ("tiny_mixtral_spec", "tiny-mixtral", ["inference.speculative=true",
+                                                   "inference.speculate_tokens=4"]),
+            ("tiny_llama_int8w", "tiny-llama", ["model.weight_quant=int8"])):
+        cfg = get_config(preset, INFER_OVERRIDES + ov)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        params = init_params(cfg.model, gen)
+        gpu = InferenceEngine(cfg, params, device="cuda").generate(prompts, 12)
+        cpu = InferenceEngine(cfg, params, device="cpu").generate(prompts, 12)
+        if gpu != cpu:
+            raise AssertionError(f"{name}: streams differ: cuda {gpu} cpu {cpu}")
+        out[name] = gpu
+    return out
+
+
+def moe_wave(eng, prompts, n_new):
+    """serve_wave plus the wave's first-token logits."""
+    got = capture_first_logits(eng)
+    reqs, res = serve_wave(eng, prompts, n_new)
+    return reqs, res, got
+
+
+def phase_serve_moe():
+    """Mixtral at full width (16 layers): tiny-mixtral's cuda-vs-cpu
+    streams; the serve's 16 requests eager and captured (streams equal),
+    per-layer expert load and drops of the prefill; the einsum dispatch's
+    first-token logits against the sorted one's; then a chunked wave with
+    the prefix cache, twice (K9 on the path)."""
+    import numpy as np
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.quantize import weight_bytes
+
+    parity = moe_parity()
+    smi = smi_line()
+    cfg = get_config(MOE_PRESET, MOE_OVERRIDES)
+    m = cfg.model
+    V, E, L = m.vocab_size, m.n_experts, m.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(m, gen, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    prompts = obs_prompts(V)
+    warm = np.random.default_rng(1).integers(0, V, size=100).tolist()
+    lines, streams, launches = {}, {}, {}
+    records, restore = moe_load_recorder(E)
+    try:
+        for mode, graphs in (("eager", False), ("captured", True)):
+            eng = InferenceEngine(cfg, params, device="cuda", cuda_graphs=graphs)
+            eng.generate([warm], 2)
+            records.clear()
+            reqs, res, got = moe_wave(eng, prompts, 64)
+            require_no_faults(eng, f"serve_moe {mode}")
+            streams[mode] = [r.generated for r in reqs]
+            launches[mode] = res["launches"]
+            lines[mode] = res
+            if mode == "eager":
+                per_layer = [(k.cpu().tolist(), int(d)) for k, d in records]
+                if len(per_layer) != L:
+                    raise AssertionError(f"serve_moe: {len(per_layer)} routed prefill "
+                                         f"layers, want {L}")
+                # The einsum dispatch against the sorted one: 4 prompts in
+                # one burst on each (the same padded width, so the same
+                # capacity), first-token logits only.
+                few = prompts[:4]
+                s_reqs, _, s_got = moe_wave(eng, few, 1)
+            del eng
+            free_engine()
+        if streams["eager"] != streams["captured"]:
+            raise AssertionError("serve_moe: captured streams differ from eager ones")
+        e_cfg = get_config(MOE_PRESET, MOE_OVERRIDES + ["model.moe_dispatch=einsum"])
+        eng = InferenceEngine(e_cfg, params, device="cuda", cuda_graphs=False)
+        e_reqs, _, e_got = moe_wave(eng, few, 1)
+        dispatch_rel = logits_rel(e_reqs, e_got, s_reqs, s_got)
+        del eng
+        free_engine()
+        if not dispatch_rel <= MOE_DISPATCH_REL:
+            raise AssertionError(f"serve_moe: einsum vs sorted first-token logits "
+                                 f"{dispatch_rel} > {MOE_DISPATCH_REL}")
+        # Chunked prefill and the prefix cache: 8 of the prompts, twice
+        # (the second wave hits every full page the first wave cached).
+        c_cfg = get_config(MOE_PRESET, MOE_OVERRIDES + MOE_CHUNKED)
+        eng = InferenceEngine(c_cfg, params, device="cuda")
+        eng.generate([warm], 2)
+        chunked = []
+        for _ in range(2):
+            chunked.append(moe_wave(eng, prompts[::2], 64)[1])
+            chunked[-1]["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+            torch.cuda.empty_cache()
+        require_no_faults(eng, "serve_moe chunked")
+        eng.assert_page_accounting()
+        del eng
+        free_engine()
+    finally:
+        restore()
+    c_launches = {k: sum(w["launches"][k] for w in chunked) for k in chunked[0]["launches"]}
+    if chunked[1]["prefix"]["hits"] <= 0:
+        raise AssertionError(f"serve_moe: the chunked wave's repeat hit nothing: "
+                             f"{chunked[1]['prefix']}")
+    need = {"eager": SERVE_KERNELS, "captured": SERVE_KERNELS,
+            "chunked": ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode",
+                        "paged_prefill")}
+    for mode, counts in (("eager", launches["eager"]), ("captured", launches["captured"]),
+                         ("chunked", c_launches)):
+        missing = [k for k in need[mode] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"serve_moe {mode}: kernels never launched: {missing}")
+    keys = ("ttft_s_median", "ttft_s_max", "prefill_tok_s", "decode_tok_s", "wall_s",
+            "prefill_s", "mixed_s", "decode_s", "peak_mem_gib", "graphs")
+    chunked_keys = keys + ("prefix", "mixed_steps", "prefill_chunks", "peak_reserved_gib")
+    emit({"phase": "serve_moe", "preset": MOE_PRESET, "overrides": MOE_OVERRIDES,
+          "params": n_params, "weight_bytes": weight_bytes(params), "setup_s": setup_s,
+          "requests": len(prompts), "new_tokens_each": 64,
+          "cuda_vs_cpu": {k: True for k in parity},
+          "streams_captured_equal_eager": True,
+          "eager": {k: lines["eager"][k] for k in keys},
+          "captured": {k: lines["captured"][k] for k in keys},
+          "chunked": [{k: w[k] for k in chunked_keys} for w in chunked],
+          "prefill_expert_load": [k for k, _ in per_layer],
+          "prefill_dropped": [d for _, d in per_layer],
+          "prefill_assignments_per_layer": sum(per_layer[0][0]) + per_layer[0][1],
+          "einsum_vs_sorted_logits_rel_rms": dispatch_rel,
+          "einsum_vs_sorted_gate": MOE_DISPATCH_REL,
+          "launches": launches["captured"], "launches_eager": launches["eager"],
+          "launches_chunked": c_launches, "nvidia_smi": smi})
+    del params
+    free_engine()
+    return {k: launches["eager"][k] + launches["captured"][k] + c_launches[k]
+            for k in c_launches}
+
+
+def dequantized(params, dtype):
+    """The tree with every int8 {"q", "s"} leaf replaced by load_weight's
+    product in ``dtype``."""
+    from orion_tpu_torch.models.quantize import is_quantized, load_weight
+
+    if is_quantized(params):
+        return load_weight(params, dtype)
+    if isinstance(params, dict):
+        return {k: dequantized(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [dequantized(v, dtype) for v in params]
+    return params
+
+
+def phase_serve_int8w(host_params=None, bf16_first=None):
+    """llama3-8b-infer with model.weight_quant=int8 at full width and depth:
+    the weights handed over on the host (the serve's, moved off the card)
+    and quantized onto it one weight at a time; one layer's q and s made on
+    the card against quantize_weight on the CPU byte for byte; the serve's
+    16 requests captured and eager (streams equal); first-token logits
+    against the bf16 serve's; weight bytes and peak memory against it."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.infer import InferenceEngine
+    from orion_tpu_torch.models import init_params, to_device
+    from orion_tpu_torch.models.quantize import quantize_weight, weight_bytes
+
+    smi = smi_line()
+    cfg = get_config("llama3-8b-infer", ["model.weight_quant=int8"])
+    V = cfg.model.vocab_size
+    if host_params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        host_params = to_device(init_params(cfg.model, gen, device="cuda",
+                                            dtype="bfloat16"), "cpu")
+        free_engine()
+    bf16_bytes = weight_bytes(host_params)
+    prompts = obs_prompts(V)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, host_params, device="cuda")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    int8_bytes = weight_bytes(eng.params)
+    # One layer's q / s on the card against the CPU's, byte for byte.
+    for layer, sub, name in INT8W_CHECKED:
+        want = quantize_weight(host_params["blocks"][layer][sub][name])
+        got = eng.params["blocks"][layer][sub][name]
+        for part in ("q", "s"):
+            if not torch.equal(bits(got[part].cpu()), bits(want[part])):
+                raise AssertionError(f"serve_int8w: layer {layer} {name}.{part} on the "
+                                     f"card differs from quantize_weight on the CPU")
+    eng.generate([prompts[0][:100]], 2)
+    reqs, res, got = moe_wave(eng, prompts, 64)
+    require_no_faults(eng, "serve_int8w")
+    captured = [r.generated for r in reqs]
+    int8_params = eng.params
+    del eng
+    free_engine()
+    # The same int8 weights, every dispatch eager.
+    eng = InferenceEngine(cfg, int8_params, device="cuda", cuda_graphs=False)
+    e_reqs, e_res = serve_wave(eng, prompts, 64)
+    eager = [r.generated for r in e_reqs]
+    del eng
+    free_engine()
+    if captured != eager:
+        raise AssertionError("serve_int8w: captured streams differ from eager ones")
+    deq = dequantized(int8_params, torch.bfloat16)
+    del int8_params
+    eng = InferenceEngine(get_config("llama3-8b-infer"), deq, device="cuda")
+    eng.generate([prompts[0][:100]], 2)
+    d_reqs, _, d_got = moe_wave(eng, prompts, 64)
+    del eng, deq
+    free_engine()
+    if [r.generated for r in d_reqs] != captured:
+        raise AssertionError("serve_int8w: streams differ from the dequantized bf16 engine's")
+    for a, b in zip(reqs, d_reqs):
+        if not torch.equal(got[a.rid], d_got[b.rid]):
+            raise AssertionError("serve_int8w: first-token logits differ from the "
+                                 "dequantized bf16 engine's")
+    missing = [k for k in SERVE_KERNELS if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_int8w: kernels never launched: {missing}")
+    rel = None
+    if bf16_first is not None:
+        rel = logits_rel(reqs, got, bf16_first[0], bf16_first[1])
+        if not rel <= INT8W_REL:
+            raise AssertionError(f"serve_int8w: first-token logits {rel} from bf16's "
+                                 f"> {INT8W_REL}")
+    keys = ("ttft_s_median", "ttft_s_max", "prefill_tok_s", "decode_tok_s", "wall_s",
+            "prefill_s", "decode_s", "peak_mem_gib", "graphs")
+    emit({"phase": "serve_int8w", "preset": "llama3-8b-infer", "weight_quant": "int8",
+          "requests": len(prompts), "new_tokens_each": 64,
+          "weight_bytes": int8_bytes, "weight_bytes_bf16": bf16_bytes,
+          "quantize_s": quantize_s, "build_peak_gib": build_peak / 2 ** 30,
+          "equal_dequantized_bf16_engine": True,
+          "qs_bytes_equal_cpu": [f"blocks.{la}.{s}.{n}" for la, s, n in INT8W_CHECKED], "streams_captured_equal_eager": True,
+          "first_logits_rel_rms_vs_bf16": rel, "first_logits_gate": INT8W_REL,
+          "bf16": None if bf16_first is None else bf16_first[2],
+          "captured": {k: res[k] for k in keys}, "eager": {k: e_res[k] for k in keys},
+          "launches": res["launches"], "nvidia_smi": smi})
+    return {k: res["launches"][k] + e_res["launches"][k] for k in res["launches"]}
+
+
+def phase_train_moe():
+    """Mixtral's width at 2 layers through Trainer.fit: a warm-up step,
+    then 4 steps; finite, falling loss, moe_aux logged, K1-K3
+    and K5-K8 launched."""
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    smi = smi_line()
+    cfg = get_config(MOE_PRESET, MOE_TRAIN_OVERRIDES)
+    tr = Trainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    tr.train_step(state, tr.global_batch(0))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    del state
+    free_engine()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    hist = tr.fit()
+    launches = ops.launches()
+    losses = [m.loss for m in hist]
+    aux = [m.extras["moe_aux"] for m in hist]
+    if not all(math.isfinite(x) for x in losses + aux):
+        raise AssertionError(f"train_moe: non-finite loss {losses} / moe_aux {aux}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: loss did not fall: {losses}")
+    if not all(a > 0 for a in aux):
+        raise AssertionError(f"train_moe: moe_aux not logged: {aux}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train_moe: kernels never launched: {missing}")
+    step_s = statistics.median(m.step_time_s for m in hist)
+    tokens = tr.tokens_per_step
+    emit({"phase": "train_moe", "preset": MOE_PRESET, "overrides": MOE_TRAIN_OVERRIDES,
+          "params": cfg.model.num_params(), "tokens_per_step": tokens,
+          "warmup_s": warmup_s, "losses": losses, "moe_aux": aux,
+          "grad_norms": [m.grad_norm for m in hist],
+          "step_times_s": [m.step_time_s for m in hist], "step_s_median": step_s,
+          "tokens_per_s": tokens / step_s,
+          "mfu": cfg.model.flops_per_token(cfg.data.seq_len) * tokens / step_s / BF16_FLOPS_S,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "nvidia_smi": smi})
+    del tr
+    free_engine()
+    return launches
+
+
 def tensor_leaves(tree):
     """The tensors of a nested dict or list of tensors."""
     if isinstance(tree, dict):
@@ -6059,15 +6504,24 @@ def main(argv=None) -> int:
     train_launches = timing = fault_launches = constrained_launches = None
     train_fault_launches = graph_launches = sp_launches = None
     host_tier_launches = gather_launches = long_launches = None
+    moe_launches = int8w_launches = train_moe_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         errs = phase_kernels()
     if "parity" in phases:
         parity_launches = phase_parity()
-    serve_params = None
+    # The Mixtral phases first, on a card nothing else has used yet: the
+    # serve holds 47 GB of weights and the train peaks near 64 GiB.
+    if "serve_moe" in phases:
+        moe_launches = phase_serve_moe()
+        free_engine()
+    if "train_moe" in phases:
+        train_moe_launches = phase_train_moe()
+        free_engine()
+    serve_params = bf16_first = None
     if "serve" in phases:
-        launches, serve_params = phase_serve(args.profile)
+        launches, serve_params, bf16_first = phase_serve(args.profile)
         free_engine()
     if "serve_obs" in phases:
         phase_serve_obs(serve_params)
@@ -6092,7 +6546,18 @@ def main(argv=None) -> int:
     if "serve_gather" in phases:
         gather_launches = phase_serve_gather(serve_params)
         free_engine()
-    del serve_params
+    if "serve_int8w" in phases:
+        # The serve's weights handed over on the host: the engine quantizes
+        # them onto the card one weight at a time.
+        from orion_tpu_torch.models import to_device
+
+        host_params = None if serve_params is None else to_device(serve_params, "cpu")
+        del serve_params
+        free_engine()
+        int8w_launches = phase_serve_int8w(host_params, bf16_first)
+        del host_params
+    else:
+        del serve_params
     free_engine()
     if "serve_long" in phases:
         # Mistral-7B's weights after the Llama weights are freed.
@@ -6131,6 +6596,9 @@ def main(argv=None) -> int:
                              ("serve_host_tier", host_tier_launches),
                              ("serve_gather", gather_launches),
                              ("serve_long", long_launches),
+                             ("serve_int8w", int8w_launches),
+                             ("serve_moe", moe_launches),
+                             ("train_moe", train_moe_launches),
                              ("train_faults", train_fault_launches),
                              ("sp_rank", sp_launches)):
             if counts:

@@ -118,11 +118,15 @@ max_step_faults, watchdog stalls, speculation switching off, quarantines);
 ``close``, which also exports the Chrome trace. With all of it off the
 tracer is ``NULL_TRACER``: no tag is built and no span object made.
 
-Not ported yet (each raises at construction when configured): int8
-weights and MoE. Live migration
-(the JAX engine's ``export_migration_state``) is not ported either; when it
-is, its state carries each request's ``constraint`` as the JAX engine's
-does.
+Mixture-of-experts models (``models/moe.py``) serve through the same
+bodies: each hands the MoE layer the [rows, S_pad, D] the JAX runner
+hands it, padding included, so the same assignments drop. With
+``model.weight_quant=int8`` the engine quantizes the matmul weights at
+construction (``models/quantize.py``), one weight at a time onto the
+device, so a host-resident tree never has its full-precision copy on the
+card. Live migration (the JAX engine's ``export_migration_state``) is not
+ported; when it is, its state carries each request's ``constraint`` as the
+JAX engine's does.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises. ``model.kernels`` is
@@ -177,6 +181,7 @@ from orion_tpu_torch.metrics import (
     SpecDecodeStats,
 )
 from orion_tpu_torch.models.convert import to_device
+from orion_tpu_torch.models.quantize import quantize_params
 from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
@@ -205,11 +210,8 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_supported(cfg: Config) -> None:
-    m, i = cfg.model, cfg.inference
-    unsupported = {
-        "model.weight_quant": m.weight_quant is not None,
-        "model.n_experts > 0 (MoE)": m.is_moe,
-    }
+    i = cfg.inference
+    unsupported = {}
     # The knobs that only shape the XLA-fallback leg, which the port does
     # not have (a failing kernel raises): their defaults only.
     ladder = type(i)()
@@ -261,6 +263,8 @@ class InferenceEngine:
         against, not a serving mode."""
         _check_supported(cfg)
         _check_injector(fault_injector)
+        if cfg.model.weight_quant not in (None, "int8"):
+            raise ValueError(f"unknown model.weight_quant={cfg.model.weight_quant!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mcfg = cfg.model
@@ -310,6 +314,8 @@ class InferenceEngine:
             )
         self._init_speculation()
         self.cache = init_cache(self.mcfg, self.icfg, self.device)
+        if cfg.model.weight_quant == "int8":
+            params = quantize_params(params, self.mcfg, device=self.device)
         self.params = to_device(params, self.device)
         self.alloc = PageAllocator(self.icfg.num_pages)
         self.prefix_stats = PrefixCacheStats()

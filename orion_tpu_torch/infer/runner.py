@@ -182,7 +182,7 @@ def _prefill_layer(
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y
@@ -255,7 +255,7 @@ def _decode_layer(
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y
@@ -449,7 +449,7 @@ def _verify_layer(
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y

@@ -4,7 +4,9 @@ from the JAX package.
 ``init_params`` draws the same shapes with the same standard deviations
 as ``orion_tpu/models/transformer.py::init_params`` (N(0, 0.02), residual
 output projections scaled by 1/sqrt(2L), norm scales at 1, or at 0 under
-``norm_scale_plus_one``), from an explicit ``torch.Generator``. The two
+``norm_scale_plus_one``; an MoE block's ``moe`` subtree: router [D, E],
+w_in / w_gate [E, D, F], w_out [E, F, D]), from an explicit
+``torch.Generator``. The two
 frameworks draw different numbers from the same seed, so tests that
 compare the packages carry the JAX tree across with ``from_jax_params``.
 """
@@ -33,8 +35,6 @@ def init_params(
 ) -> Params:
     """Random parameters on ``device`` (default: the generator's device)
     stored in ``dtype`` (default: ``cfg.param_dtype``)."""
-    if cfg.is_moe:
-        raise NotImplementedError("mixture-of-experts init is not ported yet")
     device = generator.device if device is None else torch.device(device)
     dt = torch_dtype(dtype if dtype is not None else cfg.param_dtype)
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
@@ -76,10 +76,6 @@ def init_params(
                 "wv": normal((D, K * H)),
                 "wo": normal((N * H, D), resid_std),
             },
-            "mlp": {
-                "w_in": normal((D, F)),
-                "w_out": normal((F, D), resid_std),
-            },
         }
         if cfg.norm == "layernorm":
             block["attn_norm"]["bias"] = zeros((D,))
@@ -93,11 +89,25 @@ def init_params(
             block["attn"]["bv"] = zeros((K * H,))
         if cfg.resolved_attn_out_bias:
             block["attn"]["bo"] = zeros((D,))
-        if cfg.is_gated_mlp:
-            block["mlp"]["w_gate"] = normal((D, F))
-        if cfg.mlp_bias:
-            block["mlp"]["b_in"] = zeros((F,))
-            block["mlp"]["b_out"] = zeros((D,))
+        if cfg.is_moe:
+            E = cfg.n_experts
+            block["moe"] = {
+                "router": normal((D, E)),
+                "w_in": normal((E, D, F)),
+                "w_out": normal((E, F, D), resid_std),
+            }
+            if cfg.is_gated_mlp:
+                block["moe"]["w_gate"] = normal((E, D, F))
+        else:
+            block["mlp"] = {
+                "w_in": normal((D, F)),
+                "w_out": normal((F, D), resid_std),
+            }
+            if cfg.is_gated_mlp:
+                block["mlp"]["w_gate"] = normal((D, F))
+            if cfg.mlp_bias:
+                block["mlp"]["b_in"] = zeros((F,))
+                block["mlp"]["b_out"] = zeros((D,))
         blocks.append(block)
     params["blocks"] = blocks
     return params
@@ -199,9 +209,8 @@ def from_jax_params(
     With ``scan_layers`` the JAX tree stacks every block leaf along a
     leading layer dimension; the port keeps one dict per layer, so the
     stack is split here. A per-layer list (``scan_layers=False``) is taken
-    as it is."""
-    if cfg.is_moe:
-        raise NotImplementedError("mixture-of-experts weights are not ported yet")
+    as it is. An MoE block's stacked [L, E, ...] expert leaves split the
+    same way."""
     out = unstack_layers(tree_map(_to_tensor, tree), cfg)
     if device is not None:
         out = to_device(out, device)

@@ -8,8 +8,8 @@ layer) and the same functions — ``embed``, ``_norm``, ``qkv_proj``,
 loss (``_hidden_states``, ``loss_fn``). Covers the Llama-3 (RoPE,
 RMSNorm, SwiGLU, GQA), GPT-2 (learned positions, LayerNorm, GELU) and
 Gemma-2 (post-norms, (1 + w) norms, GeGLU, embedding scale, query scale,
-local/global windows, logit softcaps) families. Mixture-of-experts layers
-are not ported yet and raise.
+local/global windows, logit softcaps) families, and Mixtral's
+mixture-of-experts feed-forward (``models/moe.py``) in place of the MLP.
 
 Sequence parallelism: with ``cfg.sequence_axis`` set and a ``mesh`` whose
 axis of that name is above 1, the training path (``_hidden_states``,
@@ -21,7 +21,9 @@ shard's share of the global token mean (the count summed over the axis).
 
 Weights are cast to the activation dtype at use, as the JAX package does;
 when they are stored in that dtype already (the serving case) the cast is
-free.
+free. Every matmul weight is read through ``quantize.load_weight``, which
+dequantizes an int8 ``{"q", "s"}`` leaf (``model.weight_quant``, serving
+only) and casts a plain one.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 from orion_tpu_torch import ops
 from orion_tpu_torch.comm.collectives import all_reduce
 from orion_tpu_torch.config import ModelConfig
+from orion_tpu_torch.models.moe import moe_dispatch
+from orion_tpu_torch.models.quantize import load_weight
 from orion_tpu_torch.parallel.sequence import sequence_attention
 from orion_tpu_torch.runtime.mesh import axis_size
 
@@ -101,7 +105,7 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["tokens"].to(x.dtype).T
     else:
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = x @ load_weight(params["lm_head"], x.dtype)
     logits = logits.float()
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
@@ -116,9 +120,9 @@ def qkv_proj(
     B, S, _ = x.shape
     N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = x.dtype
-    q = x @ p["wq"].to(dtype)
-    k = x @ p["wk"].to(dtype)
-    v = x @ p["wv"].to(dtype)
+    q = x @ load_weight(p["wq"], dtype)
+    k = x @ load_weight(p["wk"], dtype)
+    v = x @ load_weight(p["wv"], dtype)
     if cfg.attn_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -138,7 +142,7 @@ def qkv_proj(
 def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     """Attention output projection. out [B, S, N, H] -> [B, S, D]."""
     B, S = out.shape[0], out.shape[1]
-    y = out.reshape(B, S, -1) @ p["wo"].to(out.dtype)
+    y = out.reshape(B, S, -1) @ load_weight(p["wo"], out.dtype)
     if cfg.resolved_attn_out_bias:
         y = y + p["bo"].to(out.dtype)
     return y
@@ -146,26 +150,31 @@ def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     dtype = x.dtype
-    h_in = x @ p["w_in"].to(dtype)
+    h_in = x @ load_weight(p["w_in"], dtype)
     if cfg.mlp_bias:
         h_in = h_in + p["b_in"].to(dtype)
     if cfg.is_gated_mlp:
-        h = _gate_act(cfg)(x @ p["w_gate"].to(dtype)) * h_in
+        h = _gate_act(cfg)(x @ load_weight(p["w_gate"], dtype)) * h_in
     else:
         h = F.gelu(h_in, approximate="tanh")
-    y = h @ p["w_out"].to(dtype)
+    y = h @ load_weight(p["w_out"], dtype)
     if cfg.mlp_bias:
         y = y + p["b_out"].to(dtype)
     return y
 
 
-def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig) -> torch.Tensor:
-    """The post-attention half of a block (dense MLP only in this port)."""
+def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig, mesh=None
+               ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The post-attention half of a block: dense MLP or MoE. Returns (y,
+    aux), aux the MoE load-balance loss (float32), or None for a dense MLP
+    (so a dense block launches nothing more than it did).
+    Every MoE leaf but the router is cast to the activation dtype; the
+    router stays in its own, as in the JAX package."""
     if cfg.is_moe:
-        raise NotImplementedError(
-            "mixture-of-experts layers are not ported to orion_tpu_torch yet"
-        )
-    return _mlp_block(h, bp["mlp"], cfg)
+        moe_params = {k: v if k == "router" else v.to(h.dtype)
+                      for k, v in bp["moe"].items()}
+        return moe_dispatch(h, moe_params, cfg, mesh)
+    return _mlp_block(h, bp["mlp"], cfg), None
 
 
 def _sp_active(cfg: ModelConfig, mesh) -> bool:
@@ -181,7 +190,8 @@ def _block(
     segment_ids: Optional[torch.Tensor],
     window: Optional[int],
     mesh=None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block: (x, its MoE aux loss or None)."""
     h = _norm(x, bp["attn_norm"], cfg)
     q, k, v = qkv_proj(h, bp["attn"], cfg, positions)
     if _sp_active(cfg, mesh):
@@ -201,10 +211,10 @@ def _block(
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, aux = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg, mesh)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
-    return x + y
+    return x + y, aux
 
 
 @torch.no_grad()
@@ -222,7 +232,7 @@ def forward(
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed(params, tokens, positions, cfg)
     for layer, bp in enumerate(params["blocks"]):
-        x = _block(x, bp, cfg, positions, segment_ids, cfg.layer_window(layer))
+        x, _ = _block(x, bp, cfg, positions, segment_ids, cfg.layer_window(layer))
     return unembed(params, x, cfg)
 
 
@@ -236,7 +246,8 @@ def _hidden_states(
     mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The block-stack output [B, S, D] before final norm / LM head, and
-    the MoE aux loss (zero: dense only). Differentiable; the training path.
+    the MoE aux loss summed over layers (zero for a dense model).
+    Differentiable; the training path.
     Under sequence parallelism (``mesh``, see the module note) ``tokens``
     is this process's shard and ``positions`` its global positions.
 
@@ -255,14 +266,17 @@ def _hidden_states(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = embed(params, tokens, positions, cfg)
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, bp in enumerate(params["blocks"]):
         window = cfg.layer_window(layer)
         if cfg.remat == "full":
-            x = checkpoint(_block, x, bp, cfg, positions, segment_ids, window, mesh,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block, x, bp, cfg, positions, segment_ids, window, mesh,
+                                use_reentrant=False)
         else:
-            x = _block(x, bp, cfg, positions, segment_ids, window, mesh)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _block(x, bp, cfg, positions, segment_ids, window, mesh)
+        if aux is not None:
+            moe_aux = moe_aux + aux
+    return x, moe_aux
 
 
 def _gather_target(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ from orion_tpu_torch.infer import InferenceEngine, runner
 from orion_tpu_torch.infer.kv_cache import init_cache
 from orion_tpu_torch.metrics import PrefixCacheStats, RobustnessStats
 from orion_tpu_torch.models import from_jax_params
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 N, K, H = 4, 2, 16
 

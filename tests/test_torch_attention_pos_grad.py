@@ -21,6 +21,7 @@ import torch
 
 from orion_tpu.ops.pallas.flash_attention import flash_attention_with_lse as j_flash_lse
 from orion_tpu_torch import ops
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 S, N, K, H = 64, 4, 2, 16
 

@@ -26,6 +26,7 @@ from orion_tpu_torch.infer.executor import DispatchExecutor, program_key
 from orion_tpu_torch.infer.sampling import _categorical
 from orion_tpu_torch.models import from_jax_params
 from orion_tpu_torch.ops import common
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER_OVERRIDES = [
     "inference.max_seq_len=128", "inference.page_size=16",

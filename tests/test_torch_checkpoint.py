@@ -32,6 +32,7 @@ from orion_tpu_torch.models import from_jax_params
 from orion_tpu_torch.runtime.fault import FaultInjector, FaultSpec
 from orion_tpu_torch.train import Trainer, state_from_tree, state_to_tree
 from orion_tpu_torch.train.trainer import prng_key_data
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 TRAIN = ["runtime.platform=cpu", "train.log_interval=1000", "optimizer.warmup_steps=1",
          "data.batch_size=2", "data.seq_len=32"]

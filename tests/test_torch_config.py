@@ -12,6 +12,7 @@ import pytest
 
 from orion_tpu import config as j_config
 from orion_tpu_torch import config
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -52,6 +52,7 @@ from orion_tpu_torch.infer import InferenceEngine
 from orion_tpu_torch.metrics import ConstraintStats, RobustnessStats
 from orion_tpu_torch.models import from_jax_params
 from orion_tpu_torch.runtime import fault as t_fault
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER = [
     "inference.max_seq_len=128", "inference.page_size=16",

@@ -42,6 +42,7 @@ from orion_tpu_torch.ops.paged_attention import (
     decode_active_splits,
     decode_n_splits,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 K, G, H = 2, 2, 64
 N = K * G

@@ -16,6 +16,7 @@ from orion_tpu.models import init_params as j_init_params
 from orion_tpu_torch.config import get_config
 from orion_tpu_torch.infer import InferenceEngine
 from orion_tpu_torch.models import from_jax_params
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER_OVERRIDES = [
     "inference.max_seq_len=128", "inference.page_size=16",
@@ -131,7 +132,7 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "model.weight_quant=int8", "inference.dispatch_retries=2",
+    "inference.dispatch_retries=2",
     "inference.dispatch_retry_backoff_s=0.5",
 ])
 def test_unported_features_raise(override):

@@ -40,6 +40,7 @@ from orion_tpu_torch.runtime.fault import (
     PreemptionHandler,
     Watchdog,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER = [
     "inference.max_seq_len=128", "inference.page_size=16",

@@ -38,6 +38,7 @@ from orion_tpu_torch.infer import InferenceEngine
 from orion_tpu_torch.metrics import PrefixCacheStats, RobustnessStats
 from orion_tpu_torch.models import from_jax_params
 from orion_tpu_torch.runtime import fault as t_fault
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 BASE = [
     "inference.max_seq_len=256", "inference.page_size=16",

@@ -22,6 +22,7 @@ import torch
 from orion_tpu import ops as jops
 from orion_tpu_torch import ops
 from orion_tpu_torch.ops import _build, norms
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 IMPLS = ["xla", "pallas_interpret"]
 # (x dtype, scale dtype): training runs bfloat16 rows beside the float32

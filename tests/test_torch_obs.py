@@ -53,6 +53,7 @@ from orion_tpu_torch.models import from_jax_params
 from orion_tpu_torch.obs import trace as t_trace
 from orion_tpu_torch.runtime import fault as t_fault
 from orion_tpu_torch.train import Trainer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SIDES = (("jax", j_obs), ("torch", t_obs))
 

@@ -19,6 +19,7 @@ from orion_tpu.ops.attention import attention_mask as j_mask
 from orion_tpu.ops.pallas.paged_attention import paged_attention as j_paged
 from orion_tpu_torch import ops
 from orion_tpu_torch.infer.sampling import filter_logits, sample
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-5
 IMPLS = ["xla", "pallas_interpret"]

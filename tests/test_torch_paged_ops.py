@@ -27,6 +27,7 @@ from orion_tpu.ops.pallas.paged_flash_prefill import (
 from orion_tpu_torch import ops
 from orion_tpu_torch.infer.kv_cache import PageAllocator, copy_page
 from orion_tpu_torch.infer.prefix_cache import PrefixCache
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-5
 PSZ, K, G, H = 16, 2, 2, 64

@@ -46,6 +46,7 @@ from orion_tpu_torch.ops.paged_flash_prefill import (
     q_tile,
     walk_plan,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 PSZ, K, G, H = 16, 2, 2, 64
 N = K * G

@@ -26,6 +26,7 @@ from orion_tpu.ops.pallas.ragged_paged_attention import (
 from orion_tpu.infer.spec_decode import DraftTree
 from orion_tpu_torch import ops
 from orion_tpu_torch.ops.ragged_paged_attention import verify_smem_bytes
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-5
 B, W, H, PSZ, NUM_PAGES, SW = 3, 5, 64, 16, 32, 128

@@ -28,6 +28,7 @@ from orion_tpu.ops.attention import attention_xla
 from orion_tpu.parallel import sequence_attention as j_sequence_attention
 from tests import torch_sp_worker as W
 from tests.conftest import make_mesh
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 B, S, N, H = 2, 64, 8, 16
 OUT_TOL = dict(atol=1e-5, rtol=0)

@@ -23,6 +23,7 @@ from orion_tpu_torch.config import get_config
 from orion_tpu_torch.infer import InferenceEngine
 from orion_tpu_torch.infer.kv_cache import init_cache
 from orion_tpu_torch.models import from_jax_params
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER_OVERRIDES = [
     "inference.max_seq_len=128", "inference.page_size=16",

@@ -48,6 +48,7 @@ from orion_tpu_torch.infer.sampling import (
     spec_verify_sample_tree,
 )
 from orion_tpu_torch.models import from_jax_params
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 INFER_OVERRIDES = [
     "inference.max_seq_len=128", "inference.page_size=16",

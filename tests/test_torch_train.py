@@ -27,6 +27,7 @@ from orion_tpu_torch.models import from_jax_params, loss_fn
 from orion_tpu_torch.models.convert import tree_leaves_with_path
 from orion_tpu_torch.train import Trainer, apply_updates, init_opt_state, make_schedule
 from orion_tpu_torch.train.optimizer import global_norm, tree_all_finite
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SMALL = ["data.batch_size=2", "data.seq_len=32", "data.packed=true"]
 
@@ -288,8 +289,7 @@ def test_ported_fault_knobs_build_a_trainer(override, tmp_path):
 @pytest.mark.parametrize("override", [
     "train.zero1=true", "train.grad_quant_bits=8", "train.eval_interval=5",
     "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
-    "model.remat=names", "train.remat=names", "model.n_experts=4",
-    "model.weight_quant=int8", "runtime.checkify=true",
+    "model.remat=names", "train.remat=names", "runtime.checkify=true",
     "runtime.debug_nans=true", "runtime.deterministic=true",
     "runtime.num_processes=2;runtime.coordinator_address=localhost:1234",
 ])

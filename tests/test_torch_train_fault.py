@@ -37,6 +37,7 @@ from orion_tpu_torch.train import (
     make_train_step,
     state_to_tree,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 LOSS_TOL = 1e-4
 

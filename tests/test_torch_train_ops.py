@@ -21,6 +21,7 @@ from orion_tpu import ops as jops
 from orion_tpu.ops.pallas.flash_attention import flash_attention_with_lse
 from orion_tpu_torch import ops
 from orion_tpu_torch.ops.common import NEG_INF
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 IMPLS = ["xla", "pallas_interpret"]
 

@@ -23,6 +23,7 @@ from orion_tpu.train import Trainer as JTrainer
 from orion_tpu_torch.config import get_config
 from orion_tpu_torch.train import Trainer
 from tests import torch_sp_worker as W
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SP = 2
 BASE = ["runtime.platform=cpu", "data.batch_size=4", "data.seq_len=64",

@@ -51,6 +51,7 @@ from orion_tpu_torch.ops.ragged_paged_attention import (
     verify_mask,
     verify_n_splits,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 K, G, H = 2, 2, 64
 N = K * G
