@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,kernels,serve_host_tier,serve_long,serve_gather
     python3 chip_smoke.py --phases device,build,serve,serve_obs,train,train_obs
     python3 chip_smoke.py --phases device,build,serve,serve_int8w,serve_moe,train_moe
+    python3 chip_smoke.py --phases device,build,train_remat,train_checks
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -232,6 +233,39 @@ exits non-zero without printing a result:
            step, then TRAIN_STEPS measured steps through Trainer.fit; the
            loss must be finite and fall, and K1-K3 and K5-K8 must launch;
            prints step time, tokens/s, MFU, peak memory, launches per step
+  train_remat  llama-1b-bench at full width and depth under each remat
+           policy of REMAT_POLICIES (none, full, dots, names, names with
+           remat_offload), in a subprocess (train_remat_child, log in
+           chiprun_out/train_remat_child.log): the step-1 gradients of a fresh seeded state
+           within TRAIN_TOL["grads_step1"] of none's, names and
+           names+offload bit for bit; Trainer.memory_report (activation
+           bytes through saved_tensors_hooks, the remat log, the peak above
+           the state, the update in place); a warm-up step and REMAT_STEPS
+           through Trainer.fit (a falling loss). Gates: activation bytes
+           none >= dots >= names >= full, offload's named bytes all in host
+           memory and moved both ways. Prints per policy the step time,
+           tokens/s, MFU, peak GiB, activation bytes, K3/K7/K8 launches a
+           step; for offload the GB moved a step and the step time against
+           names. Then the train-parity drive (train_parity's) of tiny and
+           tiny-gemma2 under remat=names
+  train_checks  the sanitizers on the card: (a) runtime.deterministic in a
+           subprocess (the cuBLAS workspace set before CUDA starts): two
+           2-step runs each of llama-1b-bench and tiny-mixtral (sorted
+           dispatch: index_add and gather backward under deterministic
+           algorithms) give parameters equal byte for byte; (b)
+           runtime.checkify on llama-1b-bench: a healthy step, a NaN
+           planted in embed.tokens and an out-of-vocab target raise
+           CheckifyError with the state untouched, and the next step runs;
+           (c) runtime.debug_nans: a healthy step (its time), then the
+           planted NaN raises FloatingPointError; (d) model.debug_asserts on
+           tiny-mixtral: a corrupted router index raises
+           DeviceAssertionError(moe_route_idx) and the next step runs; with
+           the flag off an armed injection leaves launches and losses as
+           they were; (e) train.eval_interval=3, eval_batches=2 at full
+           width: eval_loss finite, repeated by two evaluate calls, the
+           losses train_remat's full run's; (f) the native token reader over
+           a uint32 file written here: batches equal to the numpy reader's
+           byte for byte, the data time of both, a trainer reading with it
   train_moe  Mixtral's width at 2 layers (MOE_TRAIN_OVERRIDES: batch 1 x
            2048, remat=full, bf16 compute, float32 masters), a warm-up step
            and 4 steps through Trainer.fit: finite, falling loss, moe_aux
@@ -321,10 +355,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "serve_moe", "train_moe", "serve",
-          "serve_obs", "serve_chunked", "serve_spec", "serve_constrained", "serve_faults",
-          "serve_graphs", "serve_host_tier", "serve_gather", "serve_int8w", "serve_long",
-          "train_parity", "train", "train_obs", "train_faults", "sp_rank", "timing")
+PHASES = ("device", "build", "kernels", "parity", "serve_moe", "train_moe", "train_remat",
+          "train_checks", "serve", "serve_obs", "serve_chunked", "serve_spec",
+          "serve_constrained", "serve_faults", "serve_graphs", "serve_host_tier",
+          "serve_gather", "serve_int8w", "serve_long", "train_parity", "train", "train_obs",
+          "train_faults", "sp_rank", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -5226,7 +5261,11 @@ def tensor_leaves(tree):
         yield tree
 
 
-def phase_train_parity():
+def train_parity_drive(phase, preset, overrides=()):
+    """``preset`` in float32 through the trainer on cuda (kernels) and on
+    cpu (plain versions) from one seeded init: the first step's loss and
+    gradients, then TRAIN_PARITY_OVERRIDES' steps, within TRAIN_TOL; the
+    training kernels launched on cuda. Emits and returns its line."""
     import math
 
     import torch
@@ -5237,7 +5276,7 @@ def phase_train_parity():
     from orion_tpu_torch.models.convert import tree_leaves_with_path, to_device
     from orion_tpu_torch.train import Trainer, loss_and_grads
 
-    cfg = get_config("tiny-llama", TRAIN_PARITY_OVERRIDES)
+    cfg = get_config(preset, TRAIN_PARITY_OVERRIDES + list(overrides))
     params = init_params(cfg.model, torch.Generator().manual_seed(0))
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -5248,23 +5287,32 @@ def phase_train_parity():
         runs[dev] = (float(loss), [g.cpu() for _, g in tree_leaves_with_path(grads)],
                      [m.loss for m in tr.fit()], ops.launches())
     (l1_g, g_g, losses_g, launches), (l1_c, g_c, losses_c, _) = runs["cuda"], runs["cpu"]
-    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    needed = [k for k in TRAIN_KERNELS if cfg.model.norm == "rmsnorm" or "rmsnorm" not in k]
+    needed = [k for k in needed if cfg.model.pos_embedding == "rope" or "rope" not in k]
+    missing = [k for k in needed if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"train_parity: kernels never launched on cuda: {missing}")
+        raise AssertionError(f"{phase} {preset}: kernels never launched on cuda: {missing}")
     if abs(l1_g - l1_c) > TRAIN_TOL["loss_step1"]:
-        raise AssertionError(f"train_parity: step-1 loss cuda {l1_g} cpu {l1_c}")
+        raise AssertionError(f"{phase} {preset}: step-1 loss cuda {l1_g} cpu {l1_c}")
     atol, rtol = TRAIN_TOL["grads_step1"]
     grad_err = 0.0
     for a, b in zip(g_g, g_c):
         if not torch.allclose(a, b, atol=atol, rtol=rtol):
-            raise AssertionError(f"train_parity: step-1 grads differ by {max_err(a, b)}")
+            raise AssertionError(f"{phase} {preset}: step-1 grads differ by {max_err(a, b)}")
         grad_err = max(grad_err, max_err(a, b))
     loss_err = max(abs(a - b) for a, b in zip(losses_g, losses_c))
     if not all(math.isfinite(x) for x in losses_g) or loss_err > TRAIN_TOL["loss"]:
-        raise AssertionError(f"train_parity: losses cuda {losses_g} cpu {losses_c}")
-    emit({"phase": "train_parity", "preset": "tiny-llama", "steps": len(losses_g),
-          "losses_cuda": losses_g, "losses_cpu": losses_c, "max_loss_err": loss_err,
-          "step1_grad_max_abs_err": grad_err, "tolerance": TRAIN_TOL})
+        raise AssertionError(f"{phase} {preset}: losses cuda {losses_g} cpu {losses_c}")
+    line = {"phase": phase, "preset": preset, "overrides": list(overrides),
+            "steps": len(losses_g), "losses_cuda": losses_g, "losses_cpu": losses_c,
+            "max_loss_err": loss_err, "step1_grad_max_abs_err": grad_err,
+            "tolerance": TRAIN_TOL, "kernels_launched": needed}
+    emit(line)
+    return line
+
+
+def phase_train_parity():
+    train_parity_drive("train_parity", "tiny-llama")
 
 
 def phase_train(profile=False):
@@ -5278,6 +5326,9 @@ def phase_train(profile=False):
 
     cfg = get_config("llama-1b-bench", [f"train.num_steps={TRAIN_STEPS}",
                                         "train.log_interval=1"])
+    # What the phases before left reserved in this process (graph pools,
+    # fragments the cache cannot release).
+    reserved_at_start = torch.cuda.memory_reserved() / 2 ** 30
     tr = Trainer(cfg, device="cuda")
     # Warm-up step on a throwaway state (Triton JIT, cuBLAS heuristics).
     t0 = time.perf_counter()
@@ -5312,12 +5363,481 @@ def phase_train(profile=False):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": launches,
         "launches_per_step": {k: n / len(hist) for k, n in launches.items()},
+        "reserved_gib_at_start": reserved_at_start,
     })
     if profile:
         profile_train(tr, tr.state)
     del tr
     torch.cuda.empty_cache()
     return launches, step_s
+
+
+# train_remat: llama-1b-bench at full width and depth under each remat
+# policy (models/remat.py), a warm-up step then REMAT_STEPS through fit;
+# step-1 gradients of every policy against none's within
+# TRAIN_TOL["grads_step1"], names and names+offload bit for bit.
+REMAT_STEPS = 3
+REMAT_POLICIES = {
+    "none": ["model.remat=none"],
+    "full": ["model.remat=full"],
+    "dots": ["model.remat=dots"],
+    "names": ["model.remat=names"],
+    "names_offload": ["model.remat=names", "model.remat_offload=true"],
+}
+REMAT_PARITY = ("tiny", "tiny-gemma2")   # train-parity drives under remat=names
+REMAT_TIMEOUT_S = 420
+
+
+def remat_step_grads(cfg, tr):
+    """Step-1 loss and gradients of a fresh seeded state on batch 0, the
+    gradients on the host (kept there across policies, out of the peaks)."""
+    from orion_tpu_torch.models.convert import tree_leaves
+    from orion_tpu_torch.train import loss_and_grads
+
+    state = tr.init_state()
+    loss, _, grads = loss_and_grads(state["params"], tr.global_batch(0), cfg.model)
+    del state
+    return float(loss), [g.cpu() for g in tree_leaves(grads)]
+
+
+def remat_policies() -> dict:
+    """llama-1b-bench under each of REMAT_POLICIES: per policy the step
+    time, tokens/s, MFU, peak GiB, memory_report's activation bytes and
+    remat log, K3/K7/K8 launches a step; raises unless the step-1
+    gradients are within TRAIN_TOL of none's, names == names+offload bit
+    for bit, the loss falls, activations none >= dots >= names >= full,
+    and no named byte stays on the device under offload."""
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    rows, ref_grads, names_grads = {}, None, None
+    for policy, ov in REMAT_POLICIES.items():
+        cfg = get_config("llama-1b-bench", [f"train.num_steps={REMAT_STEPS}",
+                                            "train.log_interval=1"] + ov)
+        tr = Trainer(cfg, device="cuda")
+        loss1, grads = remat_step_grads(cfg, tr)
+        grad_err = 0.0
+        if ref_grads is None:
+            ref_grads, ref_loss = grads, loss1
+        else:
+            atol, rtol = TRAIN_TOL["grads_step1"]
+            for a, b in zip(grads, ref_grads):
+                if not torch.allclose(a, b, atol=atol, rtol=rtol):
+                    raise AssertionError(f"train_remat {policy}: step-1 grads differ from "
+                                         f"none's by {max_err(a, b)}")
+                grad_err = max(grad_err, max_err(a, b))
+        if policy == "names":
+            names_grads = grads
+        elif policy == "names_offload":
+            if not all(torch.equal(bits(a), bits(b)) for a, b in zip(grads, names_grads)):
+                raise AssertionError("train_remat: names+offload grads differ from names'")
+            names_grads = None
+        del grads
+        free_engine()
+        report = tr.memory_report()
+        free_engine()
+        t0 = time.perf_counter()
+        state = tr.init_state()
+        tr.train_step(state, tr.global_batch(0))
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        del state
+        free_engine()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        hist = tr.fit()
+        launches = ops.launches()
+        losses = [m.loss for m in hist]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train_remat {policy}: losses {losses}")
+        step_s = statistics.median(m.step_time_s for m in hist)
+        tokens = tr.tokens_per_step
+        rows[policy] = {
+            "step_s_median": step_s, "step_times_s": [m.step_time_s for m in hist],
+            "tokens_per_s": tokens / step_s,
+            "mfu": cfg.model.flops_per_token(cfg.data.seq_len) * tokens / step_s / BF16_FLOPS_S,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "activation_bytes": report["by_category"]["activations"],
+            "peak_above_state_bytes": report.get("peak_above_state_bytes"),
+            "remat": report["remat"], "losses": losses, "warmup_s": warmup_s,
+            "step1_loss": loss1, "step1_loss_minus_none": loss1 - ref_loss,
+            "step1_grad_max_abs_err_vs_none": grad_err,
+            "launches_per_step": {k: launches[k] / len(hist)
+                                  for k in ("flash_fwd", "flash_dq", "flash_dkv")},
+        }
+        del tr
+        free_engine()
+    del ref_grads
+    free_engine()
+    act = {p: r["activation_bytes"] for p, r in rows.items()}
+    if not act["none"] >= act["dots"] >= act["names"] >= act["full"]:
+        raise AssertionError(f"train_remat: activation bytes out of order: {act}")
+    named_on_device = act["names_offload"] - act["full"]
+    off = rows["names_offload"]["remat"]
+    if named_on_device != 0 or off["to_host"] != off["saved"] or off["to_device"] != off["saved"]:
+        raise AssertionError(f"train_remat offload: {named_on_device} named bytes on the "
+                             f"device, remat log {off}")
+    rows["names_offload"]["gb_moved_per_step"] = (off["to_host"] + off["to_device"]) / 1e9
+    rows["names_offload"]["step_s_vs_names"] = (rows["names_offload"]["step_s_median"]
+                                                / rows["names"]["step_s_median"])
+    return rows
+
+
+def train_remat_child() -> int:
+    """train_remat's policies in a process of their own: a fresh caching
+    allocator, which the serve phases before it leave fragmented (a run
+    after them found 63 GiB cached but free and no 2 GiB block). Prints
+    one JSON line: the rows, or the error."""
+    try:
+        rep = {"policies": remat_policies()}
+    except Exception as e:   # reported to the parent, which fails the phase
+        rep = {"error": f"{type(e).__name__}: {e}"}
+    print(json.dumps(rep), flush=True)
+    os._exit(0)
+
+
+def phase_train_remat():
+    """remat_policies in a subprocess (REMAT_TIMEOUT_S), its line emitted;
+    then the train-parity drives of REMAT_PARITY under remat=names (cuda
+    against cpu). Returns the full policy's losses."""
+    import torch
+
+    smi = smi_line()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke; chip_smoke.train_remat_child()"],
+                          cwd=HERE, capture_output=True, text=True, timeout=REMAT_TIMEOUT_S)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_remat_child.log"), "w") as f:
+        f.write(proc.stdout + "\n== stderr\n" + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"train_remat: child exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    rep = json.loads(lines[-1])
+    if "error" in rep:
+        raise AssertionError(f"train_remat: {rep['error']}")
+    rows = rep["policies"]
+    emit({"phase": "train_remat", "preset": "llama-1b-bench", "steps": REMAT_STEPS,
+          "policies": rows, "grad_tolerance": TRAIN_TOL["grads_step1"],
+          "wall_s": time.perf_counter() - t0,
+          "parent_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30, "nvidia_smi": smi})
+    for preset in REMAT_PARITY:
+        train_parity_drive("train_remat_parity", preset, ["model.remat=names"])
+    return rows["full"]["losses"]
+
+
+# train_checks: the sanitizers, eval and the native reader on the card.
+CHECKS_STEPS = 3
+DET_PRESETS = {"llama-1b-bench": ["train.num_steps=2", "train.log_interval=100"],
+               "tiny-mixtral": ["train.num_steps=2", "train.log_interval=100",
+                                "model.moe_dispatch=sorted"]}
+DET_TIMEOUT_S = 300
+NATIVE_TOKENS = 1 << 24         # a uint32 token file of 64 MiB
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    from orion_tpu_torch.models.convert import tree_leaves
+
+    h = hashlib.sha256()
+    for p in tree_leaves(params):
+        h.update(p.detach().contiguous().view(torch_int_of(p)).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def deterministic_child() -> int:
+    """train_checks (a), in its own process (``runtime.deterministic`` sets
+    the cuBLAS workspace before CUDA starts): two 2-step runs of each of
+    DET_PRESETS; prints one JSON line with their parameter digests, or the
+    error a deterministic-mode op raised."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    rep = {"cuda_initialized_before": torch.cuda.is_initialized(), "runs": {}}
+    try:
+        for preset, ov in DET_PRESETS.items():
+            digests = []
+            for _ in range(2):
+                tr = Trainer(get_config(preset, ["runtime.deterministic=true"] + ov),
+                             device="cuda")
+                tr.fit()
+                digests.append(params_digest(tr.state["params"]))
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+            rep["runs"][preset] = digests
+        rep["deterministic"] = torch.are_deterministic_algorithms_enabled()
+        rep["cublas_workspace"] = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    except Exception as e:   # reported to the parent, which fails the phase
+        rep["error"] = f"{type(e).__name__}: {e}"
+    print(json.dumps(rep), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def checks_deterministic():
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke; chip_smoke.deterministic_child()"],
+                          cwd=HERE, capture_output=True, text=True, timeout=DET_TIMEOUT_S)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "deterministic_child.log"), "w") as f:
+        f.write(proc.stdout + "\n== stderr\n" + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"train_checks deterministic: child exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    rep = json.loads(lines[-1])
+    if "error" in rep:
+        raise AssertionError(f"train_checks deterministic: {rep['error']}")
+    unequal = [p for p, d in rep["runs"].items() if d[0] != d[1]]
+    if unequal or not rep["deterministic"]:
+        raise AssertionError(f"train_checks deterministic: runs differ for {unequal}: {rep}")
+    return dict(rep, wall_s=time.perf_counter() - t0)
+
+
+def checks_checkify():
+    """(b) and (c): the checked step and debug_nans at full width."""
+    import math
+
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.runtime import sanitize
+    from orion_tpu_torch.runtime.sanitize import CheckifyError
+    from orion_tpu_torch.train import Trainer
+
+    out = {}
+    cfg = get_config("llama-1b-bench", ["runtime.checkify=true"])
+    tr = Trainer(cfg, device="cuda")
+    state = tr.init_state()
+    tr.train_step(state, tr.global_batch(0))      # warm-up, checked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = tr.train_step(state, tr.global_batch(1))
+    torch.cuda.synchronize()
+    out["checked_step_s"] = time.perf_counter() - t0
+    if not math.isfinite(m["loss"]):
+        raise AssertionError(f"train_checks checkify: healthy step loss {m['loss']}")
+    batch = tr.global_batch(2)
+    row = int(batch["inputs"][0, 0])
+    saved = state["params"]["embed"]["tokens"][row, 0].clone()
+    state["params"]["embed"]["tokens"][row, 0] = float("nan")
+    step_before = state["step"]
+    try:
+        tr.train_step(state, batch)
+        raise AssertionError("train_checks checkify: a planted NaN did not raise")
+    except CheckifyError as e:
+        out["nan_error"] = str(e)
+    if "nan" not in out["nan_error"] or state["step"] != step_before:
+        raise AssertionError(f"train_checks checkify: {out['nan_error']} at step {state['step']}")
+    state["params"]["embed"]["tokens"][row, 0] = saved
+    bad = dict(batch)
+    bad["targets"] = batch["targets"].clone()
+    bad["targets"][0, 0] = cfg.model.vocab_size + 7
+    try:
+        tr.train_step(state, bad)
+        raise AssertionError("train_checks checkify: an out-of-vocab target did not raise")
+    except CheckifyError as e:
+        out["oob_error"] = str(e)
+    if "out of bounds" not in out["oob_error"]:
+        raise AssertionError(f"train_checks checkify: {out['oob_error']}")
+    _, m = tr.train_step(state, batch)            # the context survived
+    torch.cuda.synchronize()
+    if not math.isfinite(m["loss"]):
+        raise AssertionError(f"train_checks checkify: step after the raise: {m['loss']}")
+    out["after_loss"] = m["loss"]
+    # (c) debug_nans on the same model and state: a healthy step, then the
+    # planted NaN raises FloatingPointError. The mode is process-wide: off
+    # again before anything else runs.
+    try:
+        plain = Trainer(get_config("llama-1b-bench", ["runtime.debug_nans=true"]),
+                        device="cuda")
+        t0 = time.perf_counter()
+        _, m = plain.train_step(state, batch)
+        torch.cuda.synchronize()
+        out["debug_nans_step_s"] = time.perf_counter() - t0
+        state["params"]["embed"]["tokens"][row, 0] = float("nan")
+        try:
+            plain.train_step(state, batch)
+            raise AssertionError("train_checks debug_nans: a planted NaN did not raise")
+        except FloatingPointError as e:
+            out["debug_nans_error"] = str(e)
+    finally:
+        sanitize.set_debug_nans(False)
+    del tr, plain, state
+    free_engine()
+    return out
+
+
+def checks_debug_asserts():
+    """(d) tiny-mixtral (sorted dispatch): a corrupted router index raises
+    DeviceAssertionError("moe_route_idx") and the next step runs; with the
+    flag off, an armed injection changes neither launches nor losses."""
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.models import moe
+    from orion_tpu_torch.runtime.asserts import (
+        DeviceAssertionError,
+        clear_injected,
+        inject,
+    )
+    from orion_tpu_torch.train import Trainer
+
+    ov = ["train.num_steps=4", "train.log_interval=100", "model.moe_dispatch=sorted"]
+    runs = {}
+    for name, flag, armed in (("off", False, False), ("off_armed", False, True),
+                              ("on", True, False)):
+        if armed:
+            inject("moe_route_idx")
+        try:
+            tr = Trainer(get_config("tiny-mixtral",
+                                    ov + [f"model.debug_asserts={str(flag).lower()}"]),
+                         device="cuda")
+            tr.train_step(tr.init_state(), tr.global_batch(0))    # warm-up
+            ops.reset_launches()
+            hist = tr.fit()
+        finally:
+            clear_injected()
+        runs[name] = {"losses": [m.loss for m in hist], "launches": ops.launches(),
+                      "step_s_median": statistics.median(m.step_time_s for m in hist)}
+    if (runs["off_armed"]["launches"] != runs["off"]["launches"]
+            or runs["off_armed"]["losses"] != runs["off"]["losses"]):
+        raise AssertionError(f"train_checks debug_asserts: an armed injection changed the "
+                             f"unflagged run: {runs}")
+    orig = moe._router_topk
+
+    def corrupt(x, router_w, cfg):
+        probs, gate, idx = orig(x, router_w, cfg)
+        idx = idx.clone()
+        idx[0, 0, 0] = cfg.n_experts + 3
+        return probs, gate, idx
+
+    tr = Trainer(get_config("tiny-mixtral", ov + ["model.debug_asserts=true"]), device="cuda")
+    state = tr.init_state()
+    moe._router_topk = corrupt
+    try:
+        tr.train_step(state, tr.global_batch(0))
+        raise AssertionError("train_checks debug_asserts: the corrupted index did not raise")
+    except DeviceAssertionError as e:
+        error = str(e)
+    finally:
+        moe._router_topk = orig
+    if "moe_route_idx" not in error:
+        raise AssertionError(f"train_checks debug_asserts: {error}")
+    _, m = tr.train_step(state, tr.global_batch(1))
+    torch.cuda.synchronize()
+    if not math.isfinite(m["loss"]):
+        raise AssertionError(f"train_checks debug_asserts: step after the raise: {m['loss']}")
+    return {"runs": {k: {"losses": v["losses"], "step_s_median": v["step_s_median"],
+                         "launches": {n: c for n, c in v["launches"].items() if c}}
+                     for k, v in runs.items()},
+            "error": error, "after_loss": m["loss"]}
+
+
+def checks_eval(plain_losses=None):
+    """(e) llama-1b-bench with eval every 3 steps over 2 batches: eval_loss
+    finite and repeated by evaluate, the losses a run without eval's."""
+    import math
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.train import Trainer
+
+    base = [f"train.num_steps={CHECKS_STEPS}", "train.log_interval=1"]
+    if plain_losses is None:
+        tr = Trainer(get_config("llama-1b-bench", base), device="cuda")
+        plain_losses = [m.loss for m in tr.fit()]
+        del tr
+        free_engine()
+    tr = Trainer(get_config("llama-1b-bench", base + ["train.eval_interval=3",
+                                                      "train.eval_batches=2"]), device="cuda")
+    hist = tr.fit()
+    evals = [m.extras.get("eval_loss") for m in hist]
+    t0 = time.perf_counter()
+    again = [tr.evaluate(tr.state["params"]) for _ in range(2)]
+    eval_s = (time.perf_counter() - t0) / 2
+    losses = [m.loss for m in hist]
+    if (evals[-1] is None or not math.isfinite(evals[-1]) or again[0] != again[1]
+            or again[0] != evals[-1] or losses != plain_losses):
+        raise AssertionError(f"train_checks eval: eval {evals}, again {again}, losses "
+                             f"{losses} against {plain_losses}")
+    del tr
+    free_engine()
+    return {"eval_loss": evals[-1], "evaluate_s": eval_s, "losses": losses}
+
+
+def checks_native_reader():
+    """(f) a uint32 token file written here: the native reader's batches
+    equal the numpy reader's byte for byte, the data time of both a step,
+    and a trainer over the file reads with the native reader."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.data.loader import MemmapLoader
+    from orion_tpu_torch.train import Trainer
+
+    vocab = get_config("llama-1b-bench").model.vocab_size
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.u32")
+        np.random.default_rng(0).integers(0, vocab, NATIVE_TOKENS, dtype=np.uint32).tofile(path)
+        ov = ["data.source=memmap", f"data.path={path}", "train.num_steps=2",
+              "train.log_interval=100"]
+        loaders, times = {}, {}
+        for kind in ("native", "numpy"):
+            cfg = get_config("llama-1b-bench", ov + [
+                f"data.use_native_loader={str(kind == 'native').lower()}"])
+            loaders[kind] = MemmapLoader(cfg.data, 0, 1, cfg.model.vocab_size)
+            if loaders[kind].reader_kind != kind:
+                raise AssertionError(f"train_checks native: asked for {kind}, got "
+                                     f"{loaders[kind].reader_kind}")
+        for kind, ldr in loaders.items():
+            t0 = time.perf_counter()
+            batches = [ldr.batch_at(s) for s in range(20)]
+            times[kind] = (time.perf_counter() - t0) / 20
+            loaders[kind] = batches
+        for a, b in zip(loaders["native"], loaders["numpy"]):
+            for k in a:
+                if a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes():
+                    raise AssertionError(f"train_checks native: batch key {k} differs")
+        tr = Trainer(get_config("llama-1b-bench", ov), device="cuda")
+        if tr.loader.reader_kind != "native":
+            raise AssertionError("train_checks native: the trainer reads with numpy")
+        losses = [m.loss for m in tr.fit()]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_checks native: losses {losses}")
+        del tr
+        free_engine()
+    return {"tokens": NATIVE_TOKENS, "batch_ms_native": times["native"] * 1e3,
+            "batch_ms_numpy": times["numpy"] * 1e3, "losses": losses}
+
+
+def phase_train_checks(plain_losses=None):
+    """(a) deterministic runs equal byte for byte (a subprocess), (b)
+    checkify, (c) debug_nans, (d) debug_asserts, (e) eval, (f) the native
+    reader; one JSON line."""
+    smi = smi_line()
+    out = {"deterministic": checks_deterministic()}
+    out["checkify"] = checks_checkify()
+    out["debug_asserts"] = checks_debug_asserts()
+    out["eval"] = checks_eval(plain_losses)
+    out["native_reader"] = checks_native_reader()
+    emit({"phase": "train_checks", "nvidia_smi": smi, **out})
 
 
 # sp_rank: one rank of llama3-8b-256k-ring's striped ring at the preset's
@@ -6518,6 +7038,16 @@ def main(argv=None) -> int:
         free_engine()
     if "train_moe" in phases:
         train_moe_launches = phase_train_moe()
+        free_engine()
+    # The remat policies (none peaks near 37 GiB) and the sanitizers also
+    # run before the serves: a run after them found the card's memory held
+    # (79 GiB in use, 19 of them the policies').
+    full_losses = None
+    if "train_remat" in phases:
+        full_losses = phase_train_remat()
+        free_engine()
+    if "train_checks" in phases:
+        phase_train_checks(full_losses)
         free_engine()
     serve_params = bf16_first = None
     if "serve" in phases:

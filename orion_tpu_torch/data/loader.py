@@ -8,9 +8,11 @@ slice of the same global batch, so the stream does not depend on the
 process count. ``batch_at(step)`` returns this host's rows; the trainer
 moves them to its device.
 
-The memmap path reads flat token files (uint16/uint32) with numpy only:
-``data.use_native_loader`` is ignored (the JAX package's C++ reader
-returns the same bytes).
+The memmap path reads flat token files (uint16/uint32) with the port's
+copy of the JAX package's C++ reader (``data/native``) when
+``data.use_native_loader`` is set, and with numpy otherwise, or when the
+reader cannot be built (logged; ``MemmapLoader.reader_kind`` says which).
+Both return the same bytes.
 """
 
 from __future__ import annotations
@@ -228,7 +230,8 @@ class MemmapLoader(Loader):
         super().__init__(cfg, process_index, process_count)
         if cfg.path is None:
             raise ValueError("memmap loader needs data.path")
-        self.reader = _NumpyReader(cfg.path, _token_dtype(cfg.path))
+        self.reader = _open_reader(cfg)
+        self.reader_kind = "numpy" if isinstance(self.reader, _NumpyReader) else "native"
         self.n_tokens = len(self.reader)
         need = cfg.seq_len + 1
         if self.n_tokens < need * cfg.batch_size:
@@ -258,6 +261,9 @@ class MemmapLoader(Loader):
         else:
             fetch = slice(lo, hi)
         rows = self.reader.gather(self._offsets_at(step)[fetch], s + 1)
+        if hasattr(self.reader, "prefetch"):
+            # Page in the next step's windows while this step trains.
+            self.reader.prefetch(self._offsets_at(step + 1)[fetch], s + 1)
         rows = rows.astype(np.int32)
         if self.cfg.packed:
             eos = self.cfg.eos_token_id
@@ -294,6 +300,21 @@ def _token_dtype(path: str) -> np.dtype:
     if path.endswith(".u32") or path.endswith(".bin32"):
         return np.dtype(np.uint32)
     return np.dtype(np.uint16)
+
+
+def _open_reader(cfg: DataConfig):
+    """The native reader when ``data.use_native_loader`` is set and it
+    builds and opens, else numpy (the JAX package's fallback, logged)."""
+    dtype = _token_dtype(cfg.path)
+    if cfg.use_native_loader:
+        try:
+            from orion_tpu_torch.data.native import NativeReader
+
+            return NativeReader(cfg.path, dtype)
+        except (ImportError, OSError) as e:
+            log.warning("native token reader unavailable (%s); reading %s with numpy",
+                        e, cfg.path)
+    return _NumpyReader(cfg.path, dtype)
 
 
 def make_loader(

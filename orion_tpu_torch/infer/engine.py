@@ -219,6 +219,9 @@ def _check_supported(cfg: Config) -> None:
         default = getattr(ladder, knob)
         unsupported[f"inference.{knob} != {default} (the fallback leg)"] = (
             getattr(i, knob) != default)
+    # The asserts read their predicates back, which a CUDA-graph capture
+    # refuses; the trainer takes the flag (runtime/asserts.py).
+    unsupported["model.debug_asserts in the serving engine"] = cfg.model.debug_asserts
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(

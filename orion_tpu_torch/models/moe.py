@@ -19,6 +19,15 @@ Capacity is ``C = max(int(capacity_factor * S * k / E), 1)`` per batch
 row of whatever [rows, S, D] the caller hands the layer, padding
 included, and every top-1 choice claims before any top-2 choice. The aux
 load-balancing loss follows Switch / Mixtral: E * sum_e f_e * p_e.
+
+An expert index outside [0, E) (a corrupted router) drops its
+assignment in both dispatches, as ``jax.nn.one_hot`` makes the JAX
+package's einsum dispatch do: its one-hot row is zeros (``_one_hot``, a
+comparison with ``arange(E)``), so it claims no capacity, counts in no
+expert's load and adds nothing to the output; the sorted dispatch keeps
+it out of ``keep`` and indexes with a clamped copy. With
+``model.debug_asserts`` the routing raises instead
+(``runtime/asserts.py``: ``moe_route_idx``, ``moe_route_pos``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from orion_tpu_torch.config import ModelConfig
+from orion_tpu_torch.models.remat import named, product
+from orion_tpu_torch.runtime.asserts import device_assert
 from orion_tpu_torch.runtime.mesh import axis_size
 
 Params = dict[str, Any]
@@ -50,12 +61,36 @@ def _router_topk(
     against the float32 router with a float32 result); the top k is a
     stable argsort of -probs, so ties keep the lower expert first as
     ``jnp.argsort`` does (``torch.topk`` may order them otherwise)."""
-    logits = x.float() @ router_w.float()
+    logits = product(x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     idx = torch.argsort(-probs, dim=-1, stable=True)[..., : cfg.n_experts_per_token]
-    gate = torch.gather(probs, -1, idx)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    return probs, gate, idx
+
+    def gates(p):
+        g = torch.gather(p, -1, idx)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+
+    # remat="names" saves the gates (models/remat.py).
+    return probs, named("moe_router_gate", gates, probs), idx
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., n] bool: True where ``idx == j``; all False for an index
+    outside [0, n), as ``jax.nn.one_hot`` gives zeros there
+    (``F.one_hot`` raises, or asserts on the card)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
+def _assert_idx(idx: torch.Tensor, cfg: ModelConfig) -> None:
+    E = cfg.n_experts
+    device_assert(cfg.debug_asserts, (idx >= 0) & (idx < E), "moe_route_idx",
+                  f"router expert index outside [0, {E})")
+
+
+def _assert_pos(pos: torch.Tensor, bound: int, cfg: ModelConfig) -> None:
+    """pos counts the assignments before each one in its [k*S] stream, so
+    the invariant is 0 <= pos < k*S (pos < C is ``keep``'s definition)."""
+    device_assert(cfg.debug_asserts, (pos >= 0) & (pos < bound), "moe_route_pos",
+                  f"capacity position outside the assignment-stream bound [0, {bound})")
 
 
 def _aux_stats(
@@ -64,7 +99,7 @@ def _aux_stats(
     """Per-expert (assignment fraction [E], mean router prob [E]): the two
     token means of the Switch load-balance loss."""
     E, k = cfg.n_experts, cfg.n_experts_per_token
-    onehot = F.one_hot(idx, E).float()                    # [B,S,k,E]
+    onehot = _one_hot(idx, E).float()                     # [B,S,k,E]
     frac = onehot.sum(dim=2).mean(dim=(0, 1)) / k
     mean_prob = probs.mean(dim=(0, 1))
     return frac, mean_prob
@@ -84,11 +119,13 @@ def route(
     E, k = cfg.n_experts, cfg.n_experts_per_token
     C = moe_capacity(cfg, S)
     probs, gate, idx = _router_topk(x, router_w, cfg)
+    _assert_idx(idx, cfg)
     # Slot-major priority: all slot-0 (top-1) choices claim capacity before
     # any slot-1 choice.
-    onehot = F.one_hot(idx, E).float()                    # [B,S,k,E]
+    onehot = _one_hot(idx, E).float()                     # [B,S,k,E]
     prio = onehot.transpose(1, 2).reshape(B, k * S, E)    # [B,kS,E]
     pos = torch.cumsum(prio, dim=1) - prio                # position within expert
+    _assert_pos(pos, k * S, cfg)
     keep = (pos < C).float() * prio
     # One-hot of the position; a position >= C (never kept) is all zeros.
     pos_oh = (pos.long()[..., None] == torch.arange(C, device=x.device)).float()
@@ -131,18 +168,26 @@ def route_indices(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     assignment, gate [B,S,k] f32, pos [B,S,k] position within the expert's
     capacity, keep [B,S,k] bool, (frac, mean_prob) as ``_aux_stats``).
     The drop rule is ``route``'s: slot-major priority, first come within a
-    slot, capacity C per expert per batch row."""
+    slot, capacity C per expert per batch row. An index outside [0, E) is
+    not kept, and the returned idx holds 0 in its place (the stats count
+    it in no expert)."""
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.n_experts_per_token
     C = moe_capacity(cfg, S)
     probs, gate, idx = _router_topk(x, router_w, cfg)
+    _assert_idx(idx, cfg)
+    stats = _aux_stats(probs, idx, cfg)
+    valid = (idx >= 0) & (idx < E)
+    idx = torch.where(valid, idx, 0)
     idx_km = idx.transpose(1, 2).reshape(B, k * S)         # slot-major stream
-    onehot = F.one_hot(idx_km, E).to(torch.int32)          # [B, kS, E]
+    onehot = _one_hot(idx_km, E).to(torch.int32)           # [B, kS, E]
+    onehot = onehot * valid.transpose(1, 2).reshape(B, k * S, 1)
     pos_all = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
     pos_km = torch.gather(pos_all, -1, idx_km[..., None])[..., 0]
     pos = pos_km.reshape(B, k, S).transpose(1, 2)           # [B, S, k]
-    keep = pos < C
-    return idx, gate, pos, keep, _aux_stats(probs, idx, cfg)
+    _assert_pos(pos, k * S, cfg)
+    keep = (pos < C) & valid
+    return idx, gate, pos, keep, stats
 
 
 def _scatter_dispatch(x, idx, pos, keep, E: int, C: int) -> torch.Tensor:

@@ -19,6 +19,11 @@ with the segment ids, softcap and each layer's window; the positions the
 caller passes are the shard's global ones. ``loss_fn`` then returns this
 shard's share of the global token mean (the count summed over the axis).
 
+Rematerialization (``model.remat``: none, full, dots, names, and names
+with ``remat_offload``) is ``models/remat.py``'s: the block's products
+go through ``product`` and its ``checkpoint_name`` points through
+``named``, plain calls outside a remat replay.
+
 Weights are cast to the activation dtype at use, as the JAX package does;
 when they are stored in that dtype already (the serving case) the cast is
 free. Every matmul weight is read through ``quantize.load_weight``, which
@@ -39,6 +44,14 @@ from orion_tpu_torch.comm.collectives import all_reduce
 from orion_tpu_torch.config import ModelConfig
 from orion_tpu_torch.models.moe import moe_dispatch
 from orion_tpu_torch.models.quantize import load_weight
+from orion_tpu_torch.models.remat import (
+    Offload,
+    RematLog,
+    named,
+    product,
+    remat_block,
+    remat_policy,
+)
 from orion_tpu_torch.parallel.sequence import sequence_attention
 from orion_tpu_torch.runtime.mesh import axis_size
 
@@ -120,9 +133,9 @@ def qkv_proj(
     B, S, _ = x.shape
     N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = x.dtype
-    q = x @ load_weight(p["wq"], dtype)
-    k = x @ load_weight(p["wk"], dtype)
-    v = x @ load_weight(p["wv"], dtype)
+    q = product(x, load_weight(p["wq"], dtype))
+    k = product(x, load_weight(p["wk"], dtype))
+    v = product(x, load_weight(p["wv"], dtype))
     if cfg.attn_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -142,7 +155,7 @@ def qkv_proj(
 def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     """Attention output projection. out [B, S, N, H] -> [B, S, D]."""
     B, S = out.shape[0], out.shape[1]
-    y = out.reshape(B, S, -1) @ load_weight(p["wo"], out.dtype)
+    y = product(out.reshape(B, S, -1), load_weight(p["wo"], out.dtype))
     if cfg.resolved_attn_out_bias:
         y = y + p["bo"].to(out.dtype)
     return y
@@ -150,14 +163,14 @@ def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     dtype = x.dtype
-    h_in = x @ load_weight(p["w_in"], dtype)
+    h_in = product(x, load_weight(p["w_in"], dtype))
     if cfg.mlp_bias:
         h_in = h_in + p["b_in"].to(dtype)
     if cfg.is_gated_mlp:
-        h = _gate_act(cfg)(x @ load_weight(p["w_gate"], dtype)) * h_in
+        h = _gate_act(cfg)(product(x, load_weight(p["w_gate"], dtype))) * h_in
     else:
         h = F.gelu(h_in, approximate="tanh")
-    y = h @ load_weight(p["w_out"], dtype)
+    y = product(h, load_weight(p["w_out"], dtype))
     if cfg.mlp_bias:
         y = y + p["b_out"].to(dtype)
     return y
@@ -182,6 +195,26 @@ def _sp_active(cfg: ModelConfig, mesh) -> bool:
             and axis_size(mesh, cfg.sequence_axis) > 1)
 
 
+def _attend(h: torch.Tensor, p: Params, cfg: ModelConfig, positions, segment_ids,
+            window: Optional[int], mesh=None) -> torch.Tensor:
+    """QKV projection, RoPE and attention: the normed input h [B, S, D] ->
+    the attention output [B, S, N, H] (``attn_out``)."""
+    q, k, v = qkv_proj(h, p, cfg, positions)
+    if _sp_active(cfg, mesh):
+        return sequence_attention(
+            q, k, v, mesh, method=cfg.sequence_method, axis=cfg.sequence_axis,
+            causal=True, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            logit_softcap=cfg.attn_logit_softcap, window=window,
+            debug_asserts=cfg.debug_asserts,
+        )
+    return ops.attention(
+        q, k, v, causal=True,
+        q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+        seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
+        window=window,
+    )
+
+
 def _block(
     x: torch.Tensor,
     bp: Params,
@@ -191,27 +224,23 @@ def _block(
     window: Optional[int],
     mesh=None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block: (x, its MoE aux loss or None)."""
-    h = _norm(x, bp["attn_norm"], cfg)
-    q, k, v = qkv_proj(h, bp["attn"], cfg, positions)
-    if _sp_active(cfg, mesh):
-        out = sequence_attention(
-            q, k, v, mesh, method=cfg.sequence_method, axis=cfg.sequence_axis,
-            causal=True, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
-            logit_softcap=cfg.attn_logit_softcap, window=window,
-        )
-    else:
-        out = ops.attention(
-            q, k, v, causal=True,
-            q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
-            seg_pad_zero=True, logit_softcap=cfg.attn_logit_softcap,
-            window=window,
-        )
+    """One block: (x, its MoE aux loss or None). The ``named`` sites are
+    the JAX package's ``checkpoint_name`` points (``models/remat.py``);
+    outside a remat replay each is a plain call."""
+    h = named("attn_norm_out", lambda x_, p: _norm(x_, p, cfg), x, bp["attn_norm"])
+    out = named("attn_out",
+                lambda h_, p: _attend(h_, p, cfg, positions, segment_ids, window, mesh),
+                h, bp["attn"])
     a = out_proj(out, bp["attn"], cfg)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y, aux = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg, mesh)
+    h = named("mlp_norm_out", lambda x_, p: _norm(x_, p, cfg), x, bp["mlp_norm"])
+    ffn = {k: bp[k] for k in ("mlp", "moe") if k in bp}
+    if cfg.is_moe:
+        y, aux = named("ffn_out", lambda h_, p: mlp_or_moe(h_, p, cfg, mesh), h, ffn)
+    else:
+        y, aux = named("ffn_out", lambda h_, p: _mlp_block(h_, p["mlp"], cfg), h, ffn), None
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y, aux
@@ -244,6 +273,7 @@ def _hidden_states(
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     mesh=None,
+    remat_log: Optional[RematLog] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The block-stack output [B, S, D] before final norm / LM head, and
     the MoE aux loss summed over layers (zero for a dense model).
@@ -251,29 +281,31 @@ def _hidden_states(
     Under sequence parallelism (``mesh``, see the module note) ``tokens``
     is this process's shard and ``positions`` its global positions.
 
-    ``remat="full"`` recomputes each block in the backward: every block
-    runs under ``torch.utils.checkpoint`` (non-reentrant), which saves only
-    the block's input and reruns its forward — kernels included — when the
-    backward reaches it, as ``jax.checkpoint`` around the JAX package's
-    per-layer scan body does. ``remat="none"`` saves everything."""
-    if cfg.remat not in ("none", "full") or cfg.remat_offload:
-        raise NotImplementedError(
-            f"model.remat={cfg.remat!r}"
-            + (" with remat_offload" if cfg.remat_offload else "")
-            + " is not ported to orion_tpu_torch yet (none|full are)"
-        )
+    ``remat`` (``models/remat.py``): under ``full``, ``dots`` and
+    ``names`` every block runs as one ``remat_block``, which keeps the
+    block's input and the policy's saved set and replays the block in the
+    backward; with ``remat_offload`` the named set waits in pinned host
+    memory. ``remat=none`` saves everything autograd saves. Without
+    gradients (evaluation) no block is rematerialized. ``remat_log``
+    (a ``RematLog``) receives what the blocks kept and moved."""
+    policy = remat_policy(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = embed(params, tokens, positions, cfg)
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not torch.is_grad_enabled():
+        policy = None
+    offload = Offload(x.device, remat_log) if policy and cfg.remat_offload else None
     for layer, bp in enumerate(params["blocks"]):
         window = cfg.layer_window(layer)
-        if cfg.remat == "full":
-            x, aux = checkpoint(_block, x, bp, cfg, positions, segment_ids, window, mesh,
-                                use_reentrant=False)
-        else:
+        if policy is None:
             x, aux = _block(x, bp, cfg, positions, segment_ids, window, mesh)
+        else:
+            def fn(x_, bp_, window=window):
+                return _block(x_, bp_, cfg, positions, segment_ids, window, mesh)
+
+            x, aux = remat_block(policy, fn, x, bp, offload, remat_log)
         if aux is not None:
             moe_aux = moe_aux + aux
     return x, moe_aux
@@ -287,7 +319,8 @@ def _gather_target(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(
-    params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, mesh=None
+    params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, mesh=None,
+    remat_log: Optional[RematLog] = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy + weighted MoE aux loss.
 
@@ -312,7 +345,7 @@ def loss_fn(
         raise ValueError(f"model.loss_chunk={chunk} must divide seq_len={S}")
     x, moe_aux = _hidden_states(
         params, batch["inputs"], cfg, positions=batch.get("positions"),
-        segment_ids=batch.get("segment_ids"), mesh=mesh,
+        segment_ids=batch.get("segment_ids"), mesh=mesh, remat_log=remat_log,
     )
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)

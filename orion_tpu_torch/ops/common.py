@@ -14,13 +14,19 @@ Conventions every kernel wrapper in ``orion_tpu_torch.ops`` follows:
   (``infer/executor.py``) record at capture what each wrapper launched
   (``recording_launches``) and credit it at every replay
   (``credit_launches``): the counts stay launches that ran.
+- Under ``runtime.debug_nans`` each wrapper checks its floating outputs
+  for NaN (``runtime/sanitize.py``): a dispatch mode does not see the
+  kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
+
+from orion_tpu_torch.runtime import sanitize
 
 NEG_INF = -1e30  # finite -inf stand-in: exp(NEG_INF - m) underflows to 0.
 # float32(1/127) as a Python float (exact): the int8 scale is a MULTIPLY by
@@ -109,10 +115,19 @@ _COUNTED: list = []   # every wrapper ``counted`` made
 
 
 def counted(fn):
-    """Give a kernel wrapper its launch counter (``fn.launches = 0``)."""
-    fn.launches = 0
-    _COUNTED.append(fn)
-    return fn
+    """Give a kernel wrapper its launch counter (``launches = 0`` on the
+    returned wrapper, which the body increments through its module name)
+    and, under ``runtime.debug_nans``, the NaN check of its outputs."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if sanitize.debug_nans():
+            sanitize.check_nan(out, fn.__name__)
+        return out
+
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
 
 
 @contextlib.contextmanager

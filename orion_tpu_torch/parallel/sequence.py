@@ -40,6 +40,7 @@ import torch
 
 from orion_tpu_torch.comm import collectives as comm
 from orion_tpu_torch.ops.attention import _gqa_expand, flash_attention_with_lse
+from orion_tpu_torch.runtime.asserts import device_assert
 from orion_tpu_torch.runtime.mesh import axis_size as mesh_axis_size
 
 METHODS = ("ring", "ring_striped", "ulysses")
@@ -170,7 +171,7 @@ def _positions(pos: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _ring_attention_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap,
-                          window=None):
+                          window=None, debug_asserts=False):
     """One process's ring attention body over its contiguous shard.
 
     Without a window every ring position needs a static mask: the local
@@ -195,6 +196,14 @@ def _ring_attention_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softca
             kv_positions=kvpos, window=window if windowed else None)
 
     def attend(k_, v_, seg_, src, is_first):
+        if windowed and not is_first:
+            # Every process checks every step's source, the ones whose block
+            # it skips too, so the vote meets on all of them.
+            kvpos = src * s_loc + iota
+            device_assert(debug_asserts,
+                          (kvpos >= 0) & (kvpos < sp * s_loc) & (0 <= src < sp),
+                          "ring_positions", "ring step source/global positions out of range",
+                          group=group)
         if is_first or not causal:
             return block(k_, v_, seg_, src, is_first and causal)
         if src < idx:
@@ -228,7 +237,7 @@ def to_striped(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _striped_ring(q, k, v, q_seg, kv_seg, *, idx, sp, rotate, causal, logit_softcap,
-                  window=None):
+                  window=None, debug_asserts=False, group=None):
     """The striped ring of process ``idx`` on its striped q, k, v (and
     segment ids): every block masked by the stripes' explicit global
     positions (and skipped tile by tile inside the kernels), merged in ring
@@ -240,6 +249,9 @@ def _striped_ring(q, k, v, q_seg, kv_seg, *, idx, sp, rotate, causal, logit_soft
 
     def attend(k_, v_, seg_, src, is_first):
         kvpos = _positions(striped_positions(src, sp, s_loc, q.device), b)
+        device_assert(debug_asserts, (kvpos >= 0) & (kvpos < sp * s_loc) & (0 <= src < sp),
+                      "ring_striped_positions",
+                      "striped ring step source/global positions out of range", group=group)
         return _block_attend(
             q, k_, v_, causal=causal, q_segment_ids=q_seg, kv_segment_ids=seg_,
             logit_softcap=logit_softcap, q_positions=qpos if causal else None,
@@ -249,7 +261,7 @@ def _striped_ring(q, k, v, q_seg, kv_seg, *, idx, sp, rotate, causal, logit_soft
 
 
 def _ring_striped_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap,
-                        window=None):
+                        window=None, debug_asserts=False):
     """Load-balanced ("zigzag-class") ring attention body: one tiled
     all_to_all splits each contiguous shard into sp stripes and gives
     process d stripe d of every shard (sp evenly spaced slices of the
@@ -268,7 +280,8 @@ def _ring_striped_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap,
         q_seg, kv_seg = to_striped(q_seg, group), to_striped(kv_seg, group)
     o_acc, _ = _striped_ring(q, k, v, q_seg, kv_seg, idx=idx, sp=sp,
                              rotate=_ring_rotate(group, sp), causal=causal,
-                             logit_softcap=logit_softcap, window=window)
+                             logit_softcap=logit_softcap, window=window,
+                             debug_asserts=debug_asserts, group=group)
     return to_striped(o_acc.to(q.dtype), group)
 
 
@@ -277,10 +290,12 @@ def _ring_striped_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap,
 # ---------------------------------------------------------------------------
 
 
-def _ulysses_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap, window=None):
+def _ulysses_local(q, k, v, q_seg, kv_seg, *, group, causal, logit_softcap, window=None,
+                   debug_asserts=False):
     """One process's Ulysses body: all_to_all to the whole sequence and a
     slice of heads, attend, all_to_all back. ``window`` passes straight to
-    the attention (the local view is the whole sequence)."""
+    the attention (the local view is the whole sequence); there are no
+    positions to assert."""
     from orion_tpu_torch.ops.attention import attention
 
     # [b, s_loc, n, h] -> [b, S, n / sp, h]
@@ -315,6 +330,7 @@ def sequence_attention(
     logit_softcap: Optional[float] = None,
     head_axis: Optional[str] = "tp",
     window: Optional[int] = None,
+    debug_asserts: bool = False,
 ) -> torch.Tensor:
     """Sequence-parallel grouped-query attention over ``mesh``'s ``axis``.
 
@@ -329,7 +345,9 @@ def sequence_attention(
       - "ulysses":      head <-> sequence all_to_all; N % (sp * tp) == 0.
 
     ``window`` (sliding window, requires causal) composes with every
-    method; under "ring" it also truncates the ring to O(window)."""
+    method; under "ring" it also truncates the ring to O(window).
+    ``debug_asserts`` (``model.debug_asserts``) checks each ring step's
+    source and global key positions (``runtime/asserts.py``)."""
     if method not in METHODS:
         raise ValueError(f"unknown sequence method {method!r}")
     if window is not None and (not causal or window < 1):
@@ -357,7 +375,7 @@ def sequence_attention(
     body = {"ring": _ring_attention_local, "ring_striped": _ring_striped_local,
             "ulysses": _ulysses_local}[method]
     return body(q, k, v, q_segment_ids, kv_segment_ids, group=group, causal=causal,
-                logit_softcap=logit_softcap, window=window)
+                logit_softcap=logit_softcap, window=window, debug_asserts=debug_asserts)
 
 
 def ring_attention(q, k, v, mesh, **kw) -> torch.Tensor:

@@ -10,6 +10,10 @@ the device, never a retry: NCCL for a CUDA device, gloo for the CPU.
 One process with no address and no ``torchrun`` environment needs no
 group, and every helper below is then a pass-through, as in the JAX
 package.
+
+``initialize`` also applies the process-wide sanitizer flags
+``runtime.deterministic`` and ``runtime.debug_nans`` (``apply_flags``,
+``runtime/sanitize.py``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from orion_tpu_torch.config import RuntimeConfig
+from orion_tpu_torch.runtime import sanitize
 
 log = logging.getLogger("orion_tpu_torch.runtime")
 
@@ -51,12 +56,24 @@ def _init_method(address: str) -> str:
     return address if "://" in address else f"tcp://{address}"
 
 
+def apply_flags(cfg: RuntimeConfig) -> None:
+    """Turn on the process-wide modes ``cfg`` asks for: deterministic
+    algorithms (before CUDA starts, or it raises) and NaN checks. Both stay
+    on for the process, as the JAX package's config flags do."""
+    if cfg.deterministic:
+        sanitize.set_deterministic()
+    if cfg.debug_nans:
+        sanitize.set_debug_nans(True)
+
+
 def initialize(cfg: Optional[RuntimeConfig] = None, device="cpu") -> RuntimeInfo:
-    """Join (or create) the default process group; idempotent. With
-    ``runtime.coordinator_address`` the group is ``num_processes`` wide and
-    this process is ``process_id``; else a ``torchrun`` environment
-    (``WORLD_SIZE`` set) is read through ``env://``; else nothing is done."""
+    """Apply the sanitizer flags, then join (or create) the default process
+    group; idempotent. With ``runtime.coordinator_address`` the group is
+    ``num_processes`` wide and this process is ``process_id``; else a
+    ``torchrun`` environment (``WORLD_SIZE`` set) is read through
+    ``env://``; else nothing is done."""
     cfg = cfg or RuntimeConfig()
+    apply_flags(cfg)
     if not dist.is_initialized():
         backend = backend_for(device)
         if cfg.coordinator_address:

@@ -50,14 +50,21 @@ b - 1 (CPU activity, and CUDA activity on the card), its Chrome trace
 written under ``profile_dir``. At ``parallel.sp`` > 1 these act on rank 0
 only.
 
+Remat (``model.remat`` / ``train.remat``: none, full, dots, names, and
+names with ``remat_offload``; ``models/remat.py``), the sanitizers
+(``runtime.checkify``: batch indices and the loss's and gradients'
+finiteness checked before the update; ``runtime.debug_nans``: NaN checks
+forward and backward; ``runtime.deterministic``; ``model.debug_asserts``:
+routing and ring-position asserts, ``runtime/asserts.py``), held-out
+evaluation (``train.eval_interval``, ``evaluate``) and ``memory_report``
+are the JAX trainer's.
+
 Not ported yet, and rejected at construction (``_check_supported``):
-ZeRO-1 and quantized gradient collectives, evaluation, every parallel axis other than
+ZeRO-1 and quantized gradient collectives, every parallel axis other than
 sp above 1 (``runtime.mesh.check_axes`` names the mode), more processes
 than one per sequence-parallel rank, checkpoints, the anomaly guard and
 fault injection at sp > 1 (the multi-process checkpoint save comes with
-the DDP/FSDP slice), MoE at sp > 1, checkify, debug asserts,
-``runtime.debug_nans`` and ``runtime.deterministic``, and remat policies
-other than none/full.
+the DDP/FSDP slice), and MoE at sp > 1.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -91,9 +98,12 @@ from orion_tpu_torch.models.convert import (
     tree_unflatten,
     unstack_layers,
 )
+from orion_tpu_torch.models.remat import RematLog, remat_policy
 from orion_tpu_torch.models.transformer import loss_fn, torch_dtype
 from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
-from orion_tpu_torch.runtime.distributed import initialize, process_index
+from orion_tpu_torch.runtime import sanitize
+from orion_tpu_torch.runtime.asserts import raise_if_failed
+from orion_tpu_torch.runtime.distributed import apply_flags, initialize, process_index
 from orion_tpu_torch.runtime.mesh import build_mesh, check_axes
 from orion_tpu_torch.runtime.fault import (
     TRAIN_KINDS,
@@ -139,24 +149,16 @@ def _check_supported(cfg: Config) -> None:
             "quantizes at init); training runs full-precision masters"
         )
     sp = cfg.parallel.sp
-    remat = t.remat if t.remat != "inherit" else m.remat
     unsupported = {
         "train.zero1": t.zero1,
         "train.zero1_quantize": t.zero1_quantize is not None,
         "train.grad_quant_bits": t.grad_quant_bits is not None,
-        "train.eval_interval": t.eval_interval is not None,
-        f"remat={remat!r} (none|full are ported)": remat not in ("none", "full"),
-        "remat_offload": t.remat_offload or m.remat_offload,
         "model.n_experts > 0 (MoE) with parallel.sp > 1": m.is_moe and sp > 1,
-        "runtime.checkify": r.checkify,
-        "runtime.debug_nans": r.debug_nans,
-        "runtime.deterministic": r.deterministic,
         "runtime.num_processes > 1 other than one a sequence-parallel rank": (
             r.num_processes > 1 and r.num_processes != sp),
         "checkpoint.directory with parallel.sp > 1": sp > 1 and bool(cfg.checkpoint.directory),
         "train.anomaly_guard / inject_fault_at_step with parallel.sp > 1": sp > 1 and (
             t.anomaly_guard or t.inject_fault_at_step is not None),
-        "model.debug_asserts": m.debug_asserts,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -164,6 +166,43 @@ def _check_supported(cfg: Config) -> None:
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
         )
     check_axes(cfg.parallel)
+
+
+def _check_checkify(cfg: Config) -> None:
+    """The JAX trainer's refusals of ``runtime.checkify``: beside the
+    anomaly guard, and where its step runs manual shard_map regions (here
+    the sequence-parallel collectives)."""
+    if not cfg.runtime.checkify:
+        return
+    if cfg.train.anomaly_guard:
+        raise ValueError(
+            "train.anomaly_guard handles non-finite steps by skipping "
+            "them in-program; runtime.checkify raises host-side on the "
+            "same condition — pick one"
+        )
+    if cfg.parallel.sp > 1:
+        raise ValueError(
+            "runtime.checkify does not compose with manual shard_map regions "
+            "(parallel.sp>1 (ring/Ulysses shard_map)); use runtime.debug_nans, "
+            "or check the step on an SPMD-automatic layout (dp/fsdp/tp/ep-sorted)"
+        )
+
+
+def fold_train_remat(cfg: Config) -> Config:
+    """``train.remat`` / ``train.remat_offload`` folded into the model config
+    as the JAX trainer folds them: an explicit ``train.remat`` replaces
+    ``model.remat`` (None, the override parser's "none", turns remat off);
+    an explicit policy other than names drops ``model.remat_offload``, any
+    other case ORs the two offload flags."""
+    t, m = cfg.train, cfg.model
+    if t.remat == "inherit" and not t.remat_offload:
+        return cfg
+    explicit = t.remat != "inherit"
+    drop_model_offload = explicit and t.remat != "names"
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, remat=t.remat if explicit else m.remat,
+        remat_offload=(t.remat_offload if drop_model_offload
+                       else t.remat_offload or m.remat_offload)))
 
 
 def sequence_parallel_config(cfg: Config) -> Config:
@@ -292,7 +331,9 @@ def loss_and_grads(
     (the fault injector's "nan" kind). Under sequence parallelism
     (``mesh``) ``batch`` is this rank's sequence slice; the loss, its aux
     terms and the gradients come back summed over ``sp`` (the global
-    values, the same on every rank)."""
+    values, the same on every rank). Under ``runtime.debug_nans`` the
+    forward and the backward run under its NaN checks
+    (``runtime/sanitize.py``)."""
 
     def value_and_grad(mb):
         leaves = [
@@ -300,10 +341,13 @@ def loss_and_grads(
             .requires_grad_(True)
             for p in tree_leaves(params)
         ]
-        loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg, mesh)
-        if poison:
-            loss = loss * torch.tensor(float("nan"), dtype=loss.dtype, device=loss.device)
-        grads = torch.autograd.grad(loss, leaves)
+        with sanitize.nan_forward():
+            loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg, mesh)
+            if poison:
+                loss = loss * torch.tensor(float("nan"), dtype=loss.dtype,
+                                           device=loss.device)
+        with sanitize.nan_backward():
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, list(grads)
 
     if accum == 1:
@@ -364,13 +408,23 @@ def make_train_step(
     ``poison=True`` builds the fault injector's "nan" variant
     (``loss_and_grads(poison=True)``). ``mesh`` is the sequence-parallel
     mesh (the batch then this rank's slice).
+
+    With ``runtime.checkify`` the step is checked (``runtime/sanitize.py``):
+    the batch's tokens and targets within the vocabulary before the
+    forward, the loss and every gradient finite before the update; a
+    failed check raises ``CheckifyError`` with the state untouched.
     """
     accum, gdt = cfg.train.grad_accum, cfg.train.grad_dtype
+    checked = cfg.runtime.checkify
 
     def grads_of(state: TrainState, batch: dict):
         lr = schedule(state["opt"]["count"])
+        if checked:
+            sanitize.check_indices(batch, cfg.model.vocab_size)
         loss, aux, grads = loss_and_grads(state["params"], batch, cfg.model, accum, gdt,
                                           poison=poison, mesh=mesh)
+        if checked:
+            sanitize.check_finite(loss, tree_leaves(grads))
         return lr, loss, aux, grads
 
     def fetch(*scalars: torch.Tensor) -> list[float]:
@@ -413,6 +467,17 @@ def make_train_step(
     return guarded_step
 
 
+def _asserted(step: Callable) -> Callable:
+    """The step under ``model.debug_asserts``: failures the device asserts
+    recorded surface after it (``runtime/asserts.py``)."""
+    def asserted_step(*args):
+        out = step(*args)
+        raise_if_failed()
+        return out
+
+    return asserted_step
+
+
 class Trainer:
     """Builds the loader, the state and the step, and runs the fit loop.
 
@@ -425,12 +490,14 @@ class Trainer:
 
     def __init__(self, cfg: Config, params: Optional[Any] = None, device=None,
                  fault_injector: Optional[Any] = None):
-        if cfg.train.remat != "inherit":
-            # train.remat is the training-side spelling of model.remat.
-            cfg = dataclasses.replace(
-                cfg, model=dataclasses.replace(cfg.model, remat=cfg.train.remat))
+        # train.remat / remat_offload are the training-side spelling of the
+        # model's; the policy is validated now, in config vocabulary.
+        cfg = fold_train_remat(cfg)
+        remat_policy(cfg.model)
         _check_supported(cfg)
+        _check_checkify(cfg)
         _check_injector(fault_injector, cfg.parallel.sp)
+        apply_flags(cfg.runtime)
         cfg = sequence_parallel_config(cfg)
         accum = max(cfg.train.grad_accum, 1)
         if cfg.data.batch_size % accum:
@@ -456,7 +523,17 @@ class Trainer:
         self.loader = make_loader(cfg.data, cfg.model.vocab_size)
         self._schedule = make_schedule(cfg.optimizer, cfg.train.num_steps)
         self.train_step = make_train_step(cfg, self._schedule, mesh=self.mesh)
+        if cfg.model.debug_asserts:
+            self.train_step = _asserted(self.train_step)
         self._poison_step = None
+        # Held-out evaluation: its own stream (data.eval_path, eval_seed)
+        # and a fixed batch set, built at the first evaluate().
+        self.eval_loader = None
+        self._eval_batches = None
+        if cfg.train.eval_interval:
+            self.eval_loader = make_loader(dataclasses.replace(
+                cfg.data, path=cfg.data.eval_path or cfg.data.path,
+                shuffle_seed=cfg.data.eval_seed), cfg.model.vocab_size)
         self.ckpt: Optional[CheckpointManager] = None
         if cfg.checkpoint.directory:
             self.ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint,
@@ -702,7 +779,11 @@ class Trainer:
         parallelism, this rank's contiguous slice of the sequence axis of
         every leaf (targets shifted before slicing), with the slice's
         global positions where the batch has none."""
-        host = dict(self.loader.batch_at(step))
+        return self._on_device(self.loader.batch_at(step), self.cfg.train.grad_accum)
+
+    def _on_device(self, host, accum: int = 1) -> dict[str, torch.Tensor]:
+        """A host batch as the step takes it (see ``global_batch``)."""
+        host = dict(host)
         sp = self.cfg.parallel.sp
         if sp > 1:
             S = host["inputs"].shape[-1]
@@ -711,12 +792,124 @@ class Trainer:
                     np.arange(S, dtype=np.int32), host["inputs"].shape)
             lo, hi = self.sp_rank * S // sp, (self.sp_rank + 1) * S // sp
             host = {k: v[..., lo:hi] for k, v in host.items()}
-        accum = self.cfg.train.grad_accum
         if accum > 1:
             host = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                     for k, v in host.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in host.items()}
+
+    # -- evaluation and memory ---------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self, params: Any) -> float:
+        """Mean held-out CE loss over the fixed eval batch set: batches 0 to
+        ``train.eval_batches`` - 1 of the eval stream, the same every call,
+        moved to the device once. Under sequence parallelism each rank's
+        share is summed over ``sp``."""
+        assert self.eval_loader is not None, "set train.eval_interval"
+        if self._eval_batches is None:
+            self._eval_batches = [self._on_device(self.eval_loader.batch_at(i))
+                                  for i in range(self.cfg.train.eval_batches)]
+        total = 0.0
+        for batch in self._eval_batches:
+            ce = loss_fn(params, batch, self.cfg.model, self.mesh)[1]["ce_loss"]
+            if self.mesh is not None:
+                ce = all_reduce(ce, self.mesh.get_group("sp"))
+            total += float(ce)
+        return total / max(len(self._eval_batches), 1)
+
+    def memory_report(self, assert_donation: bool = True) -> dict:
+        """What one step holds on the device, by category, with the JAX
+        report's keys: ``donated_state_bytes`` and ``donated_bytes_per_chip``
+        (the state's bytes; one device holds all of it), ``by_category``
+        (``params``, ``grads`` at the gradient dtype, ``master`` (0: the
+        params are the masters without ZeRO-1), ``moments``, arithmetic over
+        the state tree; ``activations``), ``available``.
+
+        ``activations`` are the device bytes one step's forward saves for
+        the backward (one microbatch's, under grad_accum): every tensor
+        autograd saves, counted once per storage through
+        ``saved_tensors_hooks``, leaving out the parameters and the named
+        set that ``remat_offload`` holds in host memory. The report also
+        gives the remat log (``remat``: block inputs, the policy's saved
+        set, the bytes moved to the host and back) and, on the card,
+        ``peak_above_state_bytes``: the step's peak allocation above what
+        was allocated before it.
+
+        On a fresh ``init_state()`` the report runs one forward and
+        backward on batch 0, then one ``train_step``: the update must write
+        every parameter and moment in place (the counterpart of the JAX
+        step's donation), and with ``assert_donation`` a leaf whose storage
+        changed raises."""
+        state = self.init_state()
+        cfg = self.cfg
+        tree = state_to_tree(state, cfg.model)
+        gdt = torch_dtype(cfg.train.grad_dtype) if cfg.train.grad_dtype else None
+        params = tree_leaves(state["params"])
+
+        def nbytes(ts, dtype=None):
+            return sum(t.numel() * (dtype or t.dtype).itemsize for t in ts)
+
+        donated = nbytes(tree_leaves(tree))
+        by_category = {
+            "params": nbytes(params),
+            "grads": nbytes(params, gdt),
+            "master": 0,
+            "moments": nbytes(tree_leaves(state["opt"]["mu"]))
+            + nbytes(tree_leaves(state["opt"]["nu"])),
+        }
+        batch = self.global_batch(0)
+        if cfg.train.grad_accum > 1:
+            batch = {k: v[0] for k, v in batch.items()}
+        leaves = [p.detach().to(gdt or p.dtype).requires_grad_(True) for p in params]
+        own = {t.untyped_storage().data_ptr() for t in params + leaves}
+        saved: dict = {}
+
+        def pack(t):
+            if t.device.type == self.device.type:
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in own:
+                    saved[ptr] = t.untyped_storage().nbytes()
+            return t
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+        log = RematLog()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = loss_fn(tree_unflatten(state["params"], leaves), batch, cfg.model,
+                              self.mesh, remat_log=log)
+        torch.autograd.grad(loss, leaves)
+        del loss
+        report = {
+            "donated_state_bytes": donated,
+            "donated_bytes_per_chip": donated,
+            "by_category": dict(by_category, activations=sum(saved.values())),
+            "available": True,
+            "remat": dataclasses.asdict(log),
+        }
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            report["peak_above_state_bytes"] = (
+                torch.cuda.max_memory_allocated(self.device) - base)
+        # The update in place: every parameter and moment keeps its storage.
+        def ptrs():
+            return [t.data_ptr() for t in tree_leaves(
+                [state["params"], state["opt"]["mu"], state["opt"]["nu"]])]
+
+        before = ptrs()
+        args = (self._spike_limit(),) if cfg.train.anomaly_guard else ()
+        self.train_step(state, self.global_batch(0), *args)
+        moved = sum(a != b for a, b in zip(before, ptrs()))
+        report["unaliased_donated_leaves"] = moved
+        if assert_donation and moved:
+            raise RuntimeError(
+                f"train-step donation leaked a copy: {moved} of {len(before)} "
+                f"parameter and moment leaves were written to new storage "
+                f"instead of in place (train/optimizer.py apply_updates)")
+        return report
 
     # -- loop -------------------------------------------------------------
 
@@ -805,6 +998,11 @@ class Trainer:
                             self._guard_update(step, m)
                     if stats.restarts or stats.rollbacks or stats.anomalous_steps:
                         extras.update(stats.as_extras())
+                    eval_iv = cfg.train.eval_interval
+                    if eval_iv and (step + 1) % eval_iv == 0:
+                        extras["eval_loss"] = self.evaluate(state["params"])
+                        log.info("eval at step %d: loss %.4f", step + 1, extras["eval_loss"])
+                        watch.lap()   # eval time out of the next step's time
                     self.metrics.record(
                         step=step + 1,
                         loss=m["loss"],

@@ -134,6 +134,7 @@ def test_engine_without_gpu_raises_unless_cpu_requested(monkeypatch):
 @pytest.mark.parametrize("override", [
     "inference.dispatch_retries=2",
     "inference.dispatch_retry_backoff_s=0.5",
+    "model.debug_asserts=true",
 ])
 def test_unported_features_raise(override):
     _, _, cfg, tp = _pair(overrides=[override])

@@ -28,6 +28,7 @@ from orion_tpu_torch.models.convert import tree_leaves_with_path
 from orion_tpu_torch.train import Trainer, apply_updates, init_opt_state, make_schedule
 from orion_tpu_torch.train.optimizer import global_norm, tree_all_finite
 from tests import torch_threads  # noqa: F401  (one intra-op thread)
+from tests.torch_flags import restore_sanitizers  # noqa: F401  (a fixture)
 
 SMALL = ["data.batch_size=2", "data.seq_len=32", "data.packed=true"]
 
@@ -287,10 +288,7 @@ def test_ported_fault_knobs_build_a_trainer(override, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "train.zero1=true", "train.grad_quant_bits=8", "train.eval_interval=5",
-    "parallel.dp=2", "parallel.tp=2", "model.remat=dots",
-    "model.remat=names", "train.remat=names", "runtime.checkify=true",
-    "runtime.debug_nans=true", "runtime.deterministic=true",
+    "train.zero1=true", "train.grad_quant_bits=8", "parallel.dp=2", "parallel.tp=2",
     "runtime.num_processes=2;runtime.coordinator_address=localhost:1234",
 ])
 def test_unported_trainer_knobs_raise(override):
@@ -298,11 +296,33 @@ def test_unported_trainer_knobs_raise(override):
         Trainer(get_config("tiny-llama", override.split(";")), device="cpu")
 
 
+# The knobs the trainer's rest lifted (they raised above until then): each
+# builds a trainer that takes a step with a finite loss. The sanitizer
+# modes are process-wide, so the flags are restored after.
+@pytest.mark.parametrize("override", [
+    "train.eval_interval=5", "model.remat=dots", "model.remat=names", "train.remat=names",
+    "runtime.checkify=true", "runtime.debug_nans=true", "runtime.deterministic=true",
+])
+def test_lifted_trainer_knobs_take_a_step(override, restore_sanitizers):
+    tr = Trainer(get_config("tiny-llama", [override, "data.batch_size=2",
+                                           "data.seq_len=16"]), device="cpu")
+    state = tr.init_state()
+    _, m = tr.train_step(state, tr.global_batch(0))
+    assert np.isfinite(m["loss"])
+    if override.startswith("train.eval_interval"):
+        assert np.isfinite(tr.evaluate(state["params"]))
+
+
 def test_loss_fn_rejects_unported_remat():
-    cfg = get_config("tiny-llama", ["model.remat=dots"])
+    """remat_offload needs remat=names: the JAX package's ValueError, from
+    loss_fn and at the trainer's construction."""
+    cfg = get_config("tiny-llama", ["model.remat=dots", "model.remat_offload=true"])
     params = from_jax_params(_np_tree(j_init_params(j_get_config("tiny-llama").model,
                                                     jax.random.key(0))), cfg.model)
     batch = {"inputs": torch.zeros(1, 4, dtype=torch.int32),
              "targets": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="remat_offload requires model.remat='names'"):
         loss_fn(params, batch, cfg.model)
+    with pytest.raises(ValueError, match="remat_offload requires model.remat='names'"):
+        Trainer(get_config("tiny-llama", ["train.remat=full", "model.remat=names",
+                                          "train.remat_offload=true"]), device="cpu")

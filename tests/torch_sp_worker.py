@@ -15,6 +15,11 @@ rank r computed to ``<out>.<r>`` (``torch.save``). Jobs:
 - ``"train"``: the port's ``Trainer`` at ``parallel.sp`` = world from the
   job's weights, through ``Trainer.fit``: the losses, grad norms, and the
   final parameters' bytes.
+- ``"asserts"``: for each case, the trainer at ``parallel.sp`` = world
+  three times: clean, then with the case's assert site injected
+  (``runtime/asserts.py``) and ``model.debug_asserts`` off, then on; the
+  losses of each run, or the text of the ``DeviceAssertionError`` it
+  raised.
 """
 
 from __future__ import annotations
@@ -142,7 +147,34 @@ def train_job(rank, world, job):
     return out
 
 
-JOBS = {"attention": attention_job, "train": train_job}
+def asserts_job(rank, world, job):
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.runtime import asserts
+    from orion_tpu_torch.train import Trainer
+
+    out = {}
+    for case in job["cases"]:
+        row = {}
+        for run, inject, flag in (("clean", False, False), ("off", True, False),
+                                  ("on", True, True)):
+            ov = case["overrides"] + [
+                f"model.debug_asserts={str(flag).lower()}", f"parallel.sp={world}",
+                f"runtime.coordinator_address=file://{job['store']}",
+                f"runtime.num_processes={world}", f"runtime.process_id={rank}"]
+            if inject:
+                asserts.inject(case["site"])
+            try:
+                tr = Trainer(get_config(case["preset"], ov), device="cpu")
+                row[run] = [m.loss for m in tr.fit()]
+            except asserts.DeviceAssertionError as e:
+                row[run] = str(e)
+            finally:
+                asserts.clear_injected()
+        out[case["id"]] = row
+    return out
+
+
+JOBS = {"attention": attention_job, "train": train_job, "asserts": asserts_job}
 
 
 def main(rank: int, world: int, store: str, kind: str, job_path: str, out: str) -> None:
@@ -151,7 +183,7 @@ def main(rank: int, world: int, store: str, kind: str, job_path: str, out: str) 
     if "jax" in sys.modules:
         raise RuntimeError("a rank process imported jax")
     job = torch.load(job_path, weights_only=False)
-    if kind != "train":   # the trainer joins the group itself (runtime.*)
+    if kind not in ("train", "asserts"):   # the trainer joins the group itself
         from orion_tpu_torch.config import RuntimeConfig
         from orion_tpu_torch.runtime.distributed import initialize
 
@@ -172,7 +204,7 @@ def spawn(kind: str, world: int, job: dict, tmp) -> object:
     import torch.multiprocessing as mp
 
     job_path = tmp / "job.pt"
-    if kind == "train":
+    if kind in ("train", "asserts"):
         job = dict(job, store=str(tmp / "store"))
     torch.save(job, job_path)
     return mp.start_processes(main, args=(world, str(tmp / "store"), kind, str(job_path),
