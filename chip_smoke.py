@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases device,build,serve,serve_obs,train,train_obs
     python3 chip_smoke.py --phases device,build,serve,serve_int8w,serve_moe,train_moe
     python3 chip_smoke.py --phases device,build,train_remat,train_checks
+    python3 chip_smoke.py --phases device,build,fsdp_rank
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -292,6 +293,26 @@ exits non-zero without printing a result:
            then K7-pos and K8-pos against their plain version within TOL on
            one kv-head group (4/1 heads) of two of the ring's blocks, with
            an lse cotangent (the next rank's block leaves 1024 rows dead)
+  fsdp_rank  one rank (fsdp rank 0 of 8) of mistral-7b-fsdp's training
+           step at the preset's shape (d_model 4096, 32 layers, 32/8 heads,
+           d_ff 14336, vocab 32000, window 4096, remat=full, bf16 compute,
+           float32 masters and moments; the rank's 4 of 32 rows x 8192
+           tokens) through the trainer's step (``make_train_step`` over
+           ``parallel.data_parallel.DataParallel`` with no process group):
+           the rank's eighth of the masters, moments and gradients on the
+           card beside the whole bf16 parameters made from the seed, which
+           stand for the seven peers' blocks. The gather takes each leaf
+           from them through FsdpGather's collect seam (the rank's own
+           block from its masters); the reduce-scatter's seam keeps the
+           rank's rows of its own gradient (one card: the peers' rows are
+           not computed and not summed). Gates the step-0 loss bit for bit
+           against loss_fn over the same rows on the whole parameters with
+           no gather, every step finite (a warm-up and FSDP_STEPS timed),
+           each leaf of the rank at 1/8 along the dimension the JAX rules
+           give, and K1-K3, K5-K8's launches a step at the counts derived
+           from the code; prints step s, tokens/s, MFU, peak memory beside
+           the unsharded state's bytes, and the bytes the gathers and
+           reduce-scatters would move per step
   train_faults  llama-1b-bench at full width and depth on the card, the
            checkpoint format and the training fault stack, in a temporary
            directory removed at the end (the free disk is printed first):
@@ -359,7 +380,7 @@ PHASES = ("device", "build", "kernels", "parity", "serve_moe", "train_moe", "tra
           "train_checks", "serve", "serve_obs", "serve_chunked", "serve_spec",
           "serve_constrained", "serve_faults", "serve_graphs", "serve_host_tier",
           "serve_gather", "serve_int8w", "serve_long", "train_parity", "train", "train_obs",
-          "train_faults", "sp_rank", "timing")
+          "train_faults", "sp_rank", "fsdp_rank", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -5987,6 +6008,168 @@ def phase_sp_rank():
     return launches, block_errs
 
 
+# fsdp_rank: one rank of mistral-7b-fsdp's step (see the docstring).
+FSDP_PRESET, FSDP_RANK, FSDP_STEPS = "mistral-7b-fsdp", 0, 3
+
+
+def fsdp_launches_per_step(mcfg) -> dict:
+    """K1-K3 and K5-K8's launches in one step of the rank, from the code:
+    under remat=full each block runs forward once and again in the
+    backward's replay (``models/remat.py``): two RMSNorms (K1), RoPE on q
+    and k (K2) and one attention (K3) each time; its backward runs K5
+    twice, K6 twice and K7, K8 once. The final norm runs once forward
+    (K1) and once backward (K5), in the loss outside any block."""
+    L = mcfg.n_layers
+    if mcfg.remat != "full" or mcfg.loss_chunk:
+        raise AssertionError(f"fsdp_rank counts assume remat=full and no loss_chunk: {mcfg}")
+    return {"rmsnorm_fwd": 4 * L + 1, "rope_fwd": 4 * L, "flash_fwd": 2 * L,
+            "rmsnorm_bwd": 2 * L + 1, "rope_bwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+
+
+def fsdp_rank_drive(preset, device, steps, overrides=()):
+    """One fsdp rank of ``preset`` on ``device`` (the phase; at a small
+    preset on the CPU, its rehearsal). Returns the phase's line and the
+    launches of the timed steps."""
+    import math
+
+    import torch
+
+    from orion_tpu_torch import ops
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.data import make_loader
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.convert import (
+        shard_params, tree_leaves_with_path, tree_map, tree_unflatten)
+    from orion_tpu_torch.models.transformer import loss_fn
+    from orion_tpu_torch.parallel.data_parallel import DataParallel, keeps_dtype
+    from orion_tpu_torch.parallel.sharding import layout_at
+    from orion_tpu_torch.train.optimizer import init_opt_state, make_schedule
+    from orion_tpu_torch.train.trainer import make_train_step
+
+    cfg = get_config(preset, [f"train.num_steps={steps + 1}", *overrides])
+    n = cfg.parallel.fsdp
+    sizes = dict(cfg.parallel.axis_sizes)
+    at = {a: 0 for a in sizes}
+    at["fsdp"] = FSDP_RANK
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.train.seed)
+    whole = init_params(cfg.model, gen, device=device, dtype=cfg.model.dtype)
+    whole_at = dict(tree_leaves_with_path(whole))
+    wire = {"gather": 0, "scatter": 0}
+
+    def collect(shard, dim, path):
+        """The peers' blocks from the whole parameters, the rank's own from
+        its shard: the all-gather's output."""
+        out = whole_at[path].to(shard.dtype, copy=True)
+        c = shard.shape[dim]
+        out.narrow(dim, FSDP_RANK * c, c).copy_(shard)
+        wire["gather"] += (n - 1) * shard.numel() * shard.element_size()
+        return out
+
+    def scatter(grad, dim, path):
+        """This rank's rows of its own gradient (the peers' are not
+        computed on one card)."""
+        c = grad.shape[dim] // n
+        wire["scatter"] += (n - 1) * (grad.numel() // n) * grad.element_size()
+        return grad.narrow(dim, FSDP_RANK * c, c).contiguous()
+
+    dp = DataParallel(cfg, None, sizes=sizes, coords=at, collect=collect, scatter=scatter)
+    masters = tree_map(lambda t: t.float(), shard_params(whole, dp.layout, sizes, at))
+    # Each leaf of the rank at 1/n of the whole along the JAX rules' dim.
+    for path, m in tree_leaves_with_path(masters):
+        dim = layout_at(dp.layout, path).fsdp_dim
+        want = list(whole_at[path].shape)
+        if dim is not None:
+            want[dim] //= n
+        if list(m.shape) != want:
+            raise AssertionError(f"fsdp_rank: {path} block {list(m.shape)}, want {want}")
+    state = {"params": masters, "opt": init_opt_state(masters, cfg.optimizer), "step": 0}
+    loader = make_loader(cfg.data, cfg.model.vocab_size)
+    batches = [{k: torch.from_numpy(v.copy()).to(device)
+                for k, v in dp.local_rows(loader.batch_at(i), 1).items()}
+               for i in range(steps + 1)]
+    rows = batches[0]["inputs"].shape[0]
+
+    # The reference: loss_fn over the same rows on the whole parameters,
+    # each leaf in the dtype the gather hands the block (the compute dtype,
+    # the norms in the masters' float32), no gather.
+    ref_params = tree_unflatten(whole, [
+        (t.float() if keeps_dtype(p) else t).requires_grad_(True)
+        for p, t in tree_leaves_with_path(whole)])
+    ref_loss = float(loss_fn(ref_params, batches[0], cfg.model)[0].detach())
+    del ref_params
+    step_fn = make_train_step(cfg, make_schedule(cfg.optimizer, cfg.train.num_steps), dp=dp)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m0 = step_fn(state, batches[0])
+    sync()
+    warmup_s = time.perf_counter() - t0
+    if m0["loss"] != ref_loss:
+        raise AssertionError(f"fsdp_rank: step-0 loss {m0['loss']!r} is not the whole-"
+                             f"parameter loss {ref_loss!r} bit for bit")
+    ops.reset_launches()
+    wire.update(gather=0, scatter=0)
+    times, losses, norms = [], [m0["loss"]], [m0["grad_norm"]]
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    launches = ops.launches()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"fsdp_rank: non-finite losses {losses} or norms {norms}")
+    want = fsdp_launches_per_step(cfg.model)
+    if cuda:
+        got = {k: launches[k] / steps for k in want}
+        if got != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"fsdp_rank: launches a step {got}, want {want}")
+    step_s = statistics.median(times)
+    tokens = rows * cfg.data.seq_len
+    model_flops = cfg.model.flops_per_token(cfg.data.seq_len) * tokens
+    n_params = cfg.model.num_params()
+    rank_params = sum(t.numel() for _, t in tree_leaves_with_path(state["params"]))
+    # float32 masters, two moments and gradients: 16 bytes a parameter.
+    state_bytes = {"unsharded": n_params * 16, "rank": rank_params * 16,
+                   "whole_bf16_params": sum(t.numel() * t.element_size()
+                                            for t in whole_at.values())}
+    line = {"phase": "fsdp_rank", "preset": preset, "fsdp": n, "rank": FSDP_RANK,
+            "rows": rows, "seq_len": cfg.data.seq_len, "tokens_per_step": tokens,
+            "params": n_params, "warmup_s": warmup_s, "step_times_s": times,
+            "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+            "model_flops_per_step": model_flops,
+            "mfu": model_flops / step_s / BF16_FLOPS_S if cuda else None,
+            "losses": losses, "grad_norms_rank_block": norms,
+            "step0_loss_bitwise": True, "state_bytes": state_bytes,
+            "wire_bytes_per_step": {k: v / steps for k, v in dict(
+                wire, total=wire["gather"] + wire["scatter"]).items()},
+            "launches": launches, "launches_per_step_want": want}
+    if cuda:
+        line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(line)
+    return line, launches
+
+
+def phase_fsdp_rank():
+    """One rank of mistral-7b-fsdp (fsdp_rank_drive); frees the card's
+    memory after."""
+    import torch
+
+    _, launches = fsdp_rank_drive(FSDP_PRESET, "cuda", FSDP_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # train_faults: llama-1b-bench at full width and depth, random weights from
 # train.seed, checkpoints in a temporary directory (at most two committed
 # plus one being written: ~8.3 GB each).
@@ -7022,7 +7205,7 @@ def main(argv=None) -> int:
     line = phase_device()
     errs = launches = chunked_launches = spec_launches = parity_launches = None
     train_launches = timing = fault_launches = constrained_launches = None
-    train_fault_launches = graph_launches = sp_launches = None
+    train_fault_launches = graph_launches = sp_launches = fsdp_launches = None
     host_tier_launches = gather_launches = long_launches = None
     moe_launches = int8w_launches = train_moe_launches = None
     if "build" in phases:
@@ -7048,6 +7231,11 @@ def main(argv=None) -> int:
         free_engine()
     if "train_checks" in phases:
         phase_train_checks(full_losses)
+        free_engine()
+    # One FSDP rank of Mistral-7B (~50 GiB at its peak) also before the
+    # serves, which leave memory held.
+    if "fsdp_rank" in phases:
+        fsdp_launches = phase_fsdp_rank()
         free_engine()
     serve_params = bf16_first = None
     if "serve" in phases:
@@ -7130,7 +7318,8 @@ def main(argv=None) -> int:
                              ("serve_moe", moe_launches),
                              ("train_moe", train_moe_launches),
                              ("train_faults", train_fault_launches),
-                             ("sp_rank", sp_launches)):
+                             ("sp_rank", sp_launches),
+                             ("fsdp_rank", fsdp_launches)):
             if counts:
                 for name in KERNEL_META:
                     by_path[name][path] = counts[name]

@@ -28,14 +28,30 @@ other, and the two write the same bytes for the same state:
     taken at ``save()``; the worker stamps the stream format after each
     commit, and ``wait()`` raises the first failed save.
 
-The port runs one process, so it writes every leaf whole and the JAX
-package's cross-host barriers and agreement votes have nothing to do here.
-Restore still reads the per-shard files of a multi-host JAX checkpoint,
-assembling each leaf from its shards' regions.
+One process writes every leaf whole. On a mesh of processes (one a
+device; the trainer passes ``CheckpointShards``: each leaf's spec, the
+mesh's sizes and this process's coordinates) the save follows the JAX
+package's multi-process protocol: process 0 writes the replicated leaves
+whole; each process writes its own block of every sharded leaf (the first
+replica of each block, as JAX writes ``replica_id`` 0) as
+``arr_NNNNN.p{process}.s{j}.bin`` with the block's global index; the
+other processes publish their shard entries as manifest fragments; after
+a barrier process 0 merges them into the manifest and commits; a second
+barrier follows the commit. Async saves are downgraded to synchronous
+ones there (the barriers must run on the main thread). Restore reads the
+region this process needs (its block in the target layout, or the whole
+leaf) from whatever shards were recorded, so a checkpoint saved at one
+layout restores at another, and in either package. Which step is the
+newest intact one is decided by every process together
+(``runtime.distributed.agree_on_steps`` / ``agree_all``): the checksum
+pass is divided across the processes by file name, and a step any
+process finds corrupt is abandoned by all (``peer_corrupt`` where its own
+portion was intact).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -52,6 +68,14 @@ import torch
 from orion_tpu_torch.config import CheckpointConfig
 from orion_tpu_torch.data.loader import STREAM_FORMAT
 from orion_tpu_torch.models.convert import jax_leaves_with_path
+from orion_tpu_torch.parallel.sharding import (
+    block_index,
+    is_sharded,
+    parts,
+    spec_desc,
+    writes_block,
+)
+from orion_tpu_torch.runtime import distributed as rt
 
 log = logging.getLogger("orion_tpu_torch.ckpt")
 
@@ -77,9 +101,9 @@ class CorruptCheckpoint(RuntimeError):
       says (torn write / partial flush).
     - ``bad_checksum``     — file length right, CRC-32 wrong (bit rot /
       post-rename data loss / injected partial_write).
-
-    (The JAX package adds ``peer_corrupt``, a vote of another host, which
-    one process never casts.)
+    - ``peer_corrupt``     — this process's portion is intact but another
+      process voted its portion corrupt, so the step is unusable on every
+      process.
     """
 
     def __init__(self, step: int, reason: str, detail: str = ""):
@@ -144,6 +168,28 @@ def _host_array(leaf: Any, copy: bool) -> np.ndarray:
 
 
 
+@dataclasses.dataclass(frozen=True)
+class CheckpointShards:
+    """A process's place in a sharded save: ``specs`` maps each leaf's path
+    (a tuple of keys, as ``jax_leaves_with_path`` gives it) to its spec in
+    the checkpoint layout (``parallel.sharding``; () for a replicated
+    scalar): the blocks saved. ``held`` maps the paths whose tensors hold
+    more than the saved block to the spec of what they hold (a ZeRO-1
+    update over stacked layers: every dp rank holds all layers, each saves
+    its block of them); ``sizes`` the mesh's axis sizes and ``coords``
+    this process's coordinates."""
+
+    specs: dict
+    sizes: dict
+    coords: dict
+    held: dict = dataclasses.field(default_factory=dict)
+
+    def by_key(self) -> dict:
+        """keystr -> (saved spec, held spec)."""
+        return {_keystr(path): (tuple(spec), tuple(self.held.get(path, spec)))
+                for path, spec in self.specs.items()}
+
+
 def _norm_index(index: Optional[list], shape) -> list:
     """A shard index as [[start, stop], ...] (None = the whole array)."""
     if index is None:
@@ -181,11 +227,21 @@ class CheckpointManager:
         directory: str,
         cfg: CheckpointConfig,
         fault_injector: Optional[Any] = None,
+        shards: Optional[CheckpointShards] = None,
     ):
         self.cfg = cfg
         self._dir = directory
         self._injector = fault_injector
-        self._async = cfg.async_save
+        self._shards = shards
+        self._spec_of = shards.by_key() if shards is not None else {}
+        self._process, self._count = rt.process_index(), rt.process_count()
+        # A multi-process commit barriers between the processes (write ->
+        # merge -> rename); on the writer thread, beside the main thread's
+        # collectives, that would deadlock the ranks, so it runs in line.
+        self._async = cfg.async_save and self._count == 1
+        if cfg.async_save and not self._async:
+            log.info("async_save downgraded to sync: multi-process commits "
+                     "barrier across processes and must run on the main thread")
         self._queue: queue.Queue = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         self._inflight: set[int] = set()
@@ -245,6 +301,8 @@ class CheckpointManager:
         return os.path.join(self._dir, "stream_format.json")
 
     def _stamp_stream_format(self) -> None:
+        if self._process != 0:
+            return
         try:
             with open(self._fmt_path, "w") as f:
                 json.dump({"stream_format": STREAM_FORMAT}, f)
@@ -305,10 +363,32 @@ class CheckpointManager:
         return True
 
     def _capture(self, step: int, state: Any, extra: Optional[dict], copy: bool) -> tuple:
+        """The host copies to write: per leaf (key, whole shape, dtype, the
+        sharding record, [(global index or None, array), ...]). One process
+        writes every leaf whole; on a mesh process 0 writes the replicated
+        leaves and each process the blocks it is the first replica of."""
         leaves = []
         for key, leaf in _flatten_with_keys(state):
-            arr = _host_array(leaf, copy)
-            leaves.append((key, tuple(leaf.shape), _dtype_name(leaf.dtype), arr))
+            dtype = _dtype_name(leaf.dtype)
+            if self._shards is None and self._count == 1:
+                leaves.append((key, tuple(leaf.shape), dtype, [],
+                               [(None, _host_array(leaf, copy))]))
+                continue
+            spec, held = self._spec_of.get(key, ((), ()))
+            shape = tuple(leaf.shape)
+            if not is_sharded(spec):
+                shards = [(None, _host_array(leaf, copy))] if self._process == 0 else []
+            else:
+                sz, at = self._shards.sizes, self._shards.coords
+                shape = tuple(n * parts(held, d, sz) for d, n in enumerate(leaf.shape))
+                shards = []
+                if writes_block(spec, sz, at):
+                    index = block_index(shape, spec, sz, at)
+                    have = block_index(shape, held, sz, at)
+                    block = leaf[tuple(slice(a - h, b - h)
+                                       for (a, b), (h, _) in zip(index, have))]
+                    shards = [(index, _host_array(block, copy))]
+            leaves.append((key, shape, dtype, spec_desc(spec), shards))
         return step, leaves, dict(extra or {})
 
     def _ensure_worker(self) -> None:
@@ -340,33 +420,35 @@ class CheckpointManager:
                 self._queue.task_done()
 
     def _commit(self, step: int, leaves: list, extra: dict) -> None:
-        """Write + fsync + manifest + atomic rename (the whole protocol)."""
+        """Write + fsync + manifest + atomic rename (the whole protocol); on
+        a mesh with the fragment merge between two barriers."""
         tmp = os.path.join(self._dir, f"{_TMP_PREFIX}step_{step:08d}")
         os.makedirs(tmp, exist_ok=True)
         written: list[str] = []
         entries: dict[str, dict] = {}
-        for i, (key, shape, dtype, arr) in enumerate(leaves):
-            fname = f"arr_{i:05d}.bin"
-            data = np.ascontiguousarray(arr).tobytes()
-            path = os.path.join(tmp, fname)
-            with open(path, "wb") as f:
-                f.write(data)
-                f.flush()
-                os.fsync(f.fileno())
-            written.append(path)
-            entries[key] = {
-                "dtype": dtype,
-                "shape": list(shape),
-                # What a one-device JAX run records: PartitionSpec(), the
-                # whole array in one place. Restore never reads it.
-                "sharding": [],
-                "shards": [{
+        for i, (key, shape, dtype, desc, shards) in enumerate(leaves):
+            shard_entries = []
+            for j, (index, arr) in enumerate(shards):
+                fname = (f"arr_{i:05d}.bin" if index is None
+                         else f"arr_{i:05d}.p{self._process}.s{j}.bin")
+                data = np.ascontiguousarray(arr).tobytes()
+                path = os.path.join(tmp, fname)
+                with open(path, "wb") as f:
+                    f.write(data)
+                    f.flush()
+                    os.fsync(f.fileno())
+                written.append(path)
+                shard_entries.append({
                     "file": fname,
-                    "index": None,
+                    "index": index,
                     "nbytes": len(data),
                     "crc32": zlib.crc32(data),
-                }],
-            }
+                })
+            # One process records what a one-device JAX run does:
+            # PartitionSpec(), the whole array in one place. Restore never
+            # reads the sharding record.
+            entries[key] = {"dtype": dtype, "shape": list(shape), "sharding": desc,
+                            "shards": shard_entries}
         if self._injector is not None and written:
             spec = self._injector.take("partial_write", step, "ckpt")
             if spec is not None:
@@ -381,38 +463,67 @@ class CheckpointManager:
                     "fault injection: tore checkpoint file %s at step %d",
                     os.path.basename(victim), step,
                 )
-        manifest = {
-            "format": CKPT_FORMAT,
-            "step": step,
-            "stream_format": STREAM_FORMAT,
-            "extra": extra,
-            "leaves": entries,
-        }
-        with open(os.path.join(tmp, _MANIFEST), "w") as f:
-            json.dump(manifest, f)
-            f.flush()
-            os.fsync(f.fileno())
+        if self._process != 0:
+            # The other processes publish their shard entries as a
+            # fragment; process 0 merges them after the barrier.
+            with open(os.path.join(tmp, f"manifest.p{self._process}.json"), "w") as f:
+                json.dump(entries, f)
+                f.flush()
+                os.fsync(f.fileno())
         _fsync_dir(tmp)
-        dest = self._step_dir(step)
-        replaced = dest + ".replaced"
-        if os.path.isdir(dest):   # overwrite (rollback replay)
-            # Two-phase replace: the committed dir moves aside under a name
-            # the torn-tmp sweep RESTORES (not deletes) before the new one
-            # lands, so no crash point leaves the step without an intact copy.
+        rt.barrier(f"ckpt_written_{step}")
+        if self._process == 0:
+            manifest = {
+                "format": CKPT_FORMAT,
+                "step": step,
+                "stream_format": STREAM_FORMAT,
+                "extra": extra,
+                "leaves": self._merge_fragments(tmp, entries),
+            }
+            with open(os.path.join(tmp, _MANIFEST), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            _fsync_dir(tmp)
+            dest = self._step_dir(step)
+            replaced = dest + ".replaced"
+            if os.path.isdir(dest):   # overwrite (rollback replay)
+                # Two-phase replace: the committed dir moves aside under a
+                # name the torn-tmp sweep RESTORES (not deletes) before the
+                # new one lands, so no crash point leaves the step without
+                # an intact copy.
+                if os.path.isdir(replaced):
+                    shutil.rmtree(replaced)
+                os.rename(dest, replaced)
+            os.rename(tmp, dest)
+            _fsync_dir(self._dir)
             if os.path.isdir(replaced):
                 shutil.rmtree(replaced)
-            os.rename(dest, replaced)
-        os.rename(tmp, dest)
-        _fsync_dir(self._dir)
-        if os.path.isdir(replaced):
-            shutil.rmtree(replaced)
-        self._stamp_stream_format()
+            self._stamp_stream_format()
+        rt.barrier(f"ckpt_committed_{step}")
         self._stamp_pending = False
         self._gc()
 
+    @staticmethod
+    def _merge_fragments(tmp: str, entries: dict) -> dict:
+        """Fold the other processes' manifest fragments into process 0's
+        entries (each fragment's shard entries after process 0's, the
+        fragments in name order)."""
+        for name in sorted(os.listdir(tmp)):
+            if not name.startswith("manifest.p") or not name.endswith(".json"):
+                continue
+            with open(os.path.join(tmp, name)) as f:
+                frag = json.load(f)
+            for key, entry in frag.items():
+                if key in entries:
+                    entries[key]["shards"].extend(entry["shards"])
+                else:
+                    entries[key] = entry
+        return entries
+
     def _gc(self) -> None:
         keep = self.cfg.max_to_keep
-        if keep is None:
+        if keep is None or self._process != 0:
             return
         for s in self._committed_steps()[:-keep]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
@@ -443,7 +554,8 @@ class CheckpointManager:
         self.last_restore_step = None
         excluded: set[int] = set()
         while True:
-            steps = [s for s in self._committed_steps() if s not in excluded]
+            steps = [s for s in rt.agree_on_steps(self._committed_steps())
+                     if s not in excluded]
             if not steps:
                 if self.quarantined:
                     log.error(
@@ -452,9 +564,16 @@ class CheckpointManager:
                     )
                 return None
             step = steps[-1]
+            err: Optional[CorruptCheckpoint] = None
+            manifest = None
             try:
                 manifest = self._validate(step, expected)
-            except CorruptCheckpoint as err:
+            except CorruptCheckpoint as e:
+                err = e
+            if not rt.agree_all(err is None, f"ckpt_ok_{step}"):
+                if err is None:
+                    err = CorruptCheckpoint(step, "peer_corrupt",
+                                            "another process's portion failed validation")
                 self._quarantine(step, err)
                 excluded.add(step)
                 continue
@@ -472,9 +591,10 @@ class CheckpointManager:
             "falling back to the next newest", step, err,
         )
         src = self._step_dir(step)
-        if err.reason == "leaf_mismatch" or not os.path.isdir(src):
-            # A schema/config mismatch (moving good bytes aside on a config
-            # typo would destroy them), or already gone: exclude, don't move.
+        if err.reason in ("peer_corrupt", "leaf_mismatch") or not os.path.isdir(src):
+            # Locally intact (peer_corrupt), a schema/config mismatch
+            # (moving good bytes aside on a config typo would destroy
+            # them), or already gone: exclude, don't move.
             return
         base = os.path.join(self._dir, _QUARANTINE, f"step_{step:08d}-{err.reason}")
         dest, n = base, 1
@@ -489,6 +609,16 @@ class CheckpointManager:
         except OSError as e:
             log.warning("could not quarantine %s: %s", src, e)
             shutil.rmtree(src, ignore_errors=True)
+
+    def _owns_crc(self, fname: str) -> bool:
+        """The checksum pass divided across the processes: a file's owner is
+        its name's CRC modulo the current process count (not the writer's
+        index, so a checkpoint written by more processes than read it is
+        still read whole). Sizes and extents are checked everywhere; the
+        verdicts meet in ``agree_all``."""
+        if self._count == 1:
+            return True
+        return zlib.crc32(fname.encode()) % self._count == self._process
 
     def _validate(self, step: int, expected: Optional[dict] = None) -> dict:
         """Full integrity pass over one committed checkpoint; raises
@@ -552,7 +682,7 @@ class CheckpointManager:
                         f"{key}: {shard['file']} holds {size} bytes for a "
                         f"{entry['dtype']}{list(ext)} region ({want} expected)",
                     )
-                if self.cfg.verify_restore:
+                if self.cfg.verify_restore and self._owns_crc(shard["file"]):
                     crc = 0
                     with open(path, "rb") as f:
                         for chunk in iter(lambda: f.read(1 << 22), b""):
@@ -578,7 +708,9 @@ class CheckpointManager:
         tensors, each leaf assembled from its shard files into memory the
         torch allocator owns (its alignment, not numpy's: CPU kernels pick
         their vector loops by the address, and a resumed run must take
-        the uninterrupted run's)."""
+        the uninterrupted run's). With ``CheckpointShards`` each sharded
+        leaf is this process's block of it, read from the shards that
+        overlap it."""
         sdir = manifest["_dir"]
         by_key = {}
         for key, _ in _flatten_with_keys(abstract_state):
@@ -587,24 +719,36 @@ class CheckpointManager:
             dtype = _storage_dtype(entry["dtype"])
             maps = []
             for shard in entry["shards"]:
-                index = shard["index"]
-                ext = _extent(_norm_index(index, shape))
+                index = _norm_index(shard["index"], shape)
                 mm = np.memmap(os.path.join(sdir, shard["file"]), dtype=dtype,
-                               mode="r", shape=ext)
+                               mode="r", shape=_extent(index))
                 maps.append((index, mm))
-            out = torch.from_numpy(np.empty(0, dtype)).new_empty(shape)
-            self._fill(out.numpy(), maps)
+            want = None
+            if key in self._spec_of and is_sharded(self._spec_of[key][1]):
+                want = block_index(shape, self._spec_of[key][1], self._shards.sizes,
+                                   self._shards.coords)
+            want = _norm_index(want, shape)
+            out = torch.from_numpy(np.empty(0, dtype)).new_empty(_extent(want))
+            self._fill(out.numpy(), want, maps)
             by_key[key] = out.view(torch.bfloat16) if entry["dtype"] == "bfloat16" else out
             del maps
         return _rebuild(abstract_state, by_key)
 
     @staticmethod
-    def _fill(out: np.ndarray, maps) -> None:
-        """Read the whole array into ``out`` from the saved shard files
-        (one file for a leaf saved whole), each into its region."""
-        for index, mm in maps:
-            region = tuple(slice(a, b) for a, b in _norm_index(index, out.shape))
-            out[region] = mm
+    def _fill(out: np.ndarray, want: list, maps) -> None:
+        """Read the region ``want`` of a leaf into ``out`` from the saved
+        shard files (one file for a leaf saved whole): each shard's overlap
+        with the region."""
+        for have, mm in maps:
+            dst, src = [], []
+            for (ws, we), (hs, he) in zip(want, have):
+                lo, hi = max(ws, hs), min(we, he)
+                if lo >= hi:
+                    break
+                dst.append(slice(lo - ws, hi - ws))
+                src.append(slice(lo - hs, hi - hs))
+            else:
+                out[tuple(dst)] = mm[tuple(src)]
 
     # -- lifecycle -----------------------------------------------------------
 

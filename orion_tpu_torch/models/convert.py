@@ -9,6 +9,11 @@ w_in / w_gate [E, D, F], w_out [E, F, D]), from an explicit
 ``torch.Generator``. The two
 frameworks draw different numbers from the same seed, so tests that
 compare the packages carry the JAX tree across with ``from_jax_params``.
+
+On a data-parallel mesh (``parallel/data_parallel.py``) a rank holds its
+blocks of each leaf: ``shard_params`` cuts a whole tree into one rank's
+blocks by ``parallel.sharding.param_layout``'s plan, and
+``unshard_params`` puts every rank's blocks back together.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from orion_tpu_torch.config import ModelConfig
 from orion_tpu_torch.models.transformer import Params, torch_dtype
+from orion_tpu_torch.parallel.sharding import block_index, layout_at, local_block, parts
 
 
 def _normal(gen, shape, std, device, dtype) -> torch.Tensor:
@@ -215,3 +221,39 @@ def from_jax_params(
     if device is not None:
         out = to_device(out, device)
     return out
+
+
+def shard_params(tree: Params, layout: Any, sizes: dict, coords: dict,
+                 state: bool = False) -> Params:
+    """The rank at ``coords``' blocks of a whole per-layer tree (tensors,
+    or numpy arrays such as the JAX package's carried across by
+    ``from_jax_params``), each a tensor of its own: the parameters'
+    blocks, or with ``state`` the optimizer state's (ZeRO-1 cuts those
+    along ``dp`` too). ``layout`` is ``param_layout``'s tree."""
+    def cut(path, t):
+        lay = layout_at(layout, path)
+        t = torch.as_tensor(t) if not torch.is_tensor(t) else t
+        return local_block(t, lay.state_spec if state else lay.spec, sizes, coords).clone()
+
+    return tree_unflatten(tree, [cut(p, t) for p, t in tree_leaves_with_path(tree)])
+
+
+def unshard_params(trees: list, layout: Any, sizes: dict, coords: list,
+                   state: bool = False) -> Params:
+    """The whole per-layer tree from every rank's blocks: ``trees[r]`` is
+    the tree of the rank at ``coords[r]`` (replicas of a block may repeat;
+    each writes the same region)."""
+    flat = [tree_leaves_with_path(t) for t in trees]
+
+    def whole(i, path):
+        lay = layout_at(layout, path)
+        spec = lay.state_spec if state else lay.spec
+        first = flat[0][i][1]
+        shape = [n * parts(spec, d, sizes) for d, n in enumerate(first.shape)]
+        out = first.new_empty(shape)
+        for f, c in zip(flat, coords):
+            idx = block_index(shape, spec, sizes, c)
+            out[tuple(slice(a, b) for a, b in idx)] = f[i][1]
+        return out
+
+    return tree_unflatten(trees[0], [whole(i, p) for i, (p, _) in enumerate(flat[0])])

@@ -48,6 +48,11 @@ backward, as the JAX package may rerun its forward kernel there for the
 lse residual, which is no named value), once under ``none``; K7 and K8
 once under every policy.
 
+Under FSDP the block's function gathers its parameters first
+(``parallel.data_parallel.FsdpGather``): the remat block's inputs are the
+rank's blocks, so a replay gathers again and no gathered layer is kept
+between the forward and the backward.
+
 The block's forward itself runs with gradients on, its saved tensors
 dropped by a ``saved_tensors_hooks`` pair, so every kernel takes the same
 branch as in the replay and under ``none``: the stored values are the

@@ -19,6 +19,19 @@ with the segment ids, softcap and each layer's window; the positions the
 caller passes are the shard's global ones. ``loss_fn`` then returns this
 shard's share of the global token mean (the count summed over the axis).
 
+FSDP: with a ``gather`` (``parallel.data_parallel.FsdpGather``) the
+parameters are this rank's blocks, and each leaf is gathered where it is
+used: a block's leaves at the start of the block, inside the remat
+block's function (so a replay gathers again and no gathered layer is
+saved), the embedding table where the tokens are embedded (in the
+compute dtype: the lookup casts the table before it indexes it, as the
+JAX package does, so its gradient sums in that dtype), the final norm
+and the LM head (or the tied table, in the compute dtype) where the loss
+reads them. The gather's
+transpose hands each rank its block of the gradient, summed over ``fsdp``.
+The token count of the loss is summed over every data axis of the mesh
+(``dp``, ``fsdp`` and the sequence axis) before the divide.
+
 Rematerialization (``model.remat``: none, full, dots, names, and names
 with ``remat_offload``) is ``models/remat.py``'s: the block's products
 go through ``product`` and its ``checkpoint_name`` points through
@@ -53,7 +66,7 @@ from orion_tpu_torch.models.remat import (
     remat_policy,
 )
 from orion_tpu_torch.parallel.sequence import sequence_attention
-from orion_tpu_torch.runtime.mesh import axis_size
+from orion_tpu_torch.runtime.mesh import axis_size, group_of
 
 Params = dict[str, Any]
 
@@ -71,6 +84,69 @@ def torch_dtype(name) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """A tree like the JAX package's parameters (stacked blocks under
+    ``scan_layers``, else one dict per layer) whose leaves are logical-axis
+    tuples: a copy of ``orion_tpu/models/transformer.py::param_logical_axes``.
+    ``parallel.sharding``'s rules map them to mesh axes: vocab / heads /
+    mlp -> tp, embed -> fsdp, expert -> ep, layers -> pp."""
+    lead = ("layers",) if cfg.scan_layers else ()
+
+    block = {
+        "attn_norm": {"scale": lead + ("embed",)},
+        "mlp_norm": {"scale": lead + ("embed",)},
+        "attn": {
+            "wq": lead + ("embed", "heads"),
+            "wk": lead + ("embed", "kv_heads"),
+            "wv": lead + ("embed", "kv_heads"),
+            "wo": lead + ("heads", "embed"),
+        },
+    }
+    if cfg.norm == "layernorm":
+        block["attn_norm"]["bias"] = lead + ("embed",)
+        block["mlp_norm"]["bias"] = lead + ("embed",)
+    if cfg.post_norms:
+        block["post_attn_norm"] = {"scale": lead + ("embed",)}
+        block["post_mlp_norm"] = {"scale": lead + ("embed",)}
+    if cfg.attn_bias:
+        block["attn"]["bq"] = lead + ("heads",)
+        block["attn"]["bk"] = lead + ("kv_heads",)
+        block["attn"]["bv"] = lead + ("kv_heads",)
+    if cfg.resolved_attn_out_bias:
+        block["attn"]["bo"] = lead + ("embed",)
+    if cfg.is_moe:
+        block["moe"] = {
+            "router": lead + ("embed", "expert"),
+            "w_in": lead + ("expert", "embed", "mlp"),
+            "w_out": lead + ("expert", "mlp", "embed"),
+        }
+        if cfg.is_gated_mlp:
+            block["moe"]["w_gate"] = lead + ("expert", "embed", "mlp")
+    else:
+        block["mlp"] = {
+            "w_in": lead + ("embed", "mlp"),
+            "w_out": lead + ("mlp", "embed"),
+        }
+        if cfg.is_gated_mlp:
+            block["mlp"]["w_gate"] = lead + ("embed", "mlp")
+        if cfg.mlp_bias:
+            block["mlp"]["b_in"] = lead + ("mlp",)
+            block["mlp"]["b_out"] = lead + ("embed",)
+
+    axes: Params = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "final_norm": {"scale": ("embed",)},
+        "blocks": block if cfg.scan_layers else [block] * cfg.n_layers,
+    }
+    if cfg.pos_embedding == "learned":
+        axes["embed"]["positions"] = ("pos", "embed")
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.norm == "layernorm":
+        axes["final_norm"]["bias"] = ("embed",)
+    return axes
 
 
 def _gate_act(cfg: ModelConfig):
@@ -103,13 +179,23 @@ def embed(
 ) -> torch.Tensor:
     """Token (+ learned position) embedding."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"]["tokens"][tokens.long()].to(dtype)
+    x = _lookup(params["embed"]["tokens"], tokens, dtype)
     if cfg.embed_scale:
         # Gemma-family: scaled by sqrt(d_model), rounded in the activation dtype.
         x = x * _rounded(cfg.d_model ** 0.5, dtype)
     if cfg.pos_embedding == "learned":
-        x = x + params["embed"]["positions"][positions.long()].to(dtype)
+        x = x + _lookup(params["embed"]["positions"], positions, dtype)
     return x
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``idx`` of ``table`` in ``dtype``. Where a gradient is taken the
+    table is cast first, as the JAX package indexes it, so repeated rows'
+    gradients sum in ``dtype``; otherwise only the rows are cast (the
+    same values, without a cast of the whole table)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return table.to(dtype)[idx.long()]
+    return table[idx.long()].to(dtype)
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -274,12 +360,14 @@ def _hidden_states(
     segment_ids: Optional[torch.Tensor] = None,
     mesh=None,
     remat_log: Optional[RematLog] = None,
+    gather=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The block-stack output [B, S, D] before final norm / LM head, and
     the MoE aux loss summed over layers (zero for a dense model).
     Differentiable; the training path.
     Under sequence parallelism (``mesh``, see the module note) ``tokens``
-    is this process's shard and ``positions`` its global positions.
+    is this process's shard and ``positions`` its global positions; with a
+    ``gather`` (FSDP) ``params`` are the rank's blocks.
 
     ``remat`` (``models/remat.py``): under ``full``, ``dots`` and
     ``names`` every block runs as one ``remat_block``, which keeps the
@@ -292,19 +380,24 @@ def _hidden_states(
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = embed(params, tokens, positions, cfg)
+    table = params
+    if gather is not None:
+        table = {"embed": {k: gather.leaf(t, ("embed", k))
+                           for k, t in params["embed"].items()}}
+    x = embed(table, tokens, positions, cfg)
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not torch.is_grad_enabled():
         policy = None
     offload = Offload(x.device, remat_log) if policy and cfg.remat_offload else None
     for layer, bp in enumerate(params["blocks"]):
-        window = cfg.layer_window(layer)
-        if policy is None:
-            x, aux = _block(x, bp, cfg, positions, segment_ids, window, mesh)
-        else:
-            def fn(x_, bp_, window=window):
-                return _block(x_, bp_, cfg, positions, segment_ids, window, mesh)
+        def fn(x_, bp_, window=cfg.layer_window(layer), layer=layer):
+            if gather is not None:
+                bp_ = gather.tree(bp_, ("blocks", layer))
+            return _block(x_, bp_, cfg, positions, segment_ids, window, mesh)
 
+        if policy is None:
+            x, aux = fn(x, bp)
+        else:
             x, aux = remat_block(policy, fn, x, bp, offload, remat_log)
         if aux is not None:
             moe_aux = moe_aux + aux
@@ -320,7 +413,7 @@ def _gather_target(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(
     params: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, mesh=None,
-    remat_log: Optional[RematLog] = None,
+    remat_log: Optional[RematLog] = None, gather=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy + weighted MoE aux loss.
 
@@ -331,11 +424,12 @@ def loss_fn(
     the backward recomputes one chunk's [B, chunk, V] logits at a time
     instead of keeping the full [B, S, V] float32 logits alive.
 
-    Under sequence parallelism (``mesh``) the batch is this process's
-    sequence shard and the loss this shard's share of the global token
-    mean: its masked sum over the count summed across the axis. The shares
-    sum to the global loss; their gradients, summed across the axis, to
-    its gradient.
+    On a mesh (``mesh``) the batch is this process's rows and, under
+    sequence parallelism, its sequence shard, and the loss this share of
+    the global token mean: its masked sum over the count summed across
+    every data axis. The shares sum to the global loss; their gradients,
+    summed across the mesh, to its gradient. With a ``gather`` (FSDP) the
+    parameters are the rank's blocks (see the module note).
     """
     targets = batch["targets"]
     mask = batch.get("loss_mask")
@@ -346,24 +440,36 @@ def loss_fn(
     x, moe_aux = _hidden_states(
         params, batch["inputs"], cfg, positions=batch.get("positions"),
         segment_ids=batch.get("segment_ids"), mesh=mesh, remat_log=remat_log,
+        gather=gather,
     )
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     mask = mask.float()
-    sp_group = mesh.get_group(cfg.sequence_axis) if _sp_active(cfg, mesh) else None
+    group = None
+    if mesh is not None:
+        group = group_of(mesh, ("dp", "fsdp") + ((cfg.sequence_axis,)
+                                                  if _sp_active(cfg, mesh) else ()))
+    head = params
+    if gather is not None:
+        head = {"final_norm": gather.tree(params["final_norm"], ("final_norm",))}
+        if cfg.tie_embeddings:
+            head["embed"] = {"tokens": gather.leaf(params["embed"]["tokens"],
+                                                   ("embed", "tokens"))}
+        else:
+            head["lm_head"] = gather.leaf(params["lm_head"], ("lm_head",))
 
     def count(m):
         total = m.sum()
-        return total if sp_group is None else all_reduce(total.detach(), sp_group)
+        return total if group is None else all_reduce(total.detach(), group)
 
     if not chunk or S == chunk:
-        logp = torch.log_softmax(unembed(params, x, cfg), dim=-1)
+        logp = torch.log_softmax(unembed(head, x, cfg), dim=-1)
         nll = -_gather_target(logp, targets)
         denom = torch.clamp(count(mask), min=1.0)
         ce = (nll * mask).sum() / denom
     else:
         def ce_chunk(xc, tc, mc):
-            logits = unembed(params, xc, cfg)              # [B, chunk, V] float32
+            logits = unembed(head, xc, cfg)                # [B, chunk, V] float32
             logz = torch.logsumexp(logits, dim=-1)
             tgt = _gather_target(logits, tc)
             return ((logz - tgt) * mc).sum()

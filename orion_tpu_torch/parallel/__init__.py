@@ -1,9 +1,10 @@
 """Parallelism strategies over the mesh's process groups.
 
 Counterpart of ``orion_tpu/parallel``. Ported so far: sequence / context
-parallelism (``parallel/sequence.py``: ring, striped ring, Ulysses). The
-JAX package's sharding rules, ZeRO-1, resharding and pipelines are not
-ported yet (ROADMAP.md, Queue 1).
+parallelism (``parallel/sequence.py``: ring, striped ring, Ulysses), the
+sharding rules (``parallel/sharding.py``) and the trainer's data-parallel
+mesh (``parallel/data_parallel.py``: DDP, ZeRO-1, FSDP). Resharding and
+pipelines are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from orion_tpu_torch.parallel.sequence import (

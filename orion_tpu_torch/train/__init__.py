@@ -1,5 +1,6 @@
-"""Training on one GPU: the trainer, its step, the optimizer, and the
-fault stack (checkpoints, the anomaly guard, rollback, emergency saves).
+"""Training on one GPU or over a dp x fsdp x sp mesh of them: the trainer,
+its step, the optimizer (ZeRO-1 too), and the fault stack (checkpoints,
+the anomaly guard, rollback, emergency saves).
 
 ``python -m orion_tpu_torch.train`` is the command-line entry point
 (``train/__main__.py``), the counterpart of the repository's ``train.py``.

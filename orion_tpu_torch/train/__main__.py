@@ -7,6 +7,9 @@ Usage:
         checkpoint.directory=/tmp/c train.num_steps=6 --max-restarts 2
     torchrun --nproc_per_node=4 -m orion_tpu_torch.train --preset tiny-llama \
         parallel.sp=4 parallel.sequence_method=ring_striped
+    torchrun --nproc_per_node=8 -m orion_tpu_torch.train --preset mistral-7b-fsdp
+    torchrun --nproc_per_node=2 -m orion_tpu_torch.train --preset tiny-llama \
+        --device cpu parallel.dp=2 train.zero1=true
 
 Weights are a seeded random init in ``model.param_dtype`` (``--seed``,
 default ``train.seed``), or the newest intact checkpoint in
@@ -17,9 +20,10 @@ arguments override the preset. ``--max-restarts N`` runs the fit under a
 supervisor that rebuilds the trainer after a failure and resumes from the
 newest checkpoint, up to N times. Prints a step line every
 ``train.log_interval`` steps and at the end ``done: N steps, final loss
-..., mean MFU ...``. With ``parallel.sp=N`` it runs as one process per
-sequence-parallel rank under ``torchrun --nproc_per_node=N`` (one GPU
-each; ``--device cpu`` joins the ranks over gloo); rank 0 prints.
+..., mean MFU ...``. On a mesh (``parallel.dp`` x ``parallel.fsdp`` x
+``parallel.sp`` = N) it runs as one process a device under ``torchrun
+--nproc_per_node=N`` (one GPU each, NCCL; ``--device cpu`` joins the ranks
+over gloo); rank 0 prints.
 """
 
 from __future__ import annotations

@@ -23,20 +23,44 @@ and a ``FaultInjector``'s "dispatch", "nan" and "partial_write" kinds.
 Supervisor restarts are ``runtime.fault.run_with_restarts`` around a
 fresh Trainer (``python -m orion_tpu_torch.train --max-restarts N``).
 
-Sequence parallelism (``parallel.sp`` > 1, as the JAX trainer routes it,
-``orion_tpu/train/trainer.py:672-711``): one process per rank of the
-``sp`` axis (``torchrun --nproc_per_node=<sp>``, or
-``runtime.coordinator_address`` / ``num_processes`` / ``process_id``),
-joined by ``runtime.distributed.initialize`` (NCCL on the card, gloo on
-the CPU) into a ``runtime.mesh`` mesh. Every rank reads the same global
-batch and keeps its contiguous sequence slice of the inputs, targets,
-loss mask, segment ids and positions (global positions where the batch
-has none); attention runs as ``parallel.sequence_attention`` with
-``parallel.sequence_method``; the loss is the global token mean (each
-rank backpropagates its share, ``models.transformer.loss_fn``); the
-gradients are summed over ``sp`` before clipping and AdamW, so every
-rank applies the same update and the parameters stay identical. Logs
-and the metrics file come from rank 0.
+Parallelism over a mesh of GPUs, one process a device (``torchrun
+--nproc_per_node=<mesh size>``, or ``runtime.coordinator_address`` /
+``num_processes`` / ``process_id``), joined by
+``runtime.distributed.initialize`` (NCCL on the card, gloo on the CPU)
+into a ``runtime.mesh`` mesh of ``parallel.dp`` x ``parallel.fsdp`` x
+``parallel.sp`` ranks (``parallel/data_parallel.py`` holds the mesh's
+side of the step):
+
+- data parallelism (``dp``) and FSDP (``fsdp``): every rank reads the same
+  global batch and keeps its rows (over dp x fsdp, in the JAX device
+  order); FSDP holds each leaf with an ``embed`` dimension as the rank's
+  1/fsdp block, gathered where it is used (inside each block; the
+  gather's transpose reduce-scatters its gradient); the other gradients
+  are all-reduced over the axes that hold them whole;
+- ZeRO-1 (``train.zero1``, dp > 1): the gradients reduce-scatter over
+  ``dp`` onto each leaf's update dimension, AdamW updates the rank's
+  1/dp block of the moments (and of the float32 ``opt["master"]`` where
+  ``model.param_dtype`` != ``model.dtype``), and the updated blocks are
+  all-gathered back; the state equals the plain dp run's bit for bit
+  (under the master split, the dp run whose gradients are taken against
+  the same copy, ``train.grad_dtype``);
+- sequence parallelism (``sp``, as the JAX trainer routes it,
+  ``orion_tpu/train/trainer.py:672-711``): each rank keeps its contiguous
+  sequence slice of the inputs, targets, loss mask, segment ids and
+  positions (global positions where the batch has none); attention runs
+  as ``parallel.sequence_attention`` with ``parallel.sequence_method``.
+
+The loss is the global token mean (the count summed over the mesh; each
+rank backpropagates its share), so every rank applies the same update.
+Checkpoints save each rank's blocks with their global indices (process 0
+writes the replicated leaves and merges the manifest) and restore at any
+layout; the anomaly guard's skip is a vote of every rank, the preemption
+flag rides the step's loss reduction, and rollbacks, emergency saves and
+restarts move every rank together. A
+``FaultInjector`` schedule must be the same on every rank, except the
+"nan" kind, whose poisoned loss reaches every rank through the reduction.
+Logs, the metrics file, the tracer, flight dumps, ``metrics_prom`` and the
+profiler window come from rank 0 of the mesh.
 
 Observability (``orion_tpu_torch/obs``, the JAX trainer's wiring): a
 metrics registry (sections robust, train: the newest step's metrics, and
@@ -47,8 +71,7 @@ to ``trace_path`` when ``fit`` ends; with ``flight_dir`` a postmortem at an
 anomaly rollback; ``metrics_prom`` every ``log_interval`` steps and at the
 end; ``profile_steps=(a, b)`` a ``torch.profiler`` capture of steps a to
 b - 1 (CPU activity, and CUDA activity on the card), its Chrome trace
-written under ``profile_dir``. At ``parallel.sp`` > 1 these act on rank 0
-only.
+written under ``profile_dir``. On a mesh these act on rank 0 only.
 
 Remat (``model.remat`` / ``train.remat``: none, full, dots, names, and
 names with ``remat_offload``; ``models/remat.py``), the sanitizers
@@ -59,12 +82,10 @@ routing and ring-position asserts, ``runtime/asserts.py``), held-out
 evaluation (``train.eval_interval``, ``evaluate``) and ``memory_report``
 are the JAX trainer's.
 
-Not ported yet, and rejected at construction (``_check_supported``):
-ZeRO-1 and quantized gradient collectives, every parallel axis other than
-sp above 1 (``runtime.mesh.check_axes`` names the mode), more processes
-than one per sequence-parallel rank, checkpoints, the anomaly guard and
-fault injection at sp > 1 (the multi-process checkpoint save comes with
-the DDP/FSDP slice), and MoE at sp > 1.
+Not ported yet, and rejected at construction (``_check_supported``): the
+quantized gradient collectives (``train.grad_quant_bits``,
+``train.zero1_quantize``), tensor, pipeline and expert parallelism
+(``runtime.mesh.check_axes`` names the mode), and MoE on a mesh.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -85,21 +106,25 @@ import torch
 
 from orion_tpu_torch import metrics as metrics_lib
 from orion_tpu_torch.ckpt import CheckpointManager
-from orion_tpu_torch.comm.collectives import all_reduce
+from orion_tpu_torch.ckpt.checkpoint import CheckpointShards
 from orion_tpu_torch.config import Config, ModelConfig
 from orion_tpu_torch.data import make_loader
 from orion_tpu_torch.infer.engine import resolve_device
 from orion_tpu_torch.models.convert import (
     init_params,
+    jax_leaves_with_path,
     stack_layers,
     to_device,
     tree_leaves,
+    tree_leaves_with_path,
     tree_map,
     tree_unflatten,
     unstack_layers,
 )
 from orion_tpu_torch.models.remat import RematLog, remat_policy
 from orion_tpu_torch.models.transformer import loss_fn, torch_dtype
+from orion_tpu_torch.parallel.data_parallel import DataParallel
+from orion_tpu_torch.parallel.sharding import layout_at
 from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
 from orion_tpu_torch.runtime import sanitize
 from orion_tpu_torch.runtime.asserts import raise_if_failed
@@ -113,11 +138,13 @@ from orion_tpu_torch.runtime.fault import (
     Watchdog,
 )
 from orion_tpu_torch.train.optimizer import (
+    Zero1Plan,
     apply_updates,
     global_norm,
     init_opt_state,
     make_schedule,
     tree_all_finite,
+    zero1_master_split,
 )
 
 log = logging.getLogger("orion_tpu_torch.train")
@@ -141,31 +168,62 @@ _FIRED_FAULTS: set = set()
 
 
 def _check_supported(cfg: Config) -> None:
-    m, t, r = cfg.model, cfg.train, cfg.runtime
+    """The JAX trainer's own ValueErrors first (its messages), then the
+    NotImplementedError of every part the port does not run yet."""
+    m, t, r, p = cfg.model, cfg.train, cfg.runtime, cfg.parallel
     if m.weight_quant is not None:
-        # The JAX trainer's own rule, not a gap in the port.
         raise ValueError(
             "model.weight_quant is a serving-only knob (the engine "
             "quantizes at init); training runs full-precision masters"
         )
-    sp = cfg.parallel.sp
+    if t.zero1:
+        if p.dp < 2:
+            raise ValueError(
+                "train.zero1 needs parallel.dp > 1: the optimizer "
+                "state shards 1/dp across the dp axis"
+            )
+        if t.grad_quant_bits:
+            raise ValueError(
+                "train.zero1 replaces the dp gradient all-reduce with "
+                "a reduce-scatter, so train.grad_quant_bits has no "
+                "collective left to quantize; use train.zero1_quantize"
+            )
+        if t.zero1_quantize:
+            if p.pp > 1:
+                raise ValueError(
+                    "train.zero1_quantize is rejected under "
+                    "parallel.pp: the int8 wire legs run manual "
+                    "over dp and cannot nest inside the pipeline's "
+                    "pp shard_map; use full-precision train.zero1 "
+                    "(composes with pp) or drop pp"
+                )
+            others = {k: v for k, v in p.axis_sizes.items() if k != "dp" and v > 1}
+            if others:
+                raise ValueError(
+                    f"train.zero1_quantize needs pure DP (the wire "
+                    f"legs run manual over dp); mesh has {others}"
+                )
+    elif t.zero1_quantize:
+        raise ValueError(
+            "train.zero1_quantize without train.zero1 has no "
+            "ZeRO-1 collective legs to quantize"
+        )
+    if r.num_processes > 1 and r.num_processes != p.num_devices:
+        raise ValueError(
+            f"runtime.num_processes={r.num_processes} must equal the mesh size "
+            f"{p.num_devices} ({dict(p.axis_sizes)}): the port runs one process a device")
     unsupported = {
-        "train.zero1": t.zero1,
-        "train.zero1_quantize": t.zero1_quantize is not None,
-        "train.grad_quant_bits": t.grad_quant_bits is not None,
-        "model.n_experts > 0 (MoE) with parallel.sp > 1": m.is_moe and sp > 1,
-        "runtime.num_processes > 1 other than one a sequence-parallel rank": (
-            r.num_processes > 1 and r.num_processes != sp),
-        "checkpoint.directory with parallel.sp > 1": sp > 1 and bool(cfg.checkpoint.directory),
-        "train.anomaly_guard / inject_fault_at_step with parallel.sp > 1": sp > 1 and (
-            t.anomaly_guard or t.inject_fault_at_step is not None),
+        "train.zero1_quantize (the int8 ZeRO-1 wire legs)": t.zero1_quantize is not None,
+        "train.grad_quant_bits (the int8 gradient all-reduce)": t.grad_quant_bits is not None,
+        "model.n_experts > 0 (MoE) with parallel.dp, fsdp or sp > 1 (comes with "
+        "expert parallelism)": m.is_moe and p.num_devices > 1,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(
             f"not ported to orion_tpu_torch yet: {', '.join(bad)}"
         )
-    check_axes(cfg.parallel)
+    check_axes(p)
 
 
 def _check_checkify(cfg: Config) -> None:
@@ -232,14 +290,10 @@ def sequence_parallel_config(cfg: Config) -> Config:
         cfg.model, sequence_axis="sp", sequence_method=p.sequence_method))
 
 
-def _check_injector(injector, sp: int = 1) -> None:
-    """Refuse a fault schedule holding kinds training does not consume, and
-    any schedule at sp > 1."""
+def _check_injector(injector) -> None:
+    """Refuse a fault schedule holding kinds training does not consume."""
     if injector is None:
         return
-    if sp > 1:
-        raise NotImplementedError(
-            "not ported to orion_tpu_torch yet: fault injection with parallel.sp > 1")
     bad = sorted({s.kind for s in injector.specs if s.kind not in TRAIN_KINDS})
     if bad:
         raise NotImplementedError(
@@ -257,16 +311,20 @@ def prng_key_data(seed: int) -> list[int]:
 
 def state_to_tree(state: TrainState, mcfg: ModelConfig) -> dict:
     """The train state in the JAX trainer's layout, the one checkpoints
-    hold: params and moments with their blocks stacked (``scan_layers``),
-    ``opt.count`` and ``step`` as 0-d int32 tensors."""
+    hold: params and moments (and ZeRO-1's ``master``) with their blocks
+    stacked (``scan_layers``), ``opt.count`` and ``step`` as 0-d int32
+    tensors. On a mesh the leaves are the rank's blocks."""
     opt = state["opt"]
+    out_opt = {
+        "count": torch.tensor(opt["count"], dtype=torch.int32),
+        "mu": stack_layers(opt["mu"], mcfg),
+        "nu": stack_layers(opt["nu"], mcfg),
+    }
+    if "master" in opt:
+        out_opt["master"] = stack_layers(opt["master"], mcfg)
     return {
         "params": stack_layers(state["params"], mcfg),
-        "opt": {
-            "count": torch.tensor(opt["count"], dtype=torch.int32),
-            "mu": stack_layers(opt["mu"], mcfg),
-            "nu": stack_layers(opt["nu"], mcfg),
-        },
+        "opt": out_opt,
         "step": torch.tensor(state["step"], dtype=torch.int32),
     }
 
@@ -279,29 +337,35 @@ def state_from_tree(tree: dict, mcfg: ModelConfig, device) -> TrainState:
     def layers(t):
         return unstack_layers(to_device(t, device), mcfg)
 
-    return {
-        "params": layers(tree["params"]),
-        "opt": {"mu": layers(opt["mu"]), "nu": layers(opt["nu"]),
-                "count": int(opt["count"])},
-        "step": int(tree["step"]),
-    }
+    out_opt = {"mu": layers(opt["mu"]), "nu": layers(opt["nu"]), "count": int(opt["count"])}
+    if "master" in opt:
+        out_opt["master"] = layers(opt["master"])
+    return {"params": layers(tree["params"]), "opt": out_opt, "step": int(tree["step"])}
 
 
 def abstract_train_state(cfg: Config) -> dict:
     """The checkpoint tree of a train state on the ``meta`` device: the
-    shapes and dtypes a restore validates against, with no memory."""
+    whole shapes and dtypes a restore validates against, with no memory.
+    Under ZeRO-1's master split the params are in ``model.dtype`` and
+    ``opt.master`` in ``model.param_dtype``, as the JAX trainer's."""
     params = init_params(cfg.model, torch.Generator(), device="meta",
                          dtype=torch_dtype(cfg.model.param_dtype))
-    state = {"params": params, "opt": init_opt_state(params, cfg.optimizer), "step": 0}
-    return state_to_tree(state, cfg.model)
+    split = zero1_master_split(cfg)
+    opt = init_opt_state(params, cfg.optimizer, master=split)
+    if split:
+        params = to_device(params, "meta", cfg.model.dtype)
+    return state_to_tree({"params": params, "opt": opt, "step": 0}, cfg.model)
 
 
 def init_train_state(
-    cfg: Config, device, params: Optional[Any] = None
+    cfg: Config, device, params: Optional[Any] = None, dp: Optional[DataParallel] = None
 ) -> TrainState:
     """Params in ``model.param_dtype`` on ``device`` (a seeded random init
     from ``train.seed``, or a copy of ``params``), fresh optimizer state
-    and step 0."""
+    and step 0. On a data-parallel mesh (``dp``) the rank keeps its blocks
+    (``DataParallel.shard``); under ZeRO-1 the moments (and the master
+    split's ``opt.master``) are its 1/dp blocks, and the split's params the
+    working copy in ``model.dtype``."""
     pdt = torch_dtype(cfg.model.param_dtype)
     if params is None:
         gen = torch.Generator(device=device)
@@ -309,7 +373,21 @@ def init_train_state(
         params = init_params(cfg.model, gen, device=device, dtype=pdt)
     else:
         params = tree_map(lambda t: t.to(device=device, dtype=pdt, copy=True), params)
-    return {"params": params, "opt": init_opt_state(params, cfg.optimizer), "step": 0}
+    if dp is not None and dp.rows > 1:
+        params = dp.shard(params)
+    split = zero1_master_split(cfg)
+    opt = init_opt_state(params, cfg.optimizer, master=split,
+                         zero1=zero1_plan(dp, params) if cfg.train.zero1 else None)
+    if split:
+        params = to_device(params, device, cfg.model.dtype)
+    return {"params": params, "opt": opt, "step": 0}
+
+
+def zero1_plan(dp: DataParallel, params: Any) -> Zero1Plan:
+    """The ZeRO-1 plan of ``params``' leaves (``tree_leaves`` order)."""
+    return Zero1Plan(group=dp.group("dp"), n=dp.dp, index=dp.coords["dp"],
+                     dims=tuple(layout_at(dp.layout, path).zero1_dim
+                                for path, _ in tree_leaves_with_path(params)))
 
 
 def loss_and_grads(
@@ -319,7 +397,7 @@ def loss_and_grads(
     accum: int = 1,
     grad_dtype: Optional[str] = None,
     poison: bool = False,
-    mesh=None,
+    dp: Optional[DataParallel] = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], Any]:
     """(loss, aux, grads) of ``loss_fn``; ``grads`` is a tree like
     ``params``. With ``accum`` > 1 the batch leaves are [accum, b, S]
@@ -328,12 +406,15 @@ def loss_and_grads(
     are taken with respect to a copy of the parameters in that dtype.
     ``poison`` multiplies the loss by NaN inside the differentiated
     function, so NaNs flow through the real backward into every gradient
-    (the fault injector's "nan" kind). Under sequence parallelism
-    (``mesh``) ``batch`` is this rank's sequence slice; the loss, its aux
-    terms and the gradients come back summed over ``sp`` (the global
-    values, the same on every rank). Under ``runtime.debug_nans`` the
-    forward and the backward run under its NaN checks
-    (``runtime/sanitize.py``)."""
+    (the fault injector's "nan" kind). On a mesh (``dp``, a
+    ``DataParallel``) ``batch`` is this rank's share and ``params`` its
+    blocks; the loss and its aux terms come back summed over the mesh (the
+    global values, the same on every rank) and the gradients reduced
+    (``DataParallel.reduce``: this rank's blocks, under ZeRO-1 its dp
+    blocks). Under ``runtime.debug_nans`` the forward and the backward run
+    under its NaN checks (``runtime/sanitize.py``)."""
+    mesh = None if dp is None else dp.mesh
+    gather = None if dp is None else dp.gather
 
     def value_and_grad(mb):
         leaves = [
@@ -342,7 +423,7 @@ def loss_and_grads(
             for p in tree_leaves(params)
         ]
         with sanitize.nan_forward():
-            loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg, mesh)
+            loss, aux = loss_fn(tree_unflatten(params, leaves), mb, mcfg, mesh, gather=gather)
             if poison:
                 loss = loss * torch.tensor(float("nan"), dtype=loss.dtype,
                                            device=loss.device)
@@ -352,46 +433,30 @@ def loss_and_grads(
 
     if accum == 1:
         loss, aux, grads = value_and_grad(batch)
-        return _sum_over_sp(loss, aux, grads, mcfg, mesh, params)
-    acc = [torch.zeros_like(p) for p in tree_leaves(params)]
-    loss_sum = aux_sum = None
-    for i in range(accum):
-        loss, aux, grads = value_and_grad({k: v[i] for k, v in batch.items()})
-        for a, g in zip(acc, grads):
-            a.add_(g)
-        loss_sum = loss if loss_sum is None else loss_sum + loss
-        aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
-        del grads
-    inv = 1.0 / accum
-    for a in acc:
-        a.mul_(inv)
-    # Means over microbatches, except token counts, which accumulate.
-    aux = {k: v if k == "tokens" else v * inv for k, v in aux_sum.items()}
-    return _sum_over_sp(loss_sum * inv, aux, acc, mcfg, mesh, params)
-
-
-def _sum_over_sp(loss, aux, grads, mcfg: ModelConfig, mesh, params):
-    """(loss, aux, grads as a tree): each rank's shares summed over the
-    ``sp`` axis when sequence parallelism is on (token counts are global
-    already), as they are otherwise. The gradients travel as one flat
-    buffer per dtype."""
-    if mesh is None or mcfg.sequence_axis is None:
+    else:
+        acc = [torch.zeros_like(p) for p in tree_leaves(params)]
+        loss_sum = aux_sum = None
+        for i in range(accum):
+            loss, aux, grads = value_and_grad({k: v[i] for k, v in batch.items()})
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
+            del grads
+        inv = 1.0 / accum
+        for a in acc:
+            a.mul_(inv)
+        # Means over microbatches, except token counts, which accumulate.
+        loss, grads = loss_sum * inv, acc
+        aux = {k: v if k == "tokens" else v * inv for k, v in aux_sum.items()}
+    if dp is None:
         return loss, aux, tree_unflatten(params, grads)
-    group = mesh.get_group(mcfg.sequence_axis)
-    with torch.no_grad():
-        for dtype in sorted({g.dtype for g in grads}, key=str):
-            idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
-            flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), group)
-            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
-                grads[i] = part.view_as(grads[i])
-        scalars = all_reduce(torch.stack([loss.float(), aux["ce_loss"].float(),
-                                          aux["moe_aux"].float()]), group)
-    aux = dict(aux, ce_loss=scalars[1], moe_aux=scalars[2])
-    return scalars[0], aux, tree_unflatten(params, grads)
+    return dp.reduce(loss, aux, grads, params)
 
 
 def make_train_step(
-    cfg: Config, schedule: Callable[[int], float], poison: bool = False, mesh=None
+    cfg: Config, schedule: Callable[[int], float], poison: bool = False,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[..., tuple[TrainState, dict]]:
     """The per-step function: forward + backward (+ accumulation), clip
     and AdamW/SGD update in place. Returns (state, step metrics as host
@@ -406,26 +471,53 @@ def make_train_step(
     metrics carry ``anomaly``/``nonfinite``/``spike`` flags. A clean
     guarded step runs the same operations as an unguarded one.
     ``poison=True`` builds the fault injector's "nan" variant
-    (``loss_and_grads(poison=True)``). ``mesh`` is the sequence-parallel
-    mesh (the batch then this rank's slice).
+    (``loss_and_grads(poison=True)``). ``dp`` is the mesh
+    (``DataParallel``; the batch then this rank's share): the clip norm
+    is taken over the mesh, the finiteness is a vote of every rank, and
+    under ZeRO-1 the update runs on the rank's blocks.
 
     With ``runtime.checkify`` the step is checked (``runtime/sanitize.py``):
     the batch's tokens and targets within the vocabulary before the
     forward, the loss and every gradient finite before the update; a
-    failed check raises ``CheckifyError`` with the state untouched.
+    failed check raises ``CheckifyError`` with the state untouched, on
+    every rank of a mesh.
     """
     accum, gdt = cfg.train.grad_accum, cfg.train.grad_dtype
     checked = cfg.runtime.checkify
+    meshed = dp is not None and dp.rows > 1
+
+    def check(fn, *args):
+        """A sanitizer check, on a mesh voted over every rank."""
+        if dp is None:
+            return fn(*args)
+        err = None
+        try:
+            fn(*args)
+        except sanitize.CheckifyError as e:
+            err = e
+        if not bool(dp.all_ranks(torch.tensor(err is None))):
+            raise err or sanitize.CheckifyError("a check failed on another rank: "
+                                                "the step was not applied")
 
     def grads_of(state: TrainState, batch: dict):
         lr = schedule(state["opt"]["count"])
         if checked:
-            sanitize.check_indices(batch, cfg.model.vocab_size)
+            check(sanitize.check_indices, batch, cfg.model.vocab_size)
         loss, aux, grads = loss_and_grads(state["params"], batch, cfg.model, accum, gdt,
-                                          poison=poison, mesh=mesh)
+                                          poison=poison, dp=dp)
         if checked:
-            sanitize.check_finite(loss, tree_leaves(grads))
+            check(sanitize.check_finite, loss, tree_leaves(grads))
         return lr, loss, aux, grads
+
+    def norm_of(grads):
+        return dp.global_norm(grads) if meshed else global_norm(grads)
+
+    def update(state: TrainState, grads, lr, gnorm=None):
+        """apply_updates on the state (the mesh's norm; ZeRO-1's plan)."""
+        kw = {} if gnorm is None else {"gnorm": gnorm}
+        if cfg.train.zero1:
+            kw["zero1"] = zero1_plan(dp, state["params"])
+        return apply_updates(state["params"], grads, state["opt"], cfg.optimizer, lr, **kw)
 
     def fetch(*scalars: torch.Tensor) -> list[float]:
         """The step's one device-to-host copy."""
@@ -433,8 +525,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         lr, loss, aux, grads = grads_of(state, batch)
-        _, _, opt_metrics = apply_updates(
-            state["params"], grads, state["opt"], cfg.optimizer, lr)
+        _, _, opt_metrics = update(state, grads, lr, norm_of(grads) if meshed else None)
         state["step"] += 1
         loss, ce, moe, gnorm = fetch(loss, aux["ce_loss"], aux["moe_aux"],
                                      opt_metrics["grad_norm"])
@@ -446,8 +537,10 @@ def make_train_step(
 
     def guarded_step(state: TrainState, batch: dict, norm_limit) -> tuple[TrainState, dict]:
         lr, loss, aux, grads = grads_of(state, batch)
-        gnorm = global_norm(grads)
+        gnorm = norm_of(grads)
         finite = torch.isfinite(loss) & tree_all_finite(grads).to(loss.device)
+        if dp is not None:
+            finite = dp.all_ranks(finite)
         loss_h, ce, moe, gnorm_h, finite_h = fetch(loss, aux["ce_loss"], aux["moe_aux"],
                                                    gnorm, finite)
         finite_h = finite_h > 0
@@ -455,8 +548,7 @@ def make_train_step(
         spike = finite_h and gnorm_h > float(np.float32(norm_limit))
         ok = finite_h and not spike
         if ok:
-            apply_updates(state["params"], grads, state["opt"], cfg.optimizer, lr,
-                          gnorm=gnorm)
+            update(state, grads, lr, gnorm)
         state["step"] += 1
         return state, {
             "loss": loss_h, "ce_loss": ce, "moe_aux": moe, "grad_norm": gnorm_h, "lr": lr,
@@ -496,7 +588,7 @@ class Trainer:
         remat_policy(cfg.model)
         _check_supported(cfg)
         _check_checkify(cfg)
-        _check_injector(fault_injector, cfg.parallel.sp)
+        _check_injector(fault_injector)
         apply_flags(cfg.runtime)
         cfg = sequence_parallel_config(cfg)
         accum = max(cfg.train.grad_accum, 1)
@@ -505,11 +597,20 @@ class Trainer:
                 f"grad_accum={cfg.train.grad_accum} must divide global batch "
                 f"{cfg.data.batch_size}"
             )
+        micro = cfg.data.batch_size // accum
+        dpf = cfg.parallel.dp * cfg.parallel.fsdp
+        if micro % dpf:
+            raise ValueError(
+                f"per-step batch {micro} (data.batch_size="
+                f"{cfg.data.batch_size} / grad_accum={accum}) must be "
+                f"divisible by dp*fsdp={dpf}"
+            )
         self.cfg = cfg
         self.device = resolve_device(device)
-        # The sequence-parallel mesh (None at sp = 1) and this rank on it.
-        self.mesh, self.sp_rank = None, 0
-        if cfg.parallel.sp > 1:
+        # The mesh (None on one device), this rank's place on it and the
+        # trainer's data-parallel view of it.
+        self.mesh, self.dp, self.sp_rank = None, None, 0
+        if cfg.parallel.num_devices > 1:
             initialize(cfg.runtime, self.device)
             if self.device.type == "cuda" and self.device.index is None:
                 local = int(os.environ.get("LOCAL_RANK",
@@ -518,11 +619,12 @@ class Trainer:
                 torch.cuda.set_device(self.device)
             self.mesh = build_mesh(cfg.parallel, self.device)
             self.sp_rank = self.mesh.get_local_rank("sp")
+            self.dp = DataParallel(cfg, self.mesh)
         self.fault_injector = fault_injector
         self._params = params
         self.loader = make_loader(cfg.data, cfg.model.vocab_size)
         self._schedule = make_schedule(cfg.optimizer, cfg.train.num_steps)
-        self.train_step = make_train_step(cfg, self._schedule, mesh=self.mesh)
+        self.train_step = make_train_step(cfg, self._schedule, dp=self.dp)
         if cfg.model.debug_asserts:
             self.train_step = _asserted(self.train_step)
         self._poison_step = None
@@ -537,7 +639,8 @@ class Trainer:
         self.ckpt: Optional[CheckpointManager] = None
         if cfg.checkpoint.directory:
             self.ckpt = CheckpointManager(cfg.checkpoint.directory, cfg.checkpoint,
-                                          fault_injector=fault_injector)
+                                          fault_injector=fault_injector,
+                                          shards=self._ckpt_shards())
         # Anomaly-guard host state (persisted in the checkpoint manifest so a
         # resume reproduces the same skip decisions) and the counters.
         self._gnorm_ema: Optional[float] = None
@@ -550,10 +653,10 @@ class Trainer:
         self.tokens_per_step = cfg.data.batch_size * cfg.data.seq_len
         peak = cfg.train.peak_flops_per_device or metrics_lib.peak_flops_per_device(
             self.device)
-        lead = self.sp_rank == 0   # logs and the metrics file come from rank 0
+        lead = process_index() == 0   # logs and the metrics file come from rank 0
         self.metrics = metrics_lib.MetricsLogger(
             flops_per_token=cfg.model.flops_per_token(cfg.data.seq_len),
-            num_devices=cfg.parallel.sp,
+            num_devices=cfg.parallel.num_devices,
             peak_flops=peak,
             jsonl_path=cfg.train.metrics_jsonl if lead else None,
             log_interval=cfg.train.log_interval if lead else 2 ** 62,
@@ -619,7 +722,33 @@ class Trainer:
     # -- state ------------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        return init_train_state(self.cfg, self.device, self._params)
+        return init_train_state(self.cfg, self.device, self._params, self.dp)
+
+    def _ckpt_shards(self) -> Optional[CheckpointShards]:
+        """On a mesh, what the checkpoint manager needs to save this rank's
+        blocks and read them back: the spec of every leaf of the checkpoint
+        tree (``LeafLayout.ckpt_spec``; the optimizer state's under
+        ``opt``), the mesh's sizes and this rank's coordinates."""
+        if self.dp is None:
+            return None
+        specs, held = {}, {}
+        scanned = self.cfg.model.scan_layers
+        for path, _ in jax_leaves_with_path(abstract_train_state(self.cfg)):
+            if path[0] == "params":
+                inner, state = path[1:], False
+            elif path[0] == "opt" and path[1] != "count":
+                inner, state = path[2:], True
+            else:
+                specs[path] = ()     # opt.count and step: replicated scalars
+                continue
+            if inner[0] == "blocks" and scanned:
+                inner = ("blocks", 0) + inner[1:]
+            lay = layout_at(self.dp.layout, inner)
+            specs[path] = lay.ckpt_spec(state=state)
+            if lay.ckpt_spec(state=state, held=True) != specs[path]:
+                held[path] = lay.ckpt_spec(state=state, held=True)
+        return CheckpointShards(specs=specs, sizes=self.dp.sizes, coords=self.dp.coords,
+                                held=held)
 
     def restore_or_init(self) -> tuple[TrainState, int]:
         """The newest intact checkpoint's state (``checkpoint.restore``),
@@ -672,6 +801,14 @@ class Trainer:
         return self.ckpt.save(step, lambda: state_to_tree(state, self.cfg.model),
                               extra=self._ckpt_extra(), **kw)
 
+    def _preempted(self, preempt) -> bool:
+        """Preempted on any rank: on a mesh the vote that the step's scalar
+        reduction carried (the flags as they stood when the step began, so
+        every rank takes the same branch, a step after a late signal); the
+        handler's own flag on one device."""
+        vote = None if self.dp is None else self.dp.preempt_vote
+        return bool(preempt.preempted) if vote is None else bool(vote > 0)
+
     def _spike_limit(self) -> np.float32:
         """The norm threshold fed to the guarded step: factor x the
         running EMA, or +inf while no reference exists (first steps, or
@@ -707,7 +844,7 @@ class Trainer:
         """The FaultInjector "nan" step, built on first use."""
         if self._poison_step is None:
             self._poison_step = make_train_step(self.cfg, self._schedule, poison=True,
-                                                mesh=self.mesh)
+                                                dp=self.dp)
         return self._poison_step
 
     def _rollback(self, failed_step: int) -> tuple[TrainState, int]:
@@ -775,24 +912,20 @@ class Trainer:
 
     def global_batch(self, step: int) -> dict[str, torch.Tensor]:
         """The step's batch on the device, with the grad_accum microbatch
-        axis leading when accumulating: [A, b, S]. Under sequence
-        parallelism, this rank's contiguous slice of the sequence axis of
-        every leaf (targets shifted before slicing), with the slice's
-        global positions where the batch has none."""
+        axis leading when accumulating: [A, b, S]. On a mesh, this rank's
+        rows (of each microbatch) over dp x fsdp and, under sequence
+        parallelism, its contiguous slice of the sequence axis of every
+        leaf (targets shifted before slicing), with the slice's global
+        positions where the batch has none."""
         return self._on_device(self.loader.batch_at(step), self.cfg.train.grad_accum)
 
     def _on_device(self, host, accum: int = 1) -> dict[str, torch.Tensor]:
-        """A host batch as the step takes it (see ``global_batch``)."""
-        host = dict(host)
-        sp = self.cfg.parallel.sp
-        if sp > 1:
-            S = host["inputs"].shape[-1]
-            if "positions" not in host:
-                host["positions"] = np.broadcast_to(
-                    np.arange(S, dtype=np.int32), host["inputs"].shape)
-            lo, hi = self.sp_rank * S // sp, (self.sp_rank + 1) * S // sp
-            host = {k: v[..., lo:hi] for k, v in host.items()}
-        if accum > 1:
+        """A host batch as the step takes it (see ``global_batch``): on a
+        mesh this rank's rows and sequence slice
+        (``DataParallel.local_rows``)."""
+        if self.dp is not None:
+            host = self.dp.local_rows(host, accum)
+        elif accum > 1:
             host = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                     for k, v in host.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -804,27 +937,30 @@ class Trainer:
     def evaluate(self, params: Any) -> float:
         """Mean held-out CE loss over the fixed eval batch set: batches 0 to
         ``train.eval_batches`` - 1 of the eval stream, the same every call,
-        moved to the device once. Under sequence parallelism each rank's
-        share is summed over ``sp``."""
+        moved to the device once. On a mesh each rank's share is summed
+        over the mesh."""
         assert self.eval_loader is not None, "set train.eval_interval"
         if self._eval_batches is None:
             self._eval_batches = [self._on_device(self.eval_loader.batch_at(i))
                                   for i in range(self.cfg.train.eval_batches)]
         total = 0.0
+        gather = None if self.dp is None else self.dp.gather
         for batch in self._eval_batches:
-            ce = loss_fn(params, batch, self.cfg.model, self.mesh)[1]["ce_loss"]
-            if self.mesh is not None:
-                ce = all_reduce(ce, self.mesh.get_group("sp"))
+            ce = loss_fn(params, batch, self.cfg.model, self.mesh, gather=gather)[1]["ce_loss"]
+            if self.dp is not None:
+                ce = self.dp.sum_all(ce)
             total += float(ce)
         return total / max(len(self._eval_batches), 1)
 
     def memory_report(self, assert_donation: bool = True) -> dict:
         """What one step holds on the device, by category, with the JAX
-        report's keys: ``donated_state_bytes`` and ``donated_bytes_per_chip``
-        (the state's bytes; one device holds all of it), ``by_category``
-        (``params``, ``grads`` at the gradient dtype, ``master`` (0: the
-        params are the masters without ZeRO-1), ``moments``, arithmetic over
-        the state tree; ``activations``), ``available``.
+        report's keys: ``donated_state_bytes`` (the whole state's bytes) and
+        ``donated_bytes_per_chip`` (this rank's), ``by_category``
+        (``params``, ``grads`` at the gradient dtype, ``master`` (ZeRO-1's
+        split, else 0: the params are the masters), ``moments``, arithmetic
+        over this rank's blocks of the state; ``activations``),
+        ``available``. On a mesh every rank calls it together (the step's
+        collectives).
 
         ``activations`` are the device bytes one step's forward saves for
         the backward (one microbatch's, under grad_accum): every tensor
@@ -854,7 +990,7 @@ class Trainer:
         by_category = {
             "params": nbytes(params),
             "grads": nbytes(params, gdt),
-            "master": 0,
+            "master": nbytes(tree_leaves(state["opt"].get("master", []))),
             "moments": nbytes(tree_leaves(state["opt"]["mu"]))
             + nbytes(tree_leaves(state["opt"]["nu"])),
         }
@@ -880,11 +1016,12 @@ class Trainer:
         log = RematLog()
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
             loss, _ = loss_fn(tree_unflatten(state["params"], leaves), batch, cfg.model,
-                              self.mesh, remat_log=log)
+                              self.mesh, remat_log=log,
+                              gather=None if self.dp is None else self.dp.gather)
         torch.autograd.grad(loss, leaves)
         del loss
         report = {
-            "donated_state_bytes": donated,
+            "donated_state_bytes": nbytes(tree_leaves(abstract_train_state(cfg))),
             "donated_bytes_per_chip": donated,
             "by_category": dict(by_category, activations=sum(saved.values())),
             "available": True,
@@ -897,7 +1034,8 @@ class Trainer:
         # The update in place: every parameter and moment keeps its storage.
         def ptrs():
             return [t.data_ptr() for t in tree_leaves(
-                [state["params"], state["opt"]["mu"], state["opt"]["nu"]])]
+                [state["params"], state["opt"]["mu"], state["opt"]["nu"],
+                 state["opt"].get("master", [])])]
 
         before = ptrs()
         args = (self._spike_limit(),) if cfg.train.anomaly_guard else ()
@@ -978,6 +1116,8 @@ class Trainer:
                     if injector is not None and injector.take("nan", step, "train") is not None:
                         log.warning("fault injection: NaN-poisoned train step %d", step)
                         step_fn = self._poison_variant()
+                    if self.dp is not None:
+                        self.dp.preempted, self.dp.preempt_vote = preempt.preempted, None
                     mid_step = True
                     # The train#<step> range marks the step in a profiler
                     # capture over the same window; the dispatch span covers
@@ -1037,7 +1177,7 @@ class Trainer:
                     if tracer.enabled:
                         tracer.record_span("train_step", s0, time.monotonic(), step=step,
                                            anomalous=anomalous)
-                    if preempt.preempted:
+                    if self._preempted(preempt):
                         # Step boundary: the state is consistent. Persist and
                         # stop cleanly; a supervisor restart resumes
                         # losslessly. The emergency save queues BEHIND any

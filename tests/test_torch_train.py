@@ -244,6 +244,31 @@ def test_trainer_grad_dtype_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
+def test_bf16_params_grads_match_jax():
+    """bf16 parameters beside float32 compute (``model.param_dtype``): the
+    gradients come back in bf16 on both sides. The embedding's sums run in
+    the compute dtype, as the JAX package's lookup casts the table before
+    it indexes it (summed in bf16, the rows of repeated tokens round apart
+    by several ulps). Every gradient to one bf16 ulp of JAX's (at most
+    2^-7 of the value) and the float32 tests' 2e-6 absolute."""
+    ov = SMALL + ["model.param_dtype=bfloat16"]
+    jcfg = j_get_config("tiny-llama", ov)
+    jp = j_init_params(jcfg.model, jax.random.key(0))
+    batch = dict(j_loader.SyntheticLoader(jcfg.data, 0, 1, jcfg.model.vocab_size).batch_at(3))
+    _, jgrads = jax.jit(jax.value_and_grad(j_loss_fn, has_aux=True), static_argnums=2)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg.model)
+    cfg = get_config("tiny-llama", ov)
+    params = from_jax_params(_np_tree(jp), cfg.model)
+    leaves = [leaf.requires_grad_(True) for _, leaf in tree_leaves_with_path(params)]
+    loss, _ = loss_fn(params, {k: _t(v) for k, v in batch.items()}, cfg.model)
+    grads = torch.autograd.grad(loss, leaves)
+    for (path, w), g in zip(tree_leaves_with_path(from_jax_params(_np_tree(jgrads),
+                                                                  cfg.model)), grads):
+        assert g.dtype == w.dtype == torch.bfloat16, path
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(), rtol=2.0 ** -7,
+                                   atol=2e-6, err_msg=str(path))
+
+
 # (f) the command line.
 def test_train_cli_runs_on_cpu(capsys):
     from orion_tpu_torch.train.__main__ import main
@@ -287,12 +312,25 @@ def test_ported_fault_knobs_build_a_trainer(override, tmp_path):
     assert (tr.ckpt is not None) == override.startswith("checkpoint.directory")
 
 
+# Three of these are the JAX trainer's own ValueErrors: zero1 at dp = 1,
+# and a mesh other than one process a device (dp = 2 in one process, two
+# processes on a one-device mesh); dp = 2 on two ranks trains
+# (tests/test_torch_train_dp.py).
+RAISES = {
+    "train.zero1=true": (ValueError, "train.zero1 needs parallel.dp > 1"),
+    "parallel.dp=2": (ValueError, "wants 2 devices"),
+    "runtime.num_processes=2;runtime.coordinator_address=localhost:1234": (
+        ValueError, "must equal the mesh size"),
+}
+
+
 @pytest.mark.parametrize("override", [
     "train.zero1=true", "train.grad_quant_bits=8", "parallel.dp=2", "parallel.tp=2",
     "runtime.num_processes=2;runtime.coordinator_address=localhost:1234",
 ])
 def test_unported_trainer_knobs_raise(override):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    exc, match = RAISES.get(override, (NotImplementedError, "not ported"))
+    with pytest.raises(exc, match=match):
         Trainer(get_config("tiny-llama", override.split(";")), device="cpu")
 
 

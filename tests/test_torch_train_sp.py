@@ -77,13 +77,46 @@ def test_trainer_sp_matches_jax_trainer(runs, name):
     assert len({g["params_sha256"] for g in got}) == 1
 
 
+# Parts that run beside sp: each builds its trainer in rank processes (four
+# for the dp and fsdp meshes, two else) and takes a first step.
+LIFTED = {"parallel.dp=2": 4, "parallel.fsdp=2": 4, "checkpoint.directory={tmp}/ckpt": 2,
+          "train.inject_fault_at_step=1": 2, "train.anomaly_guard=true": 2}
+
+
+@pytest.fixture(scope="module")
+def lifted(tmp_path_factory):
+    """The first-step loss of every rank of each lifted configuration."""
+    from tests import torch_dp_worker as D
+
+    out, ctxs = {}, []
+    for world in (4, 2):
+        tmp = tmp_path_factory.mktemp(f"lifted{world}")
+        cases = [{"id": o, "preset": "tiny-llama", "params": None, "first_step": True,
+                  "overrides": ["parallel.sp=2", o.format(tmp=tmp)]}
+                 for o, w in LIFTED.items() if w == world]
+        ctxs.append((world, tmp, D.spawn(world, cases, tmp)))
+    for world, tmp, ctx in ctxs:
+        for r in D.collect(ctx, world, tmp):
+            assert not r.pop("jax_imported")
+            for o, row in r.items():
+                out.setdefault(o, []).append(row["first_loss"])
+    return out
+
+
 @pytest.mark.parametrize("override", [
     "parallel.dp=2", "parallel.fsdp=2", "parallel.tp=2", "parallel.pp=2", "parallel.ep=2",
     "checkpoint.directory={tmp}/ckpt", "train.inject_fault_at_step=1",
-    "train.anomaly_guard=true",
+    "train.anomaly_guard=true", "train.grad_quant_bits=8",
 ])
-def test_sp_with_unported_parts_raises(override, tmp_path):
-    """Checked at construction, before any process group is joined."""
+def test_sp_with_unported_parts_raises(override, tmp_path, request):
+    """The refusals are checked at construction, before any process group
+    is joined; a lifted part's ranks take a first step with one finite
+    loss, the same on every rank."""
+    if override in LIFTED:
+        losses = request.getfixturevalue("lifted")[override]
+        assert len(losses) == LIFTED[override] and np.isfinite(losses[0])
+        assert all(x == losses[0] for x in losses)
+        return
     cfg = get_config("tiny-llama", ["parallel.sp=2", override.format(tmp=tmp_path)])
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(cfg, device="cpu")
