@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases device,build,serve,serve_int8w,serve_moe,train_moe
     python3 chip_smoke.py --phases device,build,train_remat,train_checks
     python3 chip_smoke.py --phases device,build,fsdp_rank
+    python3 chip_smoke.py --phases device,build,tp_serve
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -313,8 +314,9 @@ exits non-zero without printing a result:
            from the code; prints step s, tokens/s, MFU, peak memory beside
            the unsharded state's bytes, and the bytes the gathers and
            reduce-scatters would move per step
-  train_faults  llama-1b-bench at full width and depth on the card, the
-           checkpoint format and the training fault stack, in a temporary
+  train_faults  llama-1b-bench at full width, cut to 8 of its 16 layers
+           (TF_LAYERS), on the card: the checkpoint format and the
+           training fault stack, in a temporary
            directory removed at the end (the free disk is printed first):
            R0, 6 steps saving every 2 (async, 2 kept); its final checkpoint
            restored to the host with and without the CRC pass; S, the
@@ -334,6 +336,23 @@ exits non-zero without printing a result:
            checkpoint bytes, save (capture) and commit medians, restore
            times, the two step times, the free disk and K1-K3/K5-K8's
            launches
+  tp_serve  llama3-8b-infer at full width and depth at tp = 2: two rank
+           processes on the one card over a gloo group (NCCL refuses two
+           ranks on one GPU), each building its engine from its blocks
+           of the seeded bf16 weights (cuda_graphs=False: a host-staged
+           gloo collective cannot be captured), serving serve's first 8
+           prompts with 32 new tokens in three drives: plain, chunked with
+           int8 KV (serve_spec's drive B: tree speculation, the prefix
+           cache) and speculative (drive A), the speculative ones after
+           serve_spec's warm-up; rank 0 first serves the same with a
+           tp = 1 engine on the whole weights. Gates: both ranks' streams
+           identical in every drive, rank 0's first-token logits of every
+           request within GATHER_LOGIT_REL of tp = 1's in bf16, and within
+           1e-4 at float32 over a depth cut to 4 layers, K1-K4, K4-int8, K9-int8, K10 and
+           K10-int8 launched on each rank at its shard's heads, page accounting at
+           drain. Prints the share of tokens equal to tp = 1's, TTFT and
+           decode tokens/s, the collectives' calls and staged bytes a step
+           and each rank's peak memory (rank logs in chiprun_out/)
   timing   each kernel in bfloat16 at the ``kernels`` shapes (K1-K4, K9,
            K1 also at the training rows and the serve's decode batch, with
            its device time alone and the host's microseconds per call; K5
@@ -344,7 +363,12 @@ exits non-zero without printing a result:
            K10 and their merges also by CUDA-graph replay; K5-K8, and K3
            again with its lse as ``flash_fwd_train``: the training path's;
            K7-pos and K8-pos at the striped training shapes, with their
-           device time alone, bound from the admitted pairs):
+           device time alone, bound from the admitted pairs; the tp forms
+           of K3, K4, K9, K10 at tp = 8 shard shapes, 4 query heads over 1
+           kv head, the kernels phase holding each against its plain
+           version on one rank's head blocks there and at tp_serve's
+           tp = 2 shard, 16 over 4; in the kernels line beside the
+           kernel's own row):
            CUDA events around 5 runs of 5 back-to-back calls after a
            warm-up, the median per call, beside its plain version, one
            PyTorch library call computing the same function where there is
@@ -380,7 +404,7 @@ PHASES = ("device", "build", "kernels", "parity", "serve_moe", "train_moe", "tra
           "train_checks", "serve", "serve_obs", "serve_chunked", "serve_spec",
           "serve_constrained", "serve_faults", "serve_graphs", "serve_host_tier",
           "serve_gather", "serve_int8w", "serve_long", "train_parity", "train", "train_obs",
-          "train_faults", "sp_rank", "fsdp_rank", "timing")
+          "train_faults", "sp_rank", "fsdp_rank", "tp_serve", "timing")
 
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -516,6 +540,23 @@ KERNEL_META = {
     "flash_fwd_pos_merge": dict(route="cuda", source="orion_tpu_torch/csrc/flash_fwd.cu",
                                 replaces="orion_tpu/ops/pallas/flash_attention.py:178"),
 }
+# The tensor-parallel forms: the JAX package runs K3, K4, K9 and K10 per
+# head shard under shard_map (at these lines); a serving rank of the port
+# holds only its heads, so its runner launches the same kernels on them.
+# Their rows of the kernels line carry the form's line, their errors at
+# the shard shapes of rank TP8_RANK of tp = 8 (the preset's 32/8 heads:
+# 4 query heads over 1 kv head; timed there too) and of the last rank of
+# tp_serve's tp = 2 (16 over 4), and their launches in tp_serve.
+TP_FORM_AT = {
+    "flash_fwd": "orion_tpu/ops/attention.py:219",
+    "paged_decode": "orion_tpu/ops/pallas/paged_attention.py:424",
+    "paged_decode_int8": "orion_tpu/ops/pallas/paged_attention.py:424",
+    "paged_prefill": "orion_tpu/ops/pallas/paged_flash_prefill.py:494",
+    "paged_prefill_int8": "orion_tpu/ops/pallas/paged_flash_prefill.py:494",
+    "ragged_verify": "orion_tpu/ops/pallas/ragged_paged_attention.py:629",
+    "ragged_verify_int8": "orion_tpu/ops/pallas/ragged_paged_attention.py:629",
+}
+TP8, TP8_RANK = 8, 3
 
 # Shapes of the kernels phase (the serving path's at llama3-8b-infer).
 K1_ROWS, D_MODEL = 4 * 2048, 4096
@@ -694,12 +735,12 @@ def k2_inputs(dtype, gen):
     return q, k, pos
 
 
-def k3_inputs(dtype, gen):
+def k3_inputs(dtype, gen, N=N_HEADS, K=N_KV):
     import torch
 
-    q = torch.randn(B_PRE, S_PRE, N_HEADS, HEAD, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B_PRE, S_PRE, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B_PRE, S_PRE, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(B_PRE, S_PRE, N, HEAD, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B_PRE, S_PRE, K, HEAD, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B_PRE, S_PRE, K, HEAD, generator=gen, device="cuda").to(dtype)
     lens = torch.tensor(PRE_LENS, device="cuda")
     seg = (torch.arange(S_PRE, device="cuda")[None] < lens[:, None]).to(torch.int32)
     return q, k, v, seg
@@ -736,16 +777,17 @@ K4_LAST_POS = [0, 0] + [int(8191 * ((b + 1) / B_DEC) ** 2) for b in range(2, B_D
 K4_SERVE_LAST_POS = [int(99 + 1964 * i / 15) for i in range(16)] + [0] * 16
 
 
-def k4_inputs(dtype, gen, quant=False, last_pos=K4_LAST_POS):
+def k4_inputs(dtype, gen, quant=False, last_pos=K4_LAST_POS, N=N_HEADS, K=N_KV):
     """32 slots over the full preset pool at layer 31: slots with last_pos
     0 idle (all-zero page table, scratch page 0; slots 0 and 1 by
     default), the rest with ragged contexts (up to 8191 by default) on
-    distinct pages. Returns the pools' scales last."""
+    distinct pages. N query heads over K kv heads (the preset's by
+    default). Returns the pools' scales last."""
     import torch
 
     P = 8192 // PSZ
     rows = N_LAYERS * NUM_PAGES
-    k_pool, v_pool, scales = rand_pools(dtype, gen, rows, N_KV, PSZ, HEAD, quant)
+    k_pool, v_pool, scales = rand_pools(dtype, gen, rows, K, PSZ, HEAD, quant)
     perm = torch.randperm(NUM_PAGES - 1, generator=gen, device="cuda") + 1
     table = torch.zeros(B_DEC, P, dtype=torch.int32, device="cuda")
     used = 0
@@ -756,9 +798,9 @@ def k4_inputs(dtype, gen, quant=False, last_pos=K4_LAST_POS):
         table[b, :n] = perm[used:used + n].to(torch.int32)
         used += n
     assert used <= NUM_PAGES - 1, used
-    q = torch.randn(B_DEC, N_HEADS, HEAD, generator=gen, device="cuda").to(dtype)
-    kn = torch.randn(B_DEC, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
-    vn = torch.randn(B_DEC, N_KV, HEAD, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(B_DEC, N, HEAD, generator=gen, device="cuda").to(dtype)
+    kn = torch.randn(B_DEC, K, HEAD, generator=gen, device="cuda").to(dtype)
+    vn = torch.randn(B_DEC, K, HEAD, generator=gen, device="cuda").to(dtype)
     lp = torch.tensor(last_pos, dtype=torch.int32, device="cuda")
     return q, k_pool, v_pool, table, lp, kn, vn, (N_LAYERS - 1) * NUM_PAGES, scales
 
@@ -2033,6 +2075,7 @@ def phase_kernels():
                 check_k4_deterministic(gen, quant)
                 check_k10_deterministic(gen, quant)
             check_nan_containment(gen)
+            errs[dn].update(check_tp_forms(gen))
         for name, e in check_train_kernels(dtype, gen).items():
             errs[dn][name] = max(errs[dn].get(name, 0.0), e)
         errs[dn].update(check_flash_pos_train(dtype, gen))
@@ -2046,6 +2089,112 @@ def phase_kernels():
     emit({"phase": "kernels", "ragged_verify_variants": k10_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
     emit({"phase": "kernels", "norm_variants": norm_variants(gen), "deterministic": True})
+    return errs
+
+
+def check_tp_forms(gen):
+    """K3, K4, K9 and K10 as a tensor-parallel rank runs them: on the
+    rank's block of heads of the kernels phase's bfloat16 inputs (K4, K9,
+    K10 also over int8 pools), its pool slice copied out of the whole pool,
+    at two shards: rank TP8_RANK of tp = 8 (4 query heads over 1 kv head)
+    and the last rank of tp_serve's tp = 2 (16 over 4). The kernel's output
+    against the plain version's on the same blocks, within the kernel's
+    TOL, and the rows it wrote into its slice byte for byte. Returns the
+    errors by ``<kernel>@tp<tp>``."""
+    errs = {}
+    for tp, rank in ((TP8, TP8_RANK), (TP_SERVE_TP, TP_SERVE_TP - 1)):
+        errs.update(check_tp_shard(gen, tp, rank))
+    return errs
+
+
+def check_tp_shard(gen, tp, r):
+    """check_tp_forms at one shard: rank ``r`` of ``tp``."""
+    import torch
+
+    from orion_tpu_torch import ops
+
+    dt = torch.bfloat16
+    n, kh = N_HEADS // tp, N_KV // tp
+    errs = {}
+
+    def hb(t, dim, count):
+        """Rank r's block of ``count`` heads along ``dim`` (where the JAX
+        package's P(..., "tp", ...) places them), contiguous."""
+        return None if t is None else t.narrow(dim, r * count, count).contiguous()
+
+    def pools(kp, vp, sc):
+        return [hb(t, 1, kh) for t in (kp, vp, *sc.values())]
+
+    q, k, v, seg = k3_inputs(dt, gen)
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    qb, kb, vb = hb(q, 2, n), hb(k, 2, kh), hb(v, 2, kh)
+    got = ops.attention(qb, kb, vb, seg_pad_zero=True, **kw)
+    if got.shape != (B_PRE, S_PRE, n, HEAD):
+        raise AssertionError(f"flash_fwd@tp{tp}: output {tuple(got.shape)}")
+    want = ops.attention_plain(qb, kb, vb, **kw)
+    errs[f"flash_fwd@tp{tp}"] = require_close("flash_fwd", "bfloat16", got, want, rows=seg > 0)
+    del q, k, v, qb, kb, vb, got, want
+    for quant in (False, True):
+        base_name = "paged_decode_int8" if quant else "paged_decode"
+        q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant)
+        qb, knb, vnb = hb(q, 1, n), hb(kn, 1, kh), hb(vn, 1, kh)
+        blk_k, blk_p = pools(kp, vp, sc), pools(kp, vp, sc)
+        out_k, *pools_k = ops.paged_attention(qb, blk_k[0], blk_k[1], table, lp,
+                                              layer_base=base, k_new=knb, v_new=vnb,
+                                              **dict(zip(sc, blk_k[2:])))
+        out_p, *pools_p = ops.paged_attention_plain(qb, blk_p[0], blk_p[1], table, lp,
+                                                    layer_base=base, k_new=knb, v_new=vnb,
+                                                    **dict(zip(sc, blk_p[2:])))
+        live = torch.arange(B_DEC, device="cuda") >= 2
+        wrows = (base + table[torch.arange(B_DEC, device="cuda"), lp // PSZ].long())[live]
+        require_bytes_equal(f"{base_name}@tp{tp}", [t[wrows] for t in pools_k],
+                            [t[wrows] for t in pools_p])
+        errs[f"{base_name}@tp{tp}"] = require_close(base_name, "bfloat16", out_k, out_p,
+                                                    rows=live)
+        del q, kp, vp, sc, blk_k, blk_p, pools_k, pools_p
+        torch.cuda.empty_cache()
+    for quant in (False, True):
+        base_name = "paged_prefill_int8" if quant else "paged_prefill"
+        q, kp, vp, walk, start, lens, kn, vn, base, sc, P_pre = k9_inputs(dt, gen, quant)
+        kw = dict(n_prefix_pages=P_pre, layer_base=base)
+        qb, knb, vnb = hb(q, 2, n), hb(kn, 2, kh), hb(vn, 2, kh)
+        blk_k, blk_p = pools(kp, vp, sc), pools(kp, vp, sc)
+        out_k, *pools_k = ops.paged_flash_prefill(qb, blk_k[0], blk_k[1], walk, start, lens,
+                                                  knb, vnb, **dict(zip(sc, blk_k[2:])), **kw)
+        out_p, *pools_p = ops.paged_flash_prefill_plain(
+            qb, blk_p[0], blk_p[1], walk, start, lens, knb, vnb,
+            **dict(zip(sc, blk_p[2:])), **kw)
+        wrows = base + walk[:, P_pre:].reshape(-1).long()
+        wrows = wrows[wrows != base]
+        require_bytes_equal(f"{base_name}@tp{tp}", [t[wrows] for t in pools_k],
+                            [t[wrows] for t in pools_p])
+        real = torch.arange(q.shape[1], device="cuda")[None] < lens[:, None]
+        errs[f"{base_name}@tp{tp}"] = require_close(base_name, "bfloat16", out_k, out_p,
+                                                    rows=real)
+        del q, kp, vp, sc, blk_k, blk_p, pools_k, pools_p
+        torch.cuda.empty_cache()
+    for quant in (False, True):
+        base_name = "ragged_verify_int8" if quant else "ragged_verify"
+        shape = k10_main_shape()
+        q, kp, vp, table, start, lens, kn, vn, base, sc = k10_inputs(dt, gen, quant, **shape)
+        qb, knb, vnb = hb(q, 2, n), hb(kn, 2, kh), hb(vn, 2, kh)
+        blk_k, blk_p = pools(kp, vp, sc), pools(kp, vp, sc)
+        out_k, *pools_k = ops.ragged_paged_attention(
+            qb, blk_k[0], blk_k[1], table, start, lens, layer_base=base, k_new=knb,
+            v_new=vnb, **dict(zip(sc, blk_k[2:])))
+        out_p, *pools_p = ops.ragged_paged_attention_plain(
+            qb, blk_p[0], blk_p[1], table, start, lens, layer_base=base, k_new=knb,
+            v_new=vnb, **dict(zip(sc, blk_p[2:])))
+        wrows = torch.unique(base + table[table > 0].long())
+        require_bytes_equal(f"{base_name}@tp{tp}", [t[wrows] for t in pools_k],
+                            [t[wrows] for t in pools_p])
+        real = torch.arange(q.shape[1], device="cuda")[None] < lens[:, None]
+        real[torch.tensor(shape["pad"], device="cuda")] = False
+        errs[f"{base_name}@tp{tp}"] = require_close(base_name, "bfloat16", out_k, out_p,
+                                                    rows=real)
+        del q, kp, vp, sc, blk_k, blk_p, pools_k, pools_p
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "tp_forms": errs, "tp": tp, "rank": r, "heads": [n, kh]})
     return errs
 
 
@@ -5870,6 +6019,11 @@ def phase_train_checks(plain_losses=None):
 SP_PRESET, SP_REL = "llama3-8b-256k-ring", 2.0 ** -5
 
 
+def rel_rms_rows(a, b) -> list:
+    """rel_rms of every row of a [R, V] against the same row of b."""
+    return [rel_rms(x, y) for x, y in zip(a, b)]
+
+
 def rel_rms(a, b) -> float:
     """||a - b|| / ||b|| in float32."""
     a, b = a.detach().float(), b.detach().float()
@@ -6173,9 +6327,287 @@ def phase_fsdp_rank():
 # train_faults: llama-1b-bench at full width and depth, random weights from
 # train.seed, checkpoints in a temporary directory (at most two committed
 # plus one being written: ~8.3 GB each).
+# tp_serve: llama3-8b-infer at tp = 2, two rank processes on the one card
+# over a gloo group (NCCL refuses two ranks on one GPU), eager dispatch
+# (a host-staged gloo collective cannot be captured in a CUDA graph).
+TP_SERVE_TP = 2
+TP_SERVE_NEW = 32
+TP_SERVE_PROMPTS = 8           # serve's first 8 prompts (100-986 tokens)
+TP_SERVE_REF_PAGES = 512       # the tp = 1 reference engine's pool
+TP_SERVE_F32_LAYERS = 4
+TP_SERVE_F32_REL = 1e-4
+TP_SERVE_TIMEOUT_S = 480
+# The chunked wave with int8 KV is serve_spec's drive B (tree speculation,
+# int8 KV, the prefix cache, chunked prefill), so K10 runs over both pools.
+TP_SERVE_DRIVES = {"plain": [], "chunked_int8": SERVE_SPEC_DRIVES["B"],
+                   "spec": SERVE_SPEC_DRIVES["A"]}
+TP_SERVE_KERNELS = ("rmsnorm_fwd", "rope_fwd", "flash_fwd", "paged_decode",
+                    "paged_decode_int8", "paged_prefill_int8", "ragged_verify",
+                    "ragged_verify_int8")
+
+
+def tp_prompts(V):
+    """serve's prompts (the same seed and lengths), the first
+    TP_SERVE_PROMPTS of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = np.linspace(100, 2000, 16).astype(int)
+    return [rng.integers(0, V, size=n).tolist() for n in lens][:TP_SERVE_PROMPTS]
+
+
+def tp_reference(cfg, whole, prompts, n_new):
+    """The tp = 1 engine on the whole weights (a pool of
+    TP_SERVE_REF_PAGES): each prompt's first-token logits (float32, host)
+    and its stream."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch.infer import InferenceEngine
+
+    icfg = dataclasses.replace(cfg.inference, num_pages=TP_SERVE_REF_PAGES)
+    eng = InferenceEngine(dataclasses.replace(cfg, inference=icfg), whole, device="cuda",
+                          cuda_graphs=False)
+    first = capture_first_logits(eng)
+    reqs = [eng.submit_request(p, n_new) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    logits = torch.stack([first[r.rid] for r in reqs])
+    streams = [r.generated for r in reqs]
+    eng.close()
+    del eng, first
+    free_engine()
+    return logits, streams
+
+
+def tp_rank_params(cfg, rank, dtype):
+    """This rank's serving blocks of the seeded whole weights (the same on
+    every rank: generator seed 0 on the card), and the whole weights."""
+    import torch
+
+    from orion_tpu_torch.models import init_params
+    from orion_tpu_torch.models.convert import serving_blocks
+    from orion_tpu_torch.runtime.mesh import rank_coords
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    whole = init_params(cfg.model, gen, device="cuda", dtype=dtype)
+    sizes = dict(cfg.parallel.axis_sizes, tp=TP_SERVE_TP)
+    return whole, lambda w: serving_blocks(w, cfg.model, sizes, rank_coords(rank, sizes))
+
+
+def tp_drive(name, cfg, blocks, prompts, V):
+    """One engine at tp = 2 on this rank's blocks: a warm-up (serve_spec's
+    for a speculative drive), then the wave of ``prompts``; page
+    accounting at drain. Returns the wave's requests and numbers, the
+    drive's launches (warm-up included), the first-token logits of the
+    wave, and the collectives' calls and staged bytes of the wave."""
+    import numpy as np
+
+    from orion_tpu_torch import comm, ops
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(cfg, blocks, device="cuda", cuda_graphs=False)
+    rng = np.random.default_rng(1)
+    if cfg.inference.speculative:
+        warm = rng.integers(0, V, 300).tolist()
+        eng.generate([warm], 40)
+        eng.generate([warm, rng.integers(0, V, 600).tolist()], 40)
+        eng.clear_prefix_cache()
+    else:
+        eng.generate([rng.integers(0, V, 100).tolist()], 2)
+    warm_launches = ops.launches()
+    first = capture_first_logits(eng)
+    comm.CALLS.clear()
+    comm.STAGED.clear()
+    reqs, res = serve_wave(eng, prompts, TP_SERVE_NEW)
+    calls, staged = dict(comm.CALLS), dict(comm.STAGED)
+    launches = {k: warm_launches[k] + res["launches"][k] for k in warm_launches}
+    require_no_faults(eng, f"tp_serve {name}")
+    eng.clear_prefix_cache()
+    eng.assert_page_accounting()
+    eng.close()
+    del eng
+    free_engine()
+    ops.reset_launches()
+    return reqs, res, launches, first, calls, staged
+
+
+def tp_serve_rank(rank, store):
+    """One rank of tp_serve: the bf16 drives (the tp = 1 reference on rank
+    0 first), then the float32 first-token check over TP_SERVE_F32_LAYERS
+    layers. Returns the rank's report."""
+    import torch
+    import torch.distributed as dist
+
+    from orion_tpu_torch.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # One intra-op thread a rank: the card does the math and the host only
+    # stages the collectives; two ranks' full thread pools would crowd the
+    # gloo transport's threads on the machine's cores.
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=TP_SERVE_TP,
+                            rank=rank)
+    rep = {"rank": rank, "drives": {}}
+    cfg1 = get_config("llama3-8b-infer")
+    V = cfg1.model.vocab_size
+    prompts = tp_prompts(V)
+    whole, cut = tp_rank_params(cfg1, rank, "bfloat16")
+    ref = None
+    if rank == 0:
+        ref = tp_reference(cfg1, whole, prompts, TP_SERVE_NEW)
+    blocks = cut(whole)
+    del whole
+    free_engine()
+    from orion_tpu_torch import ops
+
+    ops.reset_launches()
+    total = {}
+    for name, ov in TP_SERVE_DRIVES.items():
+        cfg = get_config("llama3-8b-infer", [f"parallel.tp={TP_SERVE_TP}"] + ov)
+        reqs, res, launches, first, calls, staged = tp_drive(name, cfg, blocks, prompts, V)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        steps = max(res["steps"], 1)
+        row = {k: res[k] for k in ("wall_s", "ttft_s_median", "ttft_s_max", "prefill_tok_s",
+                                   "decode_tok_s", "steps", "peak_mem_gib")}
+        row.update(streams=[r.generated for r in reqs], calls=calls, staged_bytes=staged,
+                   calls_per_step={k: n / steps for k, n in calls.items()},
+                   staged_bytes_per_step={k: n / steps for k, n in staged.items()})
+        if name == "plain" and ref is not None:
+            got = torch.stack([first[r.rid] for r in reqs])
+            if not torch.isfinite(got).all():
+                raise AssertionError("tp_serve: non-finite first-token logits")
+            rep["logits_rel_bf16"] = rel_rms_rows(got, ref[0])
+            pairs = [(a, b) for s, t in zip(row["streams"], ref[1]) for a, b in zip(s, t)]
+            rep["token_agreement_tp1"] = sum(a == b for a, b in pairs) / len(pairs)
+        rep["drives"][name] = row
+    rep["launches"] = total
+    del blocks
+    free_engine()
+    # float32 over a depth cut to TP_SERVE_F32_LAYERS: first tokens only.
+    ov = [f"model.n_layers={TP_SERVE_F32_LAYERS}", "model.dtype=float32"]
+    cfg1 = get_config("llama3-8b-infer", ov)
+    whole, cut = tp_rank_params(cfg1, rank, "float32")
+    if rank == 0:
+        ref = tp_reference(cfg1, whole, prompts, 1)
+    blocks = cut(whole)
+    del whole
+    free_engine()
+    cfg = get_config("llama3-8b-infer", [f"parallel.tp={TP_SERVE_TP}"] + ov)
+    from orion_tpu_torch.infer import InferenceEngine
+
+    eng = InferenceEngine(cfg, blocks, device="cuda", cuda_graphs=False)
+    first = capture_first_logits(eng)
+    reqs = [eng.submit_request(p, 1) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    rep["f32_streams"] = [r.generated for r in reqs]
+    if rank == 0:
+        rep["logits_rel_f32"] = rel_rms_rows(torch.stack([first[r.rid] for r in reqs]), ref[0])
+    eng.assert_page_accounting()
+    eng.close()
+    ops.reset_launches()
+    dist.barrier()
+    return rep
+
+
+def tp_serve_child(rank, store) -> int:
+    """``python3 -c "import chip_smoke; chip_smoke.tp_serve_child(r, store)"``:
+    one rank of tp_serve; prints one JSON line, the report or the error,
+    and leaves with ``os._exit``."""
+    import traceback
+
+    try:
+        rep = tp_serve_rank(rank, store)
+    except Exception as e:   # reported to the parent, which fails the phase
+        rep = {"rank": rank, "error": f"{type(e).__name__}: {e}",
+               "trace": traceback.format_exc()[-4000:]}
+    print(json.dumps(rep), flush=True)
+    os._exit(0)
+
+
+def phase_tp_serve():
+    """Two rank processes of tp_serve (logs in chiprun_out/tp_serve_rank<r>.log),
+    within TP_SERVE_TIMEOUT_S; gates: both ranks ran, emitted identical
+    streams in every drive, rank 0's first-token logits of every request
+    within GATHER_LOGIT_REL (bf16) and TP_SERVE_F32_REL (float32, 4 layers)
+    of the tp = 1 engine's, every TP_SERVE_KERNELS kernel launched on both
+    ranks. Returns rank 0's launches."""
+    import tempfile
+
+    smi = smi_line()
+    free_engine()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    t0 = time.perf_counter()
+    logs, procs = [], []
+    for r in range(TP_SERVE_TP):
+        log = open(os.path.join(OUT_DIR, f"tp_serve_rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_serve_child({r}, {store!r})"],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            p.wait(timeout=max(TP_SERVE_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"tp_serve: ranks did not finish in {TP_SERVE_TIMEOUT_S} s")
+    finally:
+        for log in logs:
+            log.close()
+    reps = []
+    for r in range(TP_SERVE_TP):
+        with open(os.path.join(OUT_DIR, f"tp_serve_rank{r}.log")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+        if not lines:
+            raise AssertionError(f"tp_serve: rank {r} printed no report "
+                                 f"(exit {procs[r].returncode})")
+        rep = json.loads(lines[-1])
+        if "error" in rep:
+            raise AssertionError(f"tp_serve rank {r}: {rep['error']}\n{rep.get('trace', '')}")
+        reps.append(rep)
+    a, b = reps
+    for name in TP_SERVE_DRIVES:
+        if a["drives"][name]["streams"] != b["drives"][name]["streams"]:
+            raise AssertionError(f"tp_serve {name}: the ranks' streams differ")
+    if a["f32_streams"] != b["f32_streams"]:
+        raise AssertionError("tp_serve float32: the ranks' streams differ")
+    if not max(a["logits_rel_bf16"]) < GATHER_LOGIT_REL:
+        raise AssertionError(f"tp_serve: bf16 first-token logits {a['logits_rel_bf16']} "
+                             f"from tp = 1's (bound {GATHER_LOGIT_REL} a request)")
+    if not max(a["logits_rel_f32"]) < TP_SERVE_F32_REL:
+        raise AssertionError(f"tp_serve: float32 first-token logits {a['logits_rel_f32']} "
+                             f"from tp = 1's (bound {TP_SERVE_F32_REL} a request)")
+    for rep in reps:
+        missing = [k for k in TP_SERVE_KERNELS if rep["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"tp_serve rank {rep['rank']}: never launched {missing}")
+    for rep in reps:
+        for row in rep["drives"].values():
+            del row["streams"]
+        del rep["f32_streams"]
+    emit({"phase": "tp_serve", "preset": "llama3-8b-infer", "tp": TP_SERVE_TP,
+          "backend": "gloo", "cuda_graphs": False, "requests": TP_SERVE_PROMPTS,
+          "new_tokens_each": TP_SERVE_NEW, "logits_rel_bound_bf16": GATHER_LOGIT_REL,
+          "logits_rel_bound_f32": TP_SERVE_F32_REL, "f32_layers": TP_SERVE_F32_LAYERS,
+          "ranks": reps, "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return reps[0]["launches"]
+
+
+# The depth cut to 8 of llama-1b-bench's 16 layers (the width is the
+# preset's): the phase is checkpoint I/O, and the whole smoke must stay
+# inside its time limit.
+TF_LAYERS = 8
 TF_OVERRIDES = [f"train.num_steps={TRAIN_STEPS}", "train.log_interval=1",
                 "checkpoint.save_interval_steps=2", "checkpoint.async_save=true",
-                "checkpoint.max_to_keep=2"]
+                "checkpoint.max_to_keep=2", f"model.n_layers={TF_LAYERS}"]
 TF_POISON_KERNELS = ("rmsnorm_bwd", "rope_bwd", "flash_dq", "flash_dkv")
 TF_PROMPTS = (100, 250, 400, 550)
 TF_NEW = 16
@@ -6301,7 +6733,7 @@ def tf_serve_check(cfg, ckpt_dir, params, step):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.model.vocab_size, size=n).tolist() for n in TF_PROMPTS]
     argv = ["--preset", "llama-1b-bench", "--max-new-tokens", str(TF_NEW),
-            f"checkpoint.directory={ckpt_dir}"]
+            f"checkpoint.directory={ckpt_dir}", f"model.n_layers={TF_LAYERS}"]
     for p in prompts:
         argv += ["--tokens", ",".join(map(str, p))]
     t0 = time.perf_counter()
@@ -6383,7 +6815,8 @@ def phase_train_faults():
         return losses
 
     clock = CkptClock()
-    out = {"phase": "train_faults", "preset": "llama-1b-bench", "steps": TRAIN_STEPS}
+    out = {"phase": "train_faults", "preset": "llama-1b-bench", "n_layers": TF_LAYERS,
+           "steps": TRAIN_STEPS}
     ops.reset_launches()
     try:
         # R0: the uninterrupted fit.
@@ -6650,9 +7083,10 @@ def train_timing(gen):
     return res
 
 
-def k4_timing(gen, quant, last_pos):
+def k4_timing(gen, quant, last_pos, N=N_HEADS, K=N_KV):
     """K4 in bfloat16 (int8 pools under ``quant``) at 32 slots of
-    ``last_pos``: time_ms and its device time alone (``device_ms``,
+    ``last_pos``, N query heads over K kv heads (a tp rank's shard with
+    fewer): time_ms and its device time alone (``device_ms``,
     graph_ms). Bytes: q and out, the new K/V read (and under int8
     written as int8 with its scales), every attended K/V element (and
     int8 scale) read once, the table and last_pos. The library yardstick
@@ -6666,24 +7100,24 @@ def k4_timing(gen, quant, last_pos):
     from orion_tpu_torch.ops.paged_attention import dequantize_pages
 
     dt = torch.bfloat16
-    q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant, last_pos)
+    q, kp, vp, table, lp, kn, vn, base, sc = k4_inputs(dt, gen, quant, last_pos, N, K)
     kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
     cuda = ops.paged_attention_int8_cuda if quant else ops.paged_attention_cuda
     ctx = int((lp.long() + 1).sum())
     if quant:
-        nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + 1) + 2 * B_DEC * N_KV * 4
-              + 2 * ctx * N_KV * (HEAD + 4) + table.numel() * 4 + lp.numel() * 4)
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + 1) + 2 * B_DEC * K * 4
+              + 2 * ctx * K * (HEAD + 4) + table.numel() * 4 + lp.numel() * 4)
     else:
-        nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * ctx * N_KV * HEAD * 2
+        nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * ctx * K * HEAD * 2
               + table.numel() * 4 + lp.numel() * 4)
     P = table.shape[1]
     rows = base + table.long()
     kc, vc = ((dequantize_pages(pool[rows], s[rows], dt) if quant else pool[rows])
-              .permute(0, 2, 1, 3, 4).reshape(B_DEC, N_KV, P * PSZ, HEAD)
+              .permute(0, 2, 1, 3, 4).reshape(B_DEC, K, P * PSZ, HEAD)
               for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
     if not quant:
-        kc = kc.repeat_interleave(N_HEADS // N_KV, dim=1)
-        vc = vc.repeat_interleave(N_HEADS // N_KV, dim=1)
+        kc = kc.repeat_interleave(N // K, dim=1)
+        vc = vc.repeat_interleave(N // K, dim=1)
     dmask = (torch.arange(P * PSZ, device="cuda")[None] <= lp[:, None].long())[:, None, None]
     res = dict(
         ms=time_ms(lambda: cuda(q, kp, vp, table, lp, **kw)),
@@ -6691,7 +7125,7 @@ def k4_timing(gen, quant, last_pos):
         plain_ms=time_ms(lambda: ops.paged_attention_plain(q, kp, vp, table, lp, **kw)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kc, vc, attn_mask=dmask, enable_gqa=quant)),
-        bound=bound(nb, 4 * N_HEADS * HEAD * ctx, BF16_FLOPS_S))
+        bound=bound(nb, 4 * N * HEAD * ctx, BF16_FLOPS_S))
     del kc, vc, q, kp, vp, sc
     torch.cuda.empty_cache()
     return res
@@ -6721,8 +7155,9 @@ def decode_merge_timing(gen):
     return res
 
 
-def paged_prefill_timing(gen):
-    """K9 in bfloat16 and over int8 pools at the chunked serve's shapes.
+def paged_prefill_timing(gen, N=N_HEADS, K=N_KV, suffix=""):
+    """K9 in bfloat16 and over int8 pools at the chunked serve's shapes
+    (N query heads over K kv heads; rows named with ``suffix``).
     Bytes: q and out, the chunk's K/V read and written (as int8 with its
     scales under int8), and the rows' real history pages read once;
     operations: 4 N H per attended (query, key) pair of the real queries.
@@ -6738,7 +7173,9 @@ def paged_prefill_timing(gen):
     dt = torch.bfloat16
     res = {}
     for name, quant in (("paged_prefill", False), ("paged_prefill_int8", True)):
-        q, kp, vp, walk, start, lens, kn, vn, base, sc, P_pre = k9_inputs(dt, gen, quant)
+        name += suffix
+        q, kp, vp, walk, start, lens, kn, vn, base, sc, P_pre = k9_inputs(dt, gen, quant,
+                                                                           N=N, K=K)
         kw = dict(n_prefix_pages=P_pre, layer_base=base, **sc)
         args = (q, kp, vp, walk, start, lens, kn, vn)
         cuda = ops.paged_flash_prefill_int8_cuda if quant else ops.paged_flash_prefill_cuda
@@ -6747,13 +7184,13 @@ def paged_prefill_timing(gen):
         pairs = sum(n * st + n * (n + 1) // 2 for st, n in zip(K9_STARTS, K9_LENS))
         item = 1 if quant else 2
         nb = (2 * q.numel() * 2 + 2 * kn.numel() * (2 + item)
-              + 2 * hist * N_KV * HEAD * item + walk.numel() * 4 + 2 * B * 4)
+              + 2 * hist * K * HEAD * item + walk.numel() * 4 + 2 * B * 4)
         if quant:
-            nb += 2 * (kn.numel() // HEAD + hist * N_KV) * 4
+            nb += 2 * (kn.numel() // HEAD + hist * K) * 4
         rows = base + walk[:, :P_pre].long()
         kpre, vpre = (pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt)
                       for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
-        kc, vc = (torch.cat([pre.permute(0, 1, 3, 2, 4).reshape(B, P_pre * PSZ, N_KV, HEAD),
+        kc, vc = (torch.cat([pre.permute(0, 1, 3, 2, 4).reshape(B, P_pre * PSZ, K, HEAD),
                              new], dim=1).transpose(1, 2)
                   for pre, new in ((kpre, kn), (vpre, vn)))
         pos = start.long()[:, None] + torch.arange(S, device="cuda")
@@ -6768,7 +7205,7 @@ def paged_prefill_timing(gen):
             plain_ms=time_ms(lambda: ops.paged_flash_prefill_plain(*args, **kw)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kc, vc, attn_mask=mask[:, None], enable_gqa=True)),
-            bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
+            bound=bound(nb, 4 * N * HEAD * pairs, BF16_FLOPS_S))
         del q, kp, vp, kn, vn, kc, vc, kpre, vpre, sc, mask, qt, args
         torch.cuda.empty_cache()
     return res
@@ -6814,6 +7251,7 @@ def k10_timing(gen, quant, shape):
     from orion_tpu_torch.ops.ragged_paged_attention import verify_mask
 
     dt = torch.bfloat16
+    N, K = shape.get("N", N_HEADS), shape.get("K", N_KV)
     q, kp, vp, table, start, lens, kn, vn, base, sc = k10_inputs(dt, gen, quant, **shape)
     kw = dict(layer_base=base, k_new=kn, v_new=vn, **sc)
     args = (q, kp, vp, table, start, lens)
@@ -6828,13 +7266,13 @@ def k10_timing(gen, quant, shape):
     ctx = sum(s for s, _ in live)
     pairs = sum(min(s + w, cap - 1) + 1 for s, n in live for w in range(n))
     item = 1 if quant else 2
-    nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * (written + ctx) * N_KV * HEAD * item
+    nb = (2 * q.numel() * 2 + 2 * kn.numel() * 2 + 2 * (written + ctx) * K * HEAD * item
           + table.numel() * 4 + 2 * B * 4)
     if quant:
-        nb += 2 * (written + ctx) * N_KV * 4
+        nb += 2 * (written + ctx) * K * 4
     rows = base + table.long()
     kc, vc = ((pool[rows] if not quant else dequantize_pages(pool[rows], s[rows], dt))
-              .permute(0, 2, 1, 3, 4).reshape(B, N_KV, cap, HEAD)
+              .permute(0, 2, 1, 3, 4).reshape(B, K, cap, HEAD)
               for pool, s in ((kp, sc.get("k_scale")), (vp, sc.get("v_scale"))))
     mask = verify_mask(start, W, cap)[:, None]
     qt = q.transpose(1, 2)
@@ -6847,7 +7285,7 @@ def k10_timing(gen, quant, shape):
         k4_ms_same_contexts=time_ms(lambda: k4(q[:, 0], kp, vp, table, start, **k4_kw)),
         k4_device_ms_same_contexts=graph_ms(lambda: k4(q[:, 0], kp, vp, table, start,
                                                        **k4_kw)),
-        bound=bound(nb, 4 * N_HEADS * HEAD * pairs, BF16_FLOPS_S))
+        bound=bound(nb, 4 * N * HEAD * pairs, BF16_FLOPS_S))
     del q, kp, vp, kn, vn, kc, vc, sc, mask, qt, args, kw, k4_kw
     torch.cuda.empty_cache()
     return res
@@ -6879,6 +7317,23 @@ def ragged_verify_timing(gen):
         library_ms=None,
         bound=bound(nb, 6 * n_read * rows * HEAD, F32_FLOPS_S))
     del o, ml, out
+    return res
+
+
+def tp_timing(gen):
+    """The tp forms at tp = 8 shard shapes (4 query heads over 1 kv head):
+    K3 at the serve's prefill burst, K4 at the kernels phase's 32 slots,
+    K9 at the chunked serve's 4 x 256 rows, K10 at the kernels phase's
+    verify rows (W = 5), each in bfloat16 and (K4, K9, K10) over int8
+    pools, with the bounds and library yardsticks of their full-head
+    rows at these heads."""
+    n, kh = N_HEADS // TP8, N_KV // TP8
+    res = {"flash_fwd_tp8": flash_fwd_timing(gen, n, kh)}
+    for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
+        res[f"{name}_tp8"] = k4_timing(gen, quant, K4_LAST_POS, n, kh)
+    res.update(paged_prefill_timing(gen, n, kh, "_tp8"))
+    for name, quant in (("ragged_verify", False), ("ragged_verify_int8", True)):
+        res[f"{name}_tp8"] = k10_timing(gen, quant, dict(k10_main_shape(), N=n, K=kh))
     return res
 
 
@@ -7079,9 +7534,38 @@ def k78pos_timing(gen):
     return res
 
 
-def phase_timing():
+def flash_fwd_timing(gen, N=N_HEADS, K=N_KV):
+    """K3 in bfloat16 at the serve's prefill burst (4 rows of 2048, real
+    lengths PRE_LENS), N query heads over K kv heads. Bytes: q, k, v read,
+    out written, the segment ids; operations: 4 H N per attended pair.
+    The library yardstick is SDPA with K/V repeated over the G heads and
+    the bool mask of the burst."""
     import torch
     import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    q, k, v, seg = k3_inputs(torch.bfloat16, gen, N, K)
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    pairs = sum(n * (n + 1) // 2 for n in PRE_LENS)
+    nb = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * seg.numel() * 4
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(N // K, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(N // K, dim=2).transpose(1, 2)
+    mask = (ops.attention_mask(S_PRE, S_PRE, causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg))[:, None]
+    res = dict(
+        ms=time_ms(lambda: ops.flash_attention_cuda(q, k, v, seg_pad_zero=True, **kw)),
+        plain_ms=time_ms(lambda: ops.attention_plain(q, k, v, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+        bound=bound(nb, 4 * HEAD * N * pairs, BF16_FLOPS_S))
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_timing():
+    import torch
 
     from orion_tpu_torch import ops
 
@@ -7104,22 +7588,7 @@ def phase_timing():
         bound=bound(nb, 6 * (q.numel() + k.numel()), F32_FLOPS_S))
     del q, k
 
-    q, k, v, seg = k3_inputs(dt, gen)
-    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
-    pairs = sum(n * (n + 1) // 2 for n in PRE_LENS)
-    nb = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * seg.numel() * 4
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(N_HEADS // N_KV, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(N_HEADS // N_KV, dim=2).transpose(1, 2)
-    mask = (ops.attention_mask(S_PRE, S_PRE, causal=True, q_segment_ids=seg,
-                               kv_segment_ids=seg))[:, None]
-    res["flash_fwd"] = dict(
-        ms=time_ms(lambda: ops.flash_attention_cuda(q, k, v, seg_pad_zero=True, **kw)),
-        plain_ms=time_ms(lambda: ops.attention_plain(q, k, v, **kw)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
-        bound=bound(nb, 4 * HEAD * N_HEADS * pairs, BF16_FLOPS_S))
-    del q, k, v, qt, kt, vt, mask
-    torch.cuda.empty_cache()
+    res["flash_fwd"] = flash_fwd_timing(gen)
     res.update(k3pos_timing(gen))
 
     for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
@@ -7131,6 +7600,7 @@ def phase_timing():
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     res.update(k78pos_timing(gen))
+    res.update(tp_timing(gen))
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
                  if k in ("k4_ms_same_contexts", "k4_device_ms_same_contexts", "device_ms",
@@ -7172,6 +7642,21 @@ def extra_timing(name, timing):
     return out
 
 
+def tp_form(name, timing, errs):
+    """A kernel's tensor-parallel form beside its row of the kernels line:
+    the JAX line it stands for, its errors at both checked shards, and its
+    numbers at tp = 8 shard shapes (4 query heads over 1 kv head)."""
+    if name not in TP_FORM_AT:
+        return {}
+    r = timing[f"{name}_tp8"]
+    return {"replaces_tp": TP_FORM_AT[name], "tp_shapes": dict(
+        max_abs_err={f"tp{t}": errs[f"{name}@tp{t}"] for t in (TP8, TP_SERVE_TP)},
+        tp8=dict(heads=[N_HEADS // TP8, N_KV // TP8], ms=r["ms"], plain_ms=r["plain_ms"],
+                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                 library_ms=r["library_ms"],
+                 **{k: r[k] for k in ("device_ms", "host_us") if k in r}))}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -7207,7 +7692,7 @@ def main(argv=None) -> int:
     train_launches = timing = fault_launches = constrained_launches = None
     train_fault_launches = graph_launches = sp_launches = fsdp_launches = None
     host_tier_launches = gather_launches = long_launches = None
-    moe_launches = int8w_launches = train_moe_launches = None
+    moe_launches = int8w_launches = train_moe_launches = tp_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -7236,6 +7721,11 @@ def main(argv=None) -> int:
     # serves, which leave memory held.
     if "fsdp_rank" in phases:
         fsdp_launches = phase_fsdp_rank()
+        free_engine()
+    # Two tp ranks of llama3-8b-infer (~17 GB each, ~44 GB at the peak with
+    # the tp = 1 reference) in processes of their own, before the serves.
+    if "tp_serve" in phases:
+        tp_launches = phase_tp_serve()
         free_engine()
     serve_params = bf16_first = None
     if "serve" in phases:
@@ -7299,15 +7789,18 @@ def main(argv=None) -> int:
     if "timing" in phases:
         timing = phase_timing()
     if (errs and launches and chunked_launches and spec_launches and parity_launches
-            and train_launches and sp_launches and timing):
+            and train_launches and sp_launches and tp_launches and timing):
         # A kernel on several paths counts its launches in each drive. K9's
         # bf16/f32 branch runs where chunked prefill or the prefix cache
         # serves a bf16/f32 pool: the float32 chunked parity drive (the
         # full-width chunked serve runs the int8 pool).
+        # tp_serve's launches are rank 0's, at its shard shapes.
+        kernels = list(KERNEL_META)
         by_path = {name: {"serve": launches[name], "serve_chunked": chunked_launches[name],
                           "serve_spec": spec_launches[name], "train": train_launches[name],
-                          "parity_chunked_f32": parity_launches["float32"][name]}
-                   for name in KERNEL_META}
+                          "parity_chunked_f32": parity_launches["float32"][name],
+                          "tp_serve": tp_launches[name]}
+                   for name in kernels}
         for path, counts in (("serve_constrained", constrained_launches),
                              ("serve_faults", fault_launches),
                              ("serve_graphs", graph_launches),
@@ -7321,7 +7814,7 @@ def main(argv=None) -> int:
                              ("sp_rank", sp_launches),
                              ("fsdp_rank", fsdp_launches)):
             if counts:
-                for name in KERNEL_META:
+                for name in kernels:
                     by_path[name][path] = counts[name]
         emit({"kernels": [
             dict(name=name, **KERNEL_META[name],
@@ -7329,7 +7822,7 @@ def main(argv=None) -> int:
                  max_abs_err=errs["bfloat16"][name], ms=timing[name]["ms"],
                  plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound"][0],
                  bound_by=timing[name]["bound"][1], library_ms=timing[name]["library_ms"],
-                 **extra_timing(name, timing))
+                 **extra_timing(name, timing), **tp_form(name, timing, errs["bfloat16"]))
             for name in KERNEL_META
         ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phases": phases})

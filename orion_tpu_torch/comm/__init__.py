@@ -4,6 +4,7 @@
 
 from orion_tpu_torch.comm.collectives import (
     CALLS,
+    STAGED,
     all_gather,
     all_reduce,
     all_to_all,
@@ -11,6 +12,7 @@ from orion_tpu_torch.comm.collectives import (
     axis_size,
     barrier,
     broadcast,
+    broadcast_values,
     ppermute,
     reduce_scatter,
     ring_shift,
@@ -18,6 +20,7 @@ from orion_tpu_torch.comm.collectives import (
 
 __all__ = [
     "CALLS",
+    "STAGED",
     "all_gather",
     "all_reduce",
     "all_to_all",
@@ -25,6 +28,7 @@ __all__ = [
     "axis_size",
     "barrier",
     "broadcast",
+    "broadcast_values",
     "ppermute",
     "reduce_scatter",
     "ring_shift",

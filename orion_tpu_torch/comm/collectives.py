@@ -28,6 +28,20 @@ that reason).
 
 ``CALLS`` counts the calls of each op (forward only; a transpose run by
 the backward is not counted), so a test can count a ring's exchanges.
+
+A gloo group serves CUDA tensors through host staging: the tensor is
+copied into a pinned host buffer, the collective runs there, and the
+result is copied back to the device. That is how gloo takes device
+tensors at all (it computes on the host), so it is the op, not a
+fallback; ``STAGED`` counts the bytes each op moved across the bus, both
+ways. A CPU tensor on a gloo group is not staged (``STAGED`` stays 0) and
+an NCCL group never stages. Every op works in the tensor's own dtype,
+staged or not (gloo sums bfloat16 as it comes, and for two members that
+is the correctly rounded sum of the two partials).
+
+``broadcast_values`` hands a few host numbers from process 0 to the
+others (the serving engine's host choices): a float64 tensor on the CPU
+for gloo, on the current device for NCCL.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 CALLS: collections.Counter = collections.Counter()
+STAGED: collections.Counter = collections.Counter()
 
 
 def axis_size(group) -> int:
@@ -55,26 +70,61 @@ def _global(group, rank: int) -> int:
     return dist.get_global_rank(group, rank)
 
 
+# -- host staging (gloo groups) -----------------------------------------------
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _stage_in(x, op):
+    """``x`` as a fresh host tensor: a pinned copy of a CUDA tensor,
+    counted in ``STAGED``, or a CPU tensor's copy."""
+    if not x.is_cuda:
+        return x.contiguous().clone()
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    STAGED[op] += x.numel() * x.element_size()
+    return h
+
+
+def _stage_out(h, like, op):
+    """The host result ``h`` back on ``like``'s device."""
+    if not like.is_cuda:
+        return h
+    out = torch.empty(h.shape, dtype=h.dtype, device=like.device)
+    out.copy_(h)
+    STAGED[op] += out.numel() * out.element_size()
+    return out
+
+
 # -- raw ops (no autograd, no count) ----------------------------------------
 
 
 def _all_reduce(x, group, op):
-    y = x.contiguous().clone()
-    if op in ("sum", "mean"):
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        if op == "mean":
-            y = y / axis_size(group)
-    elif op in ("max", "min"):
-        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.MIN,
-                        group=group)
-    else:
+    if op not in ("sum", "mean", "max", "min"):
         raise ValueError(f"unknown reduce op {op!r}")
-    return y
+    rop = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    if _gloo(group):
+        h = _stage_in(x, "all_reduce")
+        dist.all_reduce(h, op=rop, group=group)
+        y = _stage_out(h, x, "all_reduce")
+    else:
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=rop, group=group)
+    return y / axis_size(group) if op == "mean" else y
 
 
 def _all_gather(x, group, dim, tiled):
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for _ in range(axis_size(group))]
+    n = axis_size(group)
+    if _gloo(group) and x.is_cuda:
+        h = _stage_in(x, "all_gather")
+        parts = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True) for _ in range(n)]
+        dist.all_gather(parts, h, group=group)
+        both = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+        return _stage_out(both, x, "all_gather")
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
 
@@ -121,6 +171,10 @@ def _ppermute(x, group, perm):
 
 
 def _broadcast(x, group, root):
+    if _gloo(group):
+        h = _stage_in(x, "broadcast")
+        dist.broadcast(h, src=_global(group, root), group=group)
+        return _stage_out(h, x, "broadcast")
     y = x.contiguous().clone()
     dist.broadcast(y, src=_global(group, root), group=group)
     return y
@@ -251,6 +305,18 @@ def broadcast(x: torch.Tensor, group, *, root: int = 0) -> torch.Tensor:
     """Every member receives the root member's value."""
     CALLS["broadcast"] += 1
     return _Broadcast.apply(x, group, root)
+
+
+def broadcast_values(values) -> list[float]:
+    """Process 0's ``values`` (a list of numbers, the same length in every
+    process of the default group) in every process, as floats: one
+    broadcast of a float64 tensor (exact for integers up to 2**53)."""
+    CALLS["broadcast_values"] += 1
+    device = ("cpu" if dist.get_backend() == "gloo"
+              else torch.device("cuda", torch.cuda.current_device()))
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=device)
+    dist.broadcast(t, src=0)
+    return t.tolist()
 
 
 def barrier(group) -> int:

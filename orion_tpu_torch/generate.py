@@ -30,6 +30,15 @@ quarantine, a watchdog stall, speculation switching itself off). Sugar for
 ``inference.trace=true inference.trace_path=PATH`` and
 ``inference.flight_dir=DIR``; ``inference.metrics_jsonl`` and
 ``inference.metrics_prom`` export the metrics registry.
+
+Tensor-parallel serving (``parallel.tp`` > 1, with ``dp`` replicas beside
+it): one process a device, started by ``torchrun`` (or with
+``runtime.coordinator_address``, ``num_processes`` and ``process_id``);
+each process cuts its blocks out of the weights
+(``models.convert.serving_blocks``), runs its engine eagerly (CUDA graphs
+refuse tp) and rank 0 prints the results, e.g.
+``torchrun --nproc_per_node=2 -m orion_tpu_torch.generate --preset
+tiny-llama --device cpu --tokens "5,3,9" parallel.tp=2``.
 """
 
 from __future__ import annotations
@@ -86,6 +95,7 @@ def main(argv: list[str] | None = None) -> int:
     from orion_tpu_torch.config import get_config
     from orion_tpu_torch.infer import InferenceEngine
     from orion_tpu_torch.infer.engine import resolve_device
+    from orion_tpu_torch.runtime.distributed import join, process_index
     from orion_tpu_torch.runtime.fault import PreemptionHandler
 
     cfg = get_config(args.preset, overrides)
@@ -94,9 +104,18 @@ def main(argv: list[str] | None = None) -> int:
     if not prompts:
         prompts = [[1, 2, 3, 4]]
 
+    ranks = cfg.parallel.num_devices > 1
+    if ranks:
+        device = join(cfg.runtime, device)
     params = _params(cfg, device, args.seed)
+    if ranks:
+        from orion_tpu_torch.models.convert import serving_blocks
+        from orion_tpu_torch.runtime.mesh import rank_coords
+
+        sizes = cfg.parallel.axis_sizes
+        params = serving_blocks(params, cfg.model, sizes, rank_coords(process_index(), sizes))
     engine = InferenceEngine(cfg, params, eos_id=args.eos_id, seed=args.seed,
-                             device=device)
+                             device=device, cuda_graphs=not ranks)
     del params
     # Graceful shutdown: SIGTERM only flips a flag; at the next step
     # boundary the engine stops admission, sheds the never-started queue
@@ -121,6 +140,8 @@ def main(argv: list[str] | None = None) -> int:
                   f"or run tools/obs_report.py {args.trace})")
         except OSError as e:
             print(f"trace export to {args.trace} failed: {e}", file=sys.stderr)
+    if engine.mesh is not None and engine.mesh.get_rank() != 0:
+        return 0
     for req in reqs:
         print(json.dumps({"rid": req.rid, "outcome": req.outcome,
                           "prompt": req.prompt, "generated": req.generated}))

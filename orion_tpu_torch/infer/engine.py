@@ -128,6 +128,27 @@ card. Live migration (the JAX engine's ``export_migration_state``) is not
 ported; when it is, its state carries each request's ``constraint`` as the
 JAX engine's does.
 
+Tensor-parallel serving (``parallel.tp`` > 1, the JAX engine's
+``_detect_tp_mesh`` path): one engine per process, every rank built from
+its own blocks of the parameters (``models.convert.serving_blocks``) and
+running the same host loop on the same requests. The engine joins the
+process group (``runtime.distributed.join``; a group the caller joined
+first is kept), builds the mesh over ``tp`` and ``dp``, and holds
+``n_kv_heads / tp`` heads of every pool page; the runner's bodies run on
+the rank's heads and sum and gather over the ``tp`` group
+(``infer/runner.py``).
+Ranks that differ only in ``dp`` are replicas: they serve the same
+requests and emit the same tokens. Every choice a rank would make from its
+own clock is made once, by rank 0, and broadcast (``_agree``,
+``plan_broadcasts`` counts them): the deadlines and the expiry sweep read
+rank 0's clock, and the decode-window autotune's resize and the
+watchdog's stall count are rank 0's, so no rank runs a dispatch shape its
+peers do not, and no collective waits for ever. Refused at construction,
+naming them: fsdp, sp, ep and pp above 1, MoE, int8 weights and CUDA
+graphs under tp (a host-staged gloo collective cannot be captured; the
+card's tp drive passes ``cuda_graphs=False``), and the JAX engine's
+ValueError when tp divides the heads not.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises. ``model.kernels`` is
 not read: on the card every op on the path runs its hand-written kernel,
@@ -139,12 +160,15 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import os
 import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from orion_tpu_torch.comm.collectives import broadcast_values
 from orion_tpu_torch.config import Config
 from orion_tpu_torch.constrain import ConstraintSpec, ConstraintState, compile_constraint
 from orion_tpu_torch.infer.executor import DispatchExecutor
@@ -186,6 +210,9 @@ from orion_tpu_torch.models.transformer import torch_dtype
 from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, live_hbm_metrics
 from orion_tpu_torch.ops import check_prefill_fit, check_verify_fit
 from orion_tpu_torch.ops.common import round_up
+from orion_tpu_torch.parallel.tensor import tp_of
+from orion_tpu_torch.runtime.distributed import join
+from orion_tpu_torch.runtime.mesh import SERVING_AXES, build_mesh, check_axes, check_dcn_axes
 from orion_tpu_torch.runtime.fault import (
     SERVING_KINDS,
     DispatchFault,
@@ -229,6 +256,35 @@ def _check_supported(cfg: Config) -> None:
         )
 
 
+def _check_tp(cfg: Config, cuda_graphs: bool) -> None:
+    """The serving mesh's checks, before any process group is joined: the
+    JAX package's ValueErrors (an unknown ``dcn_axes`` name; tp dividing
+    the heads not, the JAX engine's Pallas-serving check), then the axes
+    and the parts the port does not serve on a mesh yet, each named."""
+    m, p = cfg.model, cfg.parallel
+    check_dcn_axes(p)
+    tp = p.tp
+    if tp > 1 and (m.n_heads % tp or m.n_kv_heads % tp):
+        raise ValueError(
+            f"Pallas serving with tp={tp} needs n_heads "
+            f"({m.n_heads}) and n_kv_heads "
+            f"({m.n_kv_heads}) divisible by it; lower tp "
+            f"or set model.kernels='xla'"
+        )
+    check_axes(p, SERVING_AXES)
+    unsupported = {
+        "model.n_experts > 0 (MoE) with parallel.tp > 1 (comes with expert "
+        "parallelism)": m.is_moe,
+        "model.weight_quant=int8 with parallel.tp > 1 (per-channel scales "
+        "sharded with their weights)": m.weight_quant is not None,
+        "cuda_graphs=True with parallel.tp > 1 (a host-staged gloo collective "
+        "cannot be captured; pass cuda_graphs=False)": cuda_graphs,
+    }
+    bad = [name for name, on in unsupported.items() if on and tp > 1]
+    if bad:
+        raise NotImplementedError(f"not ported to orion_tpu_torch yet: {', '.join(bad)}")
+
+
 def _check_injector(injector) -> None:
     """Refuse a fault schedule holding kinds the port's engine does not
     consume (the migration, checkpoint and replica faults)."""
@@ -263,12 +319,26 @@ class InferenceEngine:
     ):
         """``cuda_graphs=False`` runs the card's dispatches eagerly, op by
         op, as the CPU always does: the yardstick the graphs are held
-        against, not a serving mode."""
+        against, not a serving mode (and the only mode under tp > 1).
+        With ``parallel.tp`` or ``dp`` above 1 ``params`` are this rank's
+        blocks (see the module note)."""
         _check_supported(cfg)
         _check_injector(fault_injector)
         if cfg.model.weight_quant not in (None, "int8"):
             raise ValueError(f"unknown model.weight_quant={cfg.model.weight_quant!r}")
+        _check_tp(cfg, cuda_graphs)
         self.device = resolve_device(device)
+        # The serving mesh (None on one device): tp shards the heads, dp
+        # ranks are replicas; every rank broadcasts rank 0's host choices.
+        self.mesh = self.tp = None
+        self.plan_broadcasts = 0
+        if cfg.parallel.num_devices > 1:
+            self.device = join(cfg.runtime, self.device)
+            self.mesh = build_mesh(cfg.parallel, "cpu" if dist.get_backend() == "gloo"
+                                   else self.device, SERVING_AXES)
+            self.tp = tp_of(self.mesh)
+        tp = cfg.parallel.tp
+        self.local_heads = (cfg.model.n_heads // tp, cfg.model.n_kv_heads // tp)
         self.cfg = cfg
         self.mcfg = cfg.model
         self.icfg = cfg.inference
@@ -311,12 +381,12 @@ class InferenceEngine:
             # Rows resuming over cached pages run K9: a page size its
             # blocks cannot hold fails here, not mid-serve.
             check_prefill_fit(
-                n_heads=self.mcfg.n_heads, n_kv_heads=self.mcfg.n_kv_heads,
+                n_heads=self.local_heads[0], n_kv_heads=self.local_heads[1],
                 head_dim=self.mcfg.resolved_head_dim, page_size=self.psz,
                 dtype=torch_dtype(self.mcfg.dtype),
             )
         self._init_speculation()
-        self.cache = init_cache(self.mcfg, self.icfg, self.device)
+        self.cache = init_cache(self.mcfg, self.icfg, self.device, tp)
         if cfg.model.weight_quant == "int8":
             params = quantize_params(params, self.mcfg, device=self.device)
         self.params = to_device(params, self.device)
@@ -597,8 +667,8 @@ class InferenceEngine:
             # one block: a verify width it cannot hold fails here, naming
             # the knob (the bf16 kernel takes any width).
             check_verify_fit(
-                icfg.speculate_tokens + 1, n_heads=mcfg.n_heads,
-                n_kv_heads=mcfg.n_kv_heads, head_dim=mcfg.resolved_head_dim,
+                icfg.speculate_tokens + 1, n_heads=self.local_heads[0],
+                n_kv_heads=self.local_heads[1], head_dim=mcfg.resolved_head_dim,
                 page_size=self.psz, dtype=torch_dtype(mcfg.dtype),
             )
 
@@ -742,7 +812,7 @@ class InferenceEngine:
             rid=next(self._rid), prompt=list(map(int, prompt)),
             max_new_tokens=max_new, temperature=temperature, top_k=top_k,
             top_p=top_p, priority=int(priority),
-            deadline=time.monotonic() + deadline_s if deadline_s is not None else None,
+            deadline=self._clock() + deadline_s if deadline_s is not None else None,
             t_submit=time.perf_counter(), trace_id=trace_id, attempt=int(attempt),
             constraint=cstate,
         )
@@ -908,7 +978,7 @@ class InferenceEngine:
                     self._autotune_window(total)
         tm["steps"] += 1
         if self._watchdog is not None:
-            if self._watchdog.stalled:
+            if self._agree([self._watchdog.stalled])[0]:
                 # The watchdog fired during this step: counted, not fatal.
                 self.robust.stalled_steps += 1
                 self._flight_dump("watchdog_stall", step_wall_s=total)
@@ -1005,15 +1075,32 @@ class InferenceEngine:
         host = step_total - self._dev_span - self._prefill_span - self._tier_span()
         share = host / (step_total if step_total > 0 else 1.0)
         target = self.icfg.decode_host_share_target
-        if share > target and self.decode_window * 2 <= self.icfg.decode_window_max:
-            self.decode_window *= 2
-        elif share < target / 4 and self.decode_window // 2 >= self.icfg.decode_window:
-            self.decode_window //= 2
-        else:
+        W = self.decode_window
+        if share > target and W * 2 <= self.icfg.decode_window_max:
+            W *= 2
+        elif share < target / 4 and W // 2 >= self.icfg.decode_window:
+            W //= 2
+        W = int(self._agree([W])[0])    # on a mesh, rank 0's split decides
+        if W == self.decode_window:
             return
+        self.decode_window = W
         self._autotune_skip = True
         log.info("decode_window autotune: host share %.2f, window -> %d",
                  share, self.decode_window)
+
+    def _agree(self, values: list) -> list:
+        """Rank 0's ``values`` on every rank of the serving mesh (one
+        broadcast, counted in ``plan_broadcasts``); alone, ``values``. Each
+        call site is reached by every rank at the same point of the same
+        step, because everything before it is decided alike."""
+        if self.mesh is None:
+            return values
+        self.plan_broadcasts += 1
+        return broadcast_values(values)
+
+    def _clock(self) -> float:
+        """The deadlines' clock: ``time.monotonic()``, rank 0's on a mesh."""
+        return self._agree([time.monotonic()])[0]
 
     @contextlib.contextmanager
     def _device_span(self, path: str, span: str = "_dev_span", *keys: str):
@@ -1254,7 +1341,10 @@ class InferenceEngine:
         """Step-boundary deadline sweep: expired requests, waiting or active
         (mid-prefill or mid-decode), end with outcome "expired"; active
         ones are reaped with prefix-cache donation as on completion."""
-        now = time.monotonic()
+        if not any(r is not None and r.deadline is not None
+                   for r in itertools.chain(self.waiting, self.slots)):
+            return
+        now = self._clock()
         for r in self.waiting.sweep_expired(now):
             r.done = True
             r.outcome = "expired"
@@ -1923,7 +2013,7 @@ class InferenceEngine:
                 self.params, self.cache, a["p_tokens"], a["p_lengths"], a["p_pages"],
                 a["p_prefix_lens"],
                 a["p_prefix_pages"] if a["p_prefix_pages"].shape[1] else None,
-                cfg=self.mcfg, paged_prefill=self.icfg.paged_prefill,
+                cfg=self.mcfg, paged_prefill=self.icfg.paged_prefill, tp=self.tp,
             )
             return self._sample(logits, reqs)   # the one host fetch
 
@@ -2387,7 +2477,7 @@ class InferenceEngine:
         the bound params and pool, the generator, the model and the
         context limit."""
         return dict(params=self.params, cache=self.cache, generator=self._gen,
-                    cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len)
+                    cfg=self.mcfg, max_seq_len=self.icfg.max_seq_len, tp=self.tp)
 
     def _decode_program(self, **kw) -> torch.Tensor:
         """The decode window as a dispatch program: the [W, B] token block,

@@ -24,6 +24,12 @@ an accepted off-primary tree path's KV to cursor-contiguous positions);
 the NaN quarantine adds ``poison_page`` (its fault injection) and
 ``scrub_pages`` (zero a quarantined request's pages before reuse).
 
+Under tensor parallelism every rank's pool holds its ``n_kv_heads / tp``
+heads of every page (``init_cache``'s ``tp``), and every page helper here
+(``copy_page``, ``scrub_pages``, ``poison_page``, ``compact_draft_kv``,
+``gather_pages``/``scatter_pages`` and the host pool) acts on whatever
+rank's slice it is handed: the page ids are the same on every rank.
+
 The host tier (inference.host_tier_bytes) adds ``HostPagePool``, a
 refcounted store of whole pages in host memory (pinned when the pool is on
 the card), ``gather_pages``/``scatter_pages`` (all layers of a page set,
@@ -67,12 +73,15 @@ def scale_width(psz: int) -> int:
     return SCALE_LANES
 
 
-def init_cache(mcfg: ModelConfig, icfg: InferenceConfig, device) -> Cache:
+def init_cache(mcfg: ModelConfig, icfg: InferenceConfig, device, tp: int = 1) -> Cache:
     """Allocate the paged KV pool (zeros) on ``device``: pools in the
     model's dtype, or with ``inference.kv_quant='int8'`` int8 pools plus
-    float32 scale pools ``k_scale``/``v_scale`` [rows, K, SCALE_LANES]."""
+    float32 scale pools ``k_scale``/``v_scale`` [rows, K, SCALE_LANES].
+    Under tensor parallelism a rank's pool holds its ``K = n_kv_heads /
+    tp`` heads of every page (the JAX engine's ``P(None, "tp", None,
+    None)`` pool, its scale pools ``P(None, "tp", None)``)."""
     rows = mcfg.n_layers * icfg.num_pages
-    K, psz = mcfg.n_kv_heads, icfg.page_size
+    K, psz = mcfg.n_kv_heads // tp, icfg.page_size
     shape = (rows, K, psz, mcfg.resolved_head_dim)
     if icfg.kv_quant == "int8":
         sw = scale_width(psz)

@@ -40,6 +40,15 @@ whole-prompt prefill by indexed assignment at rows ``l*num_pages + page``
 (the JAX package's scatter is outside any kernel too), chunk prefill
 inside K9, decode inside K4, verify inside K10. Inactive slots point at
 scratch page 0 and are masked by their lengths.
+
+Tensor-parallel serving (``tp``, a ``parallel.tensor.TensorParallel``):
+every program takes the rank's blocks of the parameters and its slice of
+the pool, ``n_kv_heads / tp`` heads of every page; the layer bodies run
+the same ops on the rank's ``n_heads / tp`` query heads (the head counts
+follow the tensors), and the model functions they call sum the
+row-parallel products and gather the logits over the ``tp`` group
+(``models/transformer.py``). Every rank samples from the whole logits
+with a generator seeded as its peers', so all ranks draw the same tokens.
 """
 
 from __future__ import annotations
@@ -128,7 +137,7 @@ def _gather_prefix(cache: Cache, ctx: dict, layer: int, dtype: torch.dtype):
 
 def _prefill_layer(
     x: torch.Tensor, cache: Cache, bp: Params, layer: int, ctx: dict,
-    cfg: ModelConfig,
+    cfg: ModelConfig, tp=None,
 ) -> torch.Tensor:
     """One layer of (possibly mid-sequence) prefill, the pool updated in
     place: K9 over the paged history + the chunk when P_pre > 0 (paged
@@ -178,23 +187,23 @@ def _prefill_layer(
             cache["v_scale"][rows, :, :psz] = vs.reshape(Nb, n_pages, psz, K).transpose(2, 3)
         cache["k"][rows] = k.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
         cache["v"][rows] = v.reshape(Nb, n_pages, psz, K, H).transpose(2, 3)
-    a = out_proj(out, bp["attn"], cfg)
+    a = out_proj(out, bp["attn"], cfg, tp)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg, tp=tp)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y
 
 
 def _prefill_logits(
-    params: Params, x: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig
+    params: Params, x: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig, tp=None,
 ) -> torch.Tensor:
     """Next-token logits [Nb, V] off each row's last real position
     (gathered before the LM head)."""
     idx = (lengths.long() - 1)[:, None, None].expand(x.shape[0], 1, x.shape[-1])
-    return unembed(params, torch.gather(x, 1, idx), cfg)[:, 0]
+    return unembed(params, torch.gather(x, 1, idx), cfg, tp)[:, 0]
 
 
 @torch.no_grad()
@@ -209,6 +218,7 @@ def prefill_step(
     *,
     cfg: ModelConfig,
     paged_prefill: bool = True,
+    tp=None,
 ) -> tuple[torch.Tensor, Cache]:
     """Prefill a batch of same-bucket prompts; returns (next-token logits
     [Nb, V], the cache updated in place). With ``prefix_pages`` (P_pre >
@@ -218,10 +228,10 @@ def prefill_step(
     on scratch page 0 and is never read."""
     ctx = _prefill_ctx(cache, tokens, lengths, pages, prefix_lens, prefix_pages, cfg,
                        paged_prefill)
-    x = embed(params, tokens, ctx["positions"], cfg)
+    x = embed(params, tokens, ctx["positions"], cfg, tp)
     for layer, bp in enumerate(params["blocks"]):
-        x = _prefill_layer(x, cache, bp, layer, ctx, cfg)
-    return _prefill_logits(params, x, lengths, cfg), cache
+        x = _prefill_layer(x, cache, bp, layer, ctx, cfg, tp)
+    return _prefill_logits(params, x, lengths, cfg, tp), cache
 
 
 def _decode_ctx(
@@ -238,7 +248,7 @@ def _decode_ctx(
 
 def _decode_layer(
     x: torch.Tensor, cache: Cache, bp: Params, layer: int, ctx: dict,
-    cfg: ModelConfig,
+    cfg: ModelConfig, tp=None,
 ) -> torch.Tensor:
     """One layer of single-token decode: paged attention with the new
     token's K/V (quantized, for int8 pools) written into the pool in
@@ -251,11 +261,11 @@ def _decode_layer(
         logit_softcap=cfg.attn_logit_softcap, window=cfg.layer_window(layer),
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
     )[0]
-    a = out_proj(out[:, None], bp["attn"], cfg)
+    a = out_proj(out[:, None], bp["attn"], cfg, tp)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg, tp=tp)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y
@@ -268,13 +278,14 @@ def _decode_core(
     write_pos: torch.Tensor,    # [B] int32 position written/attended
     page_table: torch.Tensor,   # [B, pages_per_seq] int32
     cfg: ModelConfig,
+    tp=None,
 ) -> torch.Tensor:
     """One decode forward for every slot -> logits [B, V]."""
     ctx = _decode_ctx(cache, write_pos, page_table, cfg)
-    x = embed(params, tokens[:, None], ctx["positions"], cfg)
+    x = embed(params, tokens[:, None], ctx["positions"], cfg, tp)
     for layer, bp in enumerate(params["blocks"]):
-        x = _decode_layer(x, cache, bp, layer, ctx, cfg)
-    return unembed(params, x, cfg)[:, 0]
+        x = _decode_layer(x, cache, bp, layer, ctx, cfg, tp)
+    return unembed(params, x, cfg, tp)[:, 0]
 
 
 @torch.no_grad()
@@ -290,6 +301,7 @@ def decode_window(
     n_steps: int,
     cfg: ModelConfig,
     max_seq_len: int,
+    tp=None,
     temperature=0.0,
     top_k=0,
     top_p=1.0,
@@ -315,7 +327,7 @@ def decode_window(
     for _ in range(n_steps):
         act = active & (sl < max_seq_len)
         wp = torch.clamp(sl, max=max_seq_len - 1)
-        logits = _decode_core(params, cache, tok, wp, page_table, cfg)
+        logits = _decode_core(params, cache, tok, wp, page_table, cfg, tp)
         toks = sample(logits, generator, temperature=temperature,
                       top_k=top_k, top_p=top_p)
         tok = torch.where(act, toks, tok)
@@ -345,6 +357,7 @@ def mixed_step(
     *,
     cfg: ModelConfig,
     max_seq_len: int,
+    tp=None,
     temperature=0.0,
     top_k=0,
     top_p=1.0,
@@ -376,20 +389,20 @@ def mixed_step(
                         p_prefix_pages if p_prefix_pages.shape[1] else None, cfg,
                         paged_prefill)
     dctx = _decode_ctx(cache, wp, page_table, cfg)
-    xp = embed(params, p_tokens, pctx["positions"], cfg)
-    xd = embed(params, tokens.to(torch.int32)[:, None], dctx["positions"], cfg)
+    xp = embed(params, p_tokens, pctx["positions"], cfg, tp)
+    xd = embed(params, tokens.to(torch.int32)[:, None], dctx["positions"], cfg, tp)
     for layer, bp in enumerate(params["blocks"]):
-        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg)
-        xd = _decode_layer(xd, cache, bp, layer, dctx, cfg)
+        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg, tp)
+        xd = _decode_layer(xd, cache, bp, layer, dctx, cfg, tp)
     toks = None
     ok = torch.ones_like(active) if nan_guard else None
     if generator is not None:
-        d_logits = unembed(params, xd, cfg)[:, 0]
+        d_logits = unembed(params, xd, cfg, tp)[:, 0]
         toks = sample(d_logits, generator, temperature=temperature, top_k=top_k,
                       top_p=top_p)
         if nan_guard:
             ok = torch.isfinite(d_logits).all(-1) | ~active
-    p_logits = _prefill_logits(params, xp, p_lengths, cfg)
+    p_logits = _prefill_logits(params, xp, p_lengths, cfg, tp)
     if nan_guard:
         return toks, ok, p_logits, cache
     return toks, p_logits, cache
@@ -428,7 +441,7 @@ def _verify_ctx(
 
 def _verify_layer(
     x: torch.Tensor, cache: Cache, bp: Params, layer: int, ctx: dict,
-    cfg: ModelConfig,
+    cfg: ModelConfig, tp=None,
 ) -> torch.Tensor:
     """One layer of batched draft verification: the decode layer with W
     queries per slot. K10 (``ops.ragged_paged_attention``; its plain
@@ -445,11 +458,11 @@ def _verify_layer(
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
         tree_mask=ctx["tree_mask"], depths=ctx["depths"],
     )[0]
-    a = out_proj(out, bp["attn"], cfg)
+    a = out_proj(out, bp["attn"], cfg, tp)
     if cfg.post_norms:
         a = _norm(a, bp["post_attn_norm"], cfg)
     x = x + a
-    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg)
+    y, _ = mlp_or_moe(_norm(x, bp["mlp_norm"], cfg), bp, cfg, tp=tp)
     if cfg.post_norms:
         y = _norm(y, bp["post_mlp_norm"], cfg)
     return x + y
@@ -501,6 +514,7 @@ def verify_step(
     *,
     cfg: ModelConfig,
     max_seq_len: int,
+    tp=None,
     temperature=0.0,
     top_k=0,
     top_p=1.0,
@@ -527,10 +541,10 @@ def verify_step(
     W = tokens.shape[1]
     ctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
                       depths=depths, tree_mask=tree_mask)
-    x = embed(params, tokens, ctx["positions"], cfg)
+    x = embed(params, tokens, ctx["positions"], cfg, tp)
     for layer, bp in enumerate(params["blocks"]):
-        x = _verify_layer(x, cache, bp, layer, ctx, cfg)
-    logits = unembed(params, x, cfg)                                # [B, W, V]
+        x = _verify_layer(x, cache, bp, layer, ctx, cfg, tp)
+    logits = unembed(params, x, cfg, tp)                                # [B, W, V]
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
                                  dict(temperature=temperature, top_k=top_k, top_p=top_p,
                                       legal_mask=legal_mask))
@@ -557,6 +571,7 @@ def mixed_verify_step(
     *,
     cfg: ModelConfig,
     max_seq_len: int,
+    tp=None,
     temperature=0.0,
     top_k=0,
     top_p=1.0,
@@ -582,16 +597,16 @@ def mixed_verify_step(
                         paged_prefill)
     vctx = _verify_ctx(cache, seq_lens, lens, page_table, W, max_seq_len, cfg,
                        depths=depths, tree_mask=tree_mask)
-    xp = embed(params, p_tokens, pctx["positions"], cfg)
-    xv = embed(params, tokens, vctx["positions"], cfg)
+    xp = embed(params, p_tokens, pctx["positions"], cfg, tp)
+    xv = embed(params, tokens, vctx["positions"], cfg, tp)
     for layer, bp in enumerate(params["blocks"]):
-        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg)
-        xv = _verify_layer(xv, cache, bp, layer, vctx, cfg)
-    logits = unembed(params, xv, cfg)
+        xp = _prefill_layer(xp, cache, bp, layer, pctx, cfg, tp)
+        xv = _verify_layer(xv, cache, bp, layer, vctx, cfg, tp)
+    logits = unembed(params, xv, cfg, tp)
     accept, alt = _verify_sample(logits, tokens, lens, generator, parents,
                                  dict(temperature=temperature, top_k=top_k, top_p=top_p,
                                       legal_mask=legal_mask))
-    p_logits = _prefill_logits(params, xp, p_lengths, cfg)
+    p_logits = _prefill_logits(params, xp, p_lengths, cfg, tp)
     if nan_guard:
         return accept, alt, _verify_ok(logits, lens, active), p_logits, cache
     return accept, alt, p_logits, cache

@@ -13,7 +13,12 @@ compare the packages carry the JAX tree across with ``from_jax_params``.
 On a data-parallel mesh (``parallel/data_parallel.py``) a rank holds its
 blocks of each leaf: ``shard_params`` cuts a whole tree into one rank's
 blocks by ``parallel.sharding.param_layout``'s plan, and
-``unshard_params`` puts every rank's blocks back together.
+``unshard_params`` puts every rank's blocks back together. A
+tensor-parallel serving rank holds the blocks ``serving_blocks`` cuts: by
+the same rules, ``heads``, ``kv_heads``, ``mlp`` and ``vocab`` over
+``tp``, each block the one JAX's ``NamedSharding`` places at the rank's
+mesh position. A dimension ``tp`` does not divide (a vocabulary of 50257
+at tp = 2) raises, as the JAX package's ``device_put`` refuses it.
 """
 
 from __future__ import annotations
@@ -257,3 +262,12 @@ def unshard_params(trees: list, layout: Any, sizes: dict, coords: list,
         return out
 
     return tree_unflatten(trees[0], [whole(i, p) for i, (p, _) in enumerate(flat[0])])
+
+
+def serving_blocks(tree: Params, mcfg: ModelConfig, sizes: dict, coords: dict) -> Params:
+    """The serving engine's parameters for the rank at ``coords`` of a mesh
+    of ``sizes`` (``runtime.mesh.sizes`` / ``coords``): its blocks of a
+    whole per-layer tree, each a tensor of its own on the tree's device."""
+    from orion_tpu_torch.parallel.sharding import param_layout
+
+    return shard_params(tree, param_layout(mcfg, sizes), sizes, coords)

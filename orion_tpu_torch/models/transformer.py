@@ -37,6 +37,19 @@ with ``remat_offload``) is ``models/remat.py``'s: the block's products
 go through ``product`` and its ``checkpoint_name`` points through
 ``named``, plain calls outside a remat replay.
 
+Tensor parallelism (serving; ``parallel/tensor.py``): with a ``tp``
+(``TensorParallel``) the parameters are this rank's blocks, as the JAX
+package's ``param_shardings`` place them, and the functions do by hand
+what XLA derives from those shardings. ``qkv_proj`` and the MLP's
+``w_in``/``w_gate`` are column-parallel (the rank's heads and ``d_ff /
+tp`` columns; the head counts come from the weights' widths);
+``out_proj`` and ``w_out`` are row-parallel, their partial products
+summed by one all-reduce each, the bias (``bo``, ``b_out``) added once
+after it; ``embed`` looks tokens up in the rank's rows of the vocabulary
+(ids outside them give zeros) and sums over the axis; ``unembed`` gathers
+the rank's vocabulary columns of the logits before the final softcap, so
+every rank holds the whole logits.
+
 Weights are cast to the activation dtype at use, as the JAX package does;
 when they are stored in that dtype already (the serving case) the cast is
 free. Every matmul weight is read through ``quantize.load_weight``, which
@@ -53,7 +66,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from orion_tpu_torch import ops
-from orion_tpu_torch.comm.collectives import all_reduce
+from orion_tpu_torch.comm.collectives import all_gather, all_reduce
 from orion_tpu_torch.config import ModelConfig
 from orion_tpu_torch.models.moe import moe_dispatch
 from orion_tpu_torch.models.quantize import load_weight
@@ -175,11 +188,15 @@ def _rounded(c: float, dtype: torch.dtype) -> float:
 
 
 def embed(
-    params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+    params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    tp=None,
 ) -> torch.Tensor:
-    """Token (+ learned position) embedding."""
+    """Token (+ learned position) embedding; vocab-parallel with a ``tp``."""
     dtype = torch_dtype(cfg.dtype)
-    x = _lookup(params["embed"]["tokens"], tokens, dtype)
+    if tp is None:
+        x = _lookup(params["embed"]["tokens"], tokens, dtype)
+    else:
+        x = _vocab_lookup(params["embed"]["tokens"], tokens, dtype, tp)
     if cfg.embed_scale:
         # Gemma-family: scaled by sqrt(d_model), rounded in the activation dtype.
         x = x * _rounded(cfg.d_model ** 0.5, dtype)
@@ -198,14 +215,31 @@ def _lookup(table: torch.Tensor, idx: torch.Tensor, dtype: torch.dtype) -> torch
     return table[idx.long()].to(dtype)
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + LM head -> float32 logits."""
+def _vocab_lookup(table: torch.Tensor, idx: torch.Tensor, dtype: torch.dtype,
+                  tp) -> torch.Tensor:
+    """The vocab-parallel lookup: rows ``idx`` of the whole table, from the
+    rank's block of its rows (rank r holds ids [r * V/tp, (r + 1) * V/tp));
+    each id is found on one rank and gives zeros on the others, and the
+    sum over the axis adds nothing but zeros to it."""
+    rows = table.shape[0]
+    local = idx.long() - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype, device=x.device))
+    return all_reduce(x, tp.group)
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Final norm + LM head -> float32 logits; with a ``tp`` the rank's
+    vocabulary columns, gathered along the vocabulary before the softcap."""
     x = _norm(x, params["final_norm"], cfg)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["tokens"].to(x.dtype).T
     else:
         logits = x @ load_weight(params["lm_head"], x.dtype)
     logits = logits.float()
+    if tp is not None:
+        logits = all_gather(logits, tp.group, gather_axis=logits.dim() - 1)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -215,13 +249,16 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def qkv_proj(
     x: torch.Tensor, p: Params, cfg: ModelConfig, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """QKV projection + RoPE. x [B, S, D] -> q [B,S,N,H], k/v [B,S,K,H]."""
+    """QKV projection + RoPE. x [B, S, D] -> q [B,S,N,H], k/v [B,S,K,H]
+    (under tensor parallelism the rank's heads: N and K are read off the
+    projections' widths)."""
     B, S, _ = x.shape
-    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H = cfg.resolved_head_dim
     dtype = x.dtype
     q = product(x, load_weight(p["wq"], dtype))
     k = product(x, load_weight(p["wk"], dtype))
     v = product(x, load_weight(p["wv"], dtype))
+    N, K = q.shape[-1] // H, k.shape[-1] // H
     if cfg.attn_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -238,16 +275,20 @@ def qkv_proj(
     return q, k, v
 
 
-def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Attention output projection. out [B, S, N, H] -> [B, S, D]."""
+def out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Attention output projection. out [B, S, N, H] -> [B, S, D];
+    row-parallel with a ``tp`` (the rank's heads, one all-reduce)."""
     B, S = out.shape[0], out.shape[1]
     y = product(out.reshape(B, S, -1), load_weight(p["wo"], out.dtype))
+    if tp is not None:
+        y = all_reduce(y, tp.group)
     if cfg.resolved_attn_out_bias:
         y = y + p["bo"].to(out.dtype)
     return y
 
 
-def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The dense MLP; with a ``tp`` column-parallel in, row-parallel out."""
     dtype = x.dtype
     h_in = product(x, load_weight(p["w_in"], dtype))
     if cfg.mlp_bias:
@@ -257,23 +298,26 @@ def _mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(h_in, approximate="tanh")
     y = product(h, load_weight(p["w_out"], dtype))
+    if tp is not None:
+        y = all_reduce(y, tp.group)
     if cfg.mlp_bias:
         y = y + p["b_out"].to(dtype)
     return y
 
 
-def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig, mesh=None
+def mlp_or_moe(h: torch.Tensor, bp: Params, cfg: ModelConfig, mesh=None, tp=None
                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The post-attention half of a block: dense MLP or MoE. Returns (y,
     aux), aux the MoE load-balance loss (float32), or None for a dense MLP
-    (so a dense block launches nothing more than it did).
+    (so a dense block launches nothing more than it did). A ``tp``
+    reaches the dense MLP only (the serving engine refuses MoE under it).
     Every MoE leaf but the router is cast to the activation dtype; the
     router stays in its own, as in the JAX package."""
     if cfg.is_moe:
         moe_params = {k: v if k == "router" else v.to(h.dtype)
                       for k, v in bp["moe"].items()}
         return moe_dispatch(h, moe_params, cfg, mesh)
-    return _mlp_block(h, bp["mlp"], cfg), None
+    return _mlp_block(h, bp["mlp"], cfg, tp), None
 
 
 def _sp_active(cfg: ModelConfig, mesh) -> bool:
@@ -351,6 +395,23 @@ def forward(
     return unembed(params, x, cfg)
 
 
+def check_scan_unit(cfg: ModelConfig) -> None:
+    """The JAX package's ValueError for a layer scan whose unit
+    (``cfg.scan_unit``: ``scan_group`` x the window pattern) does not
+    divide ``n_layers`` (``orion_tpu/models/transformer.py``
+    ``layer_groups``; it scans only under ``scan_layers``). The port runs
+    its layers in a Python loop, so the unit shapes nothing else here."""
+    unit, L = cfg.scan_unit, cfg.n_layers
+    if cfg.scan_layers and unit > 1 and L % unit:
+        raise ValueError(
+            f"n_layers={L} must be divisible by the layer-scan unit "
+            f"{unit} (scan_group={cfg.scan_group}"
+            + (f" x sliding_window_pattern={cfg.window_pattern}"
+               if cfg.window_pattern else "")
+            + ")"
+        )
+
+
 def _hidden_states(
     params: Params,
     tokens: torch.Tensor,
@@ -376,6 +437,7 @@ def _hidden_states(
     memory. ``remat=none`` saves everything autograd saves. Without
     gradients (evaluation) no block is rematerialized. ``remat_log``
     (a ``RematLog``) receives what the blocks kept and moved."""
+    check_scan_unit(cfg)
     policy = remat_policy(cfg)
     B, S = tokens.shape
     if positions is None:

@@ -28,6 +28,13 @@ too: real rows are the same). ``flash_attention_with_lse`` is the
 counterpart of the JAX package's: (out, lse), differentiable in both,
 the lse cotangent folded into K7's and K8's delta; sequence parallelism
 merges its blocks through it. Explicit masks raise on the card.
+
+The tensor-parallel form of the JAX op (``orion_tpu/ops/attention.py``,
+K3 per head shard under ``shard_map``) needs no op of its own here: a
+serving rank holds only its ``n_heads / tp`` query heads and
+``n_kv_heads / tp`` kv heads, so its runner calls ``attention`` on them
+(the engine raises the JAX engine's ValueError when tp divides the heads
+not).
 """
 
 from __future__ import annotations

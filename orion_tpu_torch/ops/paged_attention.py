@@ -34,6 +34,12 @@ under int8), and run masked attention. Both versions update the pools IN
 PLACE (the JAX package returns fresh arrays; the port saves the pool
 copy) and return ``(out, k_pool, v_pool[, k_scale, v_scale])`` with the
 tensors they were given.
+
+The JAX op's tensor-parallel form (K4 per head shard under
+``shard_map``) needs no op of its own here: a serving rank holds only its
+``n_heads / tp`` query heads and its ``n_kv_heads / tp`` heads of every
+pool page, so its runner calls ``paged_attention`` on them (the page walk
+and the GQA group are the same on every rank).
 """
 
 from __future__ import annotations

@@ -35,6 +35,11 @@ chunk's pages (quantized under int8). Padding query rows (past ``lens``)
 hold garbage the caller discards, as in the JAX package. Both versions
 update the pools IN PLACE and return ``(out, k_pool, v_pool[, k_scale,
 v_scale])`` with the tensors they were given.
+
+The JAX op's tensor-parallel form (K9 per head shard under
+``shard_map``) needs no op of its own here: a serving rank holds only its
+``n_heads / tp`` query heads and its ``n_kv_heads / tp`` heads of every
+pool page, so its runner calls ``paged_flash_prefill`` on them.
 """
 
 from __future__ import annotations

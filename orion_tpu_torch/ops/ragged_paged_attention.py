@@ -46,8 +46,13 @@ needs ``lens >= 1`` (pad rows carry one query).
 under int8, padding onto page 0), gather the padded context (dequantized
 into q's dtype under int8), mask per query, attend. Both versions update
 the pools IN PLACE and return ``(out, k_pool, v_pool[, k_scale,
-v_scale])`` with the tensors they were given. The tp-sharded form of the
-JAX op is not ported (it waits for multi-GPU serving).
+v_scale])`` with the tensors they were given.
+
+The JAX op's tensor-parallel form (K10 per head shard under
+``shard_map``) needs no op of its own here: a serving rank holds only its
+``n_heads / tp`` query heads and its ``n_kv_heads / tp`` heads of every
+pool page (``infer/kv_cache.py``), so its runner calls
+``ragged_paged_attention`` on them.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Counterpart of ``orion_tpu/parallel``. Ported so far: sequence / context
 parallelism (``parallel/sequence.py``: ring, striped ring, Ulysses), the
-sharding rules (``parallel/sharding.py``) and the trainer's data-parallel
-mesh (``parallel/data_parallel.py``: DDP, ZeRO-1, FSDP). Resharding and
+sharding rules (``parallel/sharding.py``), the trainer's data-parallel
+mesh (``parallel/data_parallel.py``: DDP, ZeRO-1, FSDP) and the serving
+engine's tensor-parallel axis (``parallel/tensor.py``). Resharding and
 pipelines are not ported yet (ROADMAP.md, Queue 1).
 """
 

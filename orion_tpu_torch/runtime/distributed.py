@@ -88,6 +88,22 @@ def initialize(cfg: Optional[RuntimeConfig] = None, device="cpu") -> RuntimeInfo
     return runtime_info(device)
 
 
+def join(cfg: RuntimeConfig, device) -> torch.device:
+    """A rank's start: ``initialize`` unless a group already exists, then
+    the device this process works on. A CUDA device with no index becomes
+    the process's own card (``LOCAL_RANK`` under ``torchrun``, else its rank
+    modulo the cards) and is made current."""
+    device = torch.device(device)
+    if not dist.is_initialized():
+        initialize(cfg, device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", process_index() % torch.cuda.device_count())))
+        torch.cuda.set_device(device)
+    return device
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

@@ -85,7 +85,11 @@ are the JAX trainer's.
 Not ported yet, and rejected at construction (``_check_supported``): the
 quantized gradient collectives (``train.grad_quant_bits``,
 ``train.zero1_quantize``), tensor, pipeline and expert parallelism
-(``runtime.mesh.check_axes`` names the mode), and MoE on a mesh.
+(``runtime.mesh.check_axes`` names the mode; the serving engine runs
+tensor parallelism, the trainer not yet), MoE on a mesh, and
+``model.scan_group`` > 1 (the JAX package's grouped remat boundary, a
+memory trade; the JAX trainer's ValueErrors for an indivisible scan unit
+come first).
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain PyTorch versions of the kernels); with no device given and no
@@ -129,7 +133,7 @@ from orion_tpu_torch.obs import MetricsRegistry, export_chrome_safe, init_obs, l
 from orion_tpu_torch.runtime import sanitize
 from orion_tpu_torch.runtime.asserts import raise_if_failed
 from orion_tpu_torch.runtime.distributed import apply_flags, initialize, process_index
-from orion_tpu_torch.runtime.mesh import build_mesh, check_axes
+from orion_tpu_torch.runtime.mesh import build_mesh, check_axes, check_dcn_axes
 from orion_tpu_torch.runtime.fault import (
     TRAIN_KINDS,
     InjectedFault,
@@ -208,6 +212,19 @@ def _check_supported(cfg: Config) -> None:
             "train.zero1_quantize without train.zero1 has no "
             "ZeRO-1 collective legs to quantize"
         )
+    if m.scan_layers and m.n_layers % m.scan_unit:
+        raise ValueError(
+            f"model.n_layers={m.n_layers} must be divisible by "
+            f"the layer-scan unit {m.scan_unit} "
+            f"(model.scan_group={m.scan_group}"
+            + (f" x pattern={m.window_pattern}" if m.window_pattern else "") + ")"
+        )
+    if m.scan_group > 1 and not m.scan_layers:
+        raise ValueError(
+            "model.scan_group > 1 requires model.scan_layers=true "
+            "(grouping is a property of the layer scan)"
+        )
+    check_dcn_axes(p)
     if r.num_processes > 1 and r.num_processes != p.num_devices:
         raise ValueError(
             f"runtime.num_processes={r.num_processes} must equal the mesh size "
@@ -217,6 +234,8 @@ def _check_supported(cfg: Config) -> None:
         "train.grad_quant_bits (the int8 gradient all-reduce)": t.grad_quant_bits is not None,
         "model.n_experts > 0 (MoE) with parallel.dp, fsdp or sp > 1 (comes with "
         "expert parallelism)": m.is_moe and p.num_devices > 1,
+        "model.scan_group > 1 (the remat boundary grouped over scan_group "
+        "layers)": m.scan_group > 1,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
