@@ -22,6 +22,8 @@ exits non-zero without printing a result:
   build    nvcc builds every ``orion_tpu_torch/csrc/*.cu`` (one process each,
            started together); the compiler's register/shared-memory report
            goes to chiprun_out/chip_smoke_build.log
+           (the warpgroup K7-pos/K8-pos kernels' registers, spills and
+           ptxas notes also on the build line)
   kernels  K1-K10 and K4's, K9's, K10's and K3-pos's split merges against their plain
            PyTorch versions on the card (the backward kernels against
            autograd of the plain forward; K5's scale gradient too, within
@@ -74,7 +76,11 @@ exits non-zero without printing a result:
            positions and a nonzero lse cotangent: the striped permutation
            at the training shapes without and with a window, two launches
            bitwise, and a windowed ring's past block whose query rows from
-           POSB_WINDOW - 1 on attend nothing (zero, finite gradients there)
+           POSB_WINDOW - 1 on attend nothing (zero, finite gradients there);
+           K7-pos/K8-pos over head dims 16-256 (POS_TRAIN_VARIANTS: ragged
+           lengths, segments, softcap, windows, not causal; two launches
+           bitwise), and the device plan of their bf16 kernels at 64/128
+           (flash_bwd_plan) equal to ops/flash_pos_bwd.py's
   parity   a tiny-llama float32 engine on cuda (kernels) and on cpu (plain
            versions), same seeded weights, six prompts against four slots;
            the same prompts on cuda with every dispatch eager
@@ -362,8 +368,9 @@ exits non-zero without printing a result:
            decode batch and K10 at the speculative serve's verify batch, K4,
            K10 and their merges also by CUDA-graph replay; K5-K8, and K3
            again with its lse as ``flash_fwd_train``: the training path's;
-           K7-pos and K8-pos at the striped training shapes, with their
-           device time alone, bound from the admitted pairs; the tp forms
+           K7-pos and K8-pos at the striped training shapes and at one of
+           sp_rank's ring steps (``sp_rank_shapes``), with their device
+           time alone, bound from the admitted pairs; the tp forms
            of K3, K4, K9, K10 at tp = 8 shard shapes, 4 query heads over 1
            kv head, the kernels phase holding each against its plain
            version on one rank's head blocks there and at tp_serve's
@@ -1056,7 +1063,51 @@ def phase_build():
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    emit({"phase": "build", "seconds": secs, "sources": list(logs)})
+    emit({"phase": "build", "seconds": secs, "sources": list(logs),
+          "wg_kernels": ptxas_report(logs["flash_bwd"], ("wg_kernel", "plan_kernel"))})
+
+
+def ptxas_report(log, keys):
+    """Registers, spill bytes and stack of each kernel whose mangled name
+    holds one of ``keys``, from nvcc's ``-Xptxas -v`` report, and ptxas's
+    performance notes (C75xx) on them."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in keys) else None
+            if cur:
+                out.setdefault(cur, {"notes": []})
+            continue
+        note = re.search(r"\((C75\d\d)\).*function '(\S+)'", line)
+        if note and any(k in note.group(2) for k in keys):
+            out.setdefault(note.group(2), {"notes": []})["notes"].append(note.group(1))
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return {short_kernel_name(k): v for k, v in out.items()}
+
+
+def short_kernel_name(mangled):
+    """``flash_dq_wg_kernel<128, false>`` of a mangled kernel name."""
+    import re
+
+    m = re.search(r"([A-Za-z_]+_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", mangled)
+    if m is None:
+        return mangled
+    args = [m.group(2)] if m.group(2) else []
+    if m.group(3):
+        args.append("true" if m.group(3) == "1" else "false")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def run_both(cuda, plain, pools, wrows, args, kw):
@@ -1944,6 +1995,129 @@ def check_flash_pos_train(dtype, gen):
     return errs
 
 
+# K7-pos / K8-pos off the training shapes: (H, N, K, Sq, Skv, layout, causal,
+# window, softcap, segments). H 64 and 128 run the warpgroup kernels, 16, 32
+# and 256 the mma.sync ones; ragged lengths put partial tiles at both ends.
+POS_TRAIN_VARIANTS = [
+    (64, 4, 2, 512, 512, "striped", True, None, None, False),
+    (64, 4, 1, 1000, 777, "random", False, None, None, True),
+    (128, 4, 2, 1000, 777, "random", True, 300, 30.0, True),
+    (128, 8, 8, 320, 200, "random", True, None, None, False),
+    (16, 4, 2, 300, 300, "striped", True, 64, None, False),
+    (32, 4, 2, 256, 200, "random", True, None, 30.0, True),
+    (256, 4, 2, 384, 384, "striped", True, None, None, False),
+]
+
+
+def pos_layout(kind, B, Sq, Skv, gen):
+    """int32 [B, Sq] and [B, Skv] positions: a permutation in 4 stripes
+    (Sq = Skv), or positions drawn at random in [0, 1200)."""
+    import torch
+
+    if kind == "striped":
+        qp = kp = torch.arange(Sq, device="cuda").reshape(Sq // 4, 4).t().reshape(-1)
+    else:
+        qp = torch.randint(0, 1200, (Sq,), generator=gen, device="cuda")
+        kp = torch.randint(0, 1200, (Skv,), generator=gen, device="cuda")
+    return (qp[None].expand(B, -1).to(torch.int32).contiguous(),
+            kp[None].expand(B, -1).to(torch.int32).contiguous())
+
+
+def pos_train_variants(gen):
+    """K7-pos and K8-pos in bf16 against autograd of the plain attention and
+    its lse (nonzero lse cotangent) over POS_TRAIN_VARIANTS, two launches
+    bitwise; returns each variant's errors (within TOL), and dq's, dk's and
+    dv's rel_rms against the plain version in float32 on the same bf16
+    inputs (the kernels' own rounding, apart from the bf16 reference's)."""
+    import torch
+
+    out = []
+    for H, N, K, Sq, Skv, kind, causal, window, cap, segs in POS_TRAIN_VARIANTS:
+        dt = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+        q, k, v, do = rnd(2, Sq, N, H), rnd(2, Skv, K, H), rnd(2, Skv, K, H), rnd(2, Sq, N, H)
+        g_lse = torch.randn(2, N, Sq, generator=gen, device="cuda")
+        qpos, kpos = pos_layout(kind, 2, Sq, Skv, gen)
+        kw = dict(q_positions=qpos, kv_positions=kpos, causal=causal, window=window,
+                  logit_softcap=cap)
+        if segs:
+            kw.update(q_segment_ids=torch.sort(torch.randint(
+                          1, 4, (2, Sq), generator=gen, device="cuda"), 1)[0].to(torch.int32),
+                      kv_segment_ids=torch.sort(torch.randint(
+                          1, 4, (2, Skv), generator=gen, device="cuda"), 1)[0].to(torch.int32))
+        got = pos_grads_kernel(q, k, v, do, g_lse, kw)
+        again = pos_grads_kernel(q, k, v, do, g_lse, kw)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+            raise AssertionError(f"K7/K8-pos H={H} {kind}: two launches differ")
+        want = pos_grads_plain(q, k, v, do, g_lse, kw)
+        want32 = pos_grads_plain(q.float(), k.float(), v.float(), do.float(), g_lse, kw)
+        out.append({"H": H, "N": N, "K": K, "Sq": Sq, "Skv": Skv, "layout": kind,
+                    "causal": causal, "window": window, "softcap": cap, "segments": segs,
+                    "flash_dq_pos": require_close("flash_dq_pos", "bfloat16", got[0], want[0]),
+                    "flash_dkv_pos": max(require_close("flash_dkv_pos", "bfloat16", a, b)
+                                         for a, b in zip(got[1:], want[1:])),
+                    **{f"{name}_rel_rms_f32": rel_rms(a, b)
+                       for name, a, b in zip(("dq", "dk", "dv"), got, want32)}})
+        del q, k, v, do, got, again, want, want32
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_bwd_plan(gen):
+    """The plan pass of K7-pos and K8-pos (``flash_bwd_plan``: each tile's
+    position and segment extremes, each batch row's blocks longest walk
+    first) equal to ops/flash_pos_bwd.py's plan on the CPU, at the training
+    shapes' stripes, sp_rank's ring step, a windowed past block and ragged
+    random positions with segment ids. Returns the layouts checked."""
+    import ctypes
+
+    import torch
+
+    from orion_tpu_torch.ops import _build
+    from orion_tpu_torch.ops import flash_pos_bwd as fpb
+
+    _, _, _, _, sp_q, sp_k = sp_step_inputs(gen)
+    iota = torch.arange(512, device="cuda", dtype=torch.int32)[None]
+    rq, rk = pos_layout("random", 2, 1000, 777, gen)
+    layouts = {
+        "striped_train": (*pos_layout("striped", 8, T_S, T_S, gen), None, None, None),
+        "sp_ring_step": (sp_q, sp_k, None, None, None),
+        "window_past": (512 + iota, iota, None, None, 100),
+        "ragged_segments": (rq, rk, *(torch.sort(torch.randint(
+            1, 4, t.shape, generator=gen, device="cuda"), 1)[0].to(torch.int32)
+            for t in (rq, rk)), None),
+    }
+    fn = _build.entry("flash_bwd", "flash_bwd_plan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+    for name, (qpos, kpos, qseg, kseg, window) in layouts.items():
+        B, Sq, Skv = qpos.shape[0], qpos.shape[1], kpos.shape[1]
+        cpu = [None if t is None else t.cpu() for t in (qpos, kpos, qseg, kseg)]
+        classes = fpb.bwd_classes(*cpu, causal=True, window=window)
+        n_qt, n_kt = fpb.n_tiles(Sq), fpb.n_tiles(Skv)
+        n_order = max(fpb.n_tiles(Sq, fpb.BLOCK), fpb.n_tiles(Skv, fpb.BLOCK))
+        for dq in (1, 0):
+            plan = torch.full((fpb.plan_scratch_ints(B, Sq, Skv),), -7, dtype=torch.int32,
+                              device="cuda")
+            rc = fn(qpos.data_ptr(), kpos.data_ptr(), None if qseg is None else qseg.data_ptr(),
+                    None if kseg is None else kseg.data_ptr(), plan.data_ptr(), B, Sq, Skv, 1,
+                    int(window or 0), dq, torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, "flash_bwd_plan")
+            plan = plan.cpu().long()
+            qf = plan[:B * n_qt * 4].view(B, n_qt, 4)
+            kf = plan[B * n_qt * 4:B * (n_qt + n_kt) * 4].view(B, n_kt, 4)
+            order = plan[B * (n_qt + n_kt) * 4:].view(B, n_order)
+            want = fpb.block_order(classes, 1 if dq else 2)
+            if not (torch.equal(qf, fpb.tile_facts(cpu[0], cpu[2]))
+                    and torch.equal(kf, fpb.tile_facts(cpu[1], cpu[3]))
+                    and torch.equal(order[:, :want.shape[1]], want)):
+                raise AssertionError(f"bwd plan {name} (dq={dq}): the device plan differs from "
+                                     "ops/flash_pos_bwd.py's")
+    return list(layouts)
+
+
 def pos_merge_inputs(gen, *, B=4, S=K9_S, N=N_HEADS, K=N_KV, H=HEAD, n_sp=8):
     """Partials of the positions kernel's merge at the gather body's widths:
     float32 O and (m, l) of n_sp splits, each (row, q tile) block with 1 to
@@ -2088,6 +2262,8 @@ def phase_kernels():
     emit({"phase": "kernels", "paged_prefill_variants": k9_variants(gen)})
     emit({"phase": "kernels", "ragged_verify_variants": k10_variants(gen)})
     emit({"phase": "kernels", "train_variants": train_variants(gen)})
+    emit({"phase": "kernels", "pos_train_variants": pos_train_variants(gen),
+          "bwd_plan_checked": check_bwd_plan(gen)})
     emit({"phase": "kernels", "norm_variants": norm_variants(gen), "deterministic": True})
     return errs
 
@@ -7523,13 +7699,100 @@ def k78pos_timing(gen):
     res = {
         "flash_dq_pos": dict(ms=time_ms(dq), device_ms=graph_ms(dq), plain_ms=plain,
                              library_ms=library, pairs_admitted=pairs,
+                             was_ms=K78POS_WAS_MS["flash_dq_pos"],
                              bound=bound(io + 2 * q.numel(), 6 * HEAD * pairs, BF16_FLOPS_S)),
         "flash_dkv_pos": dict(ms=time_ms(dkv), device_ms=graph_ms(dkv), plain_ms=plain,
                               library_ms=library, pairs_admitted=pairs,
+                              was_ms=K78POS_WAS_MS["flash_dkv_pos"],
                               bound=bound(io + 2 * (k.numel() + v.numel()), 8 * HEAD * pairs,
                                           BF16_FLOPS_S)),
     }
     del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return res
+
+
+# The mma.sync kernels' times at these shapes (PERF.md kernel table).
+K78POS_WAS_MS = {"flash_dq_pos": 1.799, "flash_dkv_pos": 1.736}
+
+
+def sp_step_inputs(gen):
+    """One ring step of rank sp / 2 of SP_PRESET in bf16: q, k, v, dO of
+    its 16384 striped queries and the past block src = rank - 1, and their
+    positions [1, 16384] (stripes of c = S / sp / sp)."""
+    import torch
+
+    from orion_tpu_torch.config import get_config
+    from orion_tpu_torch.parallel.sequence import striped_positions
+
+    cfg = get_config(SP_PRESET)
+    sp, S = cfg.parallel.sp, cfg.data.seq_len
+    N, K, H = cfg.model.n_heads, cfg.model.n_kv_heads, cfg.model.resolved_head_dim
+    s_loc, idx = S // sp, sp // 2
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(1, s_loc, N, H), rnd(1, s_loc, K, H), rnd(1, s_loc, K, H), rnd(1, s_loc, N, H)
+    qpos = striped_positions(idx, sp, s_loc, "cuda")[None].contiguous()
+    kpos = striped_positions(idx - 1, sp, s_loc, "cuda")[None].contiguous()
+    return q, k, v, do, qpos, kpos
+
+
+def k78pos_sp_timing(gen):
+    """K7-pos and K8-pos at sp_rank's shapes: one ring step of rank sp / 2
+    of SP_PRESET, 16384 striped queries (stripes of c = S / sp / sp) over
+    the past block src = rank - 1, 32/8 heads, head_dim 128, bf16. Bounds
+    from the admitted pairs (every key at or before its query: 136 of the
+    256 stripe pairs) and the bytes each kernel reads once and writes. The
+    library call is SDPA's backward with K/V repeated over the groups and
+    the bool mask of the positions (it computes every pair); the plain
+    version's float32 logits alone would take 34 GB (``plain_ms`` null)."""
+    import torch
+    import torch.nn.functional as F
+
+    from orion_tpu_torch import ops
+
+    q, k, v, do, qpos, kpos = sp_step_inputs(gen)
+    N, K, H = q.shape[2], k.shape[2], q.shape[3]
+    out, lse = ops.flash_attention_pos_cuda(q, k, v, qpos, kpos, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    mask = qpos[0, :, None] >= kpos[0, None, :]
+    pairs = int(mask.sum()) * N
+    io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * lse.numel() \
+        + 4 * (qpos.numel() + kpos.numel())
+    G = N // K
+    lib = [t.detach().transpose(1, 2).requires_grad_() for t in
+           (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))]
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            library = backward_ms(F.scaled_dot_product_attention(
+                *lib, attn_mask=mask[None, None]), lib, do.transpose(1, 2))
+    except (RuntimeError, torch.OutOfMemoryError) as e:   # no fused kernel takes it
+        library = None
+        print(f"k78pos_sp_timing: SDPA's masked backward not timed: {e}", file=sys.stderr)
+    del lib, mask
+    torch.cuda.empty_cache()
+    args = (q, k, v, do, lse, delta, qpos, kpos)
+
+    def dq():
+        return ops.flash_dq_pos_cuda(*args)
+
+    def dkv():
+        return ops.flash_dkv_pos_cuda(*args)
+
+    res = {
+        "flash_dq_pos_sp": dict(ms=time_ms(dq), device_ms=graph_ms(dq), plain_ms=None,
+                                library_ms=library, pairs_admitted=pairs,
+                                bound=bound(io + 2 * q.numel(), 6 * H * pairs, BF16_FLOPS_S)),
+        "flash_dkv_pos_sp": dict(ms=time_ms(dkv), device_ms=graph_ms(dkv), plain_ms=None,
+                                 library_ms=library, pairs_admitted=pairs,
+                                 bound=bound(io + 2 * (k.numel() + v.numel()), 8 * H * pairs,
+                                             BF16_FLOPS_S)),
+    }
+    del q, k, v, do, out, lse, delta, args
     torch.cuda.empty_cache()
     return res
 
@@ -7600,6 +7863,7 @@ def phase_timing():
     res.update(ragged_verify_timing(gen))
     res.update(train_timing(gen))
     res.update(k78pos_timing(gen))
+    res.update(k78pos_sp_timing(gen))
     res.update(tp_timing(gen))
     for name, r in res.items():
         extra = {k: v for k, v in r.items()
@@ -7620,7 +7884,7 @@ def extra_timing(name, timing):
     phase took it (K1, K4, K5, K10 and the merges; K10 also beside K4 at
     the same contexts) and K1's and K5's host microseconds per call."""
     def device(r):
-        return {k: r[k] for k in ("device_ms", "host_us") if k in r}
+        return {k: r[k] for k in ("device_ms", "host_us", "pairs_admitted") if k in r}
 
     out = device(timing[name])
     for key in ("k4_ms_same_contexts", "k4_device_ms_same_contexts"):
@@ -7631,6 +7895,8 @@ def extra_timing(name, timing):
              "paged_decode_int8": [("serve_shapes", "paged_decode_int8_serve")],
              "ragged_verify": [("serve_shapes", "ragged_verify_serve")],
              "ragged_verify_int8": [("serve_shapes", "ragged_verify_int8_serve")],
+             "flash_dq_pos": [("sp_rank_shapes", "flash_dq_pos_sp")],
+             "flash_dkv_pos": [("sp_rank_shapes", "flash_dkv_pos_sp")],
              "rmsnorm_fwd": [("train_shapes", "rmsnorm_fwd_train"),
                              ("decode_shapes", "rmsnorm_fwd_decode")]}
     for key, row in extra.get(name, ()):

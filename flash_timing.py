@@ -25,6 +25,9 @@ bfloat16 rows, chip_smoke.py's inputs:
              flash_dq_pos_cuda and flash_dkv_pos_cuda at the training
              shapes under chip_smoke's striped positions (causal), from the
              tree's own K3-pos output and lse (trees that have them)
+  k7pos_sp, k8pos_sp
+             the same at sp_rank's ring step (chip_smoke.sp_step_inputs:
+             16384 striped queries over the past block, 32/8 heads)
   k3pos      flash_attention_pos_cuda at the gather body's shapes (4 rows
              of 256 over 128 prefix pages of 64), merge included
   sdpa_pos   SDPA with enable_gqa and the bool mask of the same positions
@@ -35,10 +38,13 @@ branch with the grid's split count forced to n (the tree's
 ``ops.attention.grid_splits`` replaced for the row). Per row: ``ms``
 (chip_smoke's time_ms) and ``device_ms`` (chip_smoke's graph_ms), and for
 each tree after the first whether ``k3_serve``'s output and K7's and K8's
-are bitwise the first tree's (K7-pos's and K8-pos's: the first tree that
-has them). One JSON line per round, then a summary line with the
-median, min and max over the rounds, then the card's nvidia-smi name and
-power limit.
+are bitwise the first tree's, and K7-pos's and K8-pos's largest absolute
+difference from the first tree's (a redesign sums in another order). A
+tree listed more than once (``--tree A --tree B --tree B --tree A``) is
+timed each time it comes, its later readings keyed ``<tree>#<n>`` in the
+round's line. One JSON line per round, then a summary line with the
+median, min and max over every reading of each tree (rounds times
+listings, ``n``), then the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -46,9 +52,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
-
-from norm_timing import summary
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -76,7 +81,7 @@ def timed(fn):
 def rows(ops, att, inputs, splits):
     """Every row for one tree; also the outputs of k3_serve, K7 and K8 (and
     K7-pos and K8-pos) for the bitwise check."""
-    serve, train, pos, striped = inputs
+    serve, train, pos, striped, sp = inputs
     q, k, v, seg = serve
     kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg, seg_pad_zero=True)
     res = {"k3_serve": timed(lambda: ops.flash_attention_cuda(q, k, v, **kw))}
@@ -101,6 +106,15 @@ def rows(ops, att, inputs, splits):
         res["k8pos_train"] = timed(lambda: ops.flash_dkv_pos_cuda(*pbwd))
         outs["k7pos_train"] = ops.flash_dq_pos_cuda(*pbwd)
         outs["k8pos_train"] = ops.flash_dkv_pos_cuda(*pbwd)[0]
+        rq, rk, rv, rdo, rqpos, rkpos = sp
+        rout, rlse = ops.flash_attention_pos_cuda(rq, rk, rv, rqpos, rkpos, return_lse=True)
+        rdelta = (rdo.float() * rout.float()).sum(-1).transpose(1, 2).contiguous()
+        rbwd = (rq, rk, rv, rdo, rlse, rdelta, rqpos, rkpos)
+        res["k7pos_sp"] = timed(lambda: ops.flash_dq_pos_cuda(*rbwd))
+        res["k8pos_sp"] = timed(lambda: ops.flash_dkv_pos_cuda(*rbwd))
+        outs["k7pos_sp"] = ops.flash_dq_pos_cuda(*rbwd)
+        outs["k8pos_sp"] = ops.flash_dkv_pos_cuda(*rbwd)[0]
+        del rout, rlse, rdelta, rbwd
     pq, pk, pv, pkw = pos
     args = (pq, pk, pv, pkw["q_positions"], pkw["kv_positions"])
     seg_kw = dict(q_segment_ids=pkw["q_segment_ids"], kv_segment_ids=pkw["kv_segment_ids"],
@@ -116,6 +130,21 @@ def rows(ops, att, inputs, splits):
         finally:
             att.grid_splits = grid_splits
     return res, outs
+
+
+def pooled(readings):
+    """{tree: {row: {metric: {median, min, max, n}}}} over the (tree, rows)
+    readings, every round and every listing of a tree together."""
+    vals = {}
+    for tree, rws in readings:
+        for row, metrics in rws.items():
+            if isinstance(metrics, dict):
+                for key, x in metrics.items():
+                    vals.setdefault(tree, {}).setdefault(row, {}).setdefault(key, []).append(x)
+    return {tree: {row: {key: {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+                               "n": len(xs)} for key, xs in metrics.items()}
+                   for row, metrics in rws.items()}
+            for tree, rws in vals.items()}
 
 
 def main(argv=None) -> int:
@@ -141,36 +170,41 @@ def main(argv=None) -> int:
     loaded = {tree: load_ops(tree) for tree in trees}
     splits = [int(s) for s in args.splits.split(",") if s]
     gen = torch.Generator(device="cuda")
-    rounds = []
+    readings = []
     for i in range(args.rounds):
         gen.manual_seed(i)
         serve = cs.k3_inputs(torch.bfloat16, gen)
         train = cs.t_attn_inputs(torch.bfloat16, gen)
         pos = cs.k3pos_gather_inputs(torch.bfloat16, gen)
         striped = cs.k3pos_striped_inputs(torch.bfloat16, gen)
+        sp = cs.sp_step_inputs(gen)
         pq, pk, pv, pkw = pos
         mask = loaded[trees[-1]][0].attention_mask(pq.shape[1], pk.shape[1], causal=True,
                                                    **pkw)[:, None]
         lib = [t.transpose(1, 2) for t in (pq, pk, pv)]
         rnd, first = {}, {}
-        for tree in trees:
+        for j, tree in enumerate(trees):
             ops, att = loaded[tree]
-            r, outs = rows(ops, att, (serve, train, pos, striped),
+            r, outs = rows(ops, att, (serve, train, pos, striped, sp),
                            splits if tree == trees[-1] else [])
             for name, t in outs.items():
-                if name in first:
-                    r[f"{name}_bitwise_first_tree"] = bool(torch.equal(cs.bits(t), first[name]))
+                if name not in first:
+                    first[name] = t
+                elif "pos" in name:
+                    r[f"{name}_max_abs_diff_first_tree"] = cs.max_err(t, first[name])
                 else:
-                    first[name] = cs.bits(t)
-            rnd[tree] = r
+                    r[f"{name}_bitwise_first_tree"] = bool(torch.equal(cs.bits(t),
+                                                                       cs.bits(first[name])))
+            n = trees[:j].count(tree)
+            rnd[f"{tree}#{n}" if n else tree] = r
+            readings.append((tree, r))
         rnd["sdpa_pos"] = {"sdpa": timed(lambda: F.scaled_dot_product_attention(
             *lib, attn_mask=mask, enable_gqa=True))}
-        del serve, train, pos, striped, pq, pk, pv, pkw, mask, lib, first
+        readings.append(("sdpa_pos", rnd["sdpa_pos"]))
+        del serve, train, pos, striped, sp, pq, pk, pv, pkw, mask, lib, first
         torch.cuda.empty_cache()
         print(json.dumps({"round": i, **rnd}), flush=True)
-        rounds.append({t: {k: v for k, v in r.items() if isinstance(v, dict)}
-                       for t, r in rnd.items()})
-    print(json.dumps({"summary": summary(rounds), "rounds": args.rounds}), flush=True)
+    print(json.dumps({"summary": pooled(readings), "rounds": args.rounds}), flush=True)
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -43,7 +43,8 @@
 //     warp per 16 kv rows x H/2 columns;
 //   - mma.sync and not wgmma (in K7 too): mma.sync's fragments need no
 //     shared-memory descriptors or swizzled layouts, so the kernels can be
-//     read against the formulas above; wgmma is the step after this one;
+//     read against the formulas above; the positions kernels at H = 64 and
+//     128 run on wgmma (below);
 //   - skips and masks match K3's exactly: a 64-key tile holds two of K3's
 //     64x32 tiles, the causal and window ranges of q tiles are K3's, and
 //     under seg_pad_zero a pair counts only where K3 ran its sub-tile
@@ -106,32 +107,64 @@
 //     the window, or all padding under seg_pad_zero) is skipped here too,
 //     and the recomputed logits are K3's bit for bit: exp(z - lse) never
 //     sees a logit that lse did not count.
-// Explicit positions, K7-pos and K8-pos (the has_pos branch of _dq_kernel
-// and _dkv_kernel: _block_mask and _block_run, flash_attention.py:88-140):
-// with non-null qpos [B, Sq] and kpos [B, Skv] (int32) the causal and
-// window tests compare positions, not indices, and nothing assumes they
-// rise (the ring's past blocks under a window, the striped ring's stripes).
-// The gradient of K3's positions branch, with the lse cotangent folded into
-// delta by the wrapper. Bound by operations, as K7 and K8. What the design
-// does about positions that skip no contiguous range:
-//   - K7-pos (flash_dq_tc_kernel<HD, true>, and flash_dq_kernel in f32)
-//     lists the key steps its q tile may attend with K3-pos's live_steps
-//     (the tile's q extremes against each step's kv extremes), so a dead
-//     step is neither loaded nor computed; each warp then tests its own q
-//     extremes against the step's (classify_pos: dead, or full with no
-//     mask), and the mask compares the pair's positions;
-//   - K8-pos (flash_dkv_tc_kernel<HD, true>, and flash_dkv_kernel in f32)
-//     walks the transpose, the q tiles that can reach its keys
-//     (flash_tc.cuh live_qtiles: each tile's q extremes against the keys'),
-//     computed in the kernel by one coalesced pass over the row's q
-//     positions (4 bytes a query, from L2), over the group's heads; a step
-//     needs no mask when every key precedes every query inside the window;
-//   - neither splits its walk (one block a q tile or kv tile, as the index
-//     kernels), neither takes seg_pad_zero or q_offset: the gradient path
-//     with positions runs K3-pos without the tile skip, and the pairs that
-//     count are exactly those the mask admits, the pairs K3-pos's lse
-//     summed. Sums stay in registers, each output written once by one
-//     thread: two launches give the same bits.
+// Explicit positions, K7-pos and K8-pos: the has_pos branch of _dq_kernel
+// (flash_attention.py:229) and _dkv_kernel (:274), masked by _block_mask
+// and _block_run (:88-140). With non-null qpos [B, Sq] and kpos [B, Skv]
+// (int32) the causal and window tests compare positions, not indices, and
+// nothing assumes they rise (the ring's past blocks under a window, the
+// striped ring's stripes). The gradient of K3's positions branch, with the
+// lse cotangent folded into delta by the wrapper; no seg_pad_zero, no
+// q_offset. Bound by operations, as K7 and K8. In bfloat16 at H = 64 and
+// 128, warp-specialised kernels on wgmma and TMA (namespace wg, the
+// building blocks in hopper.cuh); ops/flash_pos_bwd.py writes their plan
+// out in PyTorch:
+//   - a plan pass per call (bwd_plan_kernel, into a scratch tensor the
+//     wrapper allocates, a block a batch row): each 64-entry tile's least
+//     and greatest position and segment id, once, so no block rescans a
+//     sequence; from them every (q tile, kv tile) pair is DEAD (no pair
+//     admitted: neither loaded nor computed), FULL (every pair admitted:
+//     no mask) or MASKED; and each batch row's blocks by their work
+//     (K7: the kv tiles either q tile attends; K8: the live pairs of its
+//     two kv tiles), most first, the grid running them in that order
+//     with every head of a block together;
+//   - a block is three warpgroups: two consumers (wgmma, 240 registers a
+//     thread by setmaxnreg) and one warp of the third producing, the
+//     block's walk read from shared memory: bf16 tiles by TMA (one thread)
+//     with the 128-byte swizzle
+//     into a ring guarded by full and empty mbarriers; the row arrays
+//     (positions, segment ids, lse, delta) by the producer warp's cp.async
+//     arriving on the same full barrier, as their rows start at any 4
+//     bytes where a TMA box must start on 16;
+//   - K7-pos (flash_dq_wg_kernel): a block per (128 query rows, q head);
+//     Q and dO resident, K and V through a three-stage ring; S = Q.K^T and
+//     dP = dO.V^T on wgmma m64n64k16 from shared memory in two commit
+//     groups (S's exponentials overlap dP), dQ += dS.K on m64nHk16 with dS
+//     from registers and K read MN-major; dq in f32 registers. A FULL step
+//     costs one FFMA and one EX2 an element (the mask, positions and
+//     segment ids only on MASKED steps; softcap a kernel of its own);
+//   - K8-pos (flash_dkv_wg_kernel): a block per (128 keys, kv head), its
+//     two 64-key tiles one after the other; K and V resident, Q, dO and
+//     the queries' row arrays through a two-stage ring, walking (query
+//     head of the group, q tile). The two consumer warpgroups split a step
+//     by role: one S^T = K.Q^T, P^T and dV += P^T.dO, the other dP^T =
+//     V.dO^T, dS^T and dK += dS^T.Q; only P^T passes between them, through
+//     shared memory in f32 (dS^T = P^T (dP^T - delta) is formed before any
+//     rounding, as in K7-pos and the JAX kernel), under two named barriers.
+//     A warpgroup so holds one accumulator of H / 2 registers (dK or dV)
+//     beside the step's 32: with dK and dV in one warpgroup ptxas kept a
+//     32-register block in local memory (about 600 bytes of spill stores,
+//     its wgmmas serialized, note C7512) and the kernel ran 1.25x slower.
+//     What holds it back now: the second warpgroup waits for P^T once a
+//     step, and each Q and dO tile is loaded once for each of the block's
+//     two kv tiles;
+//   - each output element is written once by one thread: two launches give
+//     the same bits, no atomics.
+// H = 16, 32 and 256 keep the mma.sync kernels, chosen in launch by head dim:
+// flash_dq_tc_kernel<HD, true> and flash_dkv_tc_kernel<HD, true> (mma.sync,
+// cp.async), the index kernels' templates with K3-pos's live-step list
+// (flash_tc.cuh live_steps) and the q tiles that reach a kv tile
+// (live_qtiles); float32 keeps the CUDA-core kernels (flash_dq_kernel,
+// flash_dkv_kernel) with the same lists.
 //
 // In every kernel the mask goes inside the exponential, exp(keep ? z - lse
 // : NEG_INF), never exp(z - lse) * mask: a row that attends nothing carries
@@ -142,10 +175,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <type_traits>
 
 #include "flash_tc.cuh"
+#include "hopper.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -1179,6 +1214,900 @@ __global__ void __launch_bounds__(ftc::NT, ftc::min_blocks<HD>())
 }  // namespace tcdq
 
 
+// ---------------------------------------------------------------------------
+// K7-pos and K8-pos in bfloat16 at head_dim 64 and 128: warp-specialised
+// kernels on wgmma and TMA (see the note at the top of the file and
+// ops/flash_pos_bwd.py, which writes the plan out in PyTorch). A block is
+// three warpgroups: 0 and 1 consume (wgmma), one tile of 64 rows or keys
+// each; in warpgroup 2 one warp produces (TMA from one thread, cp.async
+// from the warp, into a ring of stages each guarded by a full and an empty
+// mbarrier).
+namespace wg {
+
+constexpr int T = 64;           // rows or keys of a tile: one consumer warpgroup's
+constexpr int ROWS = 2 * T;     // query rows (K7) or keys (K8) of a block
+constexpr int NTHREADS = 384;
+constexpr int CONSUMER_REGS = 240;
+constexpr int DQ_STAGES = 3;   // K, V ring of K7-pos
+constexpr int DKV_STAGES = 2;  // Q, dO ring of K8-pos (3 and 4 measured no faster)
+constexpr int CONSUMER_WARPS = 8;
+constexpr int DEAD = 0, MASKED = 1, FULL = 2;
+constexpr int PLAN_THREADS = 512;
+
+struct Facts {
+  int lo, hi, slo, shi;  // least / greatest position and segment id of a tile
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// What both kernels take: the tensor maps of q, dO, k and v (passed by
+// value, so they live in the kernel's parameter space, where TMA reads
+// them), the row arrays and the plan pass's scratch.
+struct WgArgs {
+  CUtensorMap q, dout, k, v;      // bf16 [B, S, heads, H]; boxes of 64 columns
+  const float* lse;               // [B, N, Sq]
+  const float* delta;
+  const int* qpos;                // [B, Sq]
+  const int* kpos;                // [B, Skv]
+  const int* qseg;                // [B, Sq] or null
+  const int* kseg;
+  void* dq;                       // bf16 [B, Sq, N, H]
+  void* dk;                       // bf16 [B, Skv, K, H]
+  void* dv;
+  int* plan;                      // the plan pass's scratch (plan_scratch_ints)
+  int B, Sq, Skv, N, K, causal, window, has_seg;
+  float softcap, scale;
+};
+
+// The plan's scratch, int32: q tiles' facts [B][n_qt][4], kv tiles'
+// [B][n_kt][4], then one block order [B][n_order].
+struct PlanLayout {
+  int n_qt, n_kt, n_order;
+  __host__ __device__ PlanLayout(int Sq, int Skv)
+      : n_qt(cdiv(Sq, T)), n_kt(cdiv(Skv, T)),
+        n_order(cdiv(Sq, ROWS) > cdiv(Skv, ROWS) ? cdiv(Sq, ROWS) : cdiv(Skv, ROWS)) {}
+  __host__ __device__ int64_t kf(int B) const { return static_cast<int64_t>(B) * n_qt * 4; }
+  __host__ __device__ int64_t order(int B) const {
+    return kf(B) + static_cast<int64_t>(B) * n_kt * 4;
+  }
+};
+
+// L2-coherent: the plan pass reads back facts it wrote itself.
+__device__ __forceinline__ Facts load_facts(const int* f, int64_t i) {
+  const int4 v = __ldcg(reinterpret_cast<const int4*>(f + 4 * i));
+  return Facts{v.x, v.y, v.z, v.w};
+}
+
+// The class of the pair (q tile with facts q, kv tile with facts k):
+// whole = every entry of the tile lies inside its sequence. As
+// ops/flash_pos_bwd.py tile_classes.
+__device__ __forceinline__ int tile_class(const Facts& q, bool q_whole, const Facts& k,
+                                          bool k_whole, int causal, int window, int has_seg) {
+  bool dead = false, full = q_whole && k_whole;
+  if (causal) {
+    dead = k.lo > q.hi;
+    full = full && k.hi <= q.lo;
+    if (window > 0) {
+      dead = dead || static_cast<int64_t>(k.hi) <= static_cast<int64_t>(q.lo) - window;
+      full = full && static_cast<int64_t>(q.hi) - k.lo < window;
+    }
+  }
+  if (has_seg) {
+    dead = dead || q.shi < k.slo || k.shi < q.slo;
+    full = full && q.slo == q.shi && k.slo == k.shi && q.slo == k.slo;
+  }
+  return dead ? DEAD : (full ? FULL : MASKED);
+}
+
+// One block of the pass per batch row: the facts of every tile of both
+// sequences, a warp a tile (one coalesced read of the positions and
+// segment ids, 4 bytes an entry); then every K7 (dq) or K8 block's work, a
+// warp a block; then the blocks by work, most first, equal work in index
+// order (each block's rank counted against all).
+struct PlanArgs {
+  const int* qpos;
+  const int* kpos;
+  const int* qseg;
+  const int* kseg;
+  int* plan;
+  int Sq, Skv, causal, window, has_seg, dq;
+};
+
+__device__ __forceinline__ void tile_facts(const int* pos, const int* seg, int S, int b, int t,
+                                           int* out) {
+  const int lane = threadIdx.x % 32;
+  int lo = ftc::POS_MAX, hi = ftc::POS_MIN, slo = ftc::POS_MAX, shi = ftc::POS_MIN;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t * T + lane + 32 * h;
+    if (i < S) {
+      const int p = pos[static_cast<int64_t>(b) * S + i];
+      lo = min(lo, p);
+      hi = max(hi, p);
+      if (seg != nullptr) {
+        const int s = seg[static_cast<int64_t>(b) * S + i];
+        slo = min(slo, s);
+        shi = max(shi, s);
+      }
+    }
+  }
+  lo = __reduce_min_sync(ftc::FULL, lo);
+  hi = __reduce_max_sync(ftc::FULL, hi);
+  slo = seg != nullptr ? __reduce_min_sync(ftc::FULL, slo) : 0;
+  shi = seg != nullptr ? __reduce_max_sync(ftc::FULL, shi) : 0;
+  if (lane == 0) *reinterpret_cast<int4*>(out) = make_int4(lo, hi, slo, shi);
+}
+
+__global__ void __launch_bounds__(PLAN_THREADS) bwd_plan_kernel(PlanArgs p) {
+  extern __shared__ int plan_cnt[];  // [n_blocks]
+  int* cnt = plan_cnt;
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int NW = PLAN_THREADS / 32;
+  const PlanLayout L(p.Sq, p.Skv);
+  const int B = gridDim.x;
+  int* qf = p.plan;
+  int* kf = p.plan + L.kf(B);
+  for (int t = warp; t < L.n_qt; t += NW)
+    tile_facts(p.qpos, p.qseg, p.Sq, b, t, qf + 4 * (static_cast<int64_t>(b) * L.n_qt + t));
+  for (int t = warp; t < L.n_kt; t += NW)
+    tile_facts(p.kpos, p.kseg, p.Skv, b, t, kf + 4 * (static_cast<int64_t>(b) * L.n_kt + t));
+  __syncthreads();  // the block's facts are visible to it (plain loads below)
+
+  // A block's own two tiles (q tiles for K7, kv tiles for K8) against every
+  // tile of the other sequence.
+  const int n_own = p.dq ? L.n_qt : L.n_kt, n_other = p.dq ? L.n_kt : L.n_qt;
+  const int n_blk = cdiv(n_own, 2);
+  const int* own = (p.dq ? qf : kf) + 4 * static_cast<int64_t>(b) * n_own;
+  const int* other = (p.dq ? kf : qf) + 4 * static_cast<int64_t>(b) * n_other;
+  const int S_own = p.dq ? p.Sq : p.Skv, S_other = p.dq ? p.Skv : p.Sq;
+  for (int blk = warp; blk < n_blk; blk += NW) {
+    const bool has1 = 2 * blk + 1 < n_own;
+    const Facts f0 = load_facts(own, 2 * blk);
+    const Facts f1 = has1 ? load_facts(own, 2 * blk + 1) : f0;
+    const bool w0 = (2 * blk + 1) * T <= S_own, w1 = (2 * blk + 2) * T <= S_own;
+    int count = 0;
+    for (int o = lane; o < n_other; o += 32) {
+      const Facts fo = load_facts(other, o);
+      const bool wo = (o + 1) * T <= S_other;
+      if (p.dq) {
+        // K7's two warpgroups take a step together: the steps either attends.
+        count += tile_class(f0, w0, fo, wo, p.causal, p.window, p.has_seg) != DEAD ||
+                 (has1 && tile_class(f1, w1, fo, wo, p.causal, p.window, p.has_seg) != DEAD);
+      } else {
+        // K8 walks its two kv tiles in turn: the live pairs of both.
+        count += (tile_class(fo, wo, f0, w0, p.causal, p.window, p.has_seg) != DEAD) +
+                 (has1 && tile_class(fo, wo, f1, w1, p.causal, p.window, p.has_seg) != DEAD);
+      }
+    }
+    count = __reduce_add_sync(ftc::FULL, count);
+    if (lane == 0) cnt[blk] = count;
+  }
+  __syncthreads();
+  int* order = p.plan + L.order(B) + static_cast<int64_t>(b) * L.n_order;
+  for (int i = tid; i < n_blk; i += PLAN_THREADS) {
+    const int c = cnt[i];
+    int r = 0;
+    for (int j = 0; j < n_blk; ++j) {
+      const int cj = cnt[j];
+      r += cj > c || (cj == c && j < i);
+    }
+    order[r] = i;
+  }
+}
+
+// The block's walk, into `list` (n_other ints of shared memory) and its
+// length into *n_list: every tile of the other sequence where either of the
+// block's own two tiles is not DEAD, in order, as other << 4 | class of the
+// first own tile | class of the second << 2 (every thread must call it).
+__device__ __forceinline__ void build_walk(const WgArgs& a, int b, int blk, bool dq, int* list,
+                                           int* n_list) {
+  const PlanLayout L(a.Sq, a.Skv);
+  const int* qf = a.plan;
+  const int* kf = a.plan + L.kf(a.B);
+  const int n_own = dq ? L.n_qt : L.n_kt, n_other = dq ? L.n_kt : L.n_qt;
+  const int* own = (dq ? qf : kf) + 4 * static_cast<int64_t>(b) * n_own;
+  const int* other = (dq ? kf : qf) + 4 * static_cast<int64_t>(b) * n_other;
+  const int S_own = dq ? a.Sq : a.Skv, S_other = dq ? a.Skv : a.Sq;
+  const bool has1 = 2 * blk + 1 < n_own;
+  const Facts f0 = load_facts(own, 2 * blk);
+  const Facts f1 = has1 ? load_facts(own, 2 * blk + 1) : f0;
+  const bool w0 = (2 * blk + 1) * T <= S_own, w1 = (2 * blk + 2) * T <= S_own;
+  for (int o = threadIdx.x; o < n_other; o += NTHREADS) {
+    const Facts fo = load_facts(other, o);
+    const bool wo = (o + 1) * T <= S_other;
+    int c0, c1 = DEAD;
+    if (dq) {
+      c0 = tile_class(f0, w0, fo, wo, a.causal, a.window, a.has_seg);
+      if (has1) c1 = tile_class(f1, w1, fo, wo, a.causal, a.window, a.has_seg);
+    } else {
+      c0 = tile_class(fo, wo, f0, w0, a.causal, a.window, a.has_seg);
+      if (has1) c1 = tile_class(fo, wo, f1, w1, a.causal, a.window, a.has_seg);
+    }
+    list[o] = (c0 != DEAD || c1 != DEAD) ? (o << 4 | c0 | c1 << 2) : -1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    // In-place compaction by one warp, as in flash_tc.cuh live_steps.
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int base = 0; base < n_other; base += 32) {
+      const int o = base + lane;
+      const int e = o < n_other ? list[o] : -1;
+      const unsigned bal = __ballot_sync(ftc::FULL, e >= 0);
+      if (e >= 0) list[count + __popc(bal & ((1u << lane) - 1u))] = e;
+      count += __popc(bal);
+    }
+    if (lane == 0) *n_list = count;
+  }
+  __syncthreads();
+}
+
+// The block this CTA runs: rank r of its batch row in the plan's order,
+// every head of a block together (grid = B x n_blocks x heads).
+__device__ __forceinline__ void block_of(const WgArgs& a, int heads, int& b, int& head,
+                                         int& blk) {
+  const int L = blockIdx.x, per = a.B * heads;
+  const int r = L / per;
+  b = (L % per) / heads;
+  head = L % heads;
+  const PlanLayout P(a.Sq, a.Skv);
+  blk = a.plan[P.order(a.B) + static_cast<int64_t>(b) * P.n_order + r];
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = hop::smem_u32(p);
+  return p + ((1024 - (s & 1023)) & 1023);
+}
+
+// 2^x on the MUFU unit (ex2.approx.ftz): exp(z - lse) as 2^(z log2 e -
+// lse log2 e), one FFMA and one MUFU an element; -inf-like arguments give
+// 0, so a masked pair takes MASK_L2.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float MASK_L2 = -1e30f;
+
+// The producer warp's copy of 64 int32 / float32 entries [i0, i0 + 64) of
+// `src` (row base, n entries valid) into `dst`, two a lane, asynchronous;
+// entries past n read zeros. The stage's full barrier counts the warp's
+// 32 arrivals (arrive_on_copies) beside the TMA's bytes: the entries of
+// a row start at any 4 bytes, where a TMA box must start on 16.
+__device__ __forceinline__ void copy_row(void* dst, const void* src, int i0, int n) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = lane + 32 * h;
+    const bool in = i0 + i < n;
+    tc::cp4(static_cast<char*>(dst) + 4 * i,
+            in ? static_cast<const char*>(src) + 4 * static_cast<int64_t>(i0 + i) : src, in);
+  }
+}
+
+// An arrival on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(hop::smem_u32(bar))
+               : "memory");
+}
+
+constexpr int FULL_ARRIVALS = 33;  // the producer's expect_tx and its warp's 32 copy arrivals
+
+// A descriptor the compiler cannot see through: offsets are added to it at
+// each product, not hoisted out of the walk as 16 live 64-bit values.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// Keeps A fragments in their registers up to this point: wgmma reads them
+// after the instruction that names them, until its group completes.
+__device__ __forceinline__ void hold_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
+}
+
+// One consumer warp's arrival on a stage's empty barrier (8 free it).
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hop::bar_arrive(empty);
+}
+
+// dS (or P) of the accumulator, 16 floats a 16-deep slice, as the bf16 A
+// fragments of the next product: slice kk is columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = tc::pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = tc::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = tc::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = tc::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// acc (+)= X . Y^T over the head dim: X the warpgroup's 64 rows of a
+// [halves][rows][64] tile whose halves lie `x_half` bytes apart, Y a
+// [halves][64][64] tile. A descriptor's address field counts 16 bytes.
+template <int HD>
+__device__ __forceinline__ void product_ss(float (&acc)[32], const unsigned char* x,
+                                           int x_half, const unsigned char* y) {
+  const uint64_t dx = opaque(hop::desc(x, 16, 1024)), dy = opaque(hop::desc(y, 16, 1024));
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int h = kk / 4, off = (kk % 4) * 32;
+    hop::wgmma_ss_n64(acc, dx + ((h * x_half + off) >> 4), dy + ((h * T * 128 + off) >> 4),
+                      kk > 0);
+  }
+}
+
+// acc += A . Y over 64 rows of Y, a [halves][64][64] tile read MN-major
+// (its head columns the product's N).
+template <int HD>
+__device__ __forceinline__ void product_rs(float (&acc)[HD / 2], const uint32_t (&a)[4][4],
+                                           const unsigned char* y) {
+  const uint64_t dy = opaque(hop::desc(y, T * 128, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d = dy + ((kk * 16 * 128) >> 4);
+    if constexpr (HD == 128) hop::wgmma_rs_n128(acc, a[kk], d);
+    else hop::wgmma_rs_n64(acc, a[kk], d);
+  }
+}
+
+// K7-pos: one block per (q tile of ROWS rows, q head, batch row), in the
+// plan's order. Shared memory (1024-aligned): Q and dO [halves][ROWS][64]
+// resident; the ring's stages of K and V [halves][64][64] and the keys'
+// positions and segment ids [64]; the barriers; the walk.
+template <int HD>
+struct DqSmem {
+  static constexpr int HALVES = HD / 64;
+  static constexpr int Q_HALF = ROWS * 128;           // bytes of a half of Q or dO
+  static constexpr int Q_BYTES = HALVES * Q_HALF;
+  static constexpr int KV_BYTES = HALVES * T * 128;  // K or V of a step
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int RING = 2 * Q_BYTES;
+  static constexpr int KPOS = RING + DQ_STAGES * STAGE;  // [DQ_STAGES][64] int
+  static constexpr int KSEG = KPOS + DQ_STAGES * T * 4;
+  static constexpr int BARS = KSEG + DQ_STAGES * T * 4;  // full[DQ_STAGES], empty[DQ_STAGES], q
+  static constexpr int NLIST = BARS + (2 * DQ_STAGES + 1) * 8;
+  static constexpr int LIST = NLIST + 16;
+  static constexpr size_t bytes(int n_kt) { return 1024 + LIST + 4 * static_cast<size_t>(n_kt); }
+};
+
+// CAP: softcap > 0, a kernel of its own (the tanh and its 1 - t^2 stay
+// out of the common step).
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_dq_wg_kernel(const __grid_constant__ WgArgs a) {
+  using S = DqSmem<HD>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* sm = align1024(wg_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* qbar = empty + DQ_STAGES;
+  int* n_list_p = reinterpret_cast<int*>(sm + S::NLIST);
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int b, n, blk;
+  block_of(a, a.N, b, n, blk);
+  const int q0 = blk * ROWS, kvh = n / (a.N / a.K);
+  if (tid == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hop::bar_init(full + s, FULL_ARRIVALS);
+      hop::bar_init(empty + s, CONSUMER_WARPS);
+    }
+    hop::bar_init(qbar, 1);
+    hop::fence_bar_init();
+  }
+  build_walk(a, b, blk, true, list, n_list_p);  // its barriers order the inits too
+  const int n_list = *n_list_p;
+
+  if (warp >= CONSUMER_WARPS) {
+    // Producer: Q and dO once, then K and V of each step of the walk by
+    // TMA (one thread), the keys' positions (and segment ids) by the warp.
+    hop::reg_dealloc<24>();
+    if (warp == CONSUMER_WARPS && n_list > 0) {
+      if (lane == 0) {
+        hop::bar_expect_tx(qbar, 2 * S::Q_BYTES);
+        for (int h = 0; h < S::HALVES; ++h) {
+          hop::tma_4d(sm + h * S::Q_HALF, &a.q, qbar, h * 64, n, q0, b);
+          hop::tma_4d(sm + S::Q_BYTES + h * S::Q_HALF, &a.dout, qbar, h * 64, n, q0, b);
+        }
+      }
+      const int* kpos = a.kpos + static_cast<int64_t>(b) * a.Skv;
+      const int* kseg = a.has_seg ? a.kseg + static_cast<int64_t>(b) * a.Skv : nullptr;
+      for (int i = 0; i < n_list; ++i) {
+        const int st = i % DQ_STAGES;
+        hop::bar_wait(empty + st, ((i / DQ_STAGES) & 1) ^ 1);
+        const int k0 = (list[i] >> 4) * T;
+        if (lane == 0) {
+          unsigned char* kv = sm + S::RING + st * S::STAGE;
+          hop::bar_expect_tx(full + st, S::STAGE);
+          for (int h = 0; h < S::HALVES; ++h) {
+            hop::tma_4d(kv + h * T * 128, &a.k, full + st, h * 64, kvh, k0, b);
+            hop::tma_4d(kv + S::KV_BYTES + h * T * 128, &a.v, full + st, h * 64, kvh, k0, b);
+          }
+        }
+        copy_row(sm + S::KPOS + st * T * 4, kpos, k0, a.Skv);
+        if (kseg != nullptr) copy_row(sm + S::KSEG + st * T * 4, kseg, k0, a.Skv);
+        arrive_on_copies(full + st);
+      }
+    }
+  } else {
+    hop::reg_alloc<CONSUMER_REGS>();
+    const int wgi = warp / 4, grp = lane >> 2, tig = lane & 3;
+    // This thread's two rows (grp and grp + 8 of its warp's 16): lse, delta,
+    // position and segment id in registers; rows past Sq get lse = NEG_INF.
+    int qi[2], qp[2], qs[2];
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qi[h] = q0 + wgi * T + (warp % 4) * 16 + grp + 8 * h;
+      const bool in = qi[h] < a.Sq;
+      const int64_t row = (static_cast<int64_t>(b) * a.N + n) * a.Sq + qi[h];
+      lse_r[h] = in ? a.lse[row] : NEG_INF;
+      delta_r[h] = in ? a.delta[row] : 0.f;
+      qp[h] = in ? a.qpos[static_cast<int64_t>(b) * a.Sq + qi[h]] : 0;
+      qs[h] = in && a.has_seg ? a.qseg[static_cast<int64_t>(b) * a.Sq + qi[h]] : 0;
+    }
+    const float scale_l2 = a.scale * tc::LOG2E;
+    const float nlse_l2[2] = {-lse_r[0] * tc::LOG2E, -lse_r[1] * tc::LOG2E};
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    if (n_list > 0) hop::bar_wait(qbar, 0);
+    const unsigned char* qs_wg = sm + wgi * T * 128;
+    const unsigned char* dos_wg = sm + S::Q_BYTES + wgi * T * 128;
+    // The step's products in three groups: S and dP (S's exponentials
+    // overlap dP), then dQ += dS . K. A step DEAD for the warpgroup only
+    // releases its stage.
+    for (int i = 0; i < n_list; ++i) {
+      const int st = i % DQ_STAGES;
+      const int e = list[i];
+      const int cls = (e >> (2 * wgi)) & 3;
+      const int k0 = (e >> 4) * T;
+      const unsigned char* kt = sm + S::RING + st * S::STAGE;
+      hop::bar_wait(full + st, (i / DQ_STAGES) & 1);
+      if (cls != DEAD) {  // uniform over the warpgroup
+        float s[32], dp[32];
+        hop::wg_fence();
+        product_ss<HD>(s, qs_wg, S::Q_HALF, kt);
+        hop::wg_commit();
+        product_ss<HD>(dp, dos_wg, S::Q_HALF, kt + S::KV_BYTES);
+        hop::wg_commit();
+        hop::wg_wait<1>();
+        hop::fence_regs(s);
+        // P = exp(z - lse) in f32 into s: no mask on a FULL step, else the
+        // mask inside the exponential (lse may be NEG_INF); under softcap
+        // times 1 - t^2 (dS = P (dP - delta) (1 - t^2); P alone enters no
+        // product).
+        if (cls == FULL && !CAP) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) s[x] = ex2(fmaf(s[x], scale_l2, nlse_l2[(x >> 1) & 1]));
+        } else {
+          const int* kp = reinterpret_cast<const int*>(sm + S::KPOS + st * T * 4);
+          const int* ks = reinterpret_cast<const int*>(sm + S::KSEG + st * T * 4);
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int h = (x >> 1) & 1, c = (x >> 2) * 8 + 2 * tig + (x & 1);
+            float z = s[x] * a.scale, th = 0.f;
+            if constexpr (CAP) {
+              th = tanhf(z / a.softcap);
+              z = a.softcap * th;
+            }
+            bool keep = true;
+            if (cls != FULL) {
+              keep = qi[h] < a.Sq && k0 + c < a.Skv;
+              if (a.causal) {
+                const int d = qp[h] - kp[c];
+                keep = keep && d >= 0 && (a.window <= 0 || d < a.window);
+              }
+              if (a.has_seg) keep = keep && qs[h] == ks[c];
+            }
+            const float p = ex2(keep ? fmaf(z, tc::LOG2E, nlse_l2[h]) : MASK_L2);
+            s[x] = CAP ? p * (1.f - th * th) : p;
+          }
+        }
+        hop::wg_wait<0>();
+        hop::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4)
+            dp[4 * j + e4] = s[4 * j + e4] * (dp[4 * j + e4] - delta_r[e4 >> 1]);
+        uint32_t da[4][4];
+        to_a(dp, da);
+        hop::wg_fence();
+        product_rs<HD>(dq, da, kt);  // dQ += dS . K
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::fence_regs(dq);
+        hold_frags(da);
+      }
+      release(empty + st);
+    }
+    // dq = scale * sum dS . k; one thread per element.
+    __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(a.dq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (qi[h] >= a.Sq) continue;
+      __nv_bfloat16* row = dqp + ((static_cast<int64_t>(b) * a.Sq + qi[h]) * a.N + n) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + j * 8 + 2 * tig) =
+            tc::pack_bf16(dq[4 * j + 2 * h] * a.scale, dq[4 * j + 2 * h + 1] * a.scale);
+    }
+  }
+}
+
+// K8-pos: one block per (128 keys, kv head, batch row), in the plan's
+// order: its two kv tiles one after the other, each walking (query head of
+// the group, q tile of the walk not DEAD for the tile). The two consumer
+// warpgroups split the step by role over the tile's 64 keys: warpgroup 0
+// computes S^T = K . Q^T, P^T (the mask inside the exponential) and dV +=
+// P^T . dO; warpgroup 1 dP^T = V . dO^T, dS^T = P^T (dP^T - delta) and dK
+// += dS^T . Q. P^T passes from 0 to 1 through shared memory in f32, so
+// dS^T is formed before any rounding (as K7-pos forms dS; P^T rounds to
+// bf16 only as dV's A fragments), under two named barriers: BAR_P (P^T is
+// in the tile) and BAR_FREE (warpgroup 1 holds it in registers), so
+// warpgroup 0 runs up to a step ahead and never waits for dS^T. So a
+// warpgroup holds one accumulator of 64 registers (dK or dV) beside the
+// step's 32: with both in one warpgroup (128 registers) ptxas spilled a
+// 32-register block to local memory and serialized the wgmmas.
+// Shared memory: K and V [halves][ROWS][64] resident; the ring's stages of
+// Q and dO [halves][64][64] and the q tile's lse, delta, positions and
+// segment ids [64]; the exchange tiles P^T and its softcap factor 1 - t^2
+// (f32); the barriers; the walk.
+template <int HD>
+struct DkvSmem {
+  static constexpr int HALVES = HD / 64;
+  static constexpr int K_HALF = ROWS * 128;
+  static constexpr int K_BYTES = HALVES * K_HALF;
+  static constexpr int Q_TILE = HALVES * T * 128;    // Q or dO of a step
+  static constexpr int ROWDATA = 4 * T * 4;          // lse, delta, qpos, qseg
+  static constexpr int STAGE = 2 * Q_TILE + ROWDATA;  // a multiple of 1024
+  static constexpr int RING = 2 * K_BYTES;
+  static constexpr int XCH = RING + DKV_STAGES * STAGE;  // [2][64][64] f32
+  static constexpr int BARS = XCH + 2 * T * T * 4;  // full[DKV_STAGES], empty[DKV_STAGES], kv
+  static constexpr int NLIST = BARS + (2 * DKV_STAGES + 1) * 8;
+  static constexpr int LIST = NLIST + 16;
+  static constexpr size_t bytes(int n_qt) { return 1024 + LIST + 4 * static_cast<size_t>(n_qt); }
+};
+
+// Named barriers between the two consumer warpgroups (0 is __syncthreads').
+constexpr int BAR_P = 1, BAR_FREE = 2;
+
+__device__ __forceinline__ void bar_arrive_named(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_sync_named(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Elements 4 j .. 4 j + 3 of a warpgroup thread's accumulator layout in a
+// [8][128] float4 tile: the same thread of the other warpgroup reads them
+// back; a warp's 32 float4 are 512 consecutive bytes, no conflict.
+__device__ __forceinline__ float4* f32_at(unsigned char* tile, int j) {
+  return reinterpret_cast<float4*>(tile) + j * 128 + threadIdx.x % 128;
+}
+
+// CAP: softcap > 0, a kernel of its own (the tanh and its 1 - t^2 stay out
+// of the common step).
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_dkv_wg_kernel(const __grid_constant__ WgArgs a) {
+  using S = DkvSmem<HD>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* sm = align1024(wg_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* kvbar = empty + DKV_STAGES;
+  int* n_list_p = reinterpret_cast<int*>(sm + S::NLIST);
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.N / a.K;
+  int b, kvh, blk;
+  block_of(a, a.K, b, kvh, blk);
+  const int k0 = blk * ROWS;
+  if (tid == 0) {
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hop::bar_init(full + s, FULL_ARRIVALS);
+      hop::bar_init(empty + s, CONSUMER_WARPS);
+    }
+    hop::bar_init(kvbar, 1);
+    hop::fence_bar_init();
+  }
+  build_walk(a, b, blk, false, list, n_list_p);
+  const int n_list = *n_list_p;
+
+  if (warp >= CONSUMER_WARPS) {
+    // Producer: K and V once, then for each kv tile, query head of the
+    // group and q tile of the walk Q and dO by TMA (one thread), the
+    // queries' lse, delta and positions (and segment ids) by the warp.
+    hop::reg_dealloc<24>();
+    if (warp == CONSUMER_WARPS && n_list > 0) {
+      if (lane == 0) {
+        hop::bar_expect_tx(kvbar, 2 * S::K_BYTES);
+        for (int h = 0; h < S::HALVES; ++h) {
+          hop::tma_4d(sm + h * S::K_HALF, &a.k, kvbar, h * 64, kvh, k0, b);
+          hop::tma_4d(sm + S::K_BYTES + h * S::K_HALF, &a.v, kvbar, h * 64, kvh, k0, b);
+        }
+      }
+      const int* qpos = a.qpos + static_cast<int64_t>(b) * a.Sq;
+      const int* qseg = a.has_seg ? a.qseg + static_cast<int64_t>(b) * a.Sq : nullptr;
+      int i = 0;
+      for (int kt = 0; kt < 2; ++kt) {
+        for (int g = 0; g < G; ++g) {
+          const int n = kvh * G + g;
+          const int64_t row = (static_cast<int64_t>(b) * a.N + n) * a.Sq;
+          for (int li = 0; li < n_list; ++li) {
+            if (((list[li] >> (2 * kt)) & 3) == DEAD) continue;
+            const int st = i % DKV_STAGES;
+            hop::bar_wait(empty + st, ((i / DKV_STAGES) & 1) ^ 1);
+            ++i;
+            const int t0 = (list[li] >> 4) * T;
+            unsigned char* qd = sm + S::RING + st * S::STAGE;
+            if (lane == 0) {
+              hop::bar_expect_tx(full + st, 2 * S::Q_TILE);
+              for (int h = 0; h < S::HALVES; ++h) {
+                hop::tma_4d(qd + h * T * 128, &a.q, full + st, h * 64, n, t0, b);
+                hop::tma_4d(qd + S::Q_TILE + h * T * 128, &a.dout, full + st, h * 64, n, t0, b);
+              }
+            }
+            unsigned char* rd = qd + 2 * S::Q_TILE;
+            copy_row(rd, a.lse + row, t0, a.Sq);
+            copy_row(rd + T * 4, a.delta + row, t0, a.Sq);
+            copy_row(rd + 2 * T * 4, qpos, t0, a.Sq);
+            if (qseg != nullptr) copy_row(rd + 3 * T * 4, qseg, t0, a.Sq);
+            arrive_on_copies(full + st);
+          }
+        }
+      }
+    }
+  } else {
+    hop::reg_alloc<CONSUMER_REGS>();
+    const int role = warp / 4;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+    const int grp = lane >> 2, tig = lane & 3;
+    const float scale_l2 = a.scale * tc::LOG2E;
+    unsigned char* p_tile = sm + S::XCH;         // P^T, f32
+    unsigned char* c_tile = p_tile + T * T * 4;  // 1 - t^2, f32
+    if (n_list > 0) hop::bar_wait(kvbar, 0);
+    int i = 0;
+    for (int kt = 0; kt < 2; ++kt) {
+      // This thread's two keys of the tile (grp and grp + 8 of its warp's
+      // 16): position and segment id for the mask (warpgroup 0).
+      int kc[2], kp[2], ks[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        kc[h] = k0 + kt * T + (warp % 4) * 16 + grp + 8 * h;
+        const bool in = kc[h] < a.Skv;
+        kp[h] = in ? a.kpos[static_cast<int64_t>(b) * a.Skv + kc[h]] : 0;
+        ks[h] = in && a.has_seg ? a.kseg[static_cast<int64_t>(b) * a.Skv + kc[h]] : 0;
+      }
+      // K's rows of the tile (warpgroup 0) or V's (warpgroup 1).
+      const unsigned char* kv = sm + role * S::K_BYTES + kt * T * 128;
+      float out[HD / 2];  // dK or dV of the tile's keys
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) out[x] = 0.f;
+      for (int g = 0; g < G; ++g) {
+        for (int li = 0; li < n_list; ++li) {
+          const int e = list[li];
+          const int cls = (e >> (2 * kt)) & 3;
+          if (cls == DEAD) continue;  // not loaded either
+          const int st = i % DKV_STAGES;
+          hop::bar_wait(full + st, (i / DKV_STAGES) & 1);
+          ++i;
+          const int t0 = (e >> 4) * T;
+          const unsigned char* qt = sm + S::RING + st * S::STAGE;
+          const unsigned char* dot = qt + S::Q_TILE;
+          const float* lse = reinterpret_cast<const float*>(dot + S::Q_TILE);
+          const float* delta = lse + T;
+          const int* qpos = reinterpret_cast<const int*>(delta + T);
+          const int* qseg = qpos + T;
+          float acc[32];
+          uint32_t fa[4][4], sfa[4][4];
+          hop::wg_fence();
+          product_ss<HD>(acc, kv, S::K_HALF, role == 0 ? qt : dot);  // S^T or dP^T
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::fence_regs(acc);
+          if (role == 0) {
+            // P^T: element 4 j + 2 h + e is key grp + 8 h, query 8 j + 2 tig
+            // + e; elements 4 j .. 4 j + 3 go to the exchange as one float4,
+            // and pair (e = 0, 1) is dV's A fragment [j / 2][2 (j % 2) + h].
+            if (i > 1) bar_sync_named(BAR_FREE);  // warpgroup 1 holds the last P^T
+            if (cls == FULL && !CAP) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const float2 lse_c = *reinterpret_cast<const float2*>(lse + j * 8 + 2 * tig);
+                const float n0 = -lse_c.x * tc::LOG2E, n1 = -lse_c.y * tc::LOG2E;
+                const float4 p4 = make_float4(ex2(fmaf(acc[4 * j], scale_l2, n0)),
+                                              ex2(fmaf(acc[4 * j + 1], scale_l2, n1)),
+                                              ex2(fmaf(acc[4 * j + 2], scale_l2, n0)),
+                                              ex2(fmaf(acc[4 * j + 3], scale_l2, n1)));
+                *f32_at(p_tile, j) = p4;
+                fa[j / 2][2 * (j % 2)] = tc::pack_bf16(p4.x, p4.y);
+                fa[j / 2][2 * (j % 2) + 1] = tc::pack_bf16(p4.z, p4.w);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int c0 = j * 8 + 2 * tig;
+                const float2 lse_c = *reinterpret_cast<const float2*>(lse + c0);
+                const float nl[2] = {-lse_c.x * tc::LOG2E, -lse_c.y * tc::LOG2E};
+                float pv[4], cv[4];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                  for (int e2 = 0; e2 < 2; ++e2) {
+                    float z = acc[4 * j + 2 * h + e2] * a.scale, th = 0.f;
+                    if constexpr (CAP) {
+                      th = tanhf(z / a.softcap);
+                      z = a.softcap * th;
+                    }
+                    bool keep = true;
+                    if (cls != FULL) {
+                      keep = t0 + c0 + e2 < a.Sq && kc[h] < a.Skv;
+                      if (a.causal) {
+                        const int d = qpos[c0 + e2] - kp[h];
+                        keep = keep && d >= 0 && (a.window <= 0 || d < a.window);
+                      }
+                      if (a.has_seg) keep = keep && qseg[c0 + e2] == ks[h];
+                    }
+                    pv[2 * h + e2] = ex2(keep ? fmaf(z, tc::LOG2E, nl[e2]) : MASK_L2);
+                    cv[2 * h + e2] = 1.f - th * th;
+                  }
+                }
+                *f32_at(p_tile, j) = make_float4(pv[0], pv[1], pv[2], pv[3]);
+                if constexpr (CAP) *f32_at(c_tile, j) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+                fa[j / 2][2 * (j % 2)] = tc::pack_bf16(pv[0], pv[1]);
+                fa[j / 2][2 * (j % 2) + 1] = tc::pack_bf16(pv[2], pv[3]);
+              }
+            }
+            bar_arrive_named(BAR_P);  // P^T is in p_tile
+            hop::wg_fence();
+            product_rs<HD>(out, fa, dot);  // dV += P^T . dO
+            hop::wg_commit();
+            hop::wg_wait<0>();
+            hold_frags(fa);
+          } else {
+            bar_sync_named(BAR_P);
+            float4 p4[8], c4[CAP ? 8 : 1];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              p4[j] = *f32_at(p_tile, j);
+              if constexpr (CAP) c4[j] = *f32_at(c_tile, j);
+            }
+            bar_arrive_named(BAR_FREE);  // p_tile may take the next P^T
+            // dS^T = P^T (dP^T - delta) (1 - t^2) in f32, rounded once.
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 delta_c = *reinterpret_cast<const float2*>(delta + j * 8 + 2 * tig);
+              float d[4] = {p4[j].x * (acc[4 * j] - delta_c.x),
+                            p4[j].y * (acc[4 * j + 1] - delta_c.y),
+                            p4[j].z * (acc[4 * j + 2] - delta_c.x),
+                            p4[j].w * (acc[4 * j + 3] - delta_c.y)};
+              if constexpr (CAP) {
+                d[0] *= c4[j].x;
+                d[1] *= c4[j].y;
+                d[2] *= c4[j].z;
+                d[3] *= c4[j].w;
+              }
+              sfa[j / 2][2 * (j % 2)] = tc::pack_bf16(d[0], d[1]);
+              sfa[j / 2][2 * (j % 2) + 1] = tc::pack_bf16(d[2], d[3]);
+            }
+            hop::wg_fence();
+            product_rs<HD>(out, sfa, qt);  // dK += dS^T . Q
+            hop::wg_commit();
+            hop::wg_wait<0>();
+            hold_frags(sfa);
+          }
+          hop::fence_regs(out);
+          release(empty + st);
+        }
+      }
+      // dv (warpgroup 0), dk = scale * sum dS^T . q (warpgroup 1); one
+      // thread per element.
+      __nv_bfloat16* outp = static_cast<__nv_bfloat16*>(role == 0 ? a.dv : a.dk);
+      const float f = role == 0 ? 1.f : a.scale;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (kc[h] >= a.Skv) continue;
+        const int64_t base = ((static_cast<int64_t>(b) * a.Skv + kc[h]) * a.K + kvh) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(outp + base + j * 8 + 2 * tig) =
+              tc::pack_bf16(out[4 * j + 2 * h] * f, out[4 * j + 2 * h + 1] * f);
+      }
+    }
+    // Warpgroup 1 arrived on BAR_FREE once a step, warpgroup 0 waited from
+    // the second step on: its last wait balances the barrier.
+    if (role == 0 && i > 0) bar_sync_named(BAR_FREE);
+  }
+}
+
+// The plan pass alone into `plan` (dq: K7's block order, else K8's).
+inline cudaError_t plan_only(const int* qpos, const int* kpos, const int* qseg,
+                             const int* kseg, int* plan, int B, int Sq, int Skv, int causal,
+                             int window, bool dq, cudaStream_t stream) {
+  const int n_blk = dq ? cdiv(Sq, ROWS) : cdiv(Skv, ROWS);
+  if (static_cast<size_t>(n_blk) * 4 > 48 * 1024) return cudaErrorInvalidValue;
+  const PlanArgs pa{qpos, kpos, qseg, kseg, plan, Sq, Skv, causal, window, qseg != nullptr,
+                    dq ? 1 : 0};
+  bwd_plan_kernel<<<B, PLAN_THREADS, n_blk * 4, stream>>>(pa);
+  return cudaGetLastError();
+}
+
+// The plan pass, then K7-pos (dq) or K8-pos: maps from the operands;
+// cudaErrorInvalidValue when a map cannot be made or the walk's list or
+// the plan's counts do not fit shared memory.
+template <int HD>
+cudaError_t launch(const PosArgs& p, int* plan, int B, bool dq, cudaStream_t stream) {
+  WgArgs a{};
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.qpos = p.qpos;
+  a.kpos = p.kpos;
+  a.qseg = p.qseg;
+  a.kseg = p.kseg;
+  a.dq = p.dq;
+  a.dk = p.dk;
+  a.dv = p.dv;
+  a.plan = plan;
+  a.B = B;
+  a.Sq = p.Sq;
+  a.Skv = p.Skv;
+  a.N = p.N;
+  a.K = p.K;
+  a.causal = p.causal;
+  a.window = p.window;
+  a.has_seg = p.qseg != nullptr;
+  a.softcap = p.softcap;
+  a.scale = p.scale;
+  const PlanLayout L(p.Sq, p.Skv);
+  const int64_t n_rows = static_cast<int64_t>(B) * p.N * p.Sq;
+  const int n_blk = dq ? cdiv(p.Sq, ROWS) : cdiv(p.Skv, ROWS);
+  const size_t smem = dq ? DqSmem<HD>::bytes(L.n_kt) : DkvSmem<HD>::bytes(L.n_qt);
+  if (plan == nullptr || n_rows >= (int64_t{1} << 31) ||
+      static_cast<int64_t>(B) * max(p.Sq, p.Skv) >= (int64_t{1} << 31) || smem > 232448 ||
+      static_cast<size_t>(n_blk) * 4 > 48 * 1024) {
+    fprintf(stderr, "flash_bwd: shapes past the warpgroup kernels' limits (B %d, Sq %d, Skv %d, "
+                    "N %d, H %d)\n", B, p.Sq, p.Skv, p.N, HD);
+    return cudaErrorInvalidValue;
+  }
+  const int q_rows = dq ? ROWS : T, kv_rows = dq ? T : ROWS;
+  const CUresult r[4] = {hop::map_rows(&a.q, p.q, B, p.Sq, p.N, HD, q_rows),
+                         hop::map_rows(&a.dout, p.dout, B, p.Sq, p.N, HD, q_rows),
+                         hop::map_rows(&a.k, p.k, B, p.Skv, p.K, HD, kv_rows),
+                         hop::map_rows(&a.v, p.v, B, p.Skv, p.K, HD, kv_rows)};
+  for (int i = 0; i < 4; ++i) {
+    if (r[i] != CUDA_SUCCESS) {
+      fprintf(stderr, "flash_bwd: TMA tensor map %d (q, dO, k, v) not encoded: CUresult %d\n", i,
+              static_cast<int>(r[i]));
+      return cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t err = plan_only(p.qpos, p.kpos, p.qseg, p.kseg, plan, B, p.Sq, p.Skv, p.causal,
+                              p.window, dq, stream);
+  if (err != cudaSuccess) return err;
+  const int heads = dq ? p.N : p.K;
+  const dim3 grid(B * n_blk * heads);
+  const bool cap = p.softcap > 0.f;
+  void (*kernel)(WgArgs) =
+      dq ? (cap ? &flash_dq_wg_kernel<HD, true> : &flash_dq_wg_kernel<HD, false>)
+         : (cap ? &flash_dkv_wg_kernel<HD, true> : &flash_dkv_wg_kernel<HD, false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+
 template <typename A>
 cudaError_t launch_with(void (*kernel)(A), dim3 grid, int threads, size_t smem,
                         cudaStream_t stream, const A& a) {
@@ -1189,12 +2118,16 @@ cudaError_t launch_with(void (*kernel)(A), dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// bf16: the tensor-core kernels (the positions branches instantiations
-// of their templates); float32 keeps the CUDA-core ones, positions a
-// run-time branch with their list in shared memory.
+// bf16: the tensor-core kernels; with positions at H = 64 and 128 the
+// warpgroup kernels after their plan pass, at other head dims the index
+// kernels' templates with POS. float32 keeps the CUDA-core ones,
+// positions a run-time branch with their list in shared memory.
 template <int HD>
-cudaError_t launch(const PosArgs& a, int B, bool bf16, bool dq, cudaStream_t stream) {
+cudaError_t launch(const PosArgs& a, int* plan, int B, bool bf16, bool dq, cudaStream_t stream) {
   const bool pos = a.qpos != nullptr;
+  if constexpr (HD == 64 || HD == 128) {
+    if (pos && bf16) return wg::launch<HD>(a, plan, B, dq, stream);
+  }
   const int n_kt = (a.Skv + BK - 1) / BK, n_qt = (a.Sq + BQ - 1) / BQ;
   if (dq && bf16) {
     const dim3 grid(a.N, B, (a.Sq + ftc::ROWS - 1) / ftc::ROWS);
@@ -1221,21 +2154,23 @@ cudaError_t launch(const PosArgs& a, int B, bool bf16, bool dq, cudaStream_t str
   return launch_with(flash_dkv_kernel<HD>, dim3(n_kt, a.K, B), NT, smem, stream, a);
 }
 
-cudaError_t by_head_dim(const PosArgs& a, int B, int H, bool bf16, bool dq, cudaStream_t stream) {
+cudaError_t by_head_dim(const PosArgs& a, int* plan, int B, int H, bool bf16, bool dq,
+                        cudaStream_t stream) {
   switch (H) {
-    case 16: return launch<16>(a, B, bf16, dq, stream);
-    case 32: return launch<32>(a, B, bf16, dq, stream);
-    case 64: return launch<64>(a, B, bf16, dq, stream);
-    case 128: return launch<128>(a, B, bf16, dq, stream);
-    case 256: return launch<256>(a, B, bf16, dq, stream);
+    case 16: return launch<16>(a, plan, B, bf16, dq, stream);
+    case 32: return launch<32>(a, plan, B, bf16, dq, stream);
+    case 64: return launch<64>(a, plan, B, bf16, dq, stream);
+    case 128: return launch<128>(a, plan, B, bf16, dq, stream);
+    case 256: return launch<256>(a, plan, B, bf16, dq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // An empty kv (K7) or q (K8) range still launches and writes zeros.
-int run(const PosArgs& a, int B, int H, int dtype, bool dq, void* stream) {
+int run(const PosArgs& a, int* plan, int B, int H, int dtype, bool dq, void* stream) {
   if (B == 0 || (dq ? a.Sq : a.Skv) == 0) return 0;
-  return static_cast<int>(by_head_dim(a, B, H, dtype == 1, dq, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      by_head_dim(a, plan, B, H, dtype == 1, dq, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -1250,27 +2185,39 @@ int check_pos(const PosArgs& a) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// Segment and position pointers may be null. Return cudaGetLastError()
+// Segment and position pointers may be null; with positions, `plan` is the
+// plan pass's int32 scratch (ops/flash_pos_bwd.py plan_scratch_ints), read
+// by the bf16 kernels at head_dim 64 and 128. Return cudaGetLastError()
 // after the launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, const int* qseg,
-                        const int* kseg, const int* qpos, const int* kpos, int B, int Sq,
+                        const int* kseg, const int* qpos, const int* kpos, int* plan, int B, int Sq,
                         int Skv, int N, int K, int H, int causal, int q_offset, int window,
                         int seg_pad_zero, float softcap, float scale, int dtype, void* stream) {
   const PosArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, qseg, kseg, qpos, kpos,
                   Sq, Skv, N, K, causal, q_offset, window, seg_pad_zero, softcap, scale};
   if (const int rc = check_pos(a)) return rc;
-  return run(a, B, H, dtype, true, stream);
+  return run(a, plan, B, H, dtype, true, stream);
+}
+
+// The plan pass of K7-pos (dq = 1) or K8-pos alone, into `plan`
+// (plan_scratch_ints entries): what the kernels read, for checks.
+extern "C" int flash_bwd_plan(const int* qpos, const int* kpos, const int* qseg, const int* kseg,
+                              int* plan, int B, int Sq, int Skv, int causal, int window, int dq,
+                              void* stream) {
+  if (B == 0) return 0;
+  return static_cast<int>(wg::plan_only(qpos, kpos, qseg, kseg, plan, B, Sq, Skv, causal, window,
+                                        dq != 0, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dk, void* dv,
                          const int* qseg, const int* kseg, const int* qpos, const int* kpos,
-                         int B, int Sq, int Skv, int N, int K, int H, int causal, int q_offset,
-                         int window, int seg_pad_zero, float softcap, float scale, int dtype,
-                         void* stream) {
+                         int* plan, int B, int Sq, int Skv, int N, int K, int H, int causal,
+                         int q_offset, int window, int seg_pad_zero, float softcap, float scale,
+                         int dtype, void* stream) {
   const PosArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, qseg, kseg, qpos, kpos,
                   Sq, Skv, N, K, causal, q_offset, window, seg_pad_zero, softcap, scale};
   if (const int rc = check_pos(a)) return rc;
-  return run(a, B, H, dtype, false, stream);
+  return run(a, plan, B, H, dtype, false, stream);
 }

@@ -22,9 +22,11 @@ softcap, and explicit per-token positions (``q_positions`` [B, Sq],
 positions, not indices; the gather prefill body's layout, and the ring
 and striped layouts of sequence parallelism): K3's branch (in bf16 a
 split walk with a merge, ``ops/flash_pos.py``) and K7's and K8's
-(``flash_dq_pos_cuda``, ``flash_dkv_pos_cuda``, counted apart; they take
-no seg_pad_zero, so the gradient path with positions runs K3 without it
-too: real rows are the same). ``flash_attention_with_lse`` is the
+(``flash_dq_pos_cuda``, ``flash_dkv_pos_cuda``, counted apart; in bf16 at
+head_dim 64 and 128 warp-specialised wgmma/TMA kernels walking a plan that
+a pass per call writes into a scratch tensor the wrapper allocates,
+``ops/flash_pos_bwd.py``; they take no seg_pad_zero, so the gradient path
+with positions runs K3 without it too: real rows are the same). ``flash_attention_with_lse`` is the
 counterpart of the JAX package's: (out, lse), differentiable in both,
 the lse cotangent folded into K7's and K8's delta; sequence parallelism
 merges its blocks through it. Explicit masks raise on the card.
@@ -47,6 +49,7 @@ import torch
 from orion_tpu_torch.ops import _build
 from orion_tpu_torch.ops.common import NEG_INF, check_dtype, counted, on_cuda, q_tile
 from orion_tpu_torch.ops.flash_pos import SPLIT_STEPS, flash_pos_merge_cuda, grid_splits
+from orion_tpu_torch.ops.flash_pos_bwd import WG_HEAD_DIMS, plan_scratch_ints
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -260,6 +263,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data starts on 16 bytes, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _flash_fwd(q, k, v, *, causal, q_segment_ids, kv_segment_ids, logit_softcap, q_offset,
                window, seg_pad_zero, return_lse, q_positions=None, kv_positions=None):
     """One K3 launch (both wrappers' body)."""
@@ -417,10 +425,17 @@ def _flash_bwd(symbol, outs, q, k, v, do, lse, delta, *, causal, q_segment_ids,
     if qpos is not None and (seg_pad_zero or q_offset):
         raise ValueError("K7/K8 with positions take neither seg_pad_zero nor q_offset")
     res = outs(q, k)
-    rc = _build.entry("flash_bwd", symbol, [ctypes.c_void_p] * (10 + len(res)) + _TAIL_TYPES)(
+    plan = None
+    if qpos is not None and q.dtype == torch.bfloat16 and shape[-1] in WG_HEAD_DIMS:
+        # The warpgroup kernels read q, k, v and dO through TMA, which takes
+        # 16-byte aligned bases (any fresh allocation), and plan the walk
+        # into this scratch (flash_pos_bwd.py).
+        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+        plan = torch.empty(plan_scratch_ints(B, Sq, Skv), dtype=torch.int32, device=q.device)
+    rc = _build.entry("flash_bwd", symbol, [ctypes.c_void_p] * (11 + len(res)) + _TAIL_TYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in res), _ptr(qseg), _ptr(kseg),
-        _ptr(qpos), _ptr(kpos),
+        _ptr(qpos), _ptr(kpos), _ptr(plan),
         *_c_tail(shape, causal, q_offset, window, seg_pad_zero, logit_softcap,
                  q.dtype, q.device),
     )
@@ -476,11 +491,13 @@ def flash_dq_pos_cuda(
 ) -> torch.Tensor:
     """Launch K7's explicit-positions branch on CUDA tensors: dq as
     flash_dq_cuda's, the causal and window tests comparing ``q_positions``
-    [B, Sq] and ``kv_positions`` [B, Skv] (any order). Each block walks
-    the key steps its queries may attend (the list K3's positions branch
-    builds from the positions' extremes), each warp skipping a step none of
-    its pairs attend. No seg_pad_zero, no q_offset. Counted apart from
-    K7's index path."""
+    [B, Sq] and ``kv_positions`` [B, Skv] (any order). bf16 at head_dim 64
+    and 128: a plan pass classes every (q tile, kv tile) pair from the
+    tiles' position extremes and orders the blocks longest walk first
+    (``ops/flash_pos_bwd.py``); a block of 128 rows walks the kv tiles
+    either of its warpgroups attends. Other head dims and float32: each
+    block walks the key steps K3's positions branch lists. No
+    seg_pad_zero, no q_offset. Counted apart from K7's index path."""
     (dq,) = _flash_bwd("flash_dq", _dq_out, q, k, v, do, lse, delta, causal=causal,
                        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                        logit_softcap=logit_softcap, q_offset=0, window=window,
@@ -497,9 +514,10 @@ def flash_dkv_pos_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K8's explicit-positions branch on CUDA tensors: (dk, dv) as
     flash_dkv_cuda's, positions as flash_dq_pos_cuda's. Each block (a kv
-    tile of one kv head) lists the q tiles that can reach it from the
-    positions' extremes and walks those over the group's heads. Counted
-    apart from K8's index path."""
+    tile of one kv head) walks the q tiles that can reach it over the
+    group's heads: at bf16 head_dim 64 and 128 from the plan pass (blocks
+    of 128 keys, longest walk first), else listed in the kernel from the
+    positions' extremes. Counted apart from K8's index path."""
     dk, dv = _flash_bwd("flash_dkv", _dkv_out, q, k, v, do, lse, delta, causal=causal,
                         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                         logit_softcap=logit_softcap, q_offset=0, window=window,
